@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels, one package each (kernel.py binds the CUDA
+source in `csrc/`, ops.py dispatches by device, ref.py is the plain PyTorch
+version the CPU tests and the parity runs use):
+
+* unipc_update    — fused multi-term solver state update
+* adaln_modulate  — fused layernorm + adaLN scale/shift, and the gated
+                    residual re-entry
+* flash_attention — blockwise online-softmax GQA attention
+
+`repro/kernels/quant_matmul` is not yet ported.
+"""

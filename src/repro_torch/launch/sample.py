@@ -1,0 +1,150 @@
+"""Diffusion sampling launcher (the port of `repro.launch.sample`): build the
+DiT eps-network for --arch, then sample with UniPC through the engine.
+Runs on the CUDA card unless `--device cpu` is given.
+
+    PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-i256 \
+        --full --nfe 10 --order 3 --cfg-scale 2.0 --batch 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs.registry import get_config
+from ..diffusion.schedules import VPLinear
+from ..engine import EngineSpec, SamplerEngine
+from ..models import api
+
+NULL_CLASS_ID = api.NUM_CLASSES
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points' device: CUDA unless the caller asks for the CPU.
+    Raises when CUDA is asked for and there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; the port runs on the "
+                           "card by default — pass device='cpu' (--device "
+                           "cpu) to run the plain PyTorch path on the CPU")
+    return device
+
+
+def class_ids(batch: int, num_classes: int = 1000, seed: int = 0) -> np.ndarray:
+    """The class ids `repro.data.synthetic.class_ids` draws for a seed."""
+    return np.random.default_rng(seed).integers(
+        0, num_classes, size=(batch,)).astype(np.int32)
+
+
+def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
+                 per_request_cond: bool = False,
+                 device="cuda") -> SamplerEngine:
+    """Wire the DiT eps-network into a SamplerEngine on `device`: the cond
+    branch and the stacked 2B cond+uncond branch guided sampling runs.
+
+    per_request_cond: instead of baking per-row class ids drawn from `seed`,
+    the eps branches take `class_ids` as a per-call (B,) keyword argument
+    (the serving step scatters one per request into its slot)."""
+    device = resolve_device(device)
+    params = api.params_to(params, device)
+    net = api.eps_network(cfg)
+
+    def null_like(ids):
+        return torch.full_like(ids, NULL_CLASS_ID)
+
+    if per_request_cond:
+        def eps_cond(x, t, class_ids):
+            return net(params, x, t, {"class_ids": class_ids.long()})
+
+        def eps_stacked(xx, t, class_ids):
+            ids = class_ids.long()
+            return net(params, xx, t,
+                       {"class_ids": torch.cat([ids, null_like(ids)])})
+
+        return SamplerEngine(schedule, eps=eps_cond, eps_stacked=eps_stacked,
+                             device=device)
+    ids = torch.as_tensor(class_ids(batch, seed=seed)).long().to(device)
+    ids2 = torch.cat([ids, null_like(ids)])
+    return SamplerEngine(
+        schedule,
+        eps=lambda x, t: net(params, x, t, {"class_ids": ids}),
+        eps_stacked=lambda xx, t: net(params, xx, t, {"class_ids": ids2}),
+        device=device)
+
+
+def latent_shape(cfg, batch):
+    return (batch, cfg.patch_tokens, cfg.latent_dim)
+
+
+def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
+           prediction=None, batch=4, seed=0, params=None, x_T=None,
+           cfg_scale=0.0, cfg_schedule="constant", thresholding=False,
+           fused_update=True, device="cuda"):
+    """Sample `batch` latents with UniPC; returns them as a numpy array.
+
+    `params` default to `api.init_params(cfg, seed)`; `x_T` to a standard
+    normal draw from a torch.Generator seeded with `seed`; class ids come
+    from numpy's default_rng(seed), as in the reference."""
+    device = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if params is None:
+        params = api.init_params(cfg, seed, device)
+    schedule = VPLinear()
+    engine = build_engine(cfg, params, schedule, batch, seed, device=device)
+    spec = EngineSpec(solver="unipc", nfe=nfe, order=order, variant=variant,
+                      prediction=prediction, cfg_scale=cfg_scale,
+                      cfg_schedule=cfg_schedule, thresholding=thresholding,
+                      fused_update=fused_update)
+    if x_T is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x_T = torch.randn(latent_shape(cfg, batch), generator=gen,
+                          device=device, dtype=torch.float32)
+    x_T = torch.as_tensor(x_T, dtype=torch.float32).to(device)
+
+    t0 = time.perf_counter()
+    tab = engine.compile(spec)
+    x0 = engine.build(spec, table=tab)(x_T)
+    x0 = x0.cpu().numpy()  # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"unipc-{order} [{device.type}] nfe={len(tab.timesteps)} "
+          f"cfg={cfg_scale} wall={dt:.2f}s out_shape={x0.shape} "
+          f"mean={x0.mean():+.4f} std={x0.std():.4f} "
+          f"finite={np.isfinite(x0).all()}")
+    return x0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="dit-cifar")
+    ap.add_argument("--order", type=int, default=3)
+    ap.add_argument("--nfe", type=int, default=10)
+    ap.add_argument("--variant", default="bh2", choices=["bh1", "bh2", "vary"])
+    ap.add_argument("--prediction", default=None, choices=["data", "noise"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cfg-scale", type=float, default=0.0,
+                    help="classifier-free guidance scale (0 = off); one "
+                         "batched cond+uncond eval per step")
+    ap.add_argument("--cfg-schedule", default="constant",
+                    choices=["constant", "linear", "cosine"])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu for the plain PyTorch path")
+    scale = ap.add_mutually_exclusive_group()
+    scale.add_argument("--reduced", action="store_true",
+                       help="reduced CPU-scale config (the default)")
+    scale.add_argument("--full", action="store_true")
+    args = ap.parse_args(argv)
+    return sample(args.arch, reduced=not args.full, order=args.order,
+                  nfe=args.nfe, variant=args.variant,
+                  prediction=args.prediction, batch=args.batch, seed=args.seed,
+                  cfg_scale=args.cfg_scale, cfg_schedule=args.cfg_schedule,
+                  device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""DiT — the eps-network the sampler drives (the port of `repro.models.dit`,
+uncached path): patch projection, adaLN-zero time/class conditioning, a
+stack of blocks, and the final adaLN + output projection.
+
+Params mirror the reference pytree: `blocks` holds each block parameter
+stacked over layers as (L, ...); `dit_apply` loops over them (the
+reference's `lax.scan`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.adaln_modulate import ops as adaln_ops
+from .layers import attention_apply, attention_init, dense_apply, dense_init
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period=10000.0):
+    """t: (B,) float in [0, 1]-ish; sinusoidal features (the MLP is outside)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, device=t.device, dtype=torch.float32)
+                      / half)
+    ang = t[:, None].to(torch.float32) * freqs[None] * 1000.0
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def _dit_block_init(gen, cfg, device):
+    d = cfg.d_model
+    dt = cfg.weight_dtype
+    return {
+        "attn": attention_init(gen, cfg, device),
+        "w1": dense_init(gen, d, cfg.d_ff, dt, device),
+        "w2": dense_init(gen, cfg.d_ff, d, dt, device,
+                         scale=1.0 / math.sqrt(cfg.d_ff)),
+        # adaLN-zero: 6 modulation vectors, zero-init
+        "ada": torch.zeros((d, 6 * d), dtype=dt, device=device),
+        "ada_b": torch.zeros((6 * d,), dtype=dt, device=device),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_dit(cfg, gen: torch.Generator, device, num_classes: int = 0) -> dict:
+    """Random DiT params from the seeded generator `gen` (its own numbers,
+    not the reference's jax.random ones; `api.params_from_numpy` carries
+    the reference's params over for parity)."""
+    d = cfg.d_model
+    dt = cfg.weight_dtype
+    blocks = [_dit_block_init(gen, cfg, device) for _ in range(cfg.num_layers)]
+    p = {
+        "in_proj": dense_init(gen, cfg.latent_dim, d, dt, device),
+        "t_mlp1": dense_init(gen, 256, d, dt, device),
+        "t_mlp2": dense_init(gen, d, d, dt, device),
+        "blocks": _stack(blocks),
+        "final_ada": torch.zeros((d, 2 * d), dtype=dt, device=device),
+        "final_ada_b": torch.zeros((2 * d,), dtype=dt, device=device),
+        "out_proj": torch.zeros((d, cfg.latent_dim), dtype=dt, device=device),
+    }
+    if num_classes:
+        p["class_embed"] = (0.02 * torch.randn(
+            (num_classes + 1, d), generator=gen, device=device,
+            dtype=torch.float32)).to(dt)
+    return p
+
+
+def _embed(params, cfg, x_t, t, class_ids):
+    """Shared front end: patch projection + adaLN conditioning vector."""
+    B = x_t.shape[0]
+    act = cfg.activation_dtype
+    t = torch.as_tensor(t, dtype=torch.float32, device=x_t.device).expand(B)
+    x = torch.matmul(x_t.to(act), params["in_proj"].to(act))
+    c = F.silu(torch.matmul(timestep_embedding(t, 256),
+                            params["t_mlp1"].to(torch.float32)))
+    c = torch.matmul(c, params["t_mlp2"].to(torch.float32))
+    if class_ids is not None and "class_embed" in params:
+        c = c + params["class_embed"].to(torch.float32)[class_ids]
+    c = F.silu(c).to(x.dtype)
+    return x, c
+
+
+def _block(h, bp, cfg, c):
+    """One DiT block (the reference's scan body), every modulation through
+    the adaln_modulate kernel ops."""
+    adaln = cfg.adaln_backend
+    mod = dense_apply(c, bp["ada"]) + bp["ada_b"].to(h.dtype)
+    sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
+    hn = adaln_ops.modulate(h, sh1, sc1, backend=adaln)
+    a = attention_apply(bp["attn"], hn, cfg, causal=False)
+    h = adaln_ops.gate_residual(h, g1, a, backend=adaln)
+    hn = adaln_ops.modulate(h, sh2, sc2, backend=adaln)
+    # jax.nn.gelu defaults to the tanh approximation
+    y = F.gelu(dense_apply(hn, bp["w1"]), approximate="tanh")
+    y = dense_apply(y, bp["w2"])
+    return adaln_ops.gate_residual(h, g2, y, backend=adaln)
+
+
+def _head(params, cfg, x, c):
+    """Final adaLN + output projection back to latent width."""
+    mod = (dense_apply(c, params["final_ada"])
+           + params["final_ada_b"].to(x.dtype))
+    sh, sc = torch.chunk(mod, 2, dim=-1)
+    x = adaln_ops.modulate(x, sh, sc, backend=cfg.adaln_backend)
+    return torch.matmul(x, params["out_proj"].to(x.dtype))
+
+
+def _layer(tree, i):
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def dit_apply(params, cfg, x_t, t, class_ids=None):
+    """x_t: (B, T, latent_dim); t: scalar or (B,). Returns eps-hat, same
+    shape, in the activation dtype."""
+    x, c = _embed(params, cfg, x_t, t, class_ids)
+    for i in range(cfg.num_layers):
+        x = _block(x, _layer(params["blocks"], i), cfg, c)
+    return _head(params, cfg, x, c)

@@ -1,0 +1,209 @@
+"""The port's kernel ops against the JAX reference's, on the same inputs.
+
+On the CPU every op runs its plain PyTorch version (the CUDA kernels run
+only on the card); here each is held against the reference's Pallas
+kernel in interpret mode and its jnp oracle. Tolerances: fp32 <= 1e-5
+relative L-inf (sums in another order), bf16 <= 1e-2 (one bf16 rounding of
+the same fp32 value can land on either side). The `gpu` tests hold each
+CUDA kernel against its plain version on the card and skip elsewhere.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.adaln_modulate import ops as j_adaln
+from repro.kernels.flash_attention import ops as j_fa
+from repro.kernels.unipc_update import ops as j_uni
+from repro_torch.kernels.adaln_modulate import ops as t_adaln
+from repro_torch.kernels.flash_attention import ops as t_fa
+from repro_torch.kernels.unipc_update import ops as t_uni
+
+torch.set_num_threads(2)
+
+TOL = {np.float32: 1e-5, "bfloat16": 1e-2}
+
+
+def _rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _pair(x: np.ndarray, bf16: bool = False):
+    """The same values as a jnp array and a torch tensor (bf16 rounded once
+    on the numpy side of both)."""
+    if bf16:
+        j = jnp.asarray(x, jnp.bfloat16)
+        return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+            torch.bfloat16)
+    return jnp.asarray(x), torch.as_tensor(x)
+
+
+def _np(t: torch.Tensor):
+    return t.to(torch.float32).numpy()
+
+
+# ---------------------------------------------------------------------------
+# B1 unipc_update
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("jbackend", ["interpret", "jnp"])
+@pytest.mark.parametrize("per_slot", [False, True])
+@pytest.mark.parametrize("shape,bf16", [
+    ((3, 256, 32), False),       # main-path layout (B, T, latent)
+    ((2, 1000), False),          # ragged N, not a tile multiple
+    ((3, 37, 5), True),          # bf16 terms, ragged
+])
+def test_weighted_combine_matches_reference(jbackend, per_slot, shape, bf16):
+    rng = _rng(0)
+    K = 5
+    terms = rng.normal(size=(K,) + shape).astype(np.float32)
+    w = rng.normal(size=(K, shape[0]) if per_slot else (K,)).astype(np.float32)
+    jt, tt = _pair(terms, bf16)
+    want = j_uni.weighted_combine(jt, jnp.asarray(w), backend=jbackend)
+    got = t_uni.weighted_combine(tt, torch.as_tensor(w))
+    assert got.dtype == tt.dtype and tuple(got.shape) == shape
+    tol = TOL["bfloat16" if bf16 else np.float32]
+    assert _rel(_np(got), np.asarray(want.astype(jnp.float32))) <= tol
+
+
+def test_weighted_combine_rejects_mismatched_per_slot_weights():
+    with pytest.raises(ValueError, match="per-slot"):
+        t_uni.weighted_combine(torch.zeros(3, 4, 8), torch.zeros(3, 5))
+
+
+# ---------------------------------------------------------------------------
+# B2/B3 adaln_modulate
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("D,T", [(1152, 5), (72, 37)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_modulate_and_gate_residual_match_reference(D, T, bf16):
+    rng = _rng(1)
+    B = 2
+    x, y = (rng.normal(size=(B, T, D)).astype(np.float32) for _ in range(2))
+    sh, sc, g = (0.5 * rng.normal(size=(B, D)).astype(np.float32)
+                 for _ in range(3))
+    (jx, tx), (jy, ty) = _pair(x, bf16), _pair(y, bf16)
+    (jsh, tsh), (jsc, tsc), (jg, tg) = (_pair(a, bf16) for a in (sh, sc, g))
+    tol = TOL["bfloat16" if bf16 else np.float32]
+
+    want = j_adaln.modulate(jx, jsh, jsc, backend="interpret")
+    got = t_adaln.modulate(tx, tsh, tsc)
+    assert got.dtype == tx.dtype
+    assert _rel(_np(got), np.asarray(want.astype(jnp.float32))) <= tol
+
+    want = j_adaln.gate_residual(jx, jg, jy, backend="interpret")
+    got = t_adaln.gate_residual(tx, tg, ty)
+    assert _rel(_np(got), np.asarray(want.astype(jnp.float32))) <= tol
+
+
+def test_modulate_takes_strided_conditioning_rows():
+    """The DiT passes chunks of its (B, 6D) modulation vector in place."""
+    rng = _rng(2)
+    x = torch.as_tensor(rng.normal(size=(2, 9, 16)).astype(np.float32))
+    mod = torch.as_tensor(rng.normal(size=(2, 6 * 16)).astype(np.float32))
+    sh, sc = mod[:, :16], mod[:, 16:32]
+    np.testing.assert_array_equal(
+        t_adaln.modulate(x, sh, sc).numpy(),
+        t_adaln.modulate(x, sh.contiguous(), sc.contiguous()).numpy())
+
+
+# ---------------------------------------------------------------------------
+# B4 flash_attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("jbackend", ["interpret", "jnp"])
+@pytest.mark.parametrize("S", [64, 100])
+@pytest.mark.parametrize("Hq,Hkv,D", [(4, 2, 32), (2, 2, 72)])
+def test_attention_matches_reference(jbackend, S, Hq, Hkv, D):
+    rng = _rng(3)
+    B = 2
+    q = rng.normal(size=(B, Hq, S, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+            for _ in range(2))
+    want = j_fa.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=False, backend=jbackend)
+    got = t_fa.attention(torch.as_tensor(q), torch.as_tensor(k),
+                         torch.as_tensor(v), causal=False)
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-5
+
+
+def test_attention_head_major_views_of_seq_major_projections():
+    """The model hands the op (B, H, S, D) views of (B, S, H, D) tensors."""
+    rng = _rng(4)
+    q, k, v = (torch.as_tensor(rng.normal(size=(2, 50, 4, 72)).astype(
+        np.float32)) for _ in range(3))
+    views = [a.transpose(1, 2) for a in (q, k, v)]
+    dense = [a.contiguous() for a in views]
+    np.testing.assert_allclose(
+        t_fa.attention(*views, causal=False).numpy(),
+        t_fa.attention(*dense, causal=False).numpy(), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against their plain versions (card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_pair(fn, *args, **kw):
+    got = fn(*args, **kw)
+    want = fn(*args, backend="plain", **kw)
+    torch.cuda.synchronize()
+    return got.float().cpu(), want.float().cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_unipc_update_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    terms = torch.randn(5, 8, 8192 + 7, generator=g, device=cuda).to(dtype)
+    for w in (torch.randn(5, generator=g, device=cuda),
+              torch.randn(5, 8, generator=g, device=cuda)):
+        got, want = _card_pair(t_uni.weighted_combine, terms, w)
+        assert _rel(got, want) <= TOL["bfloat16" if dtype == torch.bfloat16
+                                      else np.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_adaln_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, y = (torch.randn(4, 37, 1152, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    mod = torch.randn(4, 6 * 1152, generator=g, device=cuda).to(dtype)
+    tol = TOL["bfloat16" if dtype == torch.bfloat16 else np.float32]
+    got, want = _card_pair(t_adaln.modulate, x, mod[:, :1152],
+                           mod[:, 1152:2304])
+    assert _rel(got, want) <= tol
+    got, want = _card_pair(t_adaln.gate_residual, x, mod[:, 2304:3456], y)
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D,S", [(16, 16, 72, 256), (4, 2, 32, 100)])
+def test_card_attention_matches_plain(cuda, dtype, Hq, Hkv, D, S):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(2, Hq, S, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, Hkv, S, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    got, want = _card_pair(t_fa.attention, q, k, v, causal=False)
+    assert _rel(got, want) <= TOL["bfloat16" if dtype == torch.bfloat16
+                                  else np.float32]
