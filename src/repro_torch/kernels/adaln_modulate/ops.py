@@ -12,7 +12,7 @@ from ..dispatch import use_kernel
 
 def modulate(x, shift, scale, *, eps=1e-5, backend: Optional[str] = None):
     """LN(x) * (1 + scale) + shift in one pass. x: (B, T, D); shift/scale:
-    (B, D). `backend` pins "kernel" or "plain" (kernels/dispatch.py)."""
+    (B, D). `backend="plain"` pins the plain version (kernels/dispatch.py)."""
     if not use_kernel(backend, x):
         return ref.modulate(x, shift, scale, eps=eps)
     return kernel.adaln_modulate(x, shift, scale, eps=eps)

@@ -2,12 +2,10 @@
 
 A wrapper runs its Hopper kernel on a CUDA tensor and its plain PyTorch
 version (`ref.py`) on a CPU tensor. The device decides, never a failure:
-there is no fallback from a kernel to the plain version. `backend` pins:
-
-* ``None``     — by the tensor's device (the default everywhere).
-* ``"kernel"`` — the kernel; raises on a CPU tensor.
-* ``"plain"``  — the plain version on any device; the parity runs that hold
-  a kernel against it on the card pin this explicitly.
+there is no fallback from a kernel to the plain version. `backend` is
+``None`` (by the tensor's device, the default everywhere) or ``"plain"``:
+the plain version on any device, pinned explicitly by the parity runs that
+hold a kernel against it on the card.
 
 `LAUNCHES[name]` counts the kernel launches of each wrapper; it is bumped
 right where the kernel is launched and nowhere else.
@@ -20,7 +18,7 @@ from typing import Optional
 
 import torch
 
-BACKENDS = ("kernel", "plain")
+BACKENDS = ("plain",)
 LAUNCHES: Counter = Counter()
 
 
@@ -33,9 +31,6 @@ def use_kernel(backend: Optional[str], t: torch.Tensor) -> bool:
         return False
     if t.device.type == "cuda":
         return True
-    if backend == "kernel":
-        raise RuntimeError(f"backend='kernel' needs a CUDA tensor; got one "
-                           f"on {t.device}")
     if t.device.type != "cpu":
         raise RuntimeError(f"no kernel or plain path for device {t.device}")
     return False

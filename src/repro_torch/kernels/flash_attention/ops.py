@@ -12,8 +12,8 @@ from ..dispatch import use_kernel
 
 def attention(q, k, v, *, causal=True, window=None,
               backend: Optional[str] = None):
-    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D). `backend` pins
-    "kernel" or "plain" (kernels/dispatch.py)."""
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D). `backend="plain"`
+    pins the plain version (kernels/dispatch.py)."""
     if not use_kernel(backend, q):
         return ref.attention(q, k, v, causal=causal, window=window)
     return kernel.flash_attention(q, k, v, causal=causal, window=window)

@@ -18,7 +18,7 @@ def weighted_combine(terms: torch.Tensor, weights: torch.Tensor,
     For batched states (B, ...) the kernel runs over the (K, B, N) view, a
     reshape of contiguous trailing dims. Per-slot (K, B) weights give every
     batch row its own weight column and need terms shaped (K, B, ...).
-    `backend` pins "kernel" or "plain" (kernels/dispatch.py).
+    `backend="plain"` pins the plain version (kernels/dispatch.py).
     """
     shape = terms.shape[1:]
     K = terms.shape[0]
