@@ -20,6 +20,12 @@ Phases (any failure exits non-zero):
      re-admitted into the slot the first one freed (over its stale eval
      ring and class id); each held against a batch-1 uniform run, and one
      uniform run held against the plain-pinned path at fp32.
+  6. quantized main path — phase 4's sampling with the w8a16 tier
+     (`sample(quant="w8a16")`: 197 quant_matmul launches per eval), launch
+     counts and kernel vs plain-pinned latents, drift from phase 4's
+     latents, quantized weight bytes; w8a8 (calibrated on the card),
+     fp8a16 and w4a16 at depth 4, each against its plain-pinned run; a
+     w8a16 per-slot `StepProgram` at fp32 against its uniform runs.
 The last two lines are the kernels JSON and
 {"ok": true, "device": {...}}.
 """
@@ -38,7 +44,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense, no TF32
+              torch.int8: 1979e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 MAIN_TOL = 1e-2     # bf16 eval bound (DESIGN.md §11.3)
 # Two bf16 implementations differ by single-ulp roundings (2^-8 relative)
@@ -259,7 +266,131 @@ def kernel_phase(dev) -> dict:
         lambda: fa_ops.attention(q, k, v, causal=False, backend="plain"),
         lambda: F.scaled_dot_product_attention(q, k, v),
         4 * nbytes(q), 4 * B * H * S * S * Dh, torch.bfloat16))
+    out["quant_matmul"] = quant_kernel_cases(dev, randn)
     return out
+
+
+# the quantized dense sites of one dit-i256 eval at the main path's net
+# batch 16 x 256 tokens (d_model 1152, d_ff 4608): (site, M, K, N, calls
+# per eval); 28 x (4 + 1 + 1 + 1) + 1 = 197
+QUANT_SITES = [("wq/wk/wv/wo", 4096, 1152, 1152, 112),
+               ("w1", 4096, 1152, 4608, 28), ("w2", 4096, 4608, 1152, 28),
+               ("ada", 16, 1152, 6912, 28), ("final_ada", 16, 1152, 2304, 1)]
+
+
+def quant_kernel_cases(dev, randn) -> dict:
+    """B5 quant_matmul against its plain version: w8a16 (bf16 x, int8
+    weights) at the five site shapes, each operand combination at the
+    attention site and at ragged shapes, all through the op a model calls.
+    Times (device ms) are of the kernel's own work on the operands the op
+    hands it (for w8a8: activations already quantized, sa folded into the
+    scale). Returns the kernel line's entry: per-call numbers averaged over
+    one eval's 197 calls, and every site and case apart."""
+    from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
+    from repro_torch.kernels.quant_matmul import ops as qmm_ops
+    from repro_torch.kernels.quant_matmul import ref as qmm_ref
+    from repro_torch.models.quant import quant_spec
+
+    def operands(M, K, N, mode, x_dtype):
+        spec = quant_spec(mode)
+        x = randn(M, K, dtype=x_dtype)
+        qw, ws = qmm_ref.quantize(randn(K, N), bits=spec.bits,
+                                  granularity=spec.granularity, fmt=spec.fmt)
+        sa = x.float().abs().amax() / 127.0 if spec.act_bits == 8 else None
+        return x, qw, ws, sa
+
+    cases, errs = {}, []
+    for label, M, K, N, mode, x_dtype in (
+            [(f"{site} w8a16 bf16", M, K, N, "w8a16", torch.bfloat16)
+             for site, M, K, N, _ in QUANT_SITES]
+            + [(f"{mode} {'bf16' if dt == torch.bfloat16 else 'fp32'} "
+                f"({M},{K},{N})", M, K, N, mode, dt)
+               for mode, dt in (("w8a8", torch.bfloat16),
+                                ("fp8a16", torch.bfloat16),
+                                ("w4a16", torch.bfloat16),
+                                ("w8a16", torch.float32),
+                                ("w8a8", torch.float32),
+                                ("fp8a16", torch.float32))
+               for M, K, N in ((4096, 1152, 1152), (37, 130, 200),
+                               (5, 130, 200), (100, 64, 48))]):
+        x, qw, ws, sa = operands(M, K, N, mode, x_dtype)
+        k_out = qmm_ops.quant_matmul(x, qw, ws, sa=sa)
+        p_out = qmm_ops.quant_matmul(x, qw, ws, sa=sa, backend="plain")
+        torch.cuda.synchronize()
+        if k_out.dtype != x_dtype or not torch.isfinite(k_out.float()).all():
+            fail(f"quant_matmul [{label}]: dtype {k_out.dtype} / non-finite")
+        err = rel_err(k_out, p_out)
+        abs_err = float((k_out.double() - p_out.double()).abs().max())
+        tol = TOL[x_dtype]
+        print(f"  quant_matmul [{label}] rel L-inf {err:.3e} (tol {tol:g}) "
+              f"abs {abs_err:.3e}")
+        if not err <= tol:
+            fail(f"quant_matmul [{label}] disagrees with its plain version: "
+                 f"rel {err:.3e} > {tol:g}")
+        cases[label] = err
+        errs.append(abs_err)
+
+    def timed(M, K, N, mode, x_dtype):
+        """Device, host, plain and library ms and the bound of one call."""
+        x, qw, ws, sa = operands(M, K, N, mode, x_dtype)
+        x, scale = qmm_ref.fold_act(x, ws, sa)   # what the op hands the kernel
+        out_dtype = x_dtype
+        k_fn = lambda: qmm_kernel.quant_matmul(x, qw, scale,
+                                               out_dtype=out_dtype)
+        p_fn = lambda: qmm_ref.matmul(x, qw, scale).to(out_dtype)
+        if x.dtype == torch.int8 and hasattr(torch, "_int_mm"):
+            lib, lib_fn = "torch._int_mm", lambda: torch._int_mm(x, qw)
+        else:
+            w_wide = qw.to(torch.bfloat16 if x.dtype != torch.float32
+                           else torch.float32)
+            x_lib = x.to(w_wide.dtype)
+            lib, lib_fn = "torch.matmul", lambda: torch.matmul(x_lib, w_wide)
+        peak = (torch.int8 if x.dtype == torch.int8 else
+                torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32)
+        bms, by = bound(nbytes(x, qw, scale) + M * N * torch.empty(
+            (), dtype=out_dtype).element_size(), 2 * M * K * N, peak)
+        return dict(ms=device_ms(k_fn), host_call_ms=host_call_ms(k_fn),
+                    plain_ms=device_ms(p_fn), library_ms=device_ms(lib_fn),
+                    library=f"{lib} on a weight widened beforehand; omits "
+                            f"the widening and the scale",
+                    bound_ms=bms, bound_by=by)
+
+    sites = {}
+    for site, M, K, N, per_eval in QUANT_SITES:
+        sites[site] = dict(M=M, K=K, N=N, calls_per_eval=per_eval,
+                           **timed(M, K, N, "w8a16", torch.bfloat16))
+        st = sites[site]
+        print(f"  quant_matmul {site} ({M},{K},{N}) w8a16: {st['ms']:.5f} ms "
+              f"(bound {st['bound_ms']:.5f} by {st['bound_by']}; plain "
+              f"{st['plain_ms']:.5f}, {st['library']}: {st['library_ms']:.5f},"
+              f" host {st['host_call_ms']:.4f})")
+    others = {}
+    for mode, dt in (("w8a8", torch.bfloat16), ("fp8a16", torch.bfloat16),
+                     ("w4a16", torch.bfloat16), ("w8a16", torch.float32)):
+        key = f"{mode} {'bf16' if dt == torch.bfloat16 else 'fp32'} x"
+        others[key] = timed(4096, 1152, 1152, mode, dt)
+        print(f"  quant_matmul wq site {key}: {others[key]['ms']:.5f} ms "
+              f"(bound {others[key]['bound_ms']:.5f}; plain "
+              f"{others[key]['plain_ms']:.5f}; library "
+              f"{others[key]['library_ms']:.5f})")
+    calls = sum(st["calls_per_eval"] for st in sites.values())
+
+    def per_call(key):
+        return sum(st["calls_per_eval"] * st[key]
+                   for st in sites.values()) / calls
+
+    return dict(max_abs_err=max(errs), max_rel_err=max(cases.values()),
+                cases=cases, ms=per_call("ms"),
+                host_call_ms=per_call("host_call_ms"),
+                plain_ms=per_call("plain_ms"),
+                library_ms=per_call("library_ms"),
+                bound_ms=per_call("bound_ms"),
+                bound_by=max(("bytes", "operations"), key=lambda b: sum(
+                    st["calls_per_eval"] * st["bound_ms"]
+                    for st in sites.values() if st["bound_by"] == b)),
+                per_call_over="one dit-i256 eval's 197 calls at the main "
+                              "path's site shapes (w8a16, bf16)",
+                sites=sites, other_operands_at_wq_site=others)
 
 
 # --------------------------------------------------------------------------
@@ -287,6 +418,25 @@ def perturbed_params(cfg, dev, seed=0):
     return params
 
 
+def plain_pinned(cfg):
+    """`cfg` with every kernel op pinned to its plain version."""
+    return dataclasses.replace(cfg, attention_backend="plain",
+                               adaln_backend="plain", quant_backend="plain")
+
+
+def expected_launches(cfg, rows: int, quantized: bool = False) -> dict:
+    """Kernel launches of `rows` guided rows of the DiT sampler: 2 combines
+    per row; per eval 2L + 1 modulations, 2L gated residuals, L attentions
+    and, quantized, 7L + 1 dense sites (wq, wk, wv, wo, w1, w2, ada per
+    block, and final_ada)."""
+    L = cfg.num_layers
+    out = {"unipc_update": 2 * rows, "adaln_modulate": (2 * L + 1) * rows,
+           "gate_residual": 2 * L * rows, "flash_attention": L * rows}
+    if quantized:
+        out["quant_matmul"] = (7 * L + 1) * rows
+    return out
+
+
 def main_path_phase(dev, counts_out: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.diffusion import VPLinear
@@ -302,10 +452,8 @@ def main_path_phase(dev, counts_out: dict) -> dict:
     x_T = torch.randn(latent_shape(cfg, batch), generator=gen, device=dev)
 
     # every op pinned to its plain version, same params and x_T
-    plain_cfg = dataclasses.replace(cfg, attention_backend="plain",
-                                    adaln_backend="plain")
-    engine = build_engine(plain_cfg, params, VPLinear(), batch, seed=0,
-                          device=dev)
+    engine = build_engine(plain_pinned(cfg), params, VPLinear(), batch,
+                          seed=0, device=dev)
     spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale,
                       fused_update=False)
     LAUNCHES.clear()
@@ -328,10 +476,7 @@ def main_path_phase(dev, counts_out: dict) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
 
     rows = nfe + 1
-    expected = {"unipc_update": 2 * rows,
-                "adaln_modulate": (2 * cfg.num_layers + 1) * rows,
-                "gate_residual": 2 * cfg.num_layers * rows,
-                "flash_attention": cfg.num_layers * rows}
+    expected = expected_launches(cfg, rows)
     print(f"  launches {dict(sorted(counts_out.items()))} expected {expected}")
     if dict(counts_out) != expected:
         fail(f"launch counts {dict(counts_out)} != expected {expected}")
@@ -363,7 +508,7 @@ def main_path_phase(dev, counts_out: dict) -> dict:
         fail(f"reduced-size card vs CPU disagree: {small_err:.3e}")
     return dict(wall_s=wall, ms_per_request=wall / batch * 1e3,
                 peak_bytes=peak, rel_err_vs_plain=err, rows=rows,
-                small_rel_err=small_err)
+                small_rel_err=small_err, latents=x0)
 
 
 # --------------------------------------------------------------------------
@@ -371,34 +516,13 @@ def main_path_phase(dev, counts_out: dict) -> dict:
 # --------------------------------------------------------------------------
 
 
-def serving_phase(dev) -> float:
-    from repro_torch.configs import get_config
-    from repro_torch.diffusion import VPLinear
-    from repro_torch.engine import EngineSpec
-    from repro_torch.launch.sample import build_engine, latent_shape
-
-    cfg = dataclasses.replace(get_config("dit-i256"), dtype="float32")
-    params = perturbed_params(cfg, dev)
-    engine = build_engine(cfg, params, VPLinear(), 4, per_request_cond=True,
-                          device=dev)
-    spec = EngineSpec(nfe=10, order=3, cfg_scale=2.0)
-    program = engine.build_step(spec)
-    sample_shape = latent_shape(cfg, 1)[1:]
-    # the fifth request arrives a tick after the first one finishes (it
-    # holds rows 0..n_rows-1 from tick 0), so its freed slot first parks
-    # idle on row 0 and is then re-admitted over a stale ring and class
-    reuse_tick = program.n_rows + 1
-    reqs = []
-    for rid, (arrival, g) in enumerate(zip((0, 1, 2, 3, reuse_tick),
-                                           (1.0, 2.0, 3.5, 1.5, 2.5))):
-        seed = 100 + rid
-        x_T = torch.randn(sample_shape, generator=torch.Generator(
-            device=dev).manual_seed(seed), device=dev)
-        cls = int(np.random.default_rng(seed).integers(0, 1000))
-        reqs.append(dict(rid=rid, arrival=arrival, g=g, x_T=x_T, cls=cls))
-
-    slots = 4
-    state = program.init_state(slots, sample_shape)
+def run_slots(program, reqs, slots: int, dev):
+    """Drive a per-slot StepProgram: each request of `reqs` (dicts with rid,
+    arrival, g, x_T, cls) is admitted at its arrival tick into the first
+    free slot, and every slot steps by its own row (idle slots park on row
+    0) until all have finished. Sets r["slot"] and r["reused"]; returns
+    ({rid: latent}, ticks)."""
+    state = program.init_state(slots, tuple(reqs[0]["x_T"].shape))
     g_slot = program.init_g(slots)
     cls_slot = torch.zeros(slots, dtype=torch.long, device=dev)
     row = np.zeros(slots, np.int64)
@@ -429,6 +553,36 @@ def serving_phase(dev) -> float:
                 owner[s] = None
                 freed.add(s)
         tick += 1
+    return done, tick
+
+
+def serving_phase(dev) -> float:
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.launch.sample import build_engine, latent_shape
+
+    cfg = dataclasses.replace(get_config("dit-i256"), dtype="float32")
+    params = perturbed_params(cfg, dev)
+    engine = build_engine(cfg, params, VPLinear(), 4, per_request_cond=True,
+                          device=dev)
+    spec = EngineSpec(nfe=10, order=3, cfg_scale=2.0)
+    program = engine.build_step(spec)
+    sample_shape = latent_shape(cfg, 1)[1:]
+    # the fifth request arrives a tick after the first one finishes (it
+    # holds rows 0..n_rows-1 from tick 0), so its freed slot first parks
+    # idle on row 0 and is then re-admitted over a stale ring and class
+    reuse_tick = program.n_rows + 1
+    reqs = []
+    for rid, (arrival, g) in enumerate(zip((0, 1, 2, 3, reuse_tick),
+                                           (1.0, 2.0, 3.5, 1.5, 2.5))):
+        seed = 100 + rid
+        x_T = torch.randn(sample_shape, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+        cls = int(np.random.default_rng(seed).integers(0, 1000))
+        reqs.append(dict(rid=rid, arrival=arrival, g=g, x_T=x_T, cls=cls))
+
+    done, tick = run_slots(program, reqs, 4, dev)
     worst = 0.0
     uniform = {}
     for r in reqs:
@@ -451,9 +605,7 @@ def serving_phase(dev) -> float:
 
     # the same fp32 full-width uniform run with every op pinned to its
     # plain version: the kernels at full width, at fp32 precision
-    plain_cfg = dataclasses.replace(cfg, attention_backend="plain",
-                                    adaln_backend="plain")
-    plain = build_engine(plain_cfg, params, VPLinear(), 4,
+    plain = build_engine(plain_pinned(cfg), params, VPLinear(), 4,
                          per_request_cond=True, device=dev)
     r = reqs[0]
     x_plain = plain.build(dataclasses.replace(
@@ -469,6 +621,180 @@ def serving_phase(dev) -> float:
 
 
 # --------------------------------------------------------------------------
+# phase 6: the quantized main path
+# --------------------------------------------------------------------------
+
+
+def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
+    """Guided sampling of full-width dit-i256 with the w8a16 tier through
+    `sample(quant=...)`, counted and held against its plain-pinned run;
+    then w8a8 (calibrated on the card), fp8a16 and w4a16 at depth 4, each
+    against its plain-pinned run over the same quantized tree."""
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.sample import build_engine, latent_shape, sample
+    from repro_torch.models import api
+    from repro_torch.models.quant import quant_param_bytes
+
+    batch, nfe, order, g_scale = 8, 10, 3, 2.0
+    rows = nfe + 1
+    cfg = get_config("dit-i256")
+    params = perturbed_params(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)   # phase 4's x_T
+    x_T = torch.randn(latent_shape(cfg, batch), generator=gen, device=dev)
+
+    def plain_run(cfg_q, params_q, tier, x):
+        """The plain-pinned uniform run of a tier; `cfg_q` may carry the
+        spec of an already quantized `params_q`."""
+        engine = build_engine(plain_pinned(cfg_q), params_q, VPLinear(),
+                              batch, seed=0, quant=tier, device=dev)
+        spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale,
+                          fused_update=False, quant=tier)
+        LAUNCHES.clear()
+        out = engine.build(spec)(x)
+        torch.cuda.synchronize()
+        if sum(LAUNCHES.values()):
+            fail(f"the plain-pinned {tier} run launched kernels: "
+                 f"{dict(LAUNCHES)}")
+        return out
+
+    x_plain = plain_run(cfg, params, "w8a16", x_T)
+
+    # the quantized main path, through the user's entry point, counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x0 = sample("dit-i256", reduced=False, nfe=nfe, order=order,
+                cfg_scale=g_scale, batch=batch, params=params, x_T=x_T,
+                quant="w8a16", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts_out.update(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = expected_launches(cfg, rows, quantized=True)
+    print(f"  launches {dict(sorted(counts_out.items()))} expected {expected}")
+    if dict(counts_out) != expected:
+        fail(f"quantized launch counts {dict(counts_out)} != {expected}")
+    if x0.shape != tuple(x_T.shape) or not np.isfinite(x0).all():
+        fail(f"quantized main path output shape {x0.shape} / finite "
+             f"{np.isfinite(x0).all()}")
+    x0 = torch.as_tensor(x0)
+    err = rel_err(x0, x_plain.cpu())
+    print(f"  w8a16 kernel vs plain latents: rel L-inf {err:.3e} "
+          f"(tol {MAIN_TOL:g})")
+    if not err <= MAIN_TOL:
+        fail(f"quantized main path latents disagree with the plain path: "
+             f"{err:.3e}")
+    ref = torch.as_tensor(x_unquantized).double()
+    drift = float(torch.linalg.norm(x0.double() - ref) / torch.linalg.norm(ref))
+    qbytes = quant_param_bytes(api.calibrate_and_quantize(
+        cfg, params, "w8a16")[1])
+    print(f"  w8a16 vs unquantized latents (phase 4): rel L2 {drift:.3e}; "
+          f"quantized weights {qbytes['quant']} B vs {qbytes['fp32']} B fp32 "
+          f"({qbytes['quant'] / qbytes['fp32']:.3f}x)")
+    print(f"  wall {wall:.3f} s for {batch} requests = "
+          f"{wall / batch * 1e3:.1f} ms per request end to end (quantization "
+          f"included); peak memory {peak / 2**30:.2f} GiB")
+
+    # the other tiers at depth 4, full widths; the plain-pinned run uses
+    # the tree `sample` builds (w8a8 calibrated through the kernels on the
+    # card), so the comparison isolates the sampling run's kernels
+    depth = 4
+    cfg4 = dataclasses.replace(cfg, num_layers=depth)
+    params4 = perturbed_params(cfg4, dev, seed=2)
+    tiers = {}
+    for tier in ("w8a8", "fp8a16", "w4a16"):
+        LAUNCHES.clear()
+        xk = sample("dit-i256", reduced=False, nfe=nfe, order=order,
+                    cfg_scale=g_scale, batch=batch, params=params4, x_T=x_T,
+                    quant=tier, num_layers=depth, device=dev)
+        torch.cuda.synchronize()
+        n_qmm = LAUNCHES["quant_matmul"]
+        want = expected_launches(cfg4, rows, quantized=True)["quant_matmul"]
+        qcfg, qparams, _ = api.calibrate_and_quantize(cfg4, params4, tier,
+                                                      schedule=VPLinear())
+        xp = plain_run(qcfg, qparams, tier, x_T)
+        t_err = rel_err(torch.as_tensor(xk), xp.cpu())
+        print(f"  {tier} depth {depth}: {n_qmm} quant_matmul launches "
+              f"(expected {want}); kernel vs plain rel L-inf {t_err:.3e} "
+              f"(tol {MAIN_TOL:g})")
+        if n_qmm != want or not np.isfinite(xk).all():
+            fail(f"{tier}: {n_qmm} quant_matmul launches / finite "
+                 f"{np.isfinite(xk).all()}")
+        if not t_err <= MAIN_TOL:
+            fail(f"{tier} latents disagree with the plain path: {t_err:.3e}")
+        tiers[tier] = t_err
+    return dict(wall_s=wall, ms_per_request=wall / batch * 1e3,
+                peak_bytes=peak, rel_err_vs_plain=err,
+                rel_l2_vs_unquantized=drift, quant_param_bytes=qbytes,
+                tiers_depth4_rel_err_vs_plain=tiers)
+
+
+def quant_serving_phase(dev) -> dict:
+    """A w8a16 per-slot StepProgram at fp32 (full widths, depth 4): two
+    requests admitted at staggered ticks, each against its batch-1 uniform
+    quantized run, and one uniform run against the plain-pinned path."""
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.sample import build_engine, latent_shape
+
+    cfg = dataclasses.replace(get_config("dit-i256"), dtype="float32",
+                              num_layers=4)
+    params = perturbed_params(cfg, dev, seed=3)
+    engine = build_engine(cfg, params, VPLinear(), 2, per_request_cond=True,
+                          quant="w8a16", device=dev)
+    spec = EngineSpec(nfe=10, order=3, cfg_scale=2.0, quant="w8a16")
+    program = engine.build_step(spec)
+    sample_shape = latent_shape(cfg, 1)[1:]
+    reqs = []
+    for rid, (arrival, g) in enumerate(((0, 2.0), (3, 3.0))):
+        seed = 200 + rid
+        x_T = torch.randn(sample_shape, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+        cls = int(np.random.default_rng(seed).integers(0, 1000))
+        reqs.append(dict(rid=rid, arrival=arrival, g=g, x_T=x_T, cls=cls))
+    LAUNCHES.clear()
+    done, ticks = run_slots(program, reqs, 2, dev)
+    torch.cuda.synchronize()
+    expected = expected_launches(cfg, ticks, quantized=True)["quant_matmul"]
+    if LAUNCHES["quant_matmul"] != expected:
+        fail(f"quantized step: {LAUNCHES['quant_matmul']} quant_matmul "
+             f"launches over {ticks} ticks, expected {expected}")
+    worst, uniform = 0.0, {}
+    for r in reqs:
+        spec_r = dataclasses.replace(spec, cfg_scale=r["g"])
+        ids = torch.tensor([r["cls"]], device=dev)
+        uniform[r["rid"]] = engine.build(spec_r)(r["x_T"][None],
+                                                 class_ids=ids)[0]
+        err = rel_err(done[r["rid"]], uniform[r["rid"]])
+        print(f"  quantized request {r['rid']} (arrival {r['arrival']}, slot "
+              f"{r['slot']}, g {r['g']}): staggered vs uniform rel L-inf "
+              f"{err:.3e} (tol {SERVE_TOL:g})")
+        if not torch.isfinite(done[r["rid"]]).all() or not err <= SERVE_TOL:
+            fail(f"quantized request {r['rid']}: staggered step disagrees "
+                 f"with its uniform run ({err:.3e})")
+        worst = max(worst, err)
+    plain = build_engine(plain_pinned(cfg), params, VPLinear(), 2,
+                         per_request_cond=True, quant="w8a16", device=dev)
+    r = reqs[0]
+    x_plain = plain.build(dataclasses.replace(
+        spec, cfg_scale=r["g"], fused_update=False))(
+            r["x_T"][None], class_ids=torch.tensor([r["cls"]], device=dev))[0]
+    fp32_err = rel_err(uniform[r["rid"]], x_plain)
+    print(f"  w8a16 fp32, kernels vs plain (request 0): rel L-inf "
+          f"{fp32_err:.3e} (tol {SERVE_TOL:g})")
+    if not fp32_err <= SERVE_TOL:
+        fail(f"quantized fp32 kernels disagree with the plain path: "
+             f"{fp32_err:.3e}")
+    return dict(worst_rel_err=worst, fp32_kernel_vs_plain=fp32_err)
+
+
+# --------------------------------------------------------------------------
 
 
 KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
@@ -480,6 +806,8 @@ KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
      "src/repro/kernels/adaln_modulate/kernel.py:90", 56),
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention/kernel.py:84", 28),
+    ("quant_matmul", "src/repro_torch/kernels/csrc/quant_matmul.cu",
+     "src/repro/kernels/quant_matmul/kernel.py:57", 197),
 ]
 
 
@@ -528,19 +856,35 @@ def main():
           "full width)")
     serve_worst, fp32_err = serving_phase(dev)
 
+    print("== phase 6: quantized main path (w8a16, dit-i256 full width, "
+          "nfe 10, order 3, cfg 2.0, batch 8; w8a8/fp8a16/w4a16 at depth 4; "
+          "the w8a16 serving step at fp32)")
+    qcounts: dict = {}
+    quant_stats = quant_path_phase(dev, qcounts, main_stats.pop("latents"))
+    quant_serve = quant_serving_phase(dev)
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
-        entries.append(dict(
+        # each kernel's launches are those of the main path that first
+        # runs it: phase 4's, and phase 6's quantized path for quant_matmul
+        path_counts = qcounts if kname == "quant_matmul" else counts
+        entry = dict(
             name=kname, route="cuda", source=src, replaces=replaces,
-            launches=counts.get(kname, 0),
+            launches=path_counts.get(kname, 0),
             launches_per_eval=per_eval if per_eval else "2 per row",
             max_abs_err=st["max_abs_err"], max_rel_err=st["max_rel_err"],
             cases=st["cases"], ms=st["ms"], kernel_ms=st["ms"],
             host_call_ms=st["host_call_ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
-            bound_by=st["bound_by"], library_ms=st["library_ms"]))
+            bound_by=st["bound_by"], library_ms=st["library_ms"])
+        if "sites" in st:
+            entry.update(per_call_over=st["per_call_over"], sites=st["sites"])
+        entries.append(entry)
     summary = dict(main_path=main_stats, serving_worst_rel_err=serve_worst,
-                   fp32_full_width_kernel_vs_plain=fp32_err)
+                   fp32_full_width_kernel_vs_plain=fp32_err,
+                   quant_main_path=quant_stats, quant_serving=quant_serve,
+                   quant_other_operands_at_wq_site=kstats["quant_matmul"][
+                       "other_operands_at_wq_site"])
     print("summary " + json.dumps(summary))
     print(json.dumps({"kernels": entries}))
     print(smi[0])

@@ -36,6 +36,12 @@ class ModelConfig:
     # pins the plain PyTorch version for parity runs.
     attention_backend: Optional[str] = None
     adaln_backend: Optional[str] = None
+    quant_backend: Optional[str] = None      # kernels/quant_matmul dispatch
+
+    # quantized denoiser path (models/quant.py): a QuantSpec when the param
+    # tree carries quant records, None for the float path. Typed loosely to
+    # keep configs free of a models import.
+    quant: Optional[object] = None
 
     def __post_init__(self):
         if self.num_kv_heads is None:

@@ -72,12 +72,17 @@ class SamplerEngine:
     eps:         (x, t, **extra) -> eps-hat (the cond branch).
     eps_stacked: (xx, t, **extra) -> eps-hat on a 2B batch whose
                  conditioning is [cond; null] — required for cfg_scale != 0.
+    quant:       "none" or the models.quant tier the wired eps-net's params
+                 were quantized for (`launch.sample.build_engine(quant=...)`
+                 sets it); `model_fn`, and so `build` and `build_step`,
+                 reject specs that disagree.
     """
 
     schedule: NoiseSchedule
     eps: Callable
     eps_stacked: Optional[Callable] = None
     device: torch.device = torch.device("cpu")
+    quant: str = "none"
 
     def compile(self, spec: EngineSpec) -> SolverTable:
         """Compile the spec's weight table and attach its per-eval model
@@ -90,6 +95,12 @@ class SamplerEngine:
         per-eval model column `g`; further keyword arguments (per-slot class
         ids) pass through to the eps-net."""
         spec = spec.resolve()
+        if spec.quant != self.quant:
+            raise ValueError(
+                f"spec.quant={spec.quant!r} but this engine's eps-net was "
+                f"wired for {self.quant!r}; the quantized param tree is "
+                f"baked into the net — pass the same quant to build_engine "
+                f"and the EngineSpec")
         if spec.cfg_scale:
             if self.eps_stacked is None:
                 raise ValueError("cfg_scale != 0 needs eps_stacked (a 2B "

@@ -39,6 +39,11 @@ class EngineSpec:
     # execution: False pins the combine's plain PyTorch version
     fused_update: bool = True
     eval_dtype: str = "float32"        # only float32 is ported
+    # quantized denoiser tier: "none" or a models.quant.QUANT_MODES name
+    # ("w8a16", "w8a8", "fp8a16", "w4a16"). A contract, not a switch: the
+    # engine must be wired with a matching quantized param tree
+    # (`build_engine(quant=...)`), and `model_fn` rejects a mismatch.
+    quant: str = "none"
 
     def resolve(self) -> "EngineSpec":
         """Fill solver-dependent defaults; validate against the registry."""
@@ -48,6 +53,10 @@ class EngineSpec:
             raise not_yet_ported(f"eval_dtype={out.eval_dtype!r}")
         if out.thresholding:
             raise not_yet_ported("dynamic thresholding")
+        if out.quant != "none":
+            # import here: specs stays importable without the models package
+            from ..models.quant import quant_spec
+            quant_spec(out.quant)  # raises on unknown tier names
         if out.prediction is None:
             out = replace(out, prediction=sd.prediction)
         if out.use_corrector is None:

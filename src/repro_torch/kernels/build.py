@@ -21,11 +21,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("unipc_update", "adaln_modulate", "flash_attention")
+SOURCES = ("unipc_update", "adaln_modulate", "flash_attention", "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# dtype codes shared with csrc/common.cuh (DTypeCode)
+# dtype codes shared with csrc/common.cuh (DTypeCode): DTYPE_CODES for the
+# float kernels, OPERAND_CODES adds the quantized operands of quant_matmul
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+OPERAND_CODES = {**DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 _LIBS: dict = {}
 
@@ -100,6 +102,13 @@ def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in DTYPE_CODES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     return DTYPE_CODES[dtype]
+
+
+def operand_code(dtype: torch.dtype) -> int:
+    if dtype not in OPERAND_CODES:
+        raise TypeError(f"quant_matmul takes operands in "
+                        f"{list(OPERAND_CODES)}, got {dtype}")
+    return OPERAND_CODES[dtype]
 
 
 def stream_of(t: torch.Tensor) -> int:

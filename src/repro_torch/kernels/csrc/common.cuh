@@ -7,8 +7,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes shared with kernels/build.py (DTYPE_CODES)
-enum DTypeCode : int { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+// dtype codes shared with kernels/build.py (DTYPE_CODES, OPERAND_CODES)
+enum DTypeCode : int { DTYPE_F32 = 0, DTYPE_BF16 = 1, DTYPE_I8 = 2, DTYPE_F8E4M3 = 3 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }

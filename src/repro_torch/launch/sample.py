@@ -3,12 +3,13 @@ DiT eps-network for --arch, then sample with UniPC through the engine.
 Runs on the CUDA card unless `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-i256 \
-        --full --nfe 10 --order 3 --cfg-scale 2.0 --batch 8
+        --full --nfe 10 --order 3 --cfg-scale 2.0 --batch 8 [--quant w8a16]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -18,6 +19,7 @@ from ..configs.registry import get_config
 from ..diffusion.schedules import VPLinear
 from ..engine import EngineSpec, SamplerEngine
 from ..models import api
+from ..models.quant import quant_spec
 
 NULL_CLASS_ID = api.NUM_CLASSES
 
@@ -40,16 +42,36 @@ def class_ids(batch: int, num_classes: int = 1000, seed: int = 0) -> np.ndarray:
 
 
 def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
-                 per_request_cond: bool = False,
+                 per_request_cond: bool = False, quant: str = "none",
                  device="cuda") -> SamplerEngine:
     """Wire the DiT eps-network into a SamplerEngine on `device`: the cond
     branch and the stacked 2B cond+uncond branch guided sampling runs.
 
     per_request_cond: instead of baking per-row class ids drawn from `seed`,
     the eps branches take `class_ids` as a per-call (B,) keyword argument
-    (the serving step scatters one per request into its slot)."""
+    (the serving step scatters one per request into its slot).
+
+    quant != "none" (dit only) calibrates and installs the tier's quantized
+    param tree (`api.calibrate_and_quantize`, deterministic given `seed`)
+    once, after the params are on `device` (so a8 calibration runs there),
+    and before wiring, so every eps branch routes its dense sites through
+    the quant_matmul op. A `cfg` that already carries the tier's spec (the
+    cfg' of `api.calibrate_and_quantize`) comes with a quantized tree, which
+    is wired as it is. The engine records the tier; its `model_fn` rejects
+    specs that disagree."""
+    if quant != "none" and cfg.family != "dit":
+        raise ValueError(f"the quantized denoiser path needs the dit "
+                         f"family; {cfg.arch_id!r} is family "
+                         f"{cfg.family!r}")
     device = resolve_device(device)
     params = api.params_to(params, device)
+    if quant != "none":
+        if cfg.quant is None:
+            cfg, params, _ = api.calibrate_and_quantize(
+                cfg, params, quant, schedule=schedule, seed=seed)
+        elif cfg.quant != quant_spec(quant):
+            raise ValueError(f"cfg.quant={cfg.quant} is not the {quant!r} "
+                             f"tier's spec {quant_spec(quant)}")
     net = api.eps_network(cfg)
 
     def null_like(ids):
@@ -65,14 +87,14 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                        {"class_ids": torch.cat([ids, null_like(ids)])})
 
         return SamplerEngine(schedule, eps=eps_cond, eps_stacked=eps_stacked,
-                             device=device)
+                             device=device, quant=quant)
     ids = torch.as_tensor(class_ids(batch, seed=seed)).long().to(device)
     ids2 = torch.cat([ids, null_like(ids)])
     return SamplerEngine(
         schedule,
         eps=lambda x, t: net(params, x, t, {"class_ids": ids}),
         eps_stacked=lambda xx, t: net(params, xx, t, {"class_ids": ids2}),
-        device=device)
+        device=device, quant=quant)
 
 
 def latent_shape(cfg, batch):
@@ -82,24 +104,29 @@ def latent_shape(cfg, batch):
 def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
            prediction=None, batch=4, seed=0, params=None, x_T=None,
            cfg_scale=0.0, cfg_schedule="constant", thresholding=False,
-           fused_update=True, device="cuda"):
+           fused_update=True, quant="none", num_layers=None, device="cuda"):
     """Sample `batch` latents with UniPC; returns them as a numpy array.
 
     `params` default to `api.init_params(cfg, seed)`; `x_T` to a standard
     normal draw from a torch.Generator seeded with `seed`; class ids come
-    from numpy's default_rng(seed), as in the reference."""
+    from numpy's default_rng(seed), as in the reference. `quant` picks a
+    quantized tier (models/quant.py, dit only); `num_layers` cuts the depth
+    of the config and keeps its widths."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     if params is None:
         params = api.init_params(cfg, seed, device)
     schedule = VPLinear()
-    engine = build_engine(cfg, params, schedule, batch, seed, device=device)
+    engine = build_engine(cfg, params, schedule, batch, seed, quant=quant,
+                          device=device)
     spec = EngineSpec(solver="unipc", nfe=nfe, order=order, variant=variant,
                       prediction=prediction, cfg_scale=cfg_scale,
                       cfg_schedule=cfg_schedule, thresholding=thresholding,
-                      fused_update=fused_update)
+                      fused_update=fused_update, quant=quant)
     if x_T is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         x_T = torch.randn(latent_shape(cfg, batch), generator=gen,
@@ -111,7 +138,8 @@ def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
     x0 = engine.build(spec, table=tab)(x_T)
     x0 = x0.cpu().numpy()  # waits for the device
     dt = time.perf_counter() - t0
-    print(f"unipc-{order} [{device.type}] nfe={len(tab.timesteps)} "
+    tag = f"unipc-{order}" + (f" [{quant}]" if quant != "none" else "")
+    print(f"{tag} [{device.type}] nfe={len(tab.timesteps)} "
           f"cfg={cfg_scale} wall={dt:.2f}s out_shape={x0.shape} "
           f"mean={x0.mean():+.4f} std={x0.std():.4f} "
           f"finite={np.isfinite(x0).all()}")
@@ -132,6 +160,11 @@ def main(argv=None):
                          "batched cond+uncond eval per step")
     ap.add_argument("--cfg-schedule", default="constant",
                     choices=["constant", "linear", "cosine"])
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "w8a16", "w8a8", "fp8a16", "w4a16"],
+                    help="quantized denoiser tier: int8/fp8 weight matmuls "
+                         "through the quant_matmul kernel, calibrated "
+                         "scales, fp32 accumulation; dit family only")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
     scale = ap.add_mutually_exclusive_group()
@@ -139,11 +172,14 @@ def main(argv=None):
                        help="reduced CPU-scale config (the default)")
     scale.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
+    if args.quant != "none" and get_config(args.arch).family != "dit":
+        ap.error(f"--quant needs the dit family; --arch {args.arch} is "
+                 f"family {get_config(args.arch).family!r}")
     return sample(args.arch, reduced=not args.full, order=args.order,
                   nfe=args.nfe, variant=args.variant,
                   prediction=args.prediction, batch=args.batch, seed=args.seed,
                   cfg_scale=args.cfg_scale, cfg_schedule=args.cfg_schedule,
-                  device=args.device)
+                  quant=args.quant, device=args.device)
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -27,17 +28,37 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     return {"backbone": init_dit(cfg, gen, device, num_classes=NUM_CLASSES)}
 
 
+def _record_leaf(a: np.ndarray, device) -> torch.Tensor:
+    """A leaf of a quant record as stored: int8 stays int8, fp8 e4m3 (an
+    ml_dtypes array, which torch.as_tensor rejects) crosses as its bytes,
+    scales stay fp32."""
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(np.array(a).view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
+    if a.dtype == np.int8:
+        return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(np.array(a)).to(device=device,
+                                            dtype=torch.float32)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     """The port's params from the reference's `init_params` pytree given as
     nested dicts of numpy arrays (stacked (L, ...) blocks, (K, N) dense
-    layout, class_embed (NUM_CLASSES + 1, d)). Same layout, same values."""
+    layout, class_embed (NUM_CLASSES + 1, d)). Same layout, same values.
+    A tree the reference has quantized (`models.quant.quantize_params`)
+    carries its records {"qw", "ws"[, "sa"]} over at their stored dtypes;
+    every other leaf is cast to the config's weight dtype."""
     _require_dit(cfg)
-    blocks = tree["backbone"]["blocks"]
-    if np.shape(blocks["w1"])[0] != cfg.num_layers:
-        raise ValueError(f"blocks are stacked over {np.shape(blocks['w1'])[0]} "
-                         f"layers, cfg has num_layers={cfg.num_layers}")
+    w1 = tree["backbone"]["blocks"]["w1"]
+    depth = np.shape(w1["qw"] if isinstance(w1, dict) else w1)[0]
+    if depth != cfg.num_layers:
+        raise ValueError(f"blocks are stacked over {depth} layers, cfg has "
+                         f"num_layers={cfg.num_layers}")
 
     def conv(node):
+        if isinstance(node, dict) and "qw" in node:
+            return {k: _record_leaf(np.asarray(v), device)
+                    for k, v in node.items()}
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         return torch.as_tensor(np.asarray(node)).to(device=device,
@@ -51,6 +72,28 @@ def params_to(params: dict, device) -> dict:
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     return params.to(device)
+
+
+def calibrate_and_quantize(cfg: ModelConfig, params, quant, *, schedule=None,
+                           nfe: int = 6, calib_batch: int = 2, seed: int = 0):
+    """The quantized path (models/quant.py): calibrate and install records.
+
+    `quant` is a tier name of models.quant.QUANT_MODES ("w8a16", "w8a8",
+    ...) or a QuantSpec. Weight scales are the weights' own per-channel (or
+    per-tensor) absmax; a8 tiers also record per-site activation absmax
+    over `calib_batch` probe trajectories on the params' device (same seed,
+    same scales). Returns (cfg', params', info): cfg' carries the spec and
+    is what eps_network should be built from."""
+    from .quant import calibrate_act_stats, quant_spec, quantize_params
+
+    spec = quant_spec(quant) if isinstance(quant, str) else quant
+    stats = None
+    if spec.act_bits == 8:
+        stats = calibrate_act_stats(cfg, params, schedule=schedule, nfe=nfe,
+                                    batch=calib_batch, seed=seed)
+    qparams = quantize_params(cfg, params, spec, act_stats=stats)
+    cfg = dataclasses.replace(cfg, quant=spec)
+    return cfg, qparams, {"spec": spec, "act_stats": stats}
 
 
 def eps_network(cfg: ModelConfig) -> Callable:

@@ -86,25 +86,37 @@ def _embed(params, cfg, x_t, t, class_ids):
     return x, c
 
 
-def _block(h, bp, cfg, c):
+def _block(h, bp, cfg, c, tap=None):
     """One DiT block (the reference's scan body), every modulation through
-    the adaln_modulate kernel ops."""
+    the adaln_modulate kernel ops. Every dense site goes through
+    `dense_apply`, so a quantized param tree (models/quant.py records)
+    routes through the quant_matmul kernel op with no change here. `tap` is
+    the calibration hook: None in every sampling path, a per-site absmax
+    recorder when models/quant.py replays the forward."""
     adaln = cfg.adaln_backend
-    mod = dense_apply(c, bp["ada"]) + bp["ada_b"].to(h.dtype)
+    if tap is not None:
+        tap("ada", c)
+    mod = dense_apply(c, bp["ada"], cfg) + bp["ada_b"].to(h.dtype)
     sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
     hn = adaln_ops.modulate(h, sh1, sc1, backend=adaln)
-    a = attention_apply(bp["attn"], hn, cfg, causal=False)
+    a = attention_apply(bp["attn"], hn, cfg, causal=False, tap=tap)
     h = adaln_ops.gate_residual(h, g1, a, backend=adaln)
     hn = adaln_ops.modulate(h, sh2, sc2, backend=adaln)
+    if tap is not None:
+        tap("mlp_in", hn)
     # jax.nn.gelu defaults to the tanh approximation
-    y = F.gelu(dense_apply(hn, bp["w1"]), approximate="tanh")
-    y = dense_apply(y, bp["w2"])
+    y = F.gelu(dense_apply(hn, bp["w1"], cfg), approximate="tanh")
+    if tap is not None:
+        tap("mlp_mid", y)
+    y = dense_apply(y, bp["w2"], cfg)
     return adaln_ops.gate_residual(h, g2, y, backend=adaln)
 
 
-def _head(params, cfg, x, c):
+def _head(params, cfg, x, c, tap=None):
     """Final adaLN + output projection back to latent width."""
-    mod = (dense_apply(c, params["final_ada"])
+    if tap is not None:
+        tap("final_ada", c)
+    mod = (dense_apply(c, params["final_ada"], cfg)
            + params["final_ada_b"].to(x.dtype))
     sh, sc = torch.chunk(mod, 2, dim=-1)
     x = adaln_ops.modulate(x, sh, sc, backend=cfg.adaln_backend)
@@ -112,6 +124,7 @@ def _head(params, cfg, x, c):
 
 
 def _layer(tree, i):
+    """Block i of the stacked block params (quant records included)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
 

@@ -11,6 +11,7 @@ import math
 import torch
 
 from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.quant_matmul import ops as qmm_ops
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
@@ -21,9 +22,17 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     return (scale * w).to(dtype)
 
 
-def dense_apply(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., K) @ w (K, N), with w cast to x's dtype at use. A plain
-    matmul through torch.matmul, as the reference leaves it to XLA."""
+def dense_apply(x: torch.Tensor, w, cfg=None) -> torch.Tensor:
+    """x (..., K) @ w — the one dense contraction every weight site routes
+    through. `w` is a raw (K, N) tensor, cast to x's dtype at use and
+    multiplied by torch.matmul (as the reference leaves it to XLA), or a
+    quant record {"qw", "ws"[, "sa"]} installed by
+    `models.quant.quantize_params`, which goes through the quant_matmul
+    kernel op with `cfg.quant_backend`."""
+    if isinstance(w, dict):
+        return qmm_ops.quant_matmul(x, w["qw"], w["ws"], sa=w.get("sa"),
+                                    backend=getattr(cfg, "quant_backend",
+                                                    None))
     return torch.matmul(x, w.to(x.dtype))
 
 
@@ -40,17 +49,24 @@ def attention_init(gen: torch.Generator, cfg, device) -> dict:
 
 
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, tap=None) -> torch.Tensor:
     """Full-sequence self-attention without rotary embeddings (the DiT's
     form of `repro.models.layers.attention_apply(rope=False)`), through the
     flash_attention kernel op. The head-major views of the (B, S, H, D)
-    projections go to the kernel as strides, not copies."""
+    projections go to the kernel as strides, not copies. `tap` is the
+    calibration hook of models/quant.py (None everywhere else): it sees the
+    projections' input as "qkv" and the attention output as "wo"."""
     B, S = x.shape[:2]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense_apply(x, params["wq"]).reshape(B, S, hq, hd)
-    k = dense_apply(x, params["wk"]).reshape(B, S, hkv, hd)
-    v = dense_apply(x, params["wv"]).reshape(B, S, hkv, hd)
+    if tap is not None:
+        tap("qkv", x)
+    q = dense_apply(x, params["wq"], cfg).reshape(B, S, hq, hd)
+    k = dense_apply(x, params["wk"], cfg).reshape(B, S, hkv, hd)
+    v = dense_apply(x, params["wv"], cfg).reshape(B, S, hkv, hd)
     out = fa_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), causal=causal,
                            backend=cfg.attention_backend).transpose(1, 2)
-    return dense_apply(out.reshape(B, S, hq * hd), params["wo"])
+    out = out.reshape(B, S, hq * hd)
+    if tap is not None:
+        tap("wo", out)
+    return dense_apply(out, params["wo"], cfg)

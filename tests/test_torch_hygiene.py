@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.adaln_modulate import ops as adaln_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.quant_matmul import ops as qmm_ops
 from repro_torch.kernels.unipc_update import ops as uni_ops
 from repro_torch.launch import sample as launch
 
@@ -48,6 +49,11 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_files_were_found():
     assert len(PORT_FILES) > 20
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"src/repro_torch/models/quant.py",
+            "src/repro_torch/kernels/quant_matmul/ops.py",
+            "src/repro_torch/kernels/quant_matmul/kernel.py",
+            "src/repro_torch/kernels/quant_matmul/ref.py"} <= names
 
 
 def _no_card():
@@ -80,6 +86,12 @@ _OPS = {
         backend=b),
     "flash_attention": lambda b: fa_ops.attention(
         *(torch.zeros(1, 2, 3, 4) for _ in range(3)), backend=b),
+    "quant_matmul": lambda b: qmm_ops.quant_matmul(
+        torch.zeros(2, 3, 4), torch.zeros(4, 5, dtype=torch.int8),
+        torch.ones(5), backend=b),
+    "quant_matmul w8a8": lambda b: qmm_ops.quant_matmul(
+        torch.zeros(2, 3, 4), torch.zeros(4, 5, dtype=torch.int8),
+        torch.ones(5), sa=0.5, backend=b),
 }
 
 
@@ -93,9 +105,12 @@ def test_ops_reject_unknown_backends_and_kernel_pins_on_the_cpu(op):
 
 def test_kernel_builds_land_in_an_ignored_directory():
     ignored = (ROOT / ".gitignore").read_text().split()
-    rel = build.target("flash_attention").relative_to(ROOT)
-    assert f"{rel.parts[0]}/" in ignored
-    assert build.target("flash_attention").suffix == ".so"
+    assert "quant_matmul" in build.SOURCES
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+        rel = build.target(name).relative_to(ROOT)
+        assert f"{rel.parts[0]}/" in ignored
+        assert build.target(name).suffix == ".so"
 
 
 def _run_smoke(cwd: Path):
