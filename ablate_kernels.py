@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Where the time of the port's flash_attention and quant_matmul goes, on
+the card: ablation timings at the main path's shapes.
+
+    python3 ablate_kernels.py     # from the repository root, one CUDA card
+
+Each ablation is a copy of a kernel's CUDA source with one part of its work
+taken out (the product, the softmax's exponentials, the widening, the
+loads after the first ring's worth). Its output is wrong and unchecked;
+only its device time counts, next to the unchanged kernel built the same
+way. All copies build in parallel under build/ablate/; each is timed by
+chip_smoke.device_ms (100 calls in a CUDA graph). An edit whose anchor text
+is no longer in the source fails the run, so the ablations follow the
+kernels or stop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+
+OUT = ROOT / "build" / "ablate"
+
+# name -> (source, [(anchor, replacement)])
+ABLATIONS = {
+    "flash_attention": ("flash_attention", []),
+    "flash_attention no QK^T": ("flash_attention", [
+        ("        mma_k16(s[n], qf[kk], b0, b1);\n        mma_k16(s[n], qf[kk + 1], b2, b3);",
+         "        (void)b0; (void)b1; (void)b2; (void)b3;"),
+        ("        mma_k8(s[n], qf8[0], qf8[1], b0);", "        (void)b0;")]),
+    "flash_attention no PV": ("flash_attention", [
+        ("        mma_k16(oacc[n], pa, b0, b1);\n        mma_k16(oacc[n + 1], pa, b2, b3);",
+         "        oacc[n][0] += __uint_as_float(pa[0] & b0 & b2);"),
+        ("        mma_k16(oacc[ND - 1], pa, b0, b1);",
+         "        oacc[ND - 1][0] += __uint_as_float(pa[1] & b0 & b1);")]),
+    "flash_attention no exp": ("flash_attention", [
+        ("        const float p0 = exp2f(sv[0] - m_r[0]), p1 = exp2f(sv[1] - m_r[0]);\n"
+         "        const float p2 = exp2f(sv[2] - m_r[1]), p3 = exp2f(sv[3] - m_r[1]);",
+         "        const float p0 = sv[0] - m_r[0], p1 = sv[1] - m_r[0];\n"
+         "        const float p2 = sv[2] - m_r[1], p3 = sv[3] - m_r[1];")]),
+    "flash_attention first K/V tiles only": ("flash_attention", [
+        ("    if (i < n_tiles) {\n      unsigned char* st",
+         "    if (i < MMA_STAGES - 1 && i < n_tiles) {\n      unsigned char* st")]),
+    "quant_matmul": ("quant_matmul", []),
+    "quant_matmul no product": ("quant_matmul", [
+        ("        wgmma_n144_rs(acc, a[kk], smem_desc(x_u + kk * 32, 16, 1024, 1));",
+         "        if (nk < 0) wgmma_n144_rs(acc, a[kk], smem_desc(x_u + kk * 32, 16, 1024, 1));")]),
+    "quant_matmul no widening": ("quant_matmul", [
+        ("        a_fragment<WT>(r[(kk & 1) * 2], r[(kk & 1) * 2 + 1], a[kk]);",
+         "        a[kk][0] = a[kk][1] = r[(kk & 1) * 2];\n"
+         "        a[kk][2] = a[kk][3] = r[(kk & 1) * 2 + 1];")]),
+    "quant_matmul first ring of loads only": ("quant_matmul", [
+        ("        if (g >= STAGES) mbar_wait(empty + 8 * s, (g / STAGES - 1) & 1);\n",
+         "        if (g >= STAGES) { mbar_wait(empty + 8 * s, (g / STAGES - 1) & 1);\n"
+         "          mbar_arrive(full + 8 * s); continue; }\n")]),
+}
+
+
+def build_all() -> dict:
+    """Compile every ablation in parallel; {name: library path}."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc, procs = build._nvcc(), {}
+    for i, (name, (src, edits)) in enumerate(ABLATIONS.items()):
+        text = (build.CSRC / f"{src}.cu").read_text()
+        for anchor, repl in edits:
+            if anchor not in text:
+                raise SystemExit(f"ablation {name!r}: anchor not in {src}.cu:\n{anchor}")
+            text = text.replace(anchor, repl)
+        cu, so = OUT / f"a{i}_{src}.cu", OUT / f"a{i}_{src}.so"
+        cu.write_text(text)
+        cmd = [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so), str(cu)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name!r}:\n{log[-4000:]}")
+        libs[name] = so
+    return libs
+
+
+def use(src: str, so: Path) -> None:
+    """Point the kernel wrapper of `src` at the library `so`."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
+
+    lib = ctypes.CDLL(str(so))
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    build._LIBS[src] = lib
+    {"flash_attention": fa_kernel, "quant_matmul": qmm_kernel}[src]._launcher.cache_clear()
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate_kernels.py needs a CUDA card")
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
+    from repro_torch.kernels.quant_matmul import ref as qmm_ref
+
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"{smi}; torch {torch.__version__}")
+    libs = build_all()
+    g = torch.Generator(device=dev).manual_seed(0)
+    # flash_attention at the dit-i256 shape, head-major views as in the model
+    q, k, v = (torch.randn(16, 256, 16, 72, generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(3))
+    # quant_matmul w8a16 at the three token sites
+    sites = {}
+    for site, (M, K, N) in {"wq": (4096, 1152, 1152), "w1": (4096, 1152, 4608),
+                            "w2": (4096, 4608, 1152)}.items():
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        qw, ws = qmm_ref.quantize(torch.randn(K, N, generator=g, device=dev))
+        sites[site] = (x, qw, ws.float().contiguous())
+    for name, so in libs.items():
+        src = ABLATIONS[name][0]
+        use(src, so)
+        if src == "flash_attention":
+            ms = chip_smoke.device_ms(functools.partial(
+                fa_kernel.flash_attention, q, k, v, causal=False))
+            print(f"{name}: {ms:.5f} ms")
+        else:
+            times = {site: chip_smoke.device_ms(functools.partial(
+                qmm_kernel.quant_matmul, x, qw, sc, out_dtype=torch.bfloat16))
+                for site, (x, qw, sc) in sites.items()}
+            print(f"{name}: " + ", ".join(f"{s} {t:.5f} ms" for s, t in times.items()))
+
+
+if __name__ == "__main__":
+    main()

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -235,37 +236,63 @@ def kernel_phase(dev) -> dict:
 
     # B4 flash_attention at the dit-i256 shape: net batch 16, 16 heads,
     # S = 256, head dim 72, bf16, non-causal; q/k/v are head-major views of
-    # (B, S, H, D) projections as in the model. Plus the reduced config's
-    # GQA (4 q heads over 2 kv heads, D = 32) at a ragged S, and causal.
+    # (B, S, H, D) projections as in the model, and the same values
+    # contiguous. Then ragged lengths, the masks and GQA at D = 64 and 72,
+    # keys past a tile edge, the reduced config's fp32 GQA (D = 32), and
+    # D = 36 (no multiple of 8: the bf16 body's 2-byte loads). Each label
+    # names the body that served it (kernel.plan).
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
     H, S, Dh = 16, 256, 72
     q, k, v = (randn(B, S, H, Dh, dtype=torch.bfloat16).transpose(1, 2)
                for _ in range(3))
+    bf = torch.bfloat16
+
+    def fa_case(label, q_, k_, v_, causal, window=None):
+        got = fa_ops.attention(q_, k_, v_, causal=causal, window=window)
+        want = fa_ops.attention(q_, k_, v_, causal=causal, window=window,
+                                backend="plain")
+        p = fa_kernel.plan(q_, k_, v_, got)
+        loads = "16-byte" if p["vec_in"] else "2-byte"
+        body = (f"{p['body']}, D in {8 * p['chunks']}, {loads} loads"
+                if p["body"] == "mma" else p["body"])
+        return f"{label} [{body}]", got, want, q_.dtype
+
+    cases = [
+        fa_case("main bf16 D=72 strided views", q, k, v, False),
+        fa_case("main bf16 D=72 contiguous", q.contiguous(), k.contiguous(),
+                v.contiguous(), False),
+    ]
+    for s_len in (200, 257):
+        cases.append(fa_case(f"bf16 D=72 S={s_len}",
+                             *(randn(2, 4, s_len, 72, dtype=bf)
+                               for _ in range(3)), False))
+    for d in (64, 72):
+        qd = randn(2, 4, 300, d, dtype=bf)
+        kd, vd = (randn(2, 2, 300, d, dtype=bf) for _ in range(2))
+        cases += [fa_case(f"bf16 D={d} GQA 4/2 S=300 causal", qd, kd, vd, True),
+                  fa_case(f"bf16 D={d} GQA 4/2 S=300 window 40", qd, kd, vd,
+                          False, 40),
+                  fa_case(f"bf16 D={d} GQA 4/2 S=300 causal window 40", qd, kd,
+                          vd, True, 40)]
+    cases.append(fa_case("bf16 D=72 Sq=100 Skv=150 (off the key tile)",
+                         randn(2, 4, 100, 72, dtype=bf),
+                         randn(2, 4, 150, 72, dtype=bf),
+                         randn(2, 4, 150, 72, dtype=bf), False))
     qg = randn(2, 4, 100, 32)
     kg, vg = randn(2, 2, 100, 32), randn(2, 2, 100, 32)
-    # D = 36 is no multiple of 8: the bf16 body's 2-byte tile loads
-    qo = randn(2, 4, 100, 36, dtype=torch.bfloat16)
-    ko, vo = (randn(2, 2, 100, 36, dtype=torch.bfloat16) for _ in range(2))
-    cases = [
-        ("main bf16 D=72", fa_ops.attention(q, k, v, causal=False),
-         fa_ops.attention(q, k, v, causal=False, backend="plain"),
-         torch.bfloat16),
-        ("GQA 4/2 D=32 S=100 fp32", fa_ops.attention(qg, kg, vg, causal=False),
-         fa_ops.attention(qg, kg, vg, causal=False, backend="plain"),
-         torch.float32),
-        ("GQA causal window=40 fp32",
-         fa_ops.attention(qg, kg, vg, causal=True, window=40),
-         fa_ops.attention(qg, kg, vg, causal=True, window=40, backend="plain"),
-         torch.float32),
-        ("GQA causal D=36 S=100 bf16",
-         fa_ops.attention(qo, ko, vo, causal=True),
-         fa_ops.attention(qo, ko, vo, causal=True, backend="plain"),
-         torch.bfloat16),
-    ]
+    cases += [fa_case("GQA 4/2 D=32 S=100 fp32", qg, kg, vg, False),
+              fa_case("GQA causal window=40 fp32", qg, kg, vg, True, 40),
+              fa_case("GQA causal D=36 S=100 bf16",
+                      randn(2, 4, 100, 36, dtype=bf),
+                      randn(2, 2, 100, 36, dtype=bf),
+                      randn(2, 2, 100, 36, dtype=bf), True)]
     record("flash_attention", cases, (
         lambda: fa_ops.attention(q, k, v, causal=False),
         lambda: fa_ops.attention(q, k, v, causal=False, backend="plain"),
         lambda: F.scaled_dot_product_attention(q, k, v),
         4 * nbytes(q), 4 * B * H * S * S * Dh, torch.bfloat16))
+    out["flash_attention"]["body"] = fa_kernel.plan(q, k, v, q)["body"]
     out["quant_matmul"] = quant_kernel_cases(dev, randn)
     return out
 
@@ -299,10 +326,24 @@ def quant_kernel_cases(dev, randn) -> dict:
         sa = x.float().abs().amax() / 127.0 if spec.act_bits == 8 else None
         return x, qw, ws, sa
 
+    def body_of(x, qw, ws, sa):
+        return qmm_kernel.plan(qmm_ref.fold_act(x, ws, sa)[0], qw)["body"]
+
+    token_sites = [(site, M, K, N) for site, M, K, N, _ in QUANT_SITES
+                   if M > qmm_kernel.SKINNY_MAX_M]
     cases, errs = {}, []
     for label, M, K, N, mode, x_dtype in (
             [(f"{site} w8a16 bf16", M, K, N, "w8a16", torch.bfloat16)
              for site, M, K, N, _ in QUANT_SITES]
+            + [(f"{site} {mode} bf16", M, K, N, mode, torch.bfloat16)
+               for mode in ("w8a8", "fp8a16", "w4a16")
+               for site, M, K, N in token_sites[1:]]
+            # ragged M, N, K off every wgmma tile edge (128 x 144 x 64); then
+            # qw rows of 1160 bytes, no multiple of 16: TMA cannot take them
+            + [(f"ragged {mode} bf16 ({M},{K},{N})", M, K, N, mode,
+                torch.bfloat16)
+               for mode in ("w8a16", "w8a8")
+               for M, K, N in ((4100, 1168, 1168), (4100, 1160, 1160))]
             + [(f"{mode} {'bf16' if dt == torch.bfloat16 else 'fp32'} "
                 f"({M},{K},{N})", M, K, N, mode, dt)
                for mode, dt in (("w8a8", torch.bfloat16),
@@ -314,6 +355,7 @@ def quant_kernel_cases(dev, randn) -> dict:
                for M, K, N in ((4096, 1152, 1152), (37, 130, 200),
                                (5, 130, 200), (100, 64, 48))]):
         x, qw, ws, sa = operands(M, K, N, mode, x_dtype)
+        label = f"{label} [{body_of(x, qw, ws, sa)}]"
         k_out = qmm_ops.quant_matmul(x, qw, ws, sa=sa)
         p_out = qmm_ops.quant_matmul(x, qw, ws, sa=sa, backend="plain")
         torch.cuda.synchronize()
@@ -349,7 +391,11 @@ def quant_kernel_cases(dev, randn) -> dict:
                 torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32)
         bms, by = bound(nbytes(x, qw, scale) + M * N * torch.empty(
             (), dtype=out_dtype).element_size(), 2 * M * K * N, peak)
-        return dict(ms=device_ms(k_fn), host_call_ms=host_call_ms(k_fn),
+        plan = qmm_kernel.plan(x, qw)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return dict(body=plan["body"], tile=plan["tile"],
+                    tiles=plan["blocks"], waves=plan["blocks"] / sms,
+                    ms=device_ms(k_fn), host_call_ms=host_call_ms(k_fn),
                     plain_ms=device_ms(p_fn), library_ms=device_ms(lib_fn),
                     library=f"{lib} on a weight widened beforehand; omits "
                             f"the widening and the scale",
@@ -360,7 +406,9 @@ def quant_kernel_cases(dev, randn) -> dict:
         sites[site] = dict(M=M, K=K, N=N, calls_per_eval=per_eval,
                            **timed(M, K, N, "w8a16", torch.bfloat16))
         st = sites[site]
-        print(f"  quant_matmul {site} ({M},{K},{N}) w8a16: {st['ms']:.5f} ms "
+        print(f"  quant_matmul {site} ({M},{K},{N}) w8a16 [{st['body']}, tile "
+              f"{st['tile'][0]}x{st['tile'][1]}, {st['tiles']} tiles = "
+              f"{st['waves']:.2f} waves]: {st['ms']:.5f} ms "
               f"(bound {st['bound_ms']:.5f} by {st['bound_by']}; plain "
               f"{st['plain_ms']:.5f}, {st['library']}: {st['library_ms']:.5f},"
               f" host {st['host_call_ms']:.4f})")
@@ -379,7 +427,11 @@ def quant_kernel_cases(dev, randn) -> dict:
         return sum(st["calls_per_eval"] * st[key]
                    for st in sites.values()) / calls
 
+    bodies = {}
+    for site, st in sites.items():
+        bodies.setdefault(st["body"], []).append(site)
     return dict(max_abs_err=max(errs), max_rel_err=max(cases.values()),
+                body=", ".join(f"{b} ({' '.join(v)})" for b, v in bodies.items()),
                 cases=cases, ms=per_call("ms"),
                 host_call_ms=per_call("host_call_ms"),
                 plain_ms=per_call("plain_ms"),
@@ -840,9 +892,16 @@ def main():
     print(f"  built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)")
     for kname, rep in sorted(reports.items()):
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {kname}: {line.strip()}")
+        entry, spills = "?", ""
+        for line in rep.splitlines():   # one line per compiled kernel
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                print(f"  ptxas {kname} {entry[:60]}: {line.split(':', 1)[-1].strip()}"
+                      f"; {spills}")
 
     print("== phase 3: kernels vs plain versions (main-path shapes)")
     kstats = kernel_phase(dev)
@@ -874,6 +933,7 @@ def main():
             launches=path_counts.get(kname, 0),
             launches_per_eval=per_eval if per_eval else "2 per row",
             max_abs_err=st["max_abs_err"], max_rel_err=st["max_rel_err"],
+            body=st.get("body", "cuda (one body)"),
             cases=st["cases"], ms=st["ms"], kernel_ms=st["ms"],
             host_call_ms=st["host_call_ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by=st["bound_by"], library_ms=st["library_ms"])

@@ -10,32 +10,47 @@
 // bytes bound it, not the operations.
 //
 // Two bodies, one online softmax:
-// * bf16 (the main path) — attn_tc_kernel: tensor cores through WMMA
-//   (16x16x16 bf16 tiles, fp32 accumulation). One block of 4 warps per
-//   (b * Hq + h, 64-query tile); each warp owns 16 query rows. Q, and K/V
-//   tiles of 64 keys, sit in shared memory as bf16 with the head dim
-//   zero-padded to a multiple of 16 there only (72 -> 80; global memory is
-//   read at the true D). S = Q K^T per warp goes through shared memory,
-//   where two lanes per row apply the scale, the masks and the running
-//   max/sum in fp32; P is rounded to bf16 for the P V product, whose fp32
-//   accumulator rows live in shared memory so each row can be rescaled.
-//   Tiles are filled with 16-byte loads all issued before the first store
-//   (D % 8 == 0; 2-byte loads otherwise). Shared-memory strides are padded
-//   and the softmax visits its columns in a lane-skewed order, so no
-//   access is bank-conflicted more than 2-way.
-//   wgmma/TMA pipelining is later work.
+// * bf16 (the main path) — attn_mma_kernel, FlashAttention-2's layout on
+//   mma.sync m16n8k16 tensor cores. A block of 8 warps takes 128 queries of
+//   one (b, h); each warp owns 16 query rows. At the main shape that is 512
+//   blocks of 256 threads, two per SM (<= 128 registers, 72 KB of shared
+//   memory each), so 1.94 waves over 132 SMs with every block reading its
+//   head's K and V once: 2 reads of each K/V byte in all. What the design
+//   does about the bytes bound:
+//   - S, P and O never leave registers. The fp32 accumulator fragment of
+//     S = Q K^T, rounded to bf16, is the A fragment of P V; row max and sum
+//     take two quad shuffles; exp2f with scale * log2(e) folded into the
+//     scores; O is rescaled in registers and divided by l once at the end.
+//   - K/V tiles of 64 keys arrive by 16-byte cp.async into a ring of 3
+//     stages, two tiles ahead of the products, one barrier per tile.
+//   - Shared-memory rows hold an odd number of 16-byte chunks (D = 72:
+//     144 bytes, unpadded), so the 8 rows an ldmatrix reads fall in 8
+//     distinct 4-bank groups: no bank conflicts, no swizzle.
+//   - D = 72 contracts as 4 k16 steps and one m16n8k8 step (Q K^T), and
+//     P V has N = 72 = 9 n8 tiles: no padding work at the main shape. The
+//     head dim is compiled in 8-column chunks ND in {4, 8, 9, 16}; another
+//     D <= 128 runs in the next larger ND, its extra columns zero-filled in
+//     shared memory only.
+//   - Q is read into registers once; the epilogue stages each warp's rows
+//     in its own dead Q rows and writes 16-byte stores.
+//   - Tiles whose every key is masked for every query of the block
+//     (causal, sliding window) are skipped, as the reference does, unless
+//     a query of the block has no unmasked key at all: its row is then the
+//     mean over all keys, as in the reference's softmax of equal scores.
+//   Rows of D % 8 == 0 at 16-byte-aligned addresses and strides load by
+//   cp.async; any other shape fills the same tiles with 2-byte loads (the
+//   wrapper decides by shape and reports which).
 // * fp32 (the reference-precision serving path) — attn_kernel: fp32 CUDA
 //   cores, so fp32 inputs keep fp32 products. One block per (b * Hq + h,
 //   64-query tile), 256 threads: four threads share a query row and each
 //   owns every fourth of its D columns (the true D, no padding lanes); K/V
 //   tiles of 32 keys in shared memory; the four partial dot products meet
 //   by two warp shuffles; max, denominator and accumulator in registers.
-// Scores are scaled by 1/sqrt(D) after the dot product and masked with
-// -1e30 like the reference; keys past Skv add exactly zero. q/k/v/o are
-// addressed through (b, h, s) strides with unit column stride, so the
-// model's (B, S, H, D) projections are read and written in place.
+// Scores are masked with -1e30 like the reference; keys past Skv add
+// exactly zero. q/k/v/o are addressed through (b, h, s) strides with unit
+// column stride, so the model's (B, S, H, D) projections are read and
+// written in place.
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
 
@@ -138,200 +153,347 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: tensor cores through WMMA -------------------------------------
-
-constexpr int TC_BQ = 64;               // query rows per block
-constexpr int TC_WARPS = TC_BQ / 16;    // each warp owns 16 query rows
-constexpr int TC_BK = 64;               // key rows per shared-memory tile
-// Shared-memory row strides are padded off multiples of 128 bytes so the
-// 16 rows a WMMA load or store touches fall in different banks.
-constexpr int S_LD = TC_BK + 4;         // fp32 scores
-constexpr int P_LD = TC_BK + 8;         // bf16 probabilities
+// ---- bf16: mma.sync with register-resident S, P and O ---------------------
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
-// bf16 tile stride (elements) for a head dim padded to dp, and the fp32
-// accumulator stride
-__host__ __device__ inline int tile_ld(int dp) { return dp + 8; }
-__host__ __device__ inline int acc_ld(int dp) { return dp + 4; }
+constexpr int MMA_WARPS = 8;
+constexpr int MMA_THREADS = MMA_WARPS * 32;
+constexpr int MMA_BQ = 16 * MMA_WARPS;  // 128 query rows per block
+constexpr int MMA_BK = 64;              // keys per tile
+constexpr int MMA_STAGES = 3;           // K/V ring depth
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Copies rows r0 .. r0+TC_BK-1 of one head (row stride ld_g, true width D)
-// into a bf16 shared tile of stride ld, zero-filling columns D..dp-1 and
-// rows at or past `limit`. vec: 16-byte loads (D % 8 == 0 and aligned),
-// all issued before the first store so their latencies overlap.
-__device__ __forceinline__ void fill_tile(bf16* tile, const bf16* src,
-                                          long long ld_g, int r0, int limit,
-                                          int D, int dp, int ld, bool vec) {
+// ND: the head dim in 8-column (16-byte) chunks as compiled
+template <int ND>
+struct FaTile {
+  static constexpr int PITCH = (ND | 1) * 16;  // bytes; an odd chunk count
+  static constexpr int Q_BYTES = MMA_BQ * PITCH;
+  static constexpr int KV_BYTES = MMA_BK * PITCH;  // one K or one V tile
+  static constexpr int SMEM = Q_BYTES + MMA_STAGES * 2 * KV_BYTES;
+  static constexpr int MIN_BLOCKS = ND <= 9 ? 2 : 1;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned a, uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned a, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x1(unsigned a, uint32_t& r0) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+               : "=r"(r0)
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned a, uint32_t& r0, uint32_t& r1,
+                                          uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2_t(unsigned a, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_k16(float* c, const uint32_t* a, uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c (16 x 8) += a (16 x 8) * b (8 x 8): the odd 8 columns of D
+__device__ __forceinline__ void mma_k8(float* c, uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Issue the fill of `rows` tile rows (rows r0.. of one head, row stride ld
+// elements) into shared memory at `dst` (row pitch PITCH bytes, ND chunks
+// a row): zeros past `limit` rows and past D columns. vec: 16-byte
+// cp.async chunks (D % 8 == 0, aligned rows); else 2-byte loads and
+// stores, complete before the caller's next barrier.
+template <int ND>
+__device__ __forceinline__ void fill_rows(unsigned char* dst, const bf16* __restrict__ src,
+                                          long long ld, int r0, int limit, int rows,
+                                          int D, bool vec) {
+  constexpr int PITCH = FaTile<ND>::PITCH;
   if (vec) {
-    constexpr int MAXC = TC_BK * MAX_D / 8 / (TC_WARPS * 32);  // per thread
-    const int cpr = dp / 8;  // 16-byte chunks per tile row
-    uint4 buf[MAXC];
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const int e = threadIdx.x + i * TC_WARPS * 32;
-      const int r = e / cpr, c = e - r * cpr;
-      buf[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (r < TC_BK && r0 + r < limit && c * 8 < D)
-        buf[i] = *reinterpret_cast<const uint4*>(
-            src + (long long)(r0 + r) * ld_g + c * 8);
-    }
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) {
-      const int e = threadIdx.x + i * TC_WARPS * 32;
-      const int r = e / cpr, c = e - r * cpr;
-      if (r < TC_BK) *reinterpret_cast<uint4*>(tile + r * ld + c * 8) = buf[i];
+    const unsigned base = smem_u32(dst);
+    for (int e = threadIdx.x; e < rows * ND; e += MMA_THREADS) {
+      const int r = e / ND, c = e - r * ND;
+      const bool ok = r0 + r < limit && c * 8 < D;
+      const bf16* g = ok ? src + (long long)(r0 + r) * ld + c * 8 : src;
+      cp_async16(base + r * PITCH + c * 16, g, ok);
     }
     return;
   }
   const bf16 zero = __float2bfloat16_rn(0.f);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < TC_BK; r += TC_WARPS) {
-    const bool row_ok = r0 + r < limit;
-    for (int d = lane; d < dp; d += 32)
-      tile[r * ld + d] =
-          (row_ok && d < D) ? src[(long long)(r0 + r) * ld_g + d] : zero;
+  for (int e = threadIdx.x; e < rows * ND * 8; e += MMA_THREADS) {
+    const int r = e / (ND * 8), d = e - r * (ND * 8);
+    *reinterpret_cast<bf16*>(dst + r * PITCH + d * 2) =
+        (r0 + r < limit && d < D) ? src[(long long)(r0 + r) * ld + d] : zero;
   }
 }
 
-static size_t tc_smem_bytes(int dp) {
-  return sizeof(bf16) * (size_t)(TC_BQ + 2 * TC_BK) * tile_ld(dp)  // Q, K, V
-         + sizeof(float) * TC_WARPS * 16 * S_LD                    // S
-         + sizeof(bf16) * TC_WARPS * 16 * P_LD                     // P
-         + sizeof(float) * (size_t)TC_WARPS * 16 * acc_ld(dp)      // O
-         + sizeof(float) * TC_WARPS * 16 * 3;                      // m, l, alpha
-}
-
-__global__ void __launch_bounds__(TC_WARPS * 32)
-attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-               int Hkv, int Sq, int Skv, int D, int DP, Strides qs,
-               Strides ks, Strides vs, Strides os, int causal, int window,
-               float scale, int vec) {
+template <int ND>
+__global__ void __launch_bounds__(MMA_THREADS, FaTile<ND>::MIN_BLOCKS)
+attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int Hq, int Hkv,
+                int Sq, int Skv, int D, Strides qs, Strides ks, Strides vs,
+                Strides os, int causal, int window, float scale_log2, int vec_in,
+                int vec_out) {
+  using T = FaTile<ND>;
+  constexpr int PITCH = T::PITCH;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LD = tile_ld(DP), OLD = acc_ld(DP);
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + TC_BQ * LD;
-  bf16* v_s = k_s + TC_BK * LD;
-  float* s_all = reinterpret_cast<float*>(v_s + TC_BK * LD);
-  bf16* p_all = reinterpret_cast<bf16*>(s_all + TC_WARPS * 16 * S_LD);
-  float* o_all = reinterpret_cast<float*>(p_all + TC_WARPS * 16 * P_LD);
-  float* stat_all = o_all + TC_WARPS * 16 * OLD;
+  unsigned char* q_s = smem;
+  unsigned char* kv_s = smem + T::Q_BYTES;  // stage s: K, then V
+  const unsigned q_u = smem_u32(q_s), kv_u = smem_u32(kv_s);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.x;
-  const int b = bh / Hq, h = bh % Hq;
+  const int nq = (Sq + MMA_BQ - 1) / MMA_BQ;
+  const int bh = blockIdx.x / nq, q0 = (blockIdx.x - bh * nq) * MMA_BQ;
+  const int b = bh / Hq, h = bh - b * Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.y * TC_BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
 
-  static_assert(TC_BQ == TC_BK, "fill_tile serves the Q and K/V tiles");
-  fill_tile(q_s, qb, qs.s, q0, Sq, D, DP, LD, vec);
-  float* s_w = s_all + warp * 16 * S_LD;
-  bf16* p_w = p_all + warp * 16 * P_LD;
-  float* o_w = o_all + warp * 16 * OLD;
-  float* m_w = stat_all + warp * 48;
-  float* l_w = m_w + 16;
-  float* a_w = m_w + 32;
-  for (int r = 0; r < 16; ++r)
-    for (int d = lane; d < DP; d += 32) o_w[r * OLD + d] = 0.f;
-  if (lane < 16) {
-    m_w[lane] = -INFINITY;
-    l_w[lane] = 0.f;
+  // key tiles this block needs: skip those masked for all of its queries,
+  // unless its last query has no unmasked key (then every tile counts)
+  const int n_kt = (Skv + MMA_BK - 1) / MMA_BK;
+  int kt_lo = 0, kt_hi = n_kt;
+  const int q_last = min(q0 + MMA_BQ, Sq) - 1;
+  const int key_hi = causal ? min(q_last, Skv - 1) : Skv - 1;
+  const int key_lo = window > 0 ? max(0, q_last - window + 1) : 0;
+  if (key_lo <= key_hi) {
+    if (causal) kt_hi = min(q_last, Skv - 1) / MMA_BK + 1;
+    if (window > 0) kt_lo = max(0, q0 - window + 1) / MMA_BK;
   }
-  // softmax: two lanes per row, each over half the tile's keys, visiting
-  // its columns in a lane-skewed order so the 32 lanes hit 32 banks
-  const int row = lane >> 1;
-  const int c0 = (lane & 1) * (TC_BK / 2);
-  const int qi = q0 + warp * 16 + row;
+  const int n_tiles = kt_hi - kt_lo;
 
-  for (int k0 = 0; k0 < Skv; k0 += TC_BK) {
-    __syncthreads();  // the previous K/V tile is consumed
-    fill_tile(k_s, kb, ks.s, k0, Skv, D, DP, LD, vec);
-    fill_tile(v_s, vb, vs.s, k0, Skv, D, DP, LD, vec);
-    __syncthreads();
+  auto issue = [&](int i) {  // tile kt_lo + i into stage i % STAGES
+    if (i < n_tiles) {
+      unsigned char* st = kv_s + (i % MMA_STAGES) * 2 * T::KV_BYTES;
+      const int key0 = (kt_lo + i) * MMA_BK;
+      fill_rows<ND>(st, kb, ks.s, key0, Skv, MMA_BK, D, vec_in);
+      fill_rows<ND>(st + T::KV_BYTES, vb, vs.s, key0, Skv, MMA_BK, D, vec_in);
+    }
+    cp_async_commit();
+  };
+  fill_rows<ND>(q_s, qb, qs.s, q0, Sq, MMA_BQ, D, vec_in);  // in group 0
+  for (int i = 0; i < MMA_STAGES - 1; ++i) issue(i);
 
-    // S = Q_w K^T: 16 x 64 scores of this warp's rows
-    for (int n = 0; n < TC_BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bm;
-        wmma::load_matrix_sync(a, q_s + warp * 16 * LD + kk, LD);
-        wmma::load_matrix_sync(bm, k_s + n * 16 * LD + kk, LD);
-        wmma::mma_sync(acc, a, bm, acc);
+  // per thread: rows g and g + 8 of the warp's 16, columns 2t, 2t + 1 of
+  // every n8 tile (the m16n8 accumulator layout)
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + warp * 16 + g;
+  uint32_t qf[ND / 2 > 0 ? ND / 2 : 1][4];
+  uint32_t qf8[2];
+  float oacc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  const unsigned q_row = q_u + (warp * 16 + (lane & 15)) * PITCH;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<MMA_STAGES - 2>();  // tile i (and Q) landed
+    __syncthreads();                   // ... for every thread; tile i-1 consumed
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < ND / 2; ++kk)
+        ldsm_x4(q_row + (2 * kk + (lane >> 4)) * 16, qf[kk][0], qf[kk][1], qf[kk][2],
+                qf[kk][3]);
+      if (ND & 1) ldsm_x2(q_row + (ND - 1) * 16, qf8[0], qf8[1]);
+    }
+    issue(i + MMA_STAGES - 1);  // into the stage tile i-1 left
+    const unsigned k_u = kv_u + (i % MMA_STAGES) * 2 * T::KV_BYTES;
+    const unsigned v_u = k_u + T::KV_BYTES;
+
+    // S = Q K^T: 16 x 64 per warp, 8 n8 tiles of keys
+    float s[MMA_BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < MMA_BK / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      const unsigned k_row = k_u + (n * 8 + (lane & 7)) * PITCH;
+      int kk = 0;
+#pragma unroll
+      for (; kk + 1 < ND / 2; kk += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(k_row + (2 * kk + (lane >> 3)) * 16, b0, b1, b2, b3);
+        mma_k16(s[n], qf[kk], b0, b1);
+        mma_k16(s[n], qf[kk + 1], b2, b3);
       }
-      wmma::store_matrix_sync(s_w + n * 16, acc, S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this tile, fp32
-    float* s_row = s_w + row * S_LD + c0;
-    float mx = -INFINITY;
-    for (int c = 0; c < TC_BK / 2; ++c) {
-      const int j = (c + lane) & (TC_BK / 2 - 1);
-      const int key = k0 + c0 + j;
-      bool ok = true;
-      if (causal) ok = ok && key <= qi;
-      if (window > 0) ok = ok && key > qi - window;
-      float sc = ok ? s_row[j] * scale : MASKED;
-      if (key >= Skv) sc = -INFINITY;
-      s_row[j] = sc;
-      mx = fmaxf(mx, sc);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_old = m_w[row];
-    const float m_new = fmaxf(m_old, mx);
-    float sum = 0.f;
-    bf16* p_row = p_w + row * P_LD + c0;
-    for (int c = 0; c < TC_BK / 2; ++c) {
-      const int j = (c + lane) & (TC_BK / 2 - 1);
-      const float p = expf(s_row[j] - m_new);
-      sum += p;
-      p_row[j] = __float2bfloat16_rn(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    __syncwarp();  // both lanes of a row have read m_w
-    if ((lane & 1) == 0) {
-      const float alpha = expf(m_old - m_new);
-      m_w[row] = m_new;
-      l_w[row] = l_w[row] * alpha + sum;
-      a_w[row] = alpha;
-    }
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const float alpha = a_w[r];
-      for (int d = lane; d < DP; d += 32) o_w[r * OLD + d] *= alpha;
-    }
-    __syncwarp();
-
-    // O_w += P V
-    for (int n = 0; n < DP / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, o_w + n * 16, OLD, wmma::mem_row_major);
-      for (int kk = 0; kk < TC_BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(a, p_w + kk, P_LD);
-        wmma::load_matrix_sync(bm, v_s + kk * LD + n * 16, LD);
-        wmma::mma_sync(acc, a, bm, acc);
+#pragma unroll
+      for (; kk < ND / 2; ++kk) {
+        uint32_t b0, b1;
+        ldsm_x2(k_row + (2 * kk + ((lane >> 3) & 1)) * 16, b0, b1);
+        mma_k16(s[n], qf[kk], b0, b1);
       }
-      wmma::store_matrix_sync(o_w + n * 16, acc, OLD, wmma::mem_row_major);
+      if (ND & 1) {
+        uint32_t b0;
+        ldsm_x1(k_row + (ND - 1) * 16, b0);
+        mma_k8(s[n], qf8[0], qf8[1], b0);
+      }
     }
-    __syncwarp();
+
+    // scale (log2 domain), mask, running max
+    const int key0 = (kt_lo + i) * MMA_BK;
+    const bool masking = causal || window > 0 || key0 + MMA_BK > Skv;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < MMA_BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (masking) {
+          const int key = key0 + n * 8 + 2 * t4 + (e & 1);
+          const int qi = row0 + (e >> 1) * 8;
+          bool ok = true;
+          if (causal) ok = ok && key <= qi;
+          if (window > 0) ok = ok && key > qi - window;
+          if (!ok) x = MASKED;
+          if (key >= Skv) x = -INFINITY;  // past the end: adds exactly 0
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);  // finite: key0 < Skv
+      alpha[r] = exp2f(m_r[r] - m_new);
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+
+    // O += P V, 16 keys a step: P's bf16 A fragment straight from S's
+    // accumulators (n8 tiles 2kk and 2kk + 1)
+#pragma unroll
+    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      uint32_t pa[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* sv = s[2 * kk + half];
+        const float p0 = exp2f(sv[0] - m_r[0]), p1 = exp2f(sv[1] - m_r[0]);
+        const float p2 = exp2f(sv[2] - m_r[1]), p3 = exp2f(sv[3] - m_r[1]);
+        l_r[0] += p0 + p1;
+        l_r[1] += p2 + p3;
+        pa[2 * half] = pack_bf16(p0, p1);
+        pa[2 * half + 1] = pack_bf16(p2, p3);
+      }
+      const unsigned v_row = v_u + (kk * 16 + (lane & 15)) * PITCH;
+#pragma unroll
+      for (int n = 0; n + 1 < ND; n += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(v_row + (n + (lane >> 4)) * 16, b0, b1, b2, b3);
+        mma_k16(oacc[n], pa, b0, b1);
+        mma_k16(oacc[n + 1], pa, b2, b3);
+      }
+      if (ND & 1) {
+        uint32_t b0, b1;
+        ldsm_x2_t(v_row + (ND - 1) * 16, b0, b1);
+        mma_k16(oacc[ND - 1], pa, b0, b1);
+      }
+    }
   }
+  cp_async_wait<0>();
 
+  // epilogue: O / l in bf16, staged in this warp's own (dead) Q rows, then
+  // written as 16-byte chunks of the true D
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    denom[r] = fmaxf(l_r[r], 1e-30f);
+  }
+  unsigned char* stage = q_s + warp * 16 * PITCH;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<uint32_t*>(stage + g * PITCH + n * 16 + t4 * 4) =
+        pack_bf16(oacc[n][0] / denom[0], oacc[n][1] / denom[0]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * PITCH + n * 16 + t4 * 4) =
+        pack_bf16(oacc[n][2] / denom[1], oacc[n][3] / denom[1]);
+  }
+  __syncwarp();
   bf16* ob = o + b * os.b + h * os.h;
-  for (int r = 0; r < 16; ++r) {
+  for (int e = lane; e < 16 * ND; e += 32) {
+    const int r = e / ND, c = e - r * ND;
     const int qr = q0 + warp * 16 + r;
-    if (qr >= Sq) break;
-    const float denom = fmaxf(l_w[r], 1e-30f);
-    for (int d = lane; d < D; d += 32)
-      ob[(long long)qr * os.s + d] = __float2bfloat16_rn(o_w[r * OLD + d] / denom);
+    if (qr >= Sq || c * 8 >= D) continue;
+    bf16* dst = ob + (long long)qr * os.s + c * 8;
+    const unsigned char* src = stage + r * PITCH + c * 16;
+    if (vec_out) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int d = 0; d < 8 && c * 8 + d < D; ++d)
+        dst[d] = reinterpret_cast<const bf16*>(src)[d];
+    }
   }
+}
+
+template <int ND>
+static int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+                      int Hq, int Hkv, int Sq, int Skv, int D, const long long* st,
+                      int causal, int window, float scale, int vec_in, int vec_out,
+                      cudaStream_t s) {
+  static bool sized = false;  // once per instantiation
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_mma_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        FaTile<ND>::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const long long blocks = (long long)B * Hq * ((Sq + MMA_BQ - 1) / MMA_BQ);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_mma_kernel<ND><<<static_cast<unsigned>(blocks), MMA_THREADS, FaTile<ND>::SMEM, s>>>(
+      q, k, v, o, Hq, Hkv, Sq, Skv, D, Strides{st[0], st[1], st[2]},
+      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+      Strides{st[9], st[10], st[11]}, causal, window, scale * LOG2E, vec_in, vec_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 static int launch_cuda_cores(const void* q, const void* k, const void* v,
@@ -362,11 +524,16 @@ static int launch_cuda_cores(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// strides: 12 values, (b, h, s) strides of q, k, v, o in elements.
+// strides: 12 values, (b, h, s) strides of q, k, v, o in elements. fp32
+// runs on CUDA cores. bf16 runs the mma body compiled for nd 8-column
+// chunks (4, 8, 9 or 16; nd * 8 >= D); vec_in: q/k/v rows load as 16-byte
+// chunks, vec_out: o rows store so (both need D % 8 == 0 and 16-byte
+// aligned rows, which is checked here too).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Hq, int Hkv, int Sq, int Skv,
                                int D, const long long* strides, int causal,
-                               int window, float scale, int dtype, void* stream) {
+                               int window, float scale, int dtype, int nd,
+                               int vec_in, int vec_out, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Skv < 1 || D < 1 ||
       D > MAX_D || (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -374,28 +541,31 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype == DTYPE_F32)
     return launch_cuda_cores(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
                              causal, window, scale, s);
-  if (dtype != DTYPE_BF16) return static_cast<int>(cudaErrorInvalidValue);
-  const int DP = (D + 15) / 16 * 16;
-  const size_t smem = tc_smem_bytes(DP);
-  const cudaError_t err = cudaFuncSetAttribute(
-      attn_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(B * Hq),
-                  static_cast<unsigned>((Sq + TC_BQ - 1) / TC_BQ));
+  if (dtype != DTYPE_BF16 || nd * 8 < D) return static_cast<int>(cudaErrorInvalidValue);
   const long long* st = strides;
-  // 16-byte tile loads need whole 8-element chunks at 16-byte addresses
-  bool vec = D % 8 == 0;
-  for (int i = 0; i < 9; ++i) vec = vec && st[i] % 8 == 0;
-  vec = vec && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  attn_tc_kernel<<<grid, TC_WARPS * 32, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Sq, Skv, D,
-      DP, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
-      window, scale, static_cast<int>(vec));
-  return static_cast<int>(cudaGetLastError());
+  auto rows16 = [&](const void* p, int first) {
+    bool ok = D % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    for (int i = first; i < first + 3; ++i) ok = ok && st[i] % 8 == 0;
+    return ok;
+  };
+  if (vec_in && !(rows16(q, 0) && rows16(k, 3) && rows16(v, 6)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_out && !rows16(o, 9)) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(o);
+#define FA_MMA(ND)                                                                \
+  launch_mma<ND>(qp, kp, vp, op, B, Hq, Hkv, Sq, Skv, D, st, causal, window, scale, \
+                 vec_in, vec_out, s)
+  switch (nd) {
+    case 4: return FA_MMA(4);
+    case 8: return FA_MMA(8);
+    case 9: return FA_MMA(9);
+    case 16: return FA_MMA(16);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FA_MMA
 }
 
 EXPORT_ERROR_STRING

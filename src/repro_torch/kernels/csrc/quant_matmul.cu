@@ -16,31 +16,42 @@
 // 989 TFLOP/s bf16). The two adaLN sites have M = 16 and are bound by
 // their weight bytes (8.3 MB and 2.8 MB: 2.5 and 0.8 us at 3.35 TB/s).
 //
-// Two bodies:
-// * tensor cores (bf16 or int8 x): every widening is exact in bf16 (int8
-//   and int4 values have at most 8 significant bits, e4m3 values a 3-bit
-//   mantissa inside bf16's exponent range), and a bf16 x bf16 product is
-//   exact in fp32, so WMMA bf16 16x16x16 with fp32 accumulators computes
-//   the reference's arithmetic up to fp32 summation order. A block keeps a
-//   ring of 4 raw tiles (x: BM x BK, qw: BK x BN, as stored) filled by
-//   16-byte cp.async copies two K steps ahead of the products, and widens
-//   each qw tile (and an int8 x tile) into one of two bf16 tiles a step
-//   ahead; bf16 x is multiplied from the ring itself. One barrier per K
-//   step. Shared-memory row strides are padded off multiples of 128 bytes,
-//   so the rows a WMMA load touches fall in different banks. The epilogue
-//   stages each warp's accumulators in shared memory and writes rows of
-//   neighbouring column pairs, each scaled once. The tile is chosen by M:
-//   128 x 128 x 32 (8 warps, each 32 x 64, two blocks an SM) for the token
-//   sites, 16 x 32 x 128 (2 warps) for M <= 64, the skinny adaLN sites,
-//   where a 128-row tile would be almost all padding.
-// * CUDA cores (fp32 x): a 64 x 64 tile, BK 16, 4 x 4 outputs per thread,
+// Every widening is exact in bf16 (int8 and int4 values have at most 8
+// significant bits, e4m3 values a 3-bit mantissa inside bf16's exponent
+// range), and a bf16 x bf16 product is exact in fp32, so the tensor-core
+// bodies compute the reference's arithmetic up to fp32 summation order.
+// The wrapper (kernels/quant_matmul/kernel.py:plan) picks the body by
+// dtype and shape:
+// * wgmma (bf16 or int8 x, M > 64, x and qw rows 16-byte aligned: the
+//   token sites). A persistent warp-specialized block (qmm_wg_kernel): a
+//   producer warp keeps TMA loads of raw x and qw tiles four K steps ahead
+//   in an mbarrier ring; two consumer warpgroups compute out^T = W^T x^T
+//   with wgmma m64n144k16, the weight as the register operand A: each
+//   warp reads its raw bytes with ldmatrix.trans and widens them in
+//   registers on the integer and fp32 pipes (no conversion instructions,
+//   no widened copy in shared memory), x is operand B as TMA lands it
+//   (K-major, 128-byte swizzle). Tiles of 144 rows x 128 columns fit the
+//   waves (1.98 at N = 1152). See the note at the kernel.
+// * wmma (bf16 or int8 x, M > 64, rows TMA cannot take). WMMA bf16
+//   16x16x16: a ring of 4 raw tiles (x: BM x BK, qw: BK x BN, as stored)
+//   filled by 16-byte cp.async copies two K steps ahead of the products,
+//   each qw tile (and an int8 x tile) widened into one of two bf16 tiles a
+//   step ahead; bf16 x is multiplied from the ring itself. One barrier per
+//   K step; shared-memory row strides padded off multiples of 128 bytes.
+//   The epilogue stages each warp's accumulators in shared memory and
+//   writes rows of neighbouring column pairs, each scaled once. Tile 128 x
+//   128 x 32 (8 warps, each 32 x 64, two blocks an SM).
+// * skinny (bf16 or int8 x, M <= 64: the adaLN sites): the same WMMA body
+//   with a 16 x 32 x 128 tile (2 warps), where a 128-row tile would be
+//   almost all padding.
+// * cuda_cores (fp32 x): a 64 x 64 tile, BK 16, 4 x 4 outputs per thread,
 //   the weight tile widened to fp32 in shared memory, so fp32 activations
 //   are never rounded to bf16.
-// Ragged M, N and K are masked in the loads (zero-filled past the edge)
-// and in the stores; the 16-byte copies are used where the rows allow them
-// (K, N and the row strides whole 16-byte chunks, 16-byte-aligned bases),
-// element copies elsewhere. wgmma, TMA, int8 mma and a fused activation
-// quantize are later work.
+// Ragged M, N and K are zero-filled past the edge (by TMA, or masked in
+// the loads) and masked in the stores; the WMMA bodies' 16-byte copies are
+// used where the rows allow them, element copies elsewhere. Int8 x int8
+// tensor cores and a fused activation quantize are later work.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_fp8.h>
 #include <mma.h>
 
@@ -326,6 +337,420 @@ static int launch_tc(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- wgmma body (the token sites, M > 64) ----------------------------------
+
+constexpr int WG_BM = 144;  // rows of x and out a tile: the wgmma N
+constexpr int WG_BN = 128;  // columns of out a tile: two warpgroups x 64
+constexpr int WG_BK = 64;
+constexpr int WG_CONSUMERS = 256;             // two warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 32;  // and the producer warp
+constexpr int WG_STAGES = 4;                  // raw tiles in flight
+constexpr int WG_XBUFS = 3;                   // widened int8 x tiles
+
+// Shared-memory plan: a ring of raw tiles as TMA lands them (x: BM x BK,
+// with the 128-byte swizzle when bf16, wgmma's K-major layout; dense when
+// int8; qw: BK x BN bytes, 128-byte swizzle), widened bf16 tiles of x when
+// it is int8, and the ring's mbarriers.
+template <typename XT>
+struct WgSmem {
+  static constexpr bool WIDEN_X = sizeof(XT) == 1;
+  static constexpr int X_RAW = WG_BM * WG_BK * static_cast<int>(sizeof(XT));
+  static constexpr int W_RAW = WG_BK * WG_BN;
+  static constexpr int X_BF = WG_BM * WG_BK * 2;
+  static constexpr int W_RAW_OFF = WG_STAGES * X_RAW;
+  static constexpr int X_BF_OFF = W_RAW_OFF + WG_STAGES * W_RAW;
+  static constexpr int BAR_OFF = X_BF_OFF + (WIDEN_X ? WG_XBUFS * X_BF : 0);
+  static constexpr int BYTES = BAR_OFF + 2 * WG_STAGES * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // the base is aligned up to 1 KB
+  static_assert(X_RAW % 1024 == 0 && W_RAW % 1024 == 0 && X_BF % 1024 == 0,
+                "swizzled tiles start on 1 KB");
+  static_assert(ALLOC <= 232448, "one block fits an SM's shared memory");
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// box at (c0 = column, c1 = row) of a 2-D tensor map into shared memory;
+// completion is counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator registers across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout (0: no swizzle, 1: 128-byte swizzle)
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo, unsigned sbo,
+                                              unsigned layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void consumers_sync() {  // the two consumer warpgroups
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned a, uint32_t& r0, uint32_t& r1,
+                                          uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(a));
+}
+
+// Four stored one-byte values (the bytes of r, lowest first) widened
+// exactly to fp32 on the integer and fp32 pipes: the conversion
+// instructions run at a sixteenth of their rate and would set the pace.
+template <typename T>
+__device__ __forceinline__ void widen4(uint32_t r, float (&f)[4]);
+// int8: the biased byte v + 128 as the low mantissa bits of 2^23, minus
+// 2^23 + 128
+template <>
+__device__ __forceinline__ void widen4<int8_t>(uint32_t r, float (&f)[4]) {
+  const uint32_t u = r ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b)) - 8388736.0f;
+}
+// e4m3: exponent and mantissa bits placed under fp32's (subnormals
+// included), scaled by 2^(127 - 7), the sign put back
+template <>
+__device__ __forceinline__ void widen4<fp8>(uint32_t r, float (&f)[4]) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const uint32_t v = (r >> (8 * b)) & 0xFFu;
+    f[b] = __uint_as_float(
+        __float_as_uint(__uint_as_float((v & 0x7Fu) << 20) * __uint_as_float(0x7B800000u)) |
+        ((v & 0x80u) << 24));
+  }
+}
+// a bf16 pair from two fp32 that bf16 holds exactly (their top halves)
+__device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+// eight stored one-byte values, widened to eight bf16 in order
+template <typename T>
+__device__ __forceinline__ uint4 widen8(uint2 raw) {
+  float f[4], h[4];
+  widen4<T>(raw.x, f);
+  widen4<T>(raw.y, h);
+  return make_uint4(bf16x2_of(f[0], f[1]), bf16x2_of(f[2], f[3]), bf16x2_of(h[0], h[1]),
+                    bf16x2_of(h[2], h[3]));
+}
+// The m16n8k16 A fragment (rows g and g + 8, k 2t, 2t + 1 and 2t + 8,
+// 2t + 9) of W^T from two ldmatrix.trans registers of raw weight bytes,
+// taken as 16-bit pairs of neighbouring columns: `lo` holds k rows 2t and
+// 2t + 1 of columns 2g and 2g + 1, `hi` the same 8 rows further. So
+// fragment row g is weight column 2g and row g + 8 is column 2g + 1.
+template <typename WT>
+__device__ __forceinline__ void a_fragment(uint32_t lo, uint32_t hi, uint32_t (&a)[4]) {
+  float f[4];
+  widen4<WT>(lo, f);  // (k 2t, col 2g), (k 2t, 2g + 1), (k 2t + 1, 2g), (k 2t + 1, 2g + 1)
+  a[0] = bf16x2_of(f[0], f[2]);
+  a[1] = bf16x2_of(f[1], f[3]);
+  widen4<WT>(hi, f);
+  a[2] = bf16x2_of(f[0], f[2]);
+  a[3] = bf16x2_of(f[1], f[3]);
+}
+
+// d (64 x 144, fp32, the m64nNk16 accumulator layout) += A (64 x 16, bf16,
+// registers: the m16n8k16 A fragment of each warp's 16 rows) * B (16 x 144,
+// bf16, K-major, descriptor b)
+__device__ __forceinline__ void wgmma_n144_rs(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, "
+      "%5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, "
+      "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Persistent blocks of 288 threads, one an SM; block b takes the output
+// tiles b, b + gridDim.x, ... of 144 rows x 128 columns (columns fastest).
+// The product is computed transposed, out^T = W^T x^T, so that the weight
+// is wgmma's register operand A and is widened in registers, never stored
+// wide:
+// * the producer (thread 256): TMA loads of the raw x and qw tiles of each
+//   K step g (counted across tiles, so the ring rolls on from one tile
+//   into the next) into ring slot g % 4 once both consumer warpgroups have
+//   released it; `full` counts the transaction bytes.
+// * the consumers (threads 0 .. 255): warpgroup c owns columns 64c .. 64c
+//   + 63 of the tile, each warp 16 of them, as the 64 rows of its m64n144
+//   accumulator (72 fp32 registers a thread; the tile's 144 rows of x are
+//   wgmma's N). Per k16 step a warp reads its 16 x 16 raw weight bytes
+//   with one half of an ldmatrix.x4.trans (16-bit pairs of neighbouring
+//   columns, so the swizzled rows are read without bank conflicts), widens
+//   them exactly in registers into the A fragment, and issues one wgmma
+//   against the x tile in shared memory (K-major). Each k16 product is its
+//   own commit group, so widening the next fragment overlaps the products
+//   in flight; a slot is released once the products of its step are done.
+//   int8 x is first widened into a bf16 tile of the same layout (three of
+//   them, one consumer barrier a step). At a tile's end each column is
+//   scaled once and stored from registers, column pairs at a time, while
+//   the producer already fills the next tile's slots.
+// The tile is 144 x 128 for the waves: 29 x 9 = 261 tiles at N = 1152
+// (1.98 waves over 132 SMs) and 29 x 36 = 1044 at N = 4608 (7.9 waves);
+// a wider tile than 64 columns a warpgroup needs more registers than a
+// block of this size gets (ptxas held a 384-thread block to 168 a thread).
+template <typename XT, typename WT, typename OT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+qmm_wg_kernel(const __grid_constant__ CUtensorMap x_map,
+              const __grid_constant__ CUtensorMap w_map, const float* __restrict__ scale,
+              OT* __restrict__ out, int M, int N, int K, long long ldo, int pairs) {
+  using S = WgSmem<XT>;
+  constexpr int STAGES = WG_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw_u = smem_u32(smem_raw);
+  const unsigned base = (raw_u + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw_u);
+  const unsigned full = base + S::BAR_OFF, empty = full + 8 * STAGES;
+
+  const int tiles_n = (N + WG_BN - 1) / WG_BN;
+  const int tiles = (M + WG_BM - 1) / WG_BM * tiles_n;
+  const int nk = (K + WG_BK - 1) / WG_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG_CONSUMERS) {  // the producer warp
+    if (threadIdx.x != WG_CONSUMERS) return;
+    int g = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * WG_BM, n0 = tile % tiles_n * WG_BN;
+      for (int kt = 0; kt < nk; ++kt, ++g) {
+        const int s = g % STAGES;
+        if (g >= STAGES) mbar_wait(empty + 8 * s, (g / STAGES - 1) & 1);
+        mbar_expect_tx(full + 8 * s, S::X_RAW + S::W_RAW);
+        tma_load_2d(base + s * S::X_RAW, &x_map, full + 8 * s, kt * WG_BK, m0);
+        tma_load_2d(base + S::W_RAW_OFF + s * S::W_RAW, &w_map, full + 8 * s, n0,
+                    kt * WG_BK);
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const int cwg = threadIdx.x / 128, warp = (threadIdx.x & 127) >> 5;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int chunk = cwg * 4 + warp;  // this warp's 16 columns, a 16-byte chunk of a raw row
+  const bool leader = (threadIdx.x & 127) == 0;
+  auto release = [&](int step) {  // the products of `step` are done
+    if (leader) mbar_arrive(empty + 8 * (step % STAGES));
+  };
+  int g = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / tiles_n * WG_BM, n0 = tile % tiles_n * WG_BN;
+    float acc[WG_BM / 2];
+#pragma unroll
+    for (int j = 0; j < WG_BM / 2; ++j) acc[j] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++g) {
+      const int s = g % STAGES;
+      mbar_wait(full + 8 * s, (g / STAGES) & 1);
+      unsigned x_u = base + s * S::X_RAW;
+      if constexpr (S::WIDEN_X) {  // int8 x -> bf16 tile g % 3, swizzled as TMA would
+        const unsigned char* xr = smem + s * S::X_RAW;
+        const int xb = S::X_BF_OFF + g % WG_XBUFS * S::X_BF;
+#pragma unroll
+        for (int i = 0; i < (WG_BM * WG_BK / 8 + WG_CONSUMERS - 1) / WG_CONSUMERS; ++i) {
+          const int e = threadIdx.x + WG_CONSUMERS * i;
+          if (e >= WG_BM * WG_BK / 8) break;
+          const int r = e >> 3, c = e & 7;  // 8 values c of row r (dense rows)
+          const uint2 raw = *reinterpret_cast<const uint2*>(xr + r * WG_BK + c * 8);
+          *reinterpret_cast<uint4*>(smem + xb + r * 128 + ((c ^ (r & 7)) << 4)) =
+              widen8<XT>(raw);
+        }
+        fence_proxy_async();
+        consumers_sync();  // tile g % 3 is whole; tile (g - 3) % 3's products are done
+        x_u = base + xb;
+      }
+      const unsigned w_u = base + S::W_RAW_OFF + s * S::W_RAW;
+      uint32_t r[4], a[WG_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        if ((kk & 1) == 0) {  // raw rows 16kk .. 16kk + 31 of this warp's columns
+          const int k = kk * 16 + lane;
+          ldsm_x4_t(w_u + k * WG_BN + ((chunk ^ (k & 7)) << 4), r[0], r[1], r[2], r[3]);
+        }
+        wgmma_wait<3>();  // the product that last read a[kk] (a step ago) is done
+        if (kk == WG_BK / 16 - 1 && kt > 0) release(g - 1);
+        a_fragment<WT>(r[(kk & 1) * 2], r[(kk & 1) * 2 + 1], a[kk]);
+        fence_acc(acc);
+        wgmma_fence();
+        wgmma_n144_rs(acc, a[kk], smem_desc(x_u + kk * 32, 16, 1024, 1));
+        wgmma_commit();
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release(g - 1);
+
+    // epilogue: accumulator row g8 (g8 + 8) of the warp is column n (n + 1),
+    // its columns 8j + 2t4 (+ 1) are rows of out
+    const int n = n0 + chunk * 16 + 2 * g8;
+    if (n >= N) continue;
+    const bool two = n + 1 < N;
+    const float s0 = scale[n], s1 = two ? scale[n + 1] : 0.f;
+#pragma unroll
+    for (int j = 0; j < WG_BM / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 8 * j + 2 * t4 + h;
+        if (row >= M) continue;
+        OT* p = out + row * ldo + n;
+        const float v0 = acc[4 * j + h] * s0, v1 = acc[4 * j + 2 + h] * s1;
+        if (two && pairs) {
+          store_pair(p, v0, v1);
+        } else {
+          p[0] = from_f32<OT>(v0);
+          if (two) p[1] = from_f32<OT>(v1);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// -lcuda at link time)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// map of a row-major (rows, cols) matrix of bf16 (wide) or bytes, row
+// stride ld elements, in boxes of box_rows x box_cols; out-of-bounds
+// elements of a box land as zeros
+static bool encode_2d(CUtensorMap* map, const void* ptr, bool wide, long long rows,
+                      long long cols, long long ld, int box_cols, int box_rows,
+                      bool swizzle128) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld * (wide ? 2 : 1))};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, wide ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+            const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename XT, typename WT, typename OT>
+static int launch_wg(const Args& a, cudaStream_t s) {
+  using S = WgSmem<XT>;
+  constexpr bool wide_x = sizeof(XT) == 2;
+  if (!aligned16(a.x) || (a.ldx * static_cast<long long>(sizeof(XT))) % 16 ||
+      !aligned16(a.w) || a.ldw % 16)
+    return static_cast<int>(cudaErrorInvalidValue);  // TMA needs 16-byte rows
+  static bool sized = false;  // once per instantiation
+  if (!sized) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(qmm_wg_kernel<XT, WT, OT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, S::ALLOC);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  CUtensorMap x_map, w_map;
+  if (!encode_2d(&x_map, a.x, wide_x, a.M, a.K, a.ldx, WG_BK, WG_BM, wide_x) ||
+      !encode_2d(&w_map, a.w, false, a.K, a.N, a.ldw, WG_BN, WG_BK, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = static_cast<long long>((a.M + WG_BM - 1) / WG_BM) *
+                          ((a.N + WG_BN - 1) / WG_BN);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);  // persistent
+  const bool pairs = a.ldo % 2 == 0 && reinterpret_cast<uintptr_t>(a.out) % (2 * sizeof(OT)) == 0;
+  qmm_wg_kernel<XT, WT, OT><<<blocks, WG_THREADS, S::ALLOC, s>>>(
+      x_map, w_map, a.scale, static_cast<OT*>(a.out), a.M, a.N, a.K, a.ldo,
+      static_cast<int>(pairs));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- CUDA-core body (fp32 x) -----------------------------------------------
 
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_THREADS = 256;
@@ -399,25 +824,41 @@ static int launch_f32(const Args& a, cudaStream_t s) {
 
 constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
 
-template <class C, typename XT, typename WT>
+// the tensor-core bodies, each a launcher over (x, w, out) element types
+struct WmmaBody {
+  template <typename XT, typename WT, typename OT>
+  static int run(const Args& a, cudaStream_t s) { return launch_tc<BigTile, XT, WT, OT>(a, s); }
+};
+struct SkinnyBody {
+  template <typename XT, typename WT, typename OT>
+  static int run(const Args& a, cudaStream_t s) {
+    return launch_tc<SkinnyTile, XT, WT, OT>(a, s);
+  }
+};
+struct WgmmaBody {
+  template <typename XT, typename WT, typename OT>
+  static int run(const Args& a, cudaStream_t s) { return launch_wg<XT, WT, OT>(a, s); }
+};
+
+template <class Body, typename XT, typename WT>
 static int tc_by_out(const Args& a, int out_code, cudaStream_t s) {
-  if (out_code == DTYPE_F32) return launch_tc<C, XT, WT, float>(a, s);
-  if (out_code == DTYPE_BF16) return launch_tc<C, XT, WT, bf16>(a, s);
+  if (out_code == DTYPE_F32) return Body::template run<XT, WT, float>(a, s);
+  if (out_code == DTYPE_BF16) return Body::template run<XT, WT, bf16>(a, s);
   return BAD;
 }
 
-template <class C, typename XT>
+template <class Body, typename XT>
 static int tc_by_w(const Args& a, int w_code, int out_code, cudaStream_t s) {
-  if (w_code == DTYPE_I8) return tc_by_out<C, XT, int8_t>(a, out_code, s);
-  if (w_code == DTYPE_F8E4M3) return tc_by_out<C, XT, fp8>(a, out_code, s);
+  if (w_code == DTYPE_I8) return tc_by_out<Body, XT, int8_t>(a, out_code, s);
+  if (w_code == DTYPE_F8E4M3) return tc_by_out<Body, XT, fp8>(a, out_code, s);
   return BAD;
 }
 
-template <class C>
+template <class Body>
 static int tc_by_x(const Args& a, int x_code, int w_code, int out_code,
                    cudaStream_t s) {
-  if (x_code == DTYPE_BF16) return tc_by_w<C, bf16>(a, w_code, out_code, s);
-  if (x_code == DTYPE_I8) return tc_by_w<C, int8_t>(a, w_code, out_code, s);
+  if (x_code == DTYPE_BF16) return tc_by_w<Body, bf16>(a, w_code, out_code, s);
+  if (x_code == DTYPE_I8) return tc_by_w<Body, int8_t>(a, w_code, out_code, s);
   return BAD;
 }
 
@@ -428,23 +869,34 @@ static int f32_by_out(const Args& a, int out_code, cudaStream_t s) {
   return BAD;
 }
 
+// body codes shared with kernels/quant_matmul/kernel.py (BODIES)
+enum BodyCode : int { BODY_CUDA_CORES = 0, BODY_WMMA = 1, BODY_SKINNY = 2, BODY_WGMMA = 3 };
+
 // x (M, K) of row stride ldx, qw (K, N) of row stride ldw, scale (N,) fp32,
-// out (M, N) of row stride ldo; codes as DTypeCode. Returns the launch's
-// cudaError_t.
+// out (M, N) of row stride ldo; codes as DTypeCode; `body` as chosen by the
+// wrapper (fp32 x: CUDA cores; M <= 64: skinny; wgmma where x and qw rows
+// are 16-byte aligned, as TMA needs; WMMA otherwise). Returns the launch's
+// cudaError_t; a body that cannot take the operands returns
+// cudaErrorInvalidValue.
 extern "C" int quant_matmul(const void* x, const void* w, const float* scale,
                             void* out, int M, int N, int K, long long ldx,
                             long long ldw, long long ldo, int x_code,
-                            int w_code, int out_code, void* stream) {
+                            int w_code, int out_code, int body, void* stream) {
   if (M < 1 || N < 1 || K < 1 || ldx < K || ldw < N || ldo < N) return BAD;
+  if ((body == BODY_CUDA_CORES) != (x_code == DTYPE_F32)) return BAD;
+  if ((body == BODY_SKINNY) != (M <= SKINNY_MAX_M) && body != BODY_CUDA_CORES) return BAD;
   const Args a{x, w, scale, out, M, N, K, ldx, ldw, ldo};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_code == DTYPE_F32) {
-    if (w_code == DTYPE_I8) return f32_by_out<int8_t>(a, out_code, s);
-    if (w_code == DTYPE_F8E4M3) return f32_by_out<fp8>(a, out_code, s);
-    return BAD;
+  switch (body) {
+    case BODY_CUDA_CORES:
+      if (w_code == DTYPE_I8) return f32_by_out<int8_t>(a, out_code, s);
+      if (w_code == DTYPE_F8E4M3) return f32_by_out<fp8>(a, out_code, s);
+      return BAD;
+    case BODY_WMMA: return tc_by_x<WmmaBody>(a, x_code, w_code, out_code, s);
+    case BODY_SKINNY: return tc_by_x<SkinnyBody>(a, x_code, w_code, out_code, s);
+    case BODY_WGMMA: return tc_by_x<WgmmaBody>(a, x_code, w_code, out_code, s);
+    default: return BAD;
   }
-  if (M <= SKINNY_MAX_M) return tc_by_x<SkinnyTile>(a, x_code, w_code, out_code, s);
-  return tc_by_x<BigTile>(a, x_code, w_code, out_code, s);
 }
 
 EXPORT_ERROR_STRING

@@ -14,16 +14,44 @@ from ..dispatch import LAUNCHES, require_cuda
 X_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 W_DTYPES = (torch.int8, torch.float8_e4m3fn)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
-MAX_ROW_TILES = 65535       # grid.y; the smallest row tile is 16
+MAX_ROW_TILES = 65535       # grid.y of the WMMA bodies; their smallest row tile is 16
+SKINNY_MAX_M = 64
+# body -> (code shared with csrc/quant_matmul.cu, output tile BM x BN)
+BODIES = {"cuda_cores": (0, (64, 64)), "wmma": (1, (128, 128)),
+          "skinny": (2, (16, 32)), "wgmma": (3, (144, 128))}
 
 
 @functools.cache
 def _launcher():
     fn = build.library("quant_matmul").quant_matmul
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_longlong] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _rows16(t: torch.Tensor) -> bool:
+    """t's rows start on 16-byte boundaries (what TMA takes)."""
+    return (t.data_ptr() % 16 == 0
+            and t.stride(0) * t.element_size() % 16 == 0)
+
+
+def plan(x: torch.Tensor, qw: torch.Tensor) -> dict:
+    """Which body computes x @ qw, chosen by dtype and shape: fp32 x ->
+    "cuda_cores"; M <= 64 (the adaLN sites) -> "skinny"; rows of x and qw
+    on 16-byte boundaries -> "wgmma" (TMA loads); else "wmma". Returns the
+    body, its output tile and the number of tiles (blocks) of the grid."""
+    M, N = x.shape[0], qw.shape[1]
+    if x.dtype == torch.float32:
+        body = "cuda_cores"
+    elif M <= SKINNY_MAX_M:
+        body = "skinny"
+    elif _rows16(x) and _rows16(qw):
+        body = "wgmma"
+    else:
+        body = "wmma"
+    bm, bn = BODIES[body][1]
+    return dict(body=body, tile=(bm, bn), blocks=-(-M // bm) * -(-N // bn))
 
 
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
@@ -58,7 +86,7 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
     rc = _launcher()(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
                      out.data_ptr(), M, N, K, x.stride(0), qw.stride(0), N,
                      code(x.dtype), code(qw.dtype), code(out_dtype),
-                     build.stream_of(x))
+                     BODIES[plan(x, qw)["body"]][0], build.stream_of(x))
     build.check(rc, "quant_matmul")
     LAUNCHES["quant_matmul"] += 1
     return out

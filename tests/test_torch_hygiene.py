@@ -29,7 +29,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "ablate_kernels.py"]
 
 
 def _imported_modules(path: Path):
@@ -128,3 +128,16 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     res = _run_smoke(tmp_path)
     assert res.returncode != 0 and '"ok": true' not in res.stdout
+
+
+def test_ablations_match_the_kernel_sources():
+    """Every edit of ablate_kernels.py still finds its anchor in the CUDA
+    source it ablates (the script refuses to run otherwise)."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import ablate_kernels
+
+    for name, (src, edits) in ablate_kernels.ABLATIONS.items():
+        text = (build.CSRC / f"{src}.cu").read_text()
+        for anchor, _ in edits:
+            assert text.count(anchor) == 1, (name, anchor)

@@ -17,6 +17,7 @@ from repro.kernels.adaln_modulate import ops as j_adaln
 from repro.kernels.flash_attention import ops as j_fa
 from repro.kernels.unipc_update import ops as j_uni
 from repro_torch.kernels.adaln_modulate import ops as t_adaln
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as t_fa
 from repro_torch.kernels.unipc_update import ops as t_uni
 
@@ -207,3 +208,79 @@ def test_card_attention_matches_plain(cuda, dtype, Hq, Hkv, D, S):
     got, want = _card_pair(t_fa.attention, q, k, v, causal=False)
     assert _rel(got, want) <= TOL["bfloat16" if dtype == torch.bfloat16
                                   else np.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,Hq,Hkv,Sq,Skv,D,causal,window", [
+    ("ragged S=200", 4, 4, 200, 200, 72, False, None),
+    ("ragged S=257", 4, 4, 257, 257, 72, False, None),
+    ("D=64 GQA causal", 4, 2, 300, 300, 64, True, None),
+    ("D=64 GQA window 40", 4, 2, 300, 300, 64, False, 40),
+    ("D=72 GQA causal", 4, 2, 300, 300, 72, True, None),
+    ("D=72 GQA causal window 40", 4, 2, 300, 300, 72, True, 40),
+    ("Skv off the key tile", 4, 4, 100, 150, 72, False, None),
+    ("queries with no unmasked key", 2, 2, 300, 100, 64, False, 30),
+    ("D=36, 2-byte loads", 4, 2, 100, 100, 36, True, None),
+    ("D=128", 2, 2, 130, 130, 128, True, None),
+])
+def test_card_attention_edges_match_plain(cuda, label, Hq, Hkv, Sq, Skv, D,
+                                          causal, window):
+    """The bf16 mma body at ragged lengths, masks, GQA and head dims."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, Hq, Sq, D, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(2, Hkv, Skv, D, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    got, want = _card_pair(t_fa.attention, q, k, v, causal=causal,
+                           window=window)
+    assert fa_kernel.plan(q, k, v, q)["body"] == "mma"
+    assert _rel(got, want) <= TOL["bfloat16"]
+
+
+@pytest.mark.gpu
+def test_card_attention_main_shape_views_and_contiguous(cuda):
+    """The main path's head-major views of (B, S, H, D) projections and the
+    same values contiguous give the same output."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(16, 256, 16, 72, generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(3))
+    got, want = _card_pair(t_fa.attention, q, k, v, causal=False)
+    assert _rel(got, want) <= TOL["bfloat16"]
+    dense = t_fa.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=False)
+    torch.testing.assert_close(dense.float().cpu(), got, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the bodies the wrappers choose (host side, so testable on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def _heads(B, H, S, D, dtype=torch.bfloat16):
+    return torch.zeros(B, H, S, D, dtype=dtype)
+
+
+@pytest.mark.parametrize("D,chunks", [(8, 4), (32, 4), (36, 8), (64, 8),
+                                      (72, 9), (80, 16), (128, 16)])
+def test_attention_plan_compiles_head_dim_in_chunks(D, chunks):
+    q = _heads(2, 4, 100, D)
+    p = fa_kernel.plan(q, q, q, q)
+    assert p["body"] == "mma" and p["chunks"] == chunks
+    assert p["vec_in"] == p["vec_out"] == (D % 8 == 0)
+    assert p["blocks"] == 2 * 4 * 1          # one 128-query tile per head
+
+
+def test_attention_plan_main_path_shape():
+    """dit-i256: head-major views of (16, 256, 16, 72) projections ->
+    16-byte rows, 9 chunks, 512 blocks of 128 queries."""
+    q = torch.zeros(16, 256, 16, 72, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa_kernel.plan(q, q, q, torch.empty_like(q)) == dict(
+        body="mma", chunks=9, vec_in=True, vec_out=True, blocks=512)
+
+
+def test_attention_plan_unaligned_rows_and_fp32():
+    wide = torch.zeros(2, 4, 100, 80, dtype=torch.bfloat16)
+    q = wide[..., 1:73]                      # rows start 2 bytes off 16
+    p = fa_kernel.plan(q, q, q, torch.empty_like(q))
+    assert p["body"] == "mma" and not p["vec_in"] and p["vec_out"]
+    p32 = fa_kernel.plan(*(_heads(2, 4, 100, 72, torch.float32),) * 4)
+    assert p32["body"] == "cuda_cores" and p32["blocks"] == 2 * 4 * 2

@@ -42,6 +42,7 @@ from repro_torch.configs import get_config as t_get_config
 from repro_torch.diffusion import VPLinear as TVP
 from repro_torch.engine import EngineSpec as TSpec
 from repro_torch.kernels.dispatch import LAUNCHES
+from repro_torch.kernels.quant_matmul import kernel as t_qkernel
 from repro_torch.kernels.quant_matmul import ops as t_qops
 from repro_torch.kernels.quant_matmul import ref as t_qref
 from repro_torch.launch import sample as t_launch
@@ -510,3 +511,74 @@ def test_card_quant_matmul_matches_plain(cuda, M, K, N, mode, x_dtype):
     assert got.dtype == x_dtype and got.shape == want.shape
     tol = 1e-2 if x_dtype == torch.bfloat16 else 1e-5
     assert _rel(got.float().cpu(), want.float().cpu()) <= tol
+
+
+SITES = {"wq": (4096, 1152, 1152), "w1": (4096, 1152, 4608),
+         "w2": (4096, 4608, 1152)}
+
+
+def _card_case(dev, M, K, N, mode, x_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=dev).to(x_dtype)
+    spec = t_quant.quant_spec(mode)
+    qw, ws = t_qref.quantize(torch.randn(K, N, generator=g, device=dev),
+                             bits=spec.bits, granularity=spec.granularity,
+                             fmt=spec.fmt)
+    sa = x.float().abs().amax() / 127.0 if spec.act_bits == 8 else None
+    got = t_qops.quant_matmul(x, qw, ws, sa=sa)
+    want = t_qops.quant_matmul(x, qw, ws, sa=sa, backend="plain")
+    torch.cuda.synchronize()
+    body = t_qkernel.plan(t_qref.fold_act(x, ws, sa)[0], qw)["body"]
+    return got, want, body
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", sorted(SITES))
+@pytest.mark.parametrize("mode", MODES)
+def test_card_quant_matmul_token_sites_on_wgmma(cuda, site, mode):
+    """Every tier at the three token sites of dit-i256, on the wgmma body."""
+    got, want, body = _card_case(cuda, *SITES[site], mode, torch.bfloat16, 4)
+    assert body == "wgmma"
+    assert _rel(got.float().cpu(), want.float().cpu()) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,body", [
+    (4100, 1168, 1168, "wgmma"),   # M, N, K off every tile edge
+    (4100, 1160, 1160, "wmma"),    # qw rows of 1160 bytes: no TMA
+    (65, 40, 32, "wgmma"),         # one partial tile
+])
+@pytest.mark.parametrize("mode", ["w8a16", "w8a8"])
+def test_card_quant_matmul_ragged(cuda, M, K, N, body, mode):
+    got, want, used = _card_case(cuda, M, K, N, mode, torch.bfloat16, 5)
+    assert used == body
+    assert _rel(got.float().cpu(), want.float().cpu()) <= 1e-2
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype,w_dtype,body,tiles", [
+    (4096, 1152, 1152, torch.bfloat16, torch.int8, "wgmma", 29 * 9),
+    (4096, 1152, 4608, torch.bfloat16, torch.int8, "wgmma", 29 * 36),
+    (4096, 4608, 1152, torch.int8, torch.float8_e4m3fn, "wgmma", 29 * 9),
+    (16, 1152, 6912, torch.bfloat16, torch.int8, "skinny", 216),
+    (65, 1152, 1152, torch.bfloat16, torch.int8, "wgmma", 9),
+    (4100, 1160, 1160, torch.bfloat16, torch.int8, "wmma", 33 * 10),
+    (4096, 1152, 1152, torch.float32, torch.int8, "cuda_cores", 64 * 18),
+])
+def test_quant_matmul_plan_picks_body_and_tiles(M, K, N, x_dtype, w_dtype,
+                                                 body, tiles):
+    """The body and its tile count by dtype and shape: the token sites of
+    dit-i256 on wgmma (144 x 128 tiles: 261 at N = 1152, 1.98 waves over
+    132 SMs), the adaLN sites (M = 16) on the skinny body, rows TMA cannot
+    take on WMMA, fp32 x on CUDA cores."""
+    x = torch.zeros(M, K, dtype=x_dtype)
+    qw = torch.zeros(K, N, dtype=torch.int8).view(w_dtype)
+    p = t_qkernel.plan(x, qw)
+    assert p["body"] == body and p["blocks"] == tiles
+    assert p["tile"] == t_qkernel.BODIES[body][1]
+
+
+def test_quant_matmul_plan_needs_aligned_rows_for_tma():
+    x = torch.zeros(4096, 1160, dtype=torch.bfloat16)
+    qw = torch.zeros(1152, 1152, dtype=torch.int8)
+    assert t_qkernel.plan(x[:, :1152], qw)["body"] == "wgmma"  # 2320-byte rows
+    assert t_qkernel.plan(x[:, 1:1153], qw)["body"] == "wmma"  # 2 bytes off
