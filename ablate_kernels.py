@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flash_attention and quant_matmul goes, on
-the card: ablation timings at the main path's shapes.
+"""Where the time of the port's redesigned kernels (flash_attention,
+quant_matmul, adaln_modulate) goes, on the card: ablation timings at the
+main path's shapes.
 
     python3 ablate_kernels.py     # from the repository root, one CUDA card
 
 Each ablation is a copy of a kernel's CUDA source with one part of its work
 taken out (the product, the softmax's exponentials, the widening, the
-loads after the first ring's worth). Its output is wrong and unchecked;
-only its device time counts, next to the unchanged kernel built the same
-way. All copies build in parallel under build/ablate/; each is timed by
+loads after the first ring's worth, modulate's reductions or conditioning
+loads). Its output is wrong and unchecked; only its device time counts,
+next to the unchanged kernel built the same way. adaln_modulate is also
+timed on other plans than its plan() picks (ADALN_PLANS): other grids,
+4-warp blocks, 8-byte accesses. All copies build in parallel under
+build/ablate/; each is timed by
 chip_smoke.device_ms (100 calls in a CUDA graph). An edit whose anchor text
 is no longer in the source fails the run, so the ablations follow the
 kernels or stop.
@@ -31,6 +35,21 @@ import chip_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
 OUT = ROOT / "build" / "ablate"
+
+# modulate's register body with the statistics constant (mu 0, r 1) and
+# with no shift/scale loads (their registers stay zero)
+_NO_STATS = [
+    ("        for (int i = 0; i < VEC; ++i) s += xv[j].get(i);\n"
+     "      const float mu = group_sum<LANES>(s) / D;",
+     "        for (int i = 0; i < VEC; ++i) s += xv[j].get(i);\n"
+     "      const float mu = 0.f;"),
+    ("      const float r = rsqrtf(group_sum<LANES>(s2) / D + eps);\n"
+     "      if (!valid) continue;",
+     "      const float r = 1.f;\n      if (!valid) continue;")]
+_NO_COND = [
+    ("      if (c < nvec) {\n        csh[j].load(sh + c * VEC);\n"
+     "        csc[j].load(sc + c * VEC);\n      }",
+     "      (void)c;")]
 
 # name -> (source, [(anchor, replacement)])
 ABLATIONS = {
@@ -64,6 +83,37 @@ ABLATIONS = {
         ("        if (g >= STAGES) mbar_wait(empty + 8 * s, (g / STAGES - 1) & 1);\n",
          "        if (g >= STAGES) { mbar_wait(empty + 8 * s, (g / STAGES - 1) & 1);\n"
          "          mbar_arrive(full + 8 * s); continue; }\n")]),
+    "adaln_modulate": ("adaln_modulate", []),
+    "adaln_modulate no reductions (constant mean and variance)": (
+        "adaln_modulate", _NO_STATS),
+    "adaln_modulate no conditioning loads": ("adaln_modulate", _NO_COND),
+    "adaln_modulate loads and stores only": ("adaln_modulate", [
+        *_NO_STATS, *_NO_COND,
+        ("            f[i] = modulated(xv[j].get(i), mu, r, csc[j].get(i), "
+         "csh[j].get(i));", "            f[i] = xv[j].get(i);")]),
+    "adaln_modulate 8-byte accesses": ("adaln_modulate", [
+        ("    {DTYPE_BF16, 16, 32, 5, launch_modulate<bf16, 8, 32, 5>},\n",
+         "    {DTYPE_BF16, 16, 32, 5, launch_modulate<bf16, 8, 32, 5>},\n"
+         "    {DTYPE_BF16, 8, 32, 9, launch_modulate<bf16, 4, 32, 9>},\n")]),
+}
+
+# plans the adaLN libraries are timed on, as edits of plan()'s at the main
+# shape (B 16, T 256: 256 blocks of 8 warps, 2 rows a warp):
+# {ablation: {label: edit}}
+ADALN_PLANS = {
+    "adaln_modulate": {
+        "": lambda p: p,
+        ", grid of all rows (512 blocks, 1 row a warp)": lambda p: dict(
+            p, blocks=16 * 32),
+        ", grid-stride, 128 blocks, 4 rows a warp": lambda p: dict(
+            p, blocks=16 * 8),
+        ", grid-stride, 64 blocks, 8 rows a warp": lambda p: dict(
+            p, blocks=16 * 4),
+        ", 4-warp blocks (512 blocks, 2 rows a warp)": lambda p: dict(
+            p, rows_per_block=4, blocks=16 * 32),
+    },
+    "adaln_modulate 8-byte accesses": {
+        ", 9 chunks a lane": lambda p: dict(p, access_bytes=8, chunks=9)},
 }
 
 
@@ -93,6 +143,7 @@ def build_all() -> dict:
 
 def use(src: str, so: Path) -> None:
     """Point the kernel wrapper of `src` at the library `so`."""
+    from repro_torch.kernels.adaln_modulate import kernel as adaln_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
 
@@ -100,12 +151,15 @@ def use(src: str, so: Path) -> None:
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     build._LIBS[src] = lib
-    {"flash_attention": fa_kernel, "quant_matmul": qmm_kernel}[src]._launcher.cache_clear()
+    {"flash_attention": fa_kernel._launcher,
+     "quant_matmul": qmm_kernel._launcher,
+     "adaln_modulate": adaln_kernel._launchers}[src].cache_clear()
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernels.py needs a CUDA card")
+    from repro_torch.kernels.adaln_modulate import kernel as adaln_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
     from repro_torch.kernels.quant_matmul import ref as qmm_ref
@@ -127,10 +181,28 @@ def main():
         x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
         qw, ws = qmm_ref.quantize(torch.randn(K, N, generator=g, device=dev))
         sites[site] = (x, qw, ws.float().contiguous())
+    # adaln_modulate at the dit-i256 block shape, shift/scale read in place
+    # from the (16, 6 x 1152) modulation as the DiT does
+    bf = torch.bfloat16
+    xm = torch.randn(16, 256, 1152, generator=g, device=dev).to(bf)
+    mod = torch.randn(16, 6 * 1152, generator=g, device=dev).to(bf)
+    msh, msc, mout = mod[:, :1152], mod[:, 1152:2304], torch.empty_like(xm)
+    mod_plan = adaln_kernel.plan(xm, msh, msc, mout)
+    bound_ms, by = chip_smoke.bound(
+        2 * chip_smoke.nbytes(xm) + chip_smoke.nbytes(msh, msc),
+        8 * xm.numel(), torch.float32)
+    print(f"adaln_modulate bound {bound_ms:.5f} ms ({by}); plan {mod_plan}")
     for name, so in libs.items():
         src = ABLATIONS[name][0]
         use(src, so)
-        if src == "flash_attention":
+        if src == "adaln_modulate":
+            plans = ADALN_PLANS.get(name, {"": lambda p: p})
+            for label, edit in plans.items():
+                ms = chip_smoke.device_ms(functools.partial(
+                    adaln_kernel._launch_modulate, xm, msh, msc, mout, 1e-5,
+                    edit(mod_plan)))
+                print(f"{name}{label}: {ms:.5f} ms")
+        elif src == "flash_attention":
             ms = chip_smoke.device_ms(functools.partial(
                 fa_kernel.flash_attention, q, k, v, causal=False))
             print(f"{name}: {ms:.5f} ms")

@@ -7,14 +7,18 @@ Phases (any failure exits non-zero):
   1. device — the card, its power limit, torch/CUDA versions; TF32 off.
   2. build  — nvcc builds every kernel of the main path from `csrc/`.
   3. kernels — each kernel against its plain PyTorch version at the main
-     path's shapes (and a ragged / GQA case), timed on the device (a CUDA
-     graph of many calls, replayed between CUDA events) beside its bound,
-     its plain version and one PyTorch library call; the wrapper's host
-     cost per call is reported apart.
+     path's shapes and at edge shapes, each case labelled with the body
+     the wrapper's plan() chose, timed on the device (a CUDA graph of many
+     calls, replayed between CUDA events) beside its bound, its plain
+     version and one PyTorch library call; the wrapper's host cost per
+     call is reported apart.
   4. main path — guided UniPC sampling of full-width dit-i256 (28 blocks,
      d_model 1152, 16 heads of dim 72, bf16 activations, fp32 params) through
      `repro_torch.launch.sample.sample`: launch counts, kernel vs plain-pinned
-     latents, a reduced-size card vs CPU check, wall time and peak memory.
+     latents, wall time and peak memory; then the same call once more under
+     torch.profiler, outside the timed wall (device time by kernel and by
+     kind, and the share of the wall with no kernel running), and a
+     reduced-size card vs CPU check.
   5. serving step — four requests admitted at staggered ticks into a
      per-slot `StepProgram` at full width (fp32 activations), and a fifth
      re-admitted into the slot the first one freed (over its stale eval
@@ -26,7 +30,8 @@ Phases (any failure exits non-zero):
      latents, quantized weight bytes; w8a8 (calibrated on the card),
      fp8a16 and w4a16 at depth 4, each against its plain-pinned run; a
      w8a16 per-slot `StepProgram` at fp32 against its uniform runs.
-The last two lines are the kernels JSON and
+The last three lines are the kernels JSON, the card's name and power
+limit as `nvidia-smi --query-gpu=name,power.limit` prints them, and
 {"ok": true, "device": {...}}.
 """
 
@@ -200,7 +205,13 @@ def kernel_phase(dev) -> dict:
 
     # B2/B3 at the dit-i256 block shape: net batch 16 (8 requests x CFG),
     # T = 256, D = 1152, bf16, conditioning read in place from the (B, 6D)
-    # modulation vector as the DiT does.
+    # modulation vector as the DiT does. modulate's cases then cover each
+    # body its plan() picks (printed beside the label): the fp32 width of
+    # phase 5, dit-cifar, the reduced config, D = 72, rows of 1004 (no
+    # 16-byte multiple), MAX_D, the final layer's (B, 2D) conditioning and
+    # conditioning rows 2 bytes off alignment.
+    from repro_torch.kernels.adaln_modulate import kernel as adaln_kernel
+
     B, T, D = 16, 256, 1152
     x = randn(B, T, D, dtype=torch.bfloat16)
     y = randn(B, T, D, dtype=torch.bfloat16)
@@ -208,18 +219,67 @@ def kernel_phase(dev) -> dict:
     sh, sc, gt = mod[:, :D], mod[:, D:2 * D], mod[:, 2 * D:3 * D]
     xr = randn(2, 37, 72)
     modr = randn(2, 2 * 72)
+
+    def mod_body(x_, sh_, sc_, out_):
+        p = adaln_kernel.plan(x_, sh_, sc_, out_)
+        shape = (f"{p['chunks']} chunks a lane" if p["chunks"]
+                 else "chunks looped")
+        return (f"{p['body']}, {p['access_bytes']}-byte, {p['lanes']} "
+                f"lanes a row, {shape}, {p['blocks']} blocks")
+
+    def mod_case(label, b_, t_, d_, dtype, layout="dit"):
+        """(label [body], kernel, plain, dtype) of modulate on a fresh x
+        and conditioning laid out as `layout` (dit: (B, 6D); head: (B,
+        2D); unaligned: [:, 1:D+1] and [:, D+1:2D+1] of (B, 2D+1))."""
+        width, off = {"dit": (6 * d_, 0), "head": (2 * d_, 0),
+                      "unaligned": (2 * d_ + 1, 1)}[layout]
+        x_ = randn(b_, t_, d_, dtype=dtype)
+        m_ = randn(b_, width, dtype=dtype)
+        sh_, sc_ = m_[:, off:off + d_], m_[:, off + d_:off + 2 * d_]
+        got = adaln_ops.modulate(x_, sh_, sc_)
+        want = adaln_ops.modulate(x_, sh_, sc_, backend="plain")
+        return f"{label} [{mod_body(x_, sh_, sc_, got)}]", got, want, dtype
+
+    bf, f32 = torch.bfloat16, torch.float32
+    main_got = adaln_ops.modulate(x, sh, sc)
     cases = [
-        ("main bf16 D=1152", adaln_ops.modulate(x, sh, sc),
-         adaln_ops.modulate(x, sh, sc, backend="plain"), torch.bfloat16),
-        ("ragged T=37 D=72 fp32",
-         adaln_ops.modulate(xr, modr[:, :72], modr[:, 72:]),
-         adaln_ops.modulate(xr, modr[:, :72], modr[:, 72:], backend="plain"),
-         torch.float32),
+        (f"main bf16 (16, 256, 1152) [{mod_body(x, sh, sc, main_got)}]",
+         main_got, adaln_ops.modulate(x, sh, sc, backend="plain"), bf),
+        mod_case("fp32 (16, 256, 1152)", 16, 256, 1152, f32),
+        mod_case("dit-cifar bf16 (16, 64, 384)", 16, 64, 384, bf),
+        mod_case("reduced fp32 (2, 37, 128)", 2, 37, 128, f32),
+        mod_case("bf16 (2, 37, 72)", 2, 37, 72, bf),
+        mod_case("fp32 (2, 37, 72)", 2, 37, 72, f32),
+        mod_case("bf16 (4, 64, 1004)", 4, 64, 1004, bf),
+        mod_case("bf16 (4, 64, 8192) MAX_D", 4, 64, 8192, bf),
+        mod_case("head (B, 2D) bf16 (16, 256, 1152)", 16, 256, 1152, bf,
+                 "head"),
+        mod_case("unaligned mod[:, 1:D+1] bf16 (16, 256, 1152)", 16, 256,
+                 1152, bf, "unaligned"),
     ]
     record("adaln_modulate", cases, (
         lambda: adaln_ops.modulate(x, sh, sc),
         lambda: adaln_ops.modulate(x, sh, sc, backend="plain"),
         None, 2 * nbytes(x) + nbytes(sh, sc), 8 * x.numel(), torch.float32))
+    ln_ms = device_ms(lambda: F.layer_norm(x, (D,)))
+    st = out["adaln_modulate"]
+    st["body"] = mod_body(x, sh, sc, main_got)
+    st["layer_norm_subset_ms"] = ln_ms
+    print(f"  adaln_modulate main bf16 (16, 256, 1152) [{st['body']}]: "
+          f"{st['ms']:.6f} ms (bound {st['bound_ms']:.6f} by "
+          f"{st['bound_by']}; plain {st['plain_ms']:.6f}; host "
+          f"{st['host_call_ms']:.4f})")
+    x32 = x.float()      # phase 5's fp32 width, the same conditioning rows
+    sh32, sc32 = mod.float()[:, :D], mod.float()[:, D:2 * D]
+    st["fp32_ms"] = device_ms(lambda: adaln_ops.modulate(x32, sh32, sc32))
+    st["fp32_bound_ms"] = bound(2 * nbytes(x32) + nbytes(sh32, sc32),
+                                8 * x32.numel(), torch.float32)[0]
+    print(f"  adaln_modulate fp32 (16, 256, 1152) "
+          f"[{mod_body(x32, sh32, sc32, x32)}]: {st['fp32_ms']:.6f} ms "
+          f"(bound {st['fp32_bound_ms']:.6f})")
+    print(f"  F.layer_norm(x, (1152,)) at the main shape: {ln_ms:.6f} ms -- "
+          f"a subset of modulate's work (no scale/shift) moving the same "
+          f"bytes, not its library_ms (null: no single call does it all)")
     cases = [
         ("main bf16 D=1152", adaln_ops.gate_residual(x, gt, y),
          adaln_ops.gate_residual(x, gt, y, backend="plain"), torch.bfloat16),
@@ -489,6 +549,77 @@ def expected_launches(cfg, rows: int, quantized: bool = False) -> dict:
     return out
 
 
+# substrings of device kernel names, by what runs them on the main path
+KERNEL_KINDS = (
+    ("port kernels", ("modulate_kernel", "gate_residual_kernel", "attn_",
+                      "qmm_", "combine_kernel")),
+    ("matmul (torch.matmul / cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet",
+                                        "sm90_")),
+    ("copies and casts (fp32 -> bf16 weights, .to, cat)",
+     ("copy", "memcpy", "catarray")),
+)
+
+
+def kernel_kind(name: str) -> str:
+    for kind, keys in KERNEL_KINDS:
+        if any(k in name.lower() for k in keys):
+            return kind
+    return "other (elementwise, reductions, memset)"
+
+
+def profile_split(fn, top: int = 12) -> dict:
+    """Run `fn` once under torch.profiler with CUDA activity and split the
+    device time: the top kernels by summed time with their counts, the sum
+    by kind, the sum of all device activity, the wall (host clock to a
+    sync, with the profiler's own cost inside) and the share of the wall
+    with no device activity (the union of kernel intervals against the
+    wall). Returns {} if the profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not spans:
+        print("  profiler: no device activity recorded (split not measured)")
+        return {}
+    by_name: dict = {}
+    for name, start, end in spans:
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + end - start)
+    total_ms = sum(us for _, us in by_name.values()) / 1e3
+    busy_us, reach = 0.0, float("-inf")   # union of the intervals
+    for _, start, end in sorted(spans, key=lambda sp: sp[1]):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    kinds: dict = {}
+    for name, (n, us) in by_name.items():
+        k = kinds.setdefault(kernel_kind(name), [0, 0.0])
+        k[0] += n
+        k[1] += us / 1e3
+    idle = 1.0 - busy_us / 1e3 / (wall * 1e3)
+    print(f"  profiled run: wall {wall:.4f} s (profiler on), device "
+          f"activity {total_ms:.3f} ms summed, {busy_us / 1e3:.3f} ms as a "
+          f"union; no kernel running for {idle:.1%} of the wall")
+    for kind, (n, ms) in sorted(kinds.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {kind}: {ms:.3f} ms in {n} launches "
+              f"({ms / total_ms:.1%} of device time)")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    for name, (n, us) in ranked:
+        print(f"    {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
+    return dict(wall_s=wall, device_ms_sum=total_ms,
+                device_busy_ms=busy_us / 1e3, idle_share_of_wall=idle,
+                by_kind={k: dict(launches=n, ms=ms)
+                         for k, (n, ms) in kinds.items()},
+                top=[dict(name=name[:200], launches=n, ms=us / 1e3)
+                     for name, (n, us) in ranked])
+
+
 def main_path_phase(dev, counts_out: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.diffusion import VPLinear
@@ -542,6 +673,10 @@ def main_path_phase(dev, counts_out: dict) -> dict:
     print(f"  wall {wall:.3f} s for {batch} requests = "
           f"{wall / batch * 1e3:.1f} ms per request end to end; peak memory "
           f"{peak / 2**30:.2f} GiB")
+    # the same call once more under the profiler, outside the timed wall
+    split = profile_split(lambda: sample(
+        "dit-i256", reduced=False, nfe=nfe, order=order, cfg_scale=g_scale,
+        batch=batch, params=params, x_T=x_T, device=dev))
 
     # a small input through the kernels on the card and the plain path on
     # the CPU: the reduced config (fp32, GQA 4/2, head dim 32)
@@ -560,7 +695,7 @@ def main_path_phase(dev, counts_out: dict) -> dict:
         fail(f"reduced-size card vs CPU disagree: {small_err:.3e}")
     return dict(wall_s=wall, ms_per_request=wall / batch * 1e3,
                 peak_bytes=peak, rel_err_vs_plain=err, rows=rows,
-                small_rel_err=small_err, latents=x0)
+                small_rel_err=small_err, profile=split, latents=x0)
 
 
 # --------------------------------------------------------------------------
@@ -939,6 +1074,9 @@ def main():
             bound_by=st["bound_by"], library_ms=st["library_ms"])
         if "sites" in st:
             entry.update(per_call_over=st["per_call_over"], sites=st["sites"])
+        for key in ("layer_norm_subset_ms", "fp32_ms", "fp32_bound_ms"):
+            if key in st:
+                entry[key] = st[key]
         entries.append(entry)
     summary = dict(main_path=main_stats, serving_worst_rel_err=serve_worst,
                    fp32_full_width_kernel_vs_plain=fp32_err,

@@ -11,7 +11,21 @@ import torch
 from .. import build
 from ..dispatch import LAUNCHES, require_cuda
 
-MAX_D = 8 * 1024  # VPT * MAX_ROW_THREADS in the source
+MAX_D = 8 * 1024  # MOD_MAX_D in the source
+ACCESS_BYTES = (16, 8, 4, 2)
+# the register bodies the source compiles: (dtype, access bytes, lanes per
+# row, chunks per lane), for D = 1152 / 384 / 128 (MOD_BODIES); any other
+# operands run the generic body (32 lanes, chunks 0) at their access width
+REGISTER_BODIES = {
+    (torch.bfloat16, 16, 32, 5), (torch.bfloat16, 16, 16, 3),
+    (torch.bfloat16, 16, 16, 1), (torch.float32, 16, 32, 9),
+    (torch.float32, 16, 32, 3), (torch.float32, 16, 16, 2)}
+MOD_THREADS = 256
+# blocks of MOD_THREADS an SM holds at once with every register body
+# (ptxas: at most 128 registers a thread); the SM count of a CPU tensor's
+# plan is the H100 SXM's
+BLOCKS_PER_SM = 2
+H100_SMS = 132
 
 
 @functools.cache
@@ -20,7 +34,7 @@ def _launchers():
     mod, gate = lib.adaln_modulate, lib.gate_residual
     mod.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     gate.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p]
@@ -51,17 +65,72 @@ def _check_rows(name, x, *conds):
     return row_stride
 
 
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def plan(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+         out: torch.Tensor) -> dict:
+    """Which body serves these operands, by dtype, D and alignment.
+
+    `access_bytes` is the widest access (16, 8, 4 or 2 bytes, at least one
+    element) that every pointer, the rows of x and out and the
+    conditioning row stride are aligned to; a row is then
+    `D * size / access_bytes` chunks. `lanes` own a row (32, or 16 under
+    64 chunks) and `chunks` is the count per lane. The body is "registers"
+    where that combination is compiled (REGISTER_BODIES), else "generic"
+    (32 lanes, chunks 0). Blocks of MOD_THREADS hold `rows_per_block`
+    rows of one b at once. Where one block per `rows_per_block` rows
+    would overflow a wave (BLOCKS_PER_SM on each SM), `blocks` shrinks by
+    an integer factor until it fits, and each group takes that many rows
+    in turn (grid-stride), keeping its shift/scale registers.
+    """
+    B, T, D = x.shape
+    if D > MAX_D:
+        raise ValueError(f"adaln_modulate: D <= {MAX_D}, got {D}")
+    size = x.element_size()
+    # every address and byte stride the accesses step by, OR-ed: its low
+    # bits bound the alignment they all share
+    offsets = (x.data_ptr() | shift.data_ptr() | scale.data_ptr()
+               | out.data_ptr() | D * size | shift.stride(0) * size)
+    width = next(w for w in ACCESS_BYTES if w <= size or offsets % w == 0)
+    nvec = D * size // width
+    lanes = 32 if nvec >= 64 else 16
+    chunks = -(-nvec // lanes)
+    if (x.dtype, width, lanes, chunks) in REGISTER_BODIES:
+        body = "registers"
+    else:
+        body, lanes, chunks = "generic", 32, 0
+    rows = MOD_THREADS // lanes
+    sms = _sms(x.device.index) if x.is_cuda else H100_SMS
+    per_b = -(-T // rows)                       # one row a group
+    turns = -(-B * per_b // (BLOCKS_PER_SM * sms))
+    return dict(body=body, access_bytes=width, lanes=lanes, chunks=chunks,
+                rows_per_block=rows, blocks=B * -(-per_b // turns))
+
+
+def _launch_modulate(x, shift, scale, out, eps, p) -> None:
+    """Launch the modulate kernel on plan `p` (see plan())."""
+    B, T, D = x.shape
+    rc = _launchers()[0](
+        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), out.data_ptr(), B,
+        T, D, shift.stride(0), eps, build.dtype_code(x.dtype),
+        p["access_bytes"], p["lanes"], p["chunks"],
+        p["rows_per_block"] * p["lanes"] // 32, p["blocks"] // B,
+        build.stream_of(x))
+    build.check(rc, "adaln_modulate")
+    LAUNCHES["adaln_modulate"] += 1
+
+
 def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
                    eps: float = 1e-5) -> torch.Tensor:
     """LN(x) * (1 + scale) + shift in one pass; x (B, T, D) fp32/bf16."""
-    stride = _check_rows("adaln_modulate", x, shift, scale)
-    B, T, D = x.shape
+    _check_rows("adaln_modulate", x, shift, scale)
+    if x.shape[0] > 65535:
+        raise ValueError(f"adaln_modulate: B <= 65535, got {x.shape[0]}")
     out = torch.empty_like(x)
-    rc = _launchers()[0](x.data_ptr(), shift.data_ptr(), scale.data_ptr(),
-                         out.data_ptr(), B, T, D, stride, eps,
-                         build.dtype_code(x.dtype), build.stream_of(x))
-    build.check(rc, "adaln_modulate")
-    LAUNCHES["adaln_modulate"] += 1
+    _launch_modulate(x, shift, scale, out, eps, plan(x, shift, scale, out))
     return out
 
 

@@ -12,59 +12,221 @@
 // the (B, D) gate is 37 KB).
 //
 // Design:
-// * modulate — one block per (b, t) row; the row lives in registers
-//   (VPT values a thread, threads on neighbouring columns), so x is read
-//   once. Mean, then the mean of the centred squares, both fp32 block
-//   reductions over the true D (two passes over registers, not
-//   E[x^2] - mu^2), exactly the reference's jnp.mean / jnp.var. No lane
-//   padding: columns past D are masked by the loop bound.
+// * modulate — a group of LANES lanes (a warp, or 16 lanes for narrow
+//   rows) owns a row. The row lives in the group's registers as raw
+//   2-16 byte chunks, lane l holding chunks l, l + LANES, ..., so every
+//   access of the group is one coalesced span. Mean, then the mean of the
+//   centred squares, both fp32 __shfl_xor_sync butterflies over the true
+//   D (two passes over registers, not E[x^2] - mu^2), exactly the
+//   reference's jnp.mean / jnp.var: no shared memory, no block barrier.
+//   A block is a few warps on rows of one b (grid y); each group loads the
+//   shift/scale chunks of its columns once, before its first row's x, and
+//   keeps them for every row it takes (grid-stride over t). Every x load
+//   of a row is issued before its first reduction. The chunk count per
+//   lane is compiled for the configs' widths (register bodies); any other
+//   D <= MOD_MAX_D runs the generic body of the same kernel (NCHUNK = 0),
+//   which walks the row three times from memory (the later passes hit
+//   L1/L2). The access width is the widest that every pointer, the rows
+//   and the conditioning stride allow; the wrapper's plan() chooses it and
+//   the body, and this entry point refuses a plan the operands cannot take.
 // * gate_residual — grid (x: T*D chunks, y: b), grid-stride elementwise;
 //   the per-row gate is indexed, not broadcast in memory.
 // shift/scale/gate are (B, D) rows with a row stride, so the six chunks of
 // the DiT's modulation vector are read in place.
 #include "common.cuh"
 
-constexpr int VPT = 8;              // values of a row per thread
-constexpr int MAX_ROW_THREADS = 1024;
+constexpr int MOD_MAX_D = 8 * 1024;
+constexpr int MOD_MAX_THREADS = 256;
 constexpr int EW_THREADS = 256;
 constexpr int MAX_EW_BLOCKS_X = 2048;
 
-template <typename T>
-__global__ void __launch_bounds__(MAX_ROW_THREADS)
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<4> { using type = uint32_t; };
+template <> struct Raw<2> { using type = unsigned short; };
+
+// VEC consecutive elements of a row, held as the raw 32-bit words of one
+// 2-16 byte access (a 2-byte access keeps its bf16 in the low half).
+template <typename T, int VEC>
+struct Chunk {
+  static constexpr int BYTES = VEC * static_cast<int>(sizeof(T));
+  static constexpr int WORDS = BYTES >= 4 ? BYTES / 4 : 1;
+  uint32_t w[WORDS];
+
+  __device__ __forceinline__ void load(const T* p) {
+    const auto v = *reinterpret_cast<const typename Raw<BYTES>::type*>(p);
+    if constexpr (BYTES == 16) {
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else if constexpr (BYTES == 8) {
+      w[0] = v.x; w[1] = v.y;
+    } else {
+      w[0] = v;
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) w[i] = 0u;
+  }
+  // element i as fp32 (bf16 widens exactly by a shift)
+  __device__ __forceinline__ float get(int i) const {
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float(w[i]);
+    } else {
+      return __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u) : (w[i >> 1] << 16));
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {  // round to nearest even
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Store VEC fp32 values as one access of T.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_chunk(T* p, const float (&f)[VEC]) {
+  using C = Chunk<T, VEC>;
+  typename Raw<C::BYTES>::type v;
+  uint32_t w[C::WORDS];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) w[i] = __float_as_uint(f[i]);
+  } else if constexpr (VEC == 1) {
+    w[0] = bf16_bits(f[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) w[i] = bf16_bits(f[2 * i]) | (bf16_bits(f[2 * i + 1]) << 16);
+  }
+  if constexpr (C::BYTES == 16) {
+    v = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (C::BYTES == 8) {
+    v = make_uint2(w[0], w[1]);
+  } else {
+    v = static_cast<typename Raw<C::BYTES>::type>(w[0]);
+  }
+  *reinterpret_cast<typename Raw<C::BYTES>::type*>(p) = v;
+}
+
+// Sum over each aligned group of LANES lanes, returned to all of them.
+// Deterministic: a xor butterfly gives every lane the same sum.
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float modulated(float v, float mu, float r, float sc, float sh) {
+  return (v - mu) * r * (1.f + sc) + sh;
+}
+
+// grid (blocks per b, B); blockDim.x a multiple of 32, at most
+// MOD_MAX_THREADS. Each group of LANES lanes takes rows t = g, g + step,
+// ... of its b, where g is its index among the groups of b's blocks.
+template <typename T, int VEC, int LANES, int NCHUNK>
+__global__ void __launch_bounds__(MOD_MAX_THREADS)
 modulate_kernel(const T* __restrict__ x, const T* __restrict__ shift,
                 const T* __restrict__ scale, T* __restrict__ out, int T_, int D,
                 long long cond_stride, float eps) {
-  __shared__ float scratch[32];
-  const long long row = blockIdx.x;  // b * T + t
-  const long long b = row / T_;
-  const T* xr = x + row * D;
-  float v[VPT];
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int d = threadIdx.x + j * blockDim.x;
-    v[j] = d < D ? to_f32(xr[d]) : 0.f;
-    s += v[j];
-  }
-  const float mu = block_sum(s, scratch) / D;
-  float s2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int d = threadIdx.x + j * blockDim.x;
-    if (d < D) {
-      v[j] -= mu;
-      s2 += v[j] * v[j];
-    }
-  }
-  const float var = block_sum(s2, scratch) / D;
-  const float r = rsqrtf(var + eps);
+  using C = Chunk<T, VEC>;
+  constexpr int GROUPS = 32 / LANES;  // rows a warp holds at once
+  const int lane = threadIdx.x & 31, sub = lane % LANES;
+  const int warps = blockDim.x >> 5;
+  const int nvec = D / VEC;
+  const long long b = blockIdx.y;
   const T* sh = shift + b * cond_stride;
   const T* sc = scale + b * cond_stride;
-  T* o = out + row * D;
+  const int step = gridDim.x * warps * GROUPS;
+  // the warp's first row; the loop bound is uniform across the warp, so
+  // every lane reaches every shuffle
+  int t = (blockIdx.x * warps + (threadIdx.x >> 5)) * GROUPS;
+  if constexpr (NCHUNK > 0) {
+    C csh[NCHUNK], csc[NCHUNK];
 #pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int d = threadIdx.x + j * blockDim.x;
-    if (d < D) o[d] = from_f32<T>(v[j] * r * (1.f + to_f32(sc[d])) + to_f32(sh[d]));
+    for (int j = 0; j < NCHUNK; ++j) {
+      const int c = j * LANES + sub;
+      csh[j].zero();
+      csc[j].zero();
+      if (c < nvec) {
+        csh[j].load(sh + c * VEC);
+        csc[j].load(sc + c * VEC);
+      }
+    }
+    for (; t < T_; t += step) {
+      const int tr = t + lane / LANES;
+      const bool valid = tr < T_;
+      const long long row = b * T_ + tr;
+      C xv[NCHUNK];
+#pragma unroll
+      for (int j = 0; j < NCHUNK; ++j) {
+        const int c = j * LANES + sub;
+        xv[j].zero();
+        if (valid && c < nvec) xv[j].load(x + row * D + c * VEC);
+      }
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < NCHUNK; ++j)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) s += xv[j].get(i);
+      const float mu = group_sum<LANES>(s) / D;
+      float s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NCHUNK; ++j) {
+        if (j * LANES + sub < nvec) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            const float d = xv[j].get(i) - mu;
+            s2 += d * d;
+          }
+        }
+      }
+      const float r = rsqrtf(group_sum<LANES>(s2) / D + eps);
+      if (!valid) continue;
+#pragma unroll
+      for (int j = 0; j < NCHUNK; ++j) {
+        const int c = j * LANES + sub;
+        if (c < nvec) {
+          float f[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            f[i] = modulated(xv[j].get(i), mu, r, csc[j].get(i), csh[j].get(i));
+          store_chunk<T, VEC>(out + row * D + c * VEC, f);
+        }
+      }
+    }
+  } else {  // generic body: LANES == 32, any D
+    for (; t < T_; t += step) {
+      const T* xr = x + (b * T_ + t) * D;
+      float s = 0.f;
+      for (int c = sub; c < nvec; c += LANES) {
+        C v;
+        v.load(xr + c * VEC);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) s += v.get(i);
+      }
+      const float mu = group_sum<LANES>(s) / D;
+      float s2 = 0.f;
+      for (int c = sub; c < nvec; c += LANES) {
+        C v;
+        v.load(xr + c * VEC);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float d = v.get(i) - mu;
+          s2 += d * d;
+        }
+      }
+      const float r = rsqrtf(group_sum<LANES>(s2) / D + eps);
+      for (int c = sub; c < nvec; c += LANES) {
+        C v, a, m;
+        v.load(xr + c * VEC);
+        a.load(sc + c * VEC);
+        m.load(sh + c * VEC);
+        float f[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) f[i] = modulated(v.get(i), mu, r, a.get(i), m.get(i));
+        store_chunk<T, VEC>(out + (b * T_ + t) * D + c * VEC, f);
+      }
+    }
   }
 }
 
@@ -82,31 +244,74 @@ gate_residual_kernel(const T* __restrict__ resid, const T* __restrict__ gate,
   }
 }
 
+using ModLaunch = void (*)(const void*, const void*, const void*, void*, dim3,
+                           int, int, int, long long, float, cudaStream_t);
+
+template <typename T, int VEC, int LANES, int NCHUNK>
+void launch_modulate(const void* x, const void* shift, const void* scale, void* out,
+                     dim3 grid, int threads, int T_, int D, long long cond_stride,
+                     float eps, cudaStream_t s) {
+  modulate_kernel<T, VEC, LANES, NCHUNK><<<grid, threads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(shift),
+      static_cast<const T*>(scale), static_cast<T*>(out), T_, D, cond_stride, eps);
+}
+
+// The compiled bodies: (dtype, access bytes, lanes per row, chunks per
+// lane). Mirrored by kernels/adaln_modulate/kernel.py (REGISTER_BODIES).
+struct ModBody {
+  int dtype, bytes, lanes, chunks;
+  ModLaunch launch;
+};
+using bf16 = __nv_bfloat16;
+static const ModBody MOD_BODIES[] = {
+    // register bodies, D = 1152 / 384 / 128
+    {DTYPE_BF16, 16, 32, 5, launch_modulate<bf16, 8, 32, 5>},
+    {DTYPE_BF16, 16, 16, 3, launch_modulate<bf16, 8, 16, 3>},
+    {DTYPE_BF16, 16, 16, 1, launch_modulate<bf16, 8, 16, 1>},
+    {DTYPE_F32, 16, 32, 9, launch_modulate<float, 4, 32, 9>},
+    {DTYPE_F32, 16, 32, 3, launch_modulate<float, 4, 32, 3>},
+    {DTYPE_F32, 16, 16, 2, launch_modulate<float, 4, 16, 2>},
+    // generic bodies, any D, by access width
+    {DTYPE_BF16, 16, 32, 0, launch_modulate<bf16, 8, 32, 0>},
+    {DTYPE_BF16, 8, 32, 0, launch_modulate<bf16, 4, 32, 0>},
+    {DTYPE_BF16, 4, 32, 0, launch_modulate<bf16, 2, 32, 0>},
+    {DTYPE_BF16, 2, 32, 0, launch_modulate<bf16, 1, 32, 0>},
+    {DTYPE_F32, 16, 32, 0, launch_modulate<float, 4, 32, 0>},
+    {DTYPE_F32, 8, 32, 0, launch_modulate<float, 2, 32, 0>},
+    {DTYPE_F32, 4, 32, 0, launch_modulate<float, 1, 32, 0>},
+};
+
+// The plan (access bytes, lanes, chunks, warps per block, blocks per b)
+// comes from the wrapper's plan(); a plan the operands cannot take, or
+// that no compiled body serves, is refused with cudaErrorInvalidValue.
 extern "C" int adaln_modulate(const void* x, const void* shift, const void* scale,
                               void* out, int B, int T_, int D,
                               long long cond_stride, float eps, int dtype,
-                              void* stream) {
-  if (B < 1 || T_ < 1 || D < 1 || D > VPT * MAX_ROW_THREADS)
+                              int bytes, int lanes, int chunks, int warps,
+                              int blocks_per_b, void* stream) {
+  const int size = dtype == DTYPE_F32 ? 4 : dtype == DTYPE_BF16 ? 2 : 0;
+  if (!size || B < 1 || B > 65535 || T_ < 1 || D < 1 || D > MOD_MAX_D ||
+      (lanes != 8 && lanes != 16 && lanes != 32) || warps < 1 ||
+      warps * 32 > MOD_MAX_THREADS || blocks_per_b < 1 ||
+      (long long)blocks_per_b * warps * 32 > 0x7fffffffLL || cond_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int threads = (D + VPT - 1) / VPT;
-  threads = (threads + 31) / 32 * 32;
-  const unsigned rows = static_cast<unsigned>((long long)B * T_);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) {
-    modulate_kernel<float><<<rows, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(shift),
-        static_cast<const float*>(scale), static_cast<float*>(out), T_, D,
-        cond_stride, eps);
-  } else if (dtype == DTYPE_BF16) {
-    modulate_kernel<__nv_bfloat16><<<rows, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(shift),
-        static_cast<const __nv_bfloat16*>(scale),
-        static_cast<__nv_bfloat16*>(out), T_, D, cond_stride, eps);
-  } else {
+  if (bytes < size || bytes % size || (D * size) % bytes || (cond_stride * size) % bytes)
     return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[] = {x, shift, scale, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % bytes) return static_cast<int>(cudaErrorInvalidValue);
+  const int nvec = D * size / bytes;
+  if (chunks > 0 ? chunks != (nvec + lanes - 1) / lanes : lanes != 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (const ModBody& body : MOD_BODIES) {
+    if (body.dtype == dtype && body.bytes == bytes && body.lanes == lanes &&
+        body.chunks == chunks) {
+      body.launch(x, shift, scale, out, dim3(blocks_per_b, B), warps * 32, T_, D,
+                  cond_stride, eps, static_cast<cudaStream_t>(stream));
+      return static_cast<int>(cudaGetLastError());
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int gate_residual(const void* resid, const void* gate, const void* y,

@@ -20,22 +20,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-// Sum of `v` over the whole block, returned to every thread. `scratch`
-// holds one float per warp. Deterministic: warp butterflies, then every
-// thread adds the warp partials in the same order.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // an earlier call's readers are done with scratch
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  const int n_warps = blockDim.x >> 5;
-  for (int i = 0; i < n_warps; ++i) total += scratch[i];
-  return total;
-}
-
 #define EXPORT_ERROR_STRING                                   \
   extern "C" const char* error_string(int code) {             \
     return cudaGetErrorString(static_cast<cudaError_t>(code)); \

@@ -16,6 +16,7 @@ import torch
 from repro.kernels.adaln_modulate import ops as j_adaln
 from repro.kernels.flash_attention import ops as j_fa
 from repro.kernels.unipc_update import ops as j_uni
+from repro_torch.kernels.adaln_modulate import kernel as adaln_kernel
 from repro_torch.kernels.adaln_modulate import ops as t_adaln
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as t_fa
@@ -197,6 +198,58 @@ def test_card_adaln_matches_plain(cuda, dtype):
     assert _rel(got, want) <= tol
 
 
+def _modulate_operands(B, T, D, dtype, layout, device, seed):
+    """x (B, T, D) and shift/scale views of a conditioning tensor: "dit"
+    the block's (B, 6D) modulation, "head" the final layer's (B, 2D),
+    "unaligned" mod[:, 1:D+1] and [:, D+1:2D+1] of a (B, 2D+1) tensor."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, T, D, generator=g, device=device).to(dtype)
+    width, off = {"dit": (6 * D, 0), "head": (2 * D, 0),
+                  "unaligned": (2 * D + 1, 1)}[layout]
+    mod = torch.randn(B, width, generator=g, device=device).to(dtype)
+    return x, mod[:, off:off + D], mod[:, off + D:off + 2 * D]
+
+
+# the phase-3 cases of chip_smoke.py at test size: (B, T, D, dtype, layout)
+MODULATE_EDGES = [
+    (2, 37, 1152, torch.float32, "dit"),       # phase 5's fp32 width
+    (4, 64, 384, torch.bfloat16, "dit"),       # dit-cifar
+    (2, 37, 128, torch.float32, "dit"),        # reduced
+    (2, 37, 72, torch.bfloat16, "dit"),
+    (2, 37, 1004, torch.bfloat16, "dit"),      # rows no 16-byte multiple
+    (2, 5, 8192, torch.bfloat16, "dit"),       # MAX_D
+    (4, 37, 1152, torch.bfloat16, "head"),
+    (4, 37, 1152, torch.bfloat16, "unaligned"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,D,dtype,layout", MODULATE_EDGES)
+def test_card_modulate_edges_match_plain(cuda, B, T, D, dtype, layout):
+    """Each body plan() picks, against the plain version on the card."""
+    x, sh, sc = _modulate_operands(B, T, D, dtype, layout, cuda, 7)
+    got, want = _card_pair(t_adaln.modulate, x, sh, sc)
+    assert _rel(got, want) <= TOL["bfloat16" if dtype == torch.bfloat16
+                                  else np.float32]
+
+
+@pytest.mark.gpu
+def test_card_modulate_refuses_what_it_cannot_take(cuda):
+    x, sh, sc = _modulate_operands(2, 3, 1152, torch.bfloat16, "dit", cuda, 8)
+    with pytest.raises(ValueError, match="D <="):
+        t_adaln.modulate(torch.zeros(1, 2, 8200, device=cuda), *(
+            torch.zeros(1, 8200, device=cuda),) * 2)
+    out = torch.empty_like(x)
+    p = adaln_kernel.plan(x, sh, sc, out)
+    with pytest.raises(RuntimeError, match="launch failed"):   # chunks wrong
+        adaln_kernel._launch_modulate(x, sh, sc, out, 1e-5,
+                                      dict(p, chunks=p["chunks"] + 1))
+    xu, shu, scu = _modulate_operands(2, 3, 1152, torch.bfloat16,
+                                      "unaligned", cuda, 8)
+    with pytest.raises(RuntimeError, match="launch failed"):   # misaligned
+        adaln_kernel._launch_modulate(xu, shu, scu, out, 1e-5, p)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D,S", [(16, 16, 72, 256), (4, 2, 32, 100)])
@@ -284,3 +337,80 @@ def test_attention_plan_unaligned_rows_and_fp32():
     assert p["body"] == "mma" and not p["vec_in"] and p["vec_out"]
     p32 = fa_kernel.plan(*(_heads(2, 4, 100, 72, torch.float32),) * 4)
     assert p32["body"] == "cuda_cores" and p32["blocks"] == 2 * 4 * 2
+
+
+@pytest.mark.parametrize("D,dtype,body,access,lanes,chunks", [
+    (1152, torch.bfloat16, "registers", 16, 32, 5),   # dit-i256
+    (1152, torch.float32, "registers", 16, 32, 9),    # its fp32 serving
+    (384, torch.bfloat16, "registers", 16, 16, 3),    # dit-cifar
+    (384, torch.float32, "registers", 16, 32, 3),
+    (128, torch.bfloat16, "registers", 16, 16, 1),    # reduced
+    (128, torch.float32, "registers", 16, 16, 2),
+    (72, torch.bfloat16, "registers", 16, 16, 1),     # 9 of 16 lanes
+    (1004, torch.bfloat16, "generic", 8, 32, 0),      # 2008-byte rows
+    (8192, torch.bfloat16, "generic", 16, 32, 0),     # MAX_D
+    (1003, torch.bfloat16, "generic", 2, 32, 0),
+    (1003, torch.float32, "generic", 4, 32, 0),
+    (1000, torch.float32, "generic", 16, 32, 0),
+])
+def test_modulate_plan_by_width_and_dtype(D, dtype, body, access, lanes,
+                                          chunks):
+    x, sh, sc = _modulate_operands(2, 9, D, dtype, "dit", "cpu", 0)
+    p = adaln_kernel.plan(x, sh, sc, torch.empty_like(x))
+    assert (p["body"], p["access_bytes"], p["lanes"], p["chunks"]) == (
+        body, access, lanes, chunks)
+    assert p["rows_per_block"] == adaln_kernel.MOD_THREADS // lanes
+    assert p["blocks"] == 2 * -(-9 // p["rows_per_block"])   # a wave
+
+
+def test_modulate_plan_main_path_shape():
+    """dit-i256: 4096 rows of 1152 bf16 with shift/scale read in place
+    from the (16, 6912) modulation -> one warp a row, 16-byte chunks, five
+    a lane (the fifth masked), 8 rows a block; a block per 8 rows would be
+    512 blocks, two waves of 2 blocks on 132 SMs, so 256 blocks whose
+    warps take 2 rows each."""
+    x, sh, sc = _modulate_operands(16, 256, 1152, torch.bfloat16, "dit",
+                                   "cpu", 0)
+    assert adaln_kernel.plan(x, sh, sc, torch.empty_like(x)) == dict(
+        body="registers", access_bytes=16, lanes=32, chunks=5,
+        rows_per_block=8, blocks=256)
+
+
+@pytest.mark.parametrize("B,T,blocks", [
+    (16, 64, 16 * 8),         # dit-cifar's 1024 rows: one row a warp
+    (16, 256, 16 * 16),       # 2 rows a warp
+    (8, 256, 8 * 32),         # 2048 rows in 256 blocks: one wave
+    (16, 1024, 16 * 16),      # 8 rows a warp
+    (1, 4097, 1 * 257),       # 513 blocks' rows in 2 turns
+])
+def test_modulate_plan_grid_fills_one_wave(B, T, blocks):
+    x, sh, sc = _modulate_operands(B, T, 1152, torch.bfloat16, "dit", "cpu",
+                                   0)
+    p = adaln_kernel.plan(x, sh, sc, torch.empty_like(x))
+    assert p["blocks"] == blocks
+    assert p["blocks"] <= max(B, adaln_kernel.BLOCKS_PER_SM
+                              * adaln_kernel.H100_SMS)
+
+
+def test_modulate_plan_conditioning_layouts():
+    """The head's (B, 2D) rows keep 16-byte accesses; rows at a 2-byte
+    offset take the generic body's 2-byte accesses for every operand, as
+    does a row stride that is no multiple of 16 bytes."""
+    for layout, body, access in (("head", "registers", 16),
+                                 ("unaligned", "generic", 2)):
+        x, sh, sc = _modulate_operands(4, 5, 1152, torch.bfloat16, layout,
+                                       "cpu", 0)
+        p = adaln_kernel.plan(x, sh, sc, torch.empty_like(x))
+        assert (p["body"], p["access_bytes"]) == (body, access), layout
+    x = torch.zeros(4, 5, 1152, dtype=torch.bfloat16)
+    mod = torch.zeros(4, 2 * 1152 + 4, dtype=torch.bfloat16)  # stride 4616 B
+    p = adaln_kernel.plan(x, mod[:, :1152], mod[:, 1152:2304],
+                          torch.empty_like(x))
+    assert (p["body"], p["access_bytes"]) == ("generic", 8)
+
+
+def test_modulate_plan_refuses_d_above_max_d():
+    D = adaln_kernel.MAX_D + 8
+    x, sh, sc = _modulate_operands(1, 2, D, torch.bfloat16, "dit", "cpu", 0)
+    with pytest.raises(ValueError, match=f"D <= {adaln_kernel.MAX_D}"):
+        adaln_kernel.plan(x, sh, sc, torch.empty_like(x))
