@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of the port's redesigned kernels (flash_attention,
-quant_matmul, adaln_modulate) goes, on the card: ablation timings at the
-main path's shapes.
+quant_matmul's wgmma and skinny bodies, adaln_modulate, gate_residual)
+goes, on the card: ablation timings at the main path's shapes.
 
     python3 ablate_kernels.py     # from the repository root, one CUDA card
 
 Each ablation is a copy of a kernel's CUDA source with one part of its work
 taken out (the product, the softmax's exponentials, the widening, the
 loads after the first ring's worth, modulate's reductions or conditioning
-loads). Its output is wrong and unchecked; only its device time counts,
-next to the unchanged kernel built the same way. adaln_modulate is also
-timed on other plans than its plan() picks (ADALN_PLANS): other grids,
-4-warp blocks, 8-byte accesses. All copies build in parallel under
-build/ablate/; each is timed by
-chip_smoke.device_ms (100 calls in a CUDA graph). An edit whose anchor text
+loads, gate_residual's gate). Its output is wrong and unchecked; only its
+device time counts, next to the unchanged kernel built the same way.
+adaln_modulate, gate_residual and the skinny body are also timed on other
+plans than their plan() picks (ADALN_PLANS, GATE_PLANS, SKINNY_PLANS):
+other grids, 4-warp blocks, 8-byte accesses, half and double the K split.
+All copies build in parallel under build/ablate/; each is timed by
+chip_smoke.device_ms (100 calls in a CUDA graph), gate_residual and the
+skinny body also by chip_smoke.rotated_ms (operands rotated past the L2).
+An edit whose anchor text
 is no longer in the source fails the run, so the ablations follow the
 kernels or stop.
 """
@@ -50,6 +53,19 @@ _NO_COND = [
     ("      if (c < nvec) {\n        csh[j].load(sh + c * VEC);\n"
      "        csc[j].load(sc + c * VEC);\n      }",
      "      (void)c;")]
+
+# the skinny body's x and weight loads replaced by values computed from
+# the indices (the registers stay live, nothing is read)
+_SKINNY_NO_X = (
+    "          sk_load<XB>(xv[u][mt], xb + (m * ldx + k0) * XS, in && vec_x && k0 + 4 <= K,\n"
+    "                      in ? (K - k0) * XS : 0);",
+    "          for (int q = 0; q < XB / 4; ++q) xv[u][mt][q] = m * 7 + k0 + q;\n"
+    "          (void)in;")
+_SKINNY_NO_W = (
+    "          sk_load<VW>(v[u][r], wb + (k0 + r) * ldw + n, in && vec_w && n + VW <= N,\n"
+    "                      in ? N - n : 0);",
+    "          for (int q = 0; q < VW / 4; ++q) v[u][r][q] = (k0 + r) * 131 + n + q;\n"
+    "          (void)in;")
 
 # name -> (source, [(anchor, replacement)])
 ABLATIONS = {
@@ -91,10 +107,34 @@ ABLATIONS = {
         *_NO_STATS, *_NO_COND,
         ("            f[i] = modulated(xv[j].get(i), mu, r, csc[j].get(i), "
          "csh[j].get(i));", "            f[i] = xv[j].get(i);")]),
+    # a (bf16, 8-byte, 32 lanes, 9 chunks) register body of both kernels
     "adaln_modulate 8-byte accesses": ("adaln_modulate", [
-        ("    {DTYPE_BF16, 16, 32, 5, launch_modulate<bf16, 8, 32, 5>},\n",
-         "    {DTYPE_BF16, 16, 32, 5, launch_modulate<bf16, 8, 32, 5>},\n"
-         "    {DTYPE_BF16, 8, 32, 9, launch_modulate<bf16, 4, 32, 9>},\n")]),
+        ("    ROW_BODY(DTYPE_BF16, bf16, 16, 32, 5),\n",
+         "    ROW_BODY(DTYPE_BF16, bf16, 16, 32, 5),\n"
+         "    ROW_BODY(DTYPE_BF16, bf16, 8, 32, 9),\n")]),
+    "gate_residual loads and stores only (resid + y, no gate loads)": (
+        "adaln_modulate", [
+            ("      if (c < nvec) cg[j].load(g + c * VEC);", "      (void)c;"),
+            ("          for (int i = 0; i < VEC; ++i) f[i] = gated(rv[j].get(i), "
+             "cg[j].get(i), yv[j].get(i));",
+             "          for (int i = 0; i < VEC; ++i) f[i] = rv[j].get(i) + "
+             "yv[j].get(i);")]),
+    "quant_matmul skinny no products": ("quant_matmul", [
+        ("              mma_16816(acc[2 * q + h][mt], a, bx[mt][0], bx[mt][1]);",
+         "              acc[2 * q + h][mt][0] += __uint_as_float("
+         "(a[0] ^ a[1] ^ a[2] ^ a[3]) & bx[mt][0] & bx[mt][1]);")]),
+    "quant_matmul skinny no widening": ("quant_matmul", [
+        ("          for (int r = 0; r < 4; ++r) widen4<WT>(v[u][r][q], f[r]);",
+         "          for (int r = 0; r < 4; ++r)\n"
+         "            for (int c = 0; c < 4; ++c) f[r][c] = __uint_as_float(v[u][r][q] << (8 * c));")]),
+    "quant_matmul skinny no x loads": ("quant_matmul", [_SKINNY_NO_X]),
+    "quant_matmul skinny no weight loads": ("quant_matmul", [_SKINNY_NO_W]),
+    "quant_matmul skinny no loads": ("quant_matmul", [_SKINNY_NO_X, _SKINNY_NO_W]),
+    # 16-warp blocks: launch bounds of 512 threads hold a thread to 128
+    # registers, so a warp loads 5 of its groups at once, not 9
+    "quant_matmul skinny 16-warp blocks": ("quant_matmul", [
+        ("constexpr int SK_MAX_SPLIT = 8;", "constexpr int SK_MAX_SPLIT = 16;"),
+        ("  return m_tiles == 2 ? 9 :", "  return m_tiles == 2 ? 5 :")]),
 }
 
 # plans the adaLN libraries are timed on, as edits of plan()'s at the main
@@ -115,7 +155,31 @@ ADALN_PLANS = {
     "adaln_modulate 8-byte accesses": {
         ", 9 chunks a lane": lambda p: dict(p, access_bytes=8, chunks=9)},
 }
-
+# gate_residual's plans on the adaLN libraries, at the main shape (the
+# plan: 256 blocks of 8 warps, 2 rows a warp)
+GATE_PLANS = {
+    "adaln_modulate": {
+        "": lambda p: p,
+        ", grid of all rows (512 blocks, 1 row a warp)": lambda p: dict(
+            p, blocks=16 * 32)},
+    "adaln_modulate 8-byte accesses": {
+        ", 8-byte accesses, 9 chunks a lane": lambda p: dict(
+            p, access_bytes=8, chunks=9)},
+    "gate_residual loads and stores only (resid + y, no gate loads)": {
+        "": lambda p: p},
+}
+# the skinny body's plans at the adaLN sites (the plan: split 8)
+SKINNY_PLANS = {
+    "quant_matmul": {
+        "": lambda p: p,
+        ", half the split (4 warps a block)": lambda p: dict(p, split=4)},
+    "quant_matmul skinny 16-warp blocks": {
+        ", double the split (16 warps a block)": lambda p: dict(p, split=16)},
+    **{name: {"": lambda p: p} for name in (
+        "quant_matmul skinny no products", "quant_matmul skinny no widening",
+        "quant_matmul skinny no x loads", "quant_matmul skinny no weight loads",
+        "quant_matmul skinny no loads")},
+}
 
 def build_all() -> dict:
     """Compile every ablation in parallel; {name: library path}."""
@@ -192,25 +256,67 @@ def main():
         2 * chip_smoke.nbytes(xm) + chip_smoke.nbytes(msh, msc),
         8 * xm.numel(), torch.float32)
     print(f"adaln_modulate bound {bound_ms:.5f} ms ({by}); plan {mod_plan}")
+    # gate_residual at the same shape, the gate read in place from the
+    # modulation, in the graph and on six sets of operands (170 MB)
+    gsets = [(torch.randn(16, 256, 1152, generator=g, device=dev).to(bf),
+              torch.randn(16, 6 * 1152, generator=g, device=dev).to(bf)[
+                  :, 2304:3456],
+              torch.randn(16, 256, 1152, generator=g, device=dev).to(bf),
+              torch.empty_like(xm)) for _ in range(6)]
+    gate_plan = adaln_kernel.plan_gate(*gsets[0])
+    print(f"gate_residual bound 0.008462 ms (bytes); plan {gate_plan}")
+    # quant_matmul w8a16 at the two adaLN sites, and on weights rotated
+    # over 100 MB
+    skinny = {}
+    for site, (M, K, N) in {"ada": (16, 1152, 6912),
+                            "final_ada": (16, 1152, 2304)}.items():
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        ws_ = [qmm_ref.quantize(torch.randn(K, N, generator=g, device=dev))
+               for _ in range(-(-100_000_000 // (K * N)) + 1)]
+        skinny[site] = (x, [w for w, _ in ws_], ws_[0][1].float().contiguous(),
+                        torch.empty(M, N, dtype=torch.bfloat16, device=dev))
     for name, so in libs.items():
         src = ABLATIONS[name][0]
         use(src, so)
         if src == "adaln_modulate":
-            plans = ADALN_PLANS.get(name, {"": lambda p: p})
-            for label, edit in plans.items():
+            mod_plans = {} if name.startswith("gate_residual") else {
+                "": lambda p: p}
+            for label, edit in ADALN_PLANS.get(name, mod_plans).items():
                 ms = chip_smoke.device_ms(functools.partial(
                     adaln_kernel._launch_modulate, xm, msh, msc, mout, 1e-5,
                     edit(mod_plan)))
                 print(f"{name}{label}: {ms:.5f} ms")
+            for label, edit in GATE_PLANS.get(name, {}).items():
+                gp = edit(gate_plan)
+                ms = chip_smoke.device_ms(functools.partial(
+                    adaln_kernel._launch_gate, *gsets[0], gp))
+                rot = chip_smoke.rotated_ms([functools.partial(
+                    adaln_kernel._launch_gate, *a, gp) for a in gsets])
+                print(f"gate_residual [{name}]{label}: graph {ms:.5f} ms, "
+                      f"rotated {rot:.5f} ms")
         elif src == "flash_attention":
             ms = chip_smoke.device_ms(functools.partial(
                 fa_kernel.flash_attention, q, k, v, causal=False))
             print(f"{name}: {ms:.5f} ms")
         else:
-            times = {site: chip_smoke.device_ms(functools.partial(
-                qmm_kernel.quant_matmul, x, qw, sc, out_dtype=torch.bfloat16))
-                for site, (x, qw, sc) in sites.items()}
-            print(f"{name}: " + ", ".join(f"{s} {t:.5f} ms" for s, t in times.items()))
+            if "skinny" not in name:
+                times = {site: chip_smoke.device_ms(functools.partial(
+                    qmm_kernel.quant_matmul, x, qw, sc,
+                    out_dtype=torch.bfloat16))
+                    for site, (x, qw, sc) in sites.items()}
+                print(f"{name}: " + ", ".join(f"{s} {t:.5f} ms"
+                                              for s, t in times.items()))
+            for label, edit in SKINNY_PLANS.get(name, {}).items():
+                parts = []
+                for site, (x, wts, sc, o) in skinny.items():
+                    sp = edit(qmm_kernel.plan(x, wts[0]))
+                    ms = chip_smoke.device_ms(functools.partial(
+                        qmm_kernel._launch, x, wts[0], sc, o, sp))
+                    rot = chip_smoke.rotated_ms([functools.partial(
+                        qmm_kernel._launch, x, w, sc, o, sp) for w in wts])
+                    parts.append(f"{site} graph {ms:.5f} ms, rotated "
+                                 f"{rot:.5f} ms")
+                print(f"skinny [{name}]{label}: " + "; ".join(parts))
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ Phases (any failure exits non-zero):
      the wrapper's plan() chose, timed on the device (a CUDA graph of many
      calls, replayed between CUDA events) beside its bound, its plain
      version and one PyTorch library call; the wrapper's host cost per
-     call is reported apart.
+     call is reported apart. gate_residual and the adaLN sites of
+     quant_matmul are also timed on buffers rotated past the 50 MB L2, as
+     the main path finds them.
   4. main path — guided UniPC sampling of full-width dit-i256 (28 blocks,
      d_model 1152, 16 heads of dim 72, bf16 activations, fp32 params) through
      `repro_torch.launch.sample.sample`: launch counts, kernel vs plain-pinned
@@ -27,7 +29,8 @@ Phases (any failure exits non-zero):
   6. quantized main path — phase 4's sampling with the w8a16 tier
      (`sample(quant="w8a16")`: 197 quant_matmul launches per eval), launch
      counts and kernel vs plain-pinned latents, drift from phase 4's
-     latents, quantized weight bytes; w8a8 (calibrated on the card),
+     latents, quantized weight bytes; the same call once more under
+     torch.profiler, outside the timed wall; w8a8 (calibrated on the card),
      fp8a16 and w4a16 at depth 4, each against its plain-pinned run; a
      w8a16 per-slot `StepProgram` at fp32 against its uniform runs.
 The last three lines are the kernels JSON, the card's name and power
@@ -105,6 +108,20 @@ def device_ms(fn, iters: int = 100, reps: int = 5) -> float:
     ms = start.elapsed_time(end) / (reps * iters)
     del graph
     return ms
+
+
+def rotated_ms(fns, iters: int = 100, reps: int = 5) -> float:
+    """device_ms of calls that take `fns` in turn: each works on its own
+    buffers, and their working sets together exceed the 50 MB L2, so every
+    call reads from HBM what the call before it did not touch, as on the
+    main path, where an op reads what was written several kernels earlier
+    (or, for a weight, a matrix no other call of the eval reads)."""
+    turn = [0]
+
+    def fn():
+        fns[turn[0] % len(fns)]()
+        turn[0] += 1
+    return device_ms(fn, iters, reps)
 
 
 def host_call_ms(fn, iters: int = 100, warmup: int = 10) -> float:
@@ -280,19 +297,74 @@ def kernel_phase(dev) -> dict:
     print(f"  F.layer_norm(x, (1152,)) at the main shape: {ln_ms:.6f} ms -- "
           f"a subset of modulate's work (no scale/shift) moving the same "
           f"bytes, not its library_ms (null: no single call does it all)")
+    # gate_residual at the main shape, the gate read in place from the
+    # modulation; then each body plan_gate() picks, as modulate's cases
+    def gate_body(r_, g_, y_, out_):
+        p = adaln_kernel.plan_gate(r_, g_, y_, out_)
+        shape = (f"{p['chunks']} chunks a lane" if p["chunks"]
+                 else "chunks looped")
+        return (f"{p['body']}, {p['access_bytes']}-byte, {p['lanes']} "
+                f"lanes a row, {shape}, {p['blocks']} blocks")
+
+    def gate_case(label, b_, t_, d_, dtype, layout="dit"):
+        """(label [body], kernel, plain, dtype) of gate_residual on fresh
+        operands: "dit" the gate as mod[:, 2D:3D] of a (B, 6D) tensor,
+        "unaligned" as mod[:, 1:D+1] of (B, D+1), "rows" resid and y
+        starting one element past an aligned address."""
+        off = 1 if layout == "rows" else 0
+        r_, y_ = (randn(b_ * t_ * d_ + off, dtype=dtype)[off:].view(
+            b_, t_, d_) for _ in range(2))
+        width, col = (d_ + 1, 1) if layout == "unaligned" else (6 * d_, 2 * d_)
+        g_ = randn(b_, width, dtype=dtype)[:, col:col + d_]
+        got = adaln_ops.gate_residual(r_, g_, y_)
+        want = adaln_ops.gate_residual(r_, g_, y_, backend="plain")
+        return f"{label} [{gate_body(r_, g_, y_, got)}]", got, want, dtype
+
+    gate_got = adaln_ops.gate_residual(x, gt, y)
     cases = [
-        ("main bf16 D=1152", adaln_ops.gate_residual(x, gt, y),
-         adaln_ops.gate_residual(x, gt, y, backend="plain"), torch.bfloat16),
+        (f"main bf16 (16, 256, 1152) [{gate_body(x, gt, y, gate_got)}]",
+         gate_got, adaln_ops.gate_residual(x, gt, y, backend="plain"), bf),
         ("ragged T=37 D=72 fp32",
          adaln_ops.gate_residual(xr, modr[:, :72], xr * 0.5),
          adaln_ops.gate_residual(xr, modr[:, :72], xr * 0.5, backend="plain"),
          torch.float32),
+        gate_case("fp32 (16, 256, 1152)", 16, 256, 1152, f32),
+        gate_case("dit-cifar bf16 (16, 64, 384)", 16, 64, 384, bf),
+        gate_case("reduced fp32 (2, 37, 128)", 2, 37, 128, f32),
+        gate_case("bf16 (2, 37, 72)", 2, 37, 72, bf),
+        gate_case("bf16 (4, 64, 1004)", 4, 64, 1004, bf),
+        gate_case("bf16 (4, 64, 8192) MAX_D", 4, 64, 8192, bf),
+        gate_case("unaligned gate mod[:, 1:D+1] bf16 (16, 256, 1152)", 16,
+                  256, 1152, bf, "unaligned"),
+        gate_case("rows 2 bytes off bf16 (16, 256, 1152)", 16, 256, 1152, bf,
+                  "rows"),
+        gate_case("rows 4 bytes off fp32 (4, 37, 1003)", 4, 37, 1003, f32,
+                  "rows"),
     ]
     record("gate_residual", cases, (
         lambda: adaln_ops.gate_residual(x, gt, y),
         lambda: adaln_ops.gate_residual(x, gt, y, backend="plain"),
         lambda: torch.addcmul(x, gt[:, None], y),
         3 * nbytes(x) + nbytes(gt), 2 * x.numel(), torch.float32))
+    st = out["gate_residual"]
+    st["body"] = gate_body(x, gt, y, gate_got)
+    # the same call on six sets of resid, y, out and modulation (170 MB):
+    # no call finds its operands in L2, as on the main path
+    sets = [(randn(B, T, D, dtype=bf), randn(B, 6 * D, dtype=bf)[:, 2 * D:3 * D],
+             randn(B, T, D, dtype=bf), torch.empty_like(x)) for _ in range(6)]
+    gplan = adaln_kernel.plan_gate(*sets[0])
+    st["rotated_ms"] = rotated_ms([
+        (lambda a=a: adaln_kernel._launch_gate(*a, gplan)) for a in sets])
+    st["rotated_library_ms"] = rotated_ms([
+        (lambda a=a: torch.addcmul(a[0], a[1][:, None], a[2], out=a[3]))
+        for a in sets])
+    del sets
+    print(f"  gate_residual main bf16 (16, 256, 1152) [{st['body']}]: "
+          f"graph {st['ms']:.6f} ms, rotated over 170 MB "
+          f"{st['rotated_ms']:.6f} ms (bound {st['bound_ms']:.6f} by "
+          f"{st['bound_by']}; addcmul graph {st['library_ms']:.6f}, rotated "
+          f"{st['rotated_library_ms']:.6f}; plain {st['plain_ms']:.6f}; "
+          f"host {st['host_call_ms']:.4f})")
 
     # B4 flash_attention at the dit-i256 shape: net batch 16, 16 heads,
     # S = 256, head dim 72, bf16, non-causal; q/k/v are head-major views of
@@ -363,6 +435,9 @@ def kernel_phase(dev) -> dict:
 QUANT_SITES = [("wq/wk/wv/wo", 4096, 1152, 1152, 112),
                ("w1", 4096, 1152, 4608, 28), ("w2", 4096, 4608, 1152, 28),
                ("ada", 16, 1152, 6912, 28), ("final_ada", 16, 1152, 2304, 1)]
+# M of the skinny body's edge cases: around its 8-, 16-, 32- and 64-row
+# x tiles
+SKINNY_MS = (1, 2, 15, 16, 17, 33, 64)
 
 
 def quant_kernel_cases(dev, randn) -> dict:
@@ -387,7 +462,12 @@ def quant_kernel_cases(dev, randn) -> dict:
         return x, qw, ws, sa
 
     def body_of(x, qw, ws, sa):
-        return qmm_kernel.plan(qmm_ref.fold_act(x, ws, sa)[0], qw)["body"]
+        p = qmm_kernel.plan(qmm_ref.fold_act(x, ws, sa)[0], qw)
+        if p["body"] != "skinny":
+            return p["body"]
+        return (f"skinny, {p['m_tiles']} x-row tiles, split {p['split']}, "
+                f"{p['grid']} blocks, {p['access_x']}/{p['access_w']}-byte "
+                f"x/qw copies")
 
     token_sites = [(site, M, K, N) for site, M, K, N, _ in QUANT_SITES
                    if M > qmm_kernel.SKINNY_MAX_M]
@@ -413,7 +493,13 @@ def quant_kernel_cases(dev, randn) -> dict:
                                 ("w8a8", torch.float32),
                                 ("fp8a16", torch.float32))
                for M, K, N in ((4096, 1152, 1152), (37, 130, 200),
-                               (5, 130, 200), (100, 64, 48))]):
+                               (5, 130, 200), (100, 64, 48))]
+            # the skinny body at M around its x-row tiles, N and K off its
+            # 64-column strips and 32-row ring tiles, every tier
+            + [(f"skinny M={M} {mode} bf16 ({M},1000,2000)", M, 1000, 2000,
+                mode, torch.bfloat16)
+               for M in SKINNY_MS
+               for mode in ("w8a16", "w8a8", "fp8a16", "w4a16")]):
         x, qw, ws, sa = operands(M, K, N, mode, x_dtype)
         label = f"{label} [{body_of(x, qw, ws, sa)}]"
         k_out = qmm_ops.quant_matmul(x, qw, ws, sa=sa)
@@ -431,6 +517,23 @@ def quant_kernel_cases(dev, randn) -> dict:
                  f"rel {err:.3e} > {tol:g}")
         cases[label] = err
         errs.append(abs_err)
+    # byte copies: x rows 2 bytes off 16-byte alignment, qw rows of 1001
+    # bytes, at the adaLN sites' M
+    x_wide = randn(16, 1153, dtype=torch.bfloat16)
+    qw_b, ws_b = qmm_ref.quantize(randn(1130, 1001))
+    x_b = x_wide[:, 1:1131]
+    label = (f"skinny byte copies w8a16 bf16 (16,1130,1001) "
+             f"[{body_of(x_b, qw_b, ws_b, None)}]")
+    k_out = qmm_ops.quant_matmul(x_b, qw_b, ws_b)
+    p_out = qmm_ops.quant_matmul(x_b, qw_b, ws_b, backend="plain")
+    torch.cuda.synchronize()
+    err = rel_err(k_out, p_out)
+    print(f"  quant_matmul [{label}] rel L-inf {err:.3e} (tol 0.01)")
+    if not (err <= 1e-2 and torch.isfinite(k_out.float()).all()):
+        fail(f"quant_matmul [{label}] disagrees with its plain version: "
+             f"rel {err:.3e}")
+    cases[label] = err
+    errs.append(float((k_out.double() - p_out.double()).abs().max()))
 
     def timed(M, K, N, mode, x_dtype):
         """Device, host, plain and library ms and the bound of one call."""
@@ -453,25 +556,47 @@ def quant_kernel_cases(dev, randn) -> dict:
             (), dtype=out_dtype).element_size(), 2 * M * K * N, peak)
         plan = qmm_kernel.plan(x, qw)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        return dict(body=plan["body"], tile=plan["tile"],
-                    tiles=plan["blocks"], waves=plan["blocks"] / sms,
-                    ms=device_ms(k_fn), host_call_ms=host_call_ms(k_fn),
-                    plain_ms=device_ms(p_fn), library_ms=device_ms(lib_fn),
-                    library=f"{lib} on a weight widened beforehand; omits "
-                            f"the widening and the scale",
-                    bound_ms=bms, bound_by=by)
+        res = dict(body=plan["body"], tile=plan["tile"],
+                   tiles=plan["blocks"],
+                   waves=plan.get("grid", plan["blocks"]) / sms,
+                   ms=device_ms(k_fn), host_call_ms=host_call_ms(k_fn),
+                   plain_ms=device_ms(p_fn), library_ms=device_ms(lib_fn),
+                   library=f"{lib} on a weight widened beforehand; omits "
+                           f"the widening and the scale",
+                   bound_ms=bms, bound_by=by)
+        if plan["body"] == "skinny" and x.dtype == torch.bfloat16:
+            res.update(split=plan["split"], m_tiles=plan["m_tiles"],
+                       grid=plan["grid"])
+            # in the path every adaLN site reads a weight no other call of
+            # the eval reads: time the call on weights rotated over 100 MB
+            n_sets = -(-100_000_000 // nbytes(qw)) + 1
+            sets = [qmm_ref.quantize(randn(K, N))[0] for _ in range(n_sets)]
+            res["rotated_ms"] = rotated_ms([
+                (lambda w=w: qmm_kernel.quant_matmul(
+                    x, w, scale, out_dtype=out_dtype)) for w in sets])
+            wides = [w.to(torch.bfloat16) for w in sets]
+            res["rotated_library_ms"] = rotated_ms([
+                (lambda w=w: torch.matmul(x_lib, w)) for w in wides])
+            del sets, wides
+        return res
 
     sites = {}
     for site, M, K, N, per_eval in QUANT_SITES:
         sites[site] = dict(M=M, K=K, N=N, calls_per_eval=per_eval,
                            **timed(M, K, N, "w8a16", torch.bfloat16))
         st = sites[site]
+        skinny = (f", split {st['split']}, {st['grid']} blocks"
+                  if "split" in st else "")
         print(f"  quant_matmul {site} ({M},{K},{N}) w8a16 [{st['body']}, tile "
-              f"{st['tile'][0]}x{st['tile'][1]}, {st['tiles']} tiles = "
-              f"{st['waves']:.2f} waves]: {st['ms']:.5f} ms "
+              f"{st['tile'][0]}x{st['tile'][1]}, {st['tiles']} tiles{skinny} "
+              f"= {st['waves']:.2f} waves]: {st['ms']:.5f} ms "
               f"(bound {st['bound_ms']:.5f} by {st['bound_by']}; plain "
               f"{st['plain_ms']:.5f}, {st['library']}: {st['library_ms']:.5f},"
               f" host {st['host_call_ms']:.4f})")
+        if "rotated_ms" in st:
+            print(f"  quant_matmul {site} on weights rotated over 100 MB: "
+                  f"{st['rotated_ms']:.5f} ms (torch.matmul on widened "
+                  f"weights rotated alike {st['rotated_library_ms']:.5f})")
     others = {}
     for mode, dt in (("w8a8", torch.bfloat16), ("fp8a16", torch.bfloat16),
                      ("w4a16", torch.bfloat16), ("w8a16", torch.float32)):
@@ -551,8 +676,8 @@ def expected_launches(cfg, rows: int, quantized: bool = False) -> dict:
 
 # substrings of device kernel names, by what runs them on the main path
 KERNEL_KINDS = (
-    ("port kernels", ("modulate_kernel", "gate_residual_kernel", "attn_",
-                      "qmm_", "combine_kernel")),
+    ("port kernels", ("modulate_kernel", "gate_kernel", "attn_", "qmm_",
+                      "combine_kernel")),
     ("matmul (torch.matmul / cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet",
                                         "sm90_")),
     ("copies and casts (fp32 -> bf16 weights, .to, cat)",
@@ -612,12 +737,21 @@ def profile_split(fn, top: int = 12) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     for name, (n, us) in ranked:
         print(f"    {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
+    port = sorted(((name, n, us) for name, (n, us) in by_name.items()
+                   if kernel_kind(name) == "port kernels"),
+                  key=lambda k: -k[2])
+    for name, n, us in port:
+        print(f"    port kernel in the path: {us / 1e3:.3f} ms in {n} = "
+              f"{us / 1e3 / n:.5f} ms a call  {name[:80]}")
     return dict(wall_s=wall, device_ms_sum=total_ms,
                 device_busy_ms=busy_us / 1e3, idle_share_of_wall=idle,
                 by_kind={k: dict(launches=n, ms=ms)
                          for k, (n, ms) in kinds.items()},
                 top=[dict(name=name[:200], launches=n, ms=us / 1e3)
-                     for name, (n, us) in ranked])
+                     for name, (n, us) in ranked],
+                port_kernels=[dict(name=name[:200], launches=n, ms=us / 1e3,
+                                   ms_per_call=us / 1e3 / n)
+                              for name, n, us in port])
 
 
 def main_path_phase(dev, counts_out: dict) -> dict:
@@ -885,6 +1019,11 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
     print(f"  wall {wall:.3f} s for {batch} requests = "
           f"{wall / batch * 1e3:.1f} ms per request end to end (quantization "
           f"included); peak memory {peak / 2**30:.2f} GiB")
+    # the same call once more under the profiler, outside the timed wall:
+    # the only place the adaLN sites' skinny body runs on cold weights
+    split = profile_split(lambda: sample(
+        "dit-i256", reduced=False, nfe=nfe, order=order, cfg_scale=g_scale,
+        batch=batch, params=params, x_T=x_T, quant="w8a16", device=dev))
 
     # the other tiers at depth 4, full widths; the plain-pinned run uses
     # the tree `sample` builds (w8a8 calibrated through the kernels on the
@@ -917,7 +1056,7 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
     return dict(wall_s=wall, ms_per_request=wall / batch * 1e3,
                 peak_bytes=peak, rel_err_vs_plain=err,
                 rel_l2_vs_unquantized=drift, quant_param_bytes=qbytes,
-                tiers_depth4_rel_err_vs_plain=tiers)
+                tiers_depth4_rel_err_vs_plain=tiers, profile=split)
 
 
 def quant_serving_phase(dev) -> dict:
@@ -1074,7 +1213,8 @@ def main():
             bound_by=st["bound_by"], library_ms=st["library_ms"])
         if "sites" in st:
             entry.update(per_call_over=st["per_call_over"], sites=st["sites"])
-        for key in ("layer_norm_subset_ms", "fp32_ms", "fp32_bound_ms"):
+        for key in ("layer_norm_subset_ms", "fp32_ms", "fp32_bound_ms",
+                    "rotated_ms", "rotated_library_ms"):
             if key in st:
                 entry[key] = st[key]
         entries.append(entry)

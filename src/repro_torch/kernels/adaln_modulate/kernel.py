@@ -13,17 +13,18 @@ from ..dispatch import LAUNCHES, require_cuda
 
 MAX_D = 8 * 1024  # MOD_MAX_D in the source
 ACCESS_BYTES = (16, 8, 4, 2)
-# the register bodies the source compiles: (dtype, access bytes, lanes per
-# row, chunks per lane), for D = 1152 / 384 / 128 (MOD_BODIES); any other
+# the register bodies the source compiles for both kernels: (dtype, access
+# bytes, lanes per row, chunks per lane), for D = 1152 / 384 / 128
+# (ROW_BODIES); any other
 # operands run the generic body (32 lanes, chunks 0) at their access width
 REGISTER_BODIES = {
     (torch.bfloat16, 16, 32, 5), (torch.bfloat16, 16, 16, 3),
     (torch.bfloat16, 16, 16, 1), (torch.float32, 16, 32, 9),
     (torch.float32, 16, 32, 3), (torch.float32, 16, 16, 2)}
 MOD_THREADS = 256
-# blocks of MOD_THREADS an SM holds at once with every register body
-# (ptxas: at most 128 registers a thread); the SM count of a CPU tensor's
-# plan is the H100 SXM's
+# blocks of MOD_THREADS an SM holds at once with every register body of
+# either kernel (ptxas: at most 128 registers a thread); the SM count of a
+# CPU tensor's plan is the H100 SXM's
 BLOCKS_PER_SM = 2
 H100_SMS = 132
 
@@ -36,8 +37,8 @@ def _launchers():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     gate.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     mod.restype = gate.restype = ctypes.c_int
     return mod, gate
 
@@ -70,6 +71,34 @@ def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _row_plan(x: torch.Tensor, conds, out: torch.Tensor) -> dict:
+    """The plan of either kernel over the (B, T, D) rows of x, its (B, D)
+    conditioning rows `conds` (one shared row stride) and `out`."""
+    B, T, D = x.shape
+    if D > MAX_D:
+        raise ValueError(f"D <= {MAX_D}, got {D}")
+    size = x.element_size()
+    # every address and byte stride the accesses step by, OR-ed: its low
+    # bits bound the alignment they all share
+    offsets = x.data_ptr() | out.data_ptr() | D * size | conds[0].stride(0) * size
+    for c in conds:
+        offsets |= c.data_ptr()
+    width = next(w for w in ACCESS_BYTES if w <= size or offsets % w == 0)
+    nvec = D * size // width
+    lanes = 32 if nvec >= 64 else 16
+    chunks = -(-nvec // lanes)
+    if (x.dtype, width, lanes, chunks) in REGISTER_BODIES:
+        body = "registers"
+    else:
+        body, lanes, chunks = "generic", 32, 0
+    rows = MOD_THREADS // lanes
+    sms = _sms(x.device.index) if x.is_cuda else H100_SMS
+    per_b = -(-T // rows)                       # one row a group
+    turns = -(-B * per_b // (BLOCKS_PER_SM * sms))
+    return dict(body=body, access_bytes=width, lanes=lanes, chunks=chunks,
+                rows_per_block=rows, blocks=B * -(-per_b // turns))
+
+
 def plan(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
          out: torch.Tensor) -> dict:
     """Which body serves these operands, by dtype, D and alignment.
@@ -86,28 +115,16 @@ def plan(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     an integer factor until it fits, and each group takes that many rows
     in turn (grid-stride), keeping its shift/scale registers.
     """
-    B, T, D = x.shape
-    if D > MAX_D:
-        raise ValueError(f"adaln_modulate: D <= {MAX_D}, got {D}")
-    size = x.element_size()
-    # every address and byte stride the accesses step by, OR-ed: its low
-    # bits bound the alignment they all share
-    offsets = (x.data_ptr() | shift.data_ptr() | scale.data_ptr()
-               | out.data_ptr() | D * size | shift.stride(0) * size)
-    width = next(w for w in ACCESS_BYTES if w <= size or offsets % w == 0)
-    nvec = D * size // width
-    lanes = 32 if nvec >= 64 else 16
-    chunks = -(-nvec // lanes)
-    if (x.dtype, width, lanes, chunks) in REGISTER_BODIES:
-        body = "registers"
-    else:
-        body, lanes, chunks = "generic", 32, 0
-    rows = MOD_THREADS // lanes
-    sms = _sms(x.device.index) if x.is_cuda else H100_SMS
-    per_b = -(-T // rows)                       # one row a group
-    turns = -(-B * per_b // (BLOCKS_PER_SM * sms))
-    return dict(body=body, access_bytes=width, lanes=lanes, chunks=chunks,
-                rows_per_block=rows, blocks=B * -(-per_b // turns))
+    return _row_plan(x, (shift, scale), out)
+
+
+def plan_gate(resid: torch.Tensor, gate: torch.Tensor, y: torch.Tensor,
+              out: torch.Tensor) -> dict:
+    """gate_residual's plan: plan()'s rule over resid, the gate rows (their
+    row stride in the conditioning stride's place), y and out. The
+    register bodies hold the gate chunks of a group's columns across the
+    rows it takes."""
+    return _row_plan(resid, (gate, y), out)
 
 
 def _launch_modulate(x, shift, scale, out, eps, p) -> None:
@@ -143,14 +160,20 @@ def gate_residual(resid: torch.Tensor, gate: torch.Tensor,
                          f"{tuple(resid.shape)} {resid.dtype} and be "
                          f"contiguous; got {tuple(y.shape)} {y.dtype}")
     require_cuda("gate_residual", resid, y)
-    B, T, D = resid.shape
-    if B > 65535 or T * D > 2**31 - 1:
-        raise ValueError(f"gate_residual: B <= 65535 and T*D < 2^31; got "
-                         f"{tuple(resid.shape)}")
+    if resid.shape[0] > 65535:
+        raise ValueError(f"gate_residual: B <= 65535, got {resid.shape[0]}")
     out = torch.empty_like(resid)
-    rc = _launchers()[1](resid.data_ptr(), gate.data_ptr(), y.data_ptr(),
-                         out.data_ptr(), B, T, D, stride,
-                         build.dtype_code(resid.dtype), build.stream_of(resid))
-    build.check(rc, "gate_residual")
-    LAUNCHES["gate_residual"] += 1
+    _launch_gate(resid, gate, y, out, plan_gate(resid, gate, y, out))
     return out
+
+
+def _launch_gate(resid, gate, y, out, p) -> None:
+    """Launch the gate_residual kernel on plan `p` (see plan_gate())."""
+    B, T, D = resid.shape
+    rc = _launchers()[1](
+        resid.data_ptr(), gate.data_ptr(), y.data_ptr(), out.data_ptr(), B, T,
+        D, gate.stride(0), build.dtype_code(resid.dtype), p["access_bytes"],
+        p["lanes"], p["chunks"], p["rows_per_block"] * p["lanes"] // 32,
+        p["blocks"] // B, build.stream_of(resid))
+    build.check(rc, "gate_residual", "adaln_modulate")
+    LAUNCHES["gate_residual"] += 1

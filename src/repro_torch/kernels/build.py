@@ -90,10 +90,11 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def check(rc: int, name: str) -> None:
-    """Raise unless a launch function returned cudaSuccess (0)."""
+def check(rc: int, name: str, lib: str | None = None) -> None:
+    """Raise unless a launch function of kernel `name` (in the library of
+    `csrc/<lib>.cu`, by default `<name>.cu`) returned cudaSuccess (0)."""
     if rc:
-        msg = library(name).error_string(rc).decode()
+        msg = library(lib or name).error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
 

@@ -29,16 +29,20 @@
 //   L1/L2). The access width is the widest that every pointer, the rows
 //   and the conditioning stride allow; the wrapper's plan() chooses it and
 //   the body, and this entry point refuses a plan the operands cannot take.
-// * gate_residual — grid (x: T*D chunks, y: b), grid-stride elementwise;
-//   the per-row gate is indexed, not broadcast in memory.
+// * gate_residual — the same plan, groups and compiled bodies as
+//   modulate: a group owns a row, resid and y cross in 2-16 byte chunks
+//   (16 at the DiT's shapes), and the group's gate chunks are loaded once
+//   and held in registers for every row it takes. No element index is
+//   divided by D. The grid is one wave of resident blocks, each warp taking
+//   rows in turn (grid-stride over t). The sum is fp32: the product and
+//   the sum are each rounded, as in the plain version, then rounded once
+//   to the output type.
 // shift/scale/gate are (B, D) rows with a row stride, so the six chunks of
 // the DiT's modulation vector are read in place.
 #include "common.cuh"
 
 constexpr int MOD_MAX_D = 8 * 1024;
 constexpr int MOD_MAX_THREADS = 256;
-constexpr int EW_THREADS = 256;
-constexpr int MAX_EW_BLOCKS_X = 2048;
 
 template <int BYTES> struct Raw;
 template <> struct Raw<16> { using type = uint4; };
@@ -230,21 +234,82 @@ modulate_kernel(const T* __restrict__ x, const T* __restrict__ shift,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(EW_THREADS)
-gate_residual_kernel(const T* __restrict__ resid, const T* __restrict__ gate,
-                     const T* __restrict__ y, T* __restrict__ out, int TD, int D,
-                     long long gate_stride) {
-  const long long base = (long long)blockIdx.y * TD;
-  const T* g = gate + blockIdx.y * gate_stride;
-  for (int i = blockIdx.x * EW_THREADS + threadIdx.x; i < TD;
-       i += gridDim.x * EW_THREADS) {
-    const long long e = base + i;
-    out[e] = from_f32<T>(to_f32(resid[e]) + to_f32(g[i % D]) * to_f32(y[e]));
+// resid + gate * y in fp32, rounded once: a product then a sum, each
+// rounded to fp32 (no fused multiply-add), exactly as the plain version
+// computes it
+__device__ __forceinline__ float gated(float r, float g, float y) {
+  return __fadd_rn(r, __fmul_rn(g, y));
+}
+
+// The same grid and groups as modulate_kernel: a group of LANES lanes owns
+// a row of one b (grid y), lane l holding chunks l, l + LANES, ... of it.
+// The register bodies (NCHUNK > 0) load the gate chunks of the group's
+// columns once and keep them for every row the group takes; all resid and
+// y loads of a row are issued before its first store. The generic body
+// (NCHUNK = 0) walks the row a chunk at a time, gate included. No lane
+// waits on another, so each group runs its own rows.
+template <typename T, int VEC, int LANES, int NCHUNK>
+__global__ void __launch_bounds__(MOD_MAX_THREADS)
+gate_kernel(const T* __restrict__ resid, const T* __restrict__ gate,
+            const T* __restrict__ y, T* __restrict__ out, int T_, int D,
+            long long gate_stride) {
+  using C = Chunk<T, VEC>;
+  constexpr int GROUPS = 32 / LANES;
+  const int sub = (threadIdx.x & 31) % LANES;
+  const int warps = blockDim.x >> 5;
+  const int nvec = D / VEC;
+  const long long b = blockIdx.y;
+  const T* g = gate + b * gate_stride;
+  const int step = gridDim.x * warps * GROUPS;
+  int t = (blockIdx.x * warps + (threadIdx.x >> 5)) * GROUPS + (threadIdx.x & 31) / LANES;
+  if constexpr (NCHUNK > 0) {
+    C cg[NCHUNK];
+#pragma unroll
+    for (int j = 0; j < NCHUNK; ++j) {
+      const int c = j * LANES + sub;
+      cg[j].zero();
+      if (c < nvec) cg[j].load(g + c * VEC);
+    }
+    for (; t < T_; t += step) {
+      const long long row = (b * T_ + t) * D;
+      C rv[NCHUNK], yv[NCHUNK];
+#pragma unroll
+      for (int j = 0; j < NCHUNK; ++j) {
+        const int c = j * LANES + sub;
+        if (c < nvec) {
+          rv[j].load(resid + row + c * VEC);
+          yv[j].load(y + row + c * VEC);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NCHUNK; ++j) {
+        const int c = j * LANES + sub;
+        if (c < nvec) {
+          float f[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) f[i] = gated(rv[j].get(i), cg[j].get(i), yv[j].get(i));
+          store_chunk<T, VEC>(out + row + c * VEC, f);
+        }
+      }
+    }
+  } else {  // generic body: any D
+    for (; t < T_; t += step) {
+      const long long row = (b * T_ + t) * D;
+      for (int c = sub; c < nvec; c += LANES) {
+        C rv, gv, yv;
+        rv.load(resid + row + c * VEC);
+        gv.load(g + c * VEC);
+        yv.load(y + row + c * VEC);
+        float f[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) f[i] = gated(rv.get(i), gv.get(i), yv.get(i));
+        store_chunk<T, VEC>(out + row + c * VEC, f);
+      }
+    }
   }
 }
 
-using ModLaunch = void (*)(const void*, const void*, const void*, void*, dim3,
+using RowLaunch = void (*)(const void*, const void*, const void*, void*, dim3,
                            int, int, int, long long, float, cudaStream_t);
 
 template <typename T, int VEC, int LANES, int NCHUNK>
@@ -256,88 +321,101 @@ void launch_modulate(const void* x, const void* shift, const void* scale, void* 
       static_cast<const T*>(scale), static_cast<T*>(out), T_, D, cond_stride, eps);
 }
 
-// The compiled bodies: (dtype, access bytes, lanes per row, chunks per
-// lane). Mirrored by kernels/adaln_modulate/kernel.py (REGISTER_BODIES).
-struct ModBody {
+// (resid, gate, y, out): the same arguments in modulate's places; eps unused
+template <typename T, int VEC, int LANES, int NCHUNK>
+void launch_gate(const void* resid, const void* gate, const void* y, void* out,
+                 dim3 grid, int threads, int T_, int D, long long gate_stride, float,
+                 cudaStream_t s) {
+  gate_kernel<T, VEC, LANES, NCHUNK><<<grid, threads, 0, s>>>(
+      static_cast<const T*>(resid), static_cast<const T*>(gate),
+      static_cast<const T*>(y), static_cast<T*>(out), T_, D, gate_stride);
+}
+
+// The compiled bodies of both kernels: (dtype, access bytes, lanes per
+// row, chunks per lane). Mirrored by kernels/adaln_modulate/kernel.py
+// (REGISTER_BODIES).
+struct RowBody {
   int dtype, bytes, lanes, chunks;
-  ModLaunch launch;
+  RowLaunch modulate, gate;
 };
 using bf16 = __nv_bfloat16;
-static const ModBody MOD_BODIES[] = {
+#define ROW_BODY(DT, T, BYTES, LANES, CHUNKS)                              \
+  {DT, BYTES, LANES, CHUNKS, launch_modulate<T, BYTES / sizeof(T), LANES, CHUNKS>, \
+   launch_gate<T, BYTES / sizeof(T), LANES, CHUNKS>}
+static const RowBody ROW_BODIES[] = {
     // register bodies, D = 1152 / 384 / 128
-    {DTYPE_BF16, 16, 32, 5, launch_modulate<bf16, 8, 32, 5>},
-    {DTYPE_BF16, 16, 16, 3, launch_modulate<bf16, 8, 16, 3>},
-    {DTYPE_BF16, 16, 16, 1, launch_modulate<bf16, 8, 16, 1>},
-    {DTYPE_F32, 16, 32, 9, launch_modulate<float, 4, 32, 9>},
-    {DTYPE_F32, 16, 32, 3, launch_modulate<float, 4, 32, 3>},
-    {DTYPE_F32, 16, 16, 2, launch_modulate<float, 4, 16, 2>},
+    ROW_BODY(DTYPE_BF16, bf16, 16, 32, 5),
+    ROW_BODY(DTYPE_BF16, bf16, 16, 16, 3),
+    ROW_BODY(DTYPE_BF16, bf16, 16, 16, 1),
+    ROW_BODY(DTYPE_F32, float, 16, 32, 9),
+    ROW_BODY(DTYPE_F32, float, 16, 32, 3),
+    ROW_BODY(DTYPE_F32, float, 16, 16, 2),
     // generic bodies, any D, by access width
-    {DTYPE_BF16, 16, 32, 0, launch_modulate<bf16, 8, 32, 0>},
-    {DTYPE_BF16, 8, 32, 0, launch_modulate<bf16, 4, 32, 0>},
-    {DTYPE_BF16, 4, 32, 0, launch_modulate<bf16, 2, 32, 0>},
-    {DTYPE_BF16, 2, 32, 0, launch_modulate<bf16, 1, 32, 0>},
-    {DTYPE_F32, 16, 32, 0, launch_modulate<float, 4, 32, 0>},
-    {DTYPE_F32, 8, 32, 0, launch_modulate<float, 2, 32, 0>},
-    {DTYPE_F32, 4, 32, 0, launch_modulate<float, 1, 32, 0>},
+    ROW_BODY(DTYPE_BF16, bf16, 16, 32, 0),
+    ROW_BODY(DTYPE_BF16, bf16, 8, 32, 0),
+    ROW_BODY(DTYPE_BF16, bf16, 4, 32, 0),
+    ROW_BODY(DTYPE_BF16, bf16, 2, 32, 0),
+    ROW_BODY(DTYPE_F32, float, 16, 32, 0),
+    ROW_BODY(DTYPE_F32, float, 8, 32, 0),
+    ROW_BODY(DTYPE_F32, float, 4, 32, 0),
 };
+#undef ROW_BODY
 
-// The plan (access bytes, lanes, chunks, warps per block, blocks per b)
-// comes from the wrapper's plan(); a plan the operands cannot take, or
-// that no compiled body serves, is refused with cudaErrorInvalidValue.
-extern "C" int adaln_modulate(const void* x, const void* shift, const void* scale,
-                              void* out, int B, int T_, int D,
-                              long long cond_stride, float eps, int dtype,
-                              int bytes, int lanes, int chunks, int warps,
-                              int blocks_per_b, void* stream) {
+// Check a plan (access bytes, lanes, chunks, warps per block, blocks per
+// b) against the operands (the row tensor a, the conditioning rows c0/c1
+// of row stride cond_stride, the output) and find its compiled body:
+// nullptr where the operands cannot take the plan or no body serves it.
+static const RowBody* row_body(const void* a, const void* c0, const void* c1,
+                               const void* out, int B, int T_, int D,
+                               long long cond_stride, int dtype, int bytes, int lanes,
+                               int chunks, int warps, int blocks_per_b) {
   const int size = dtype == DTYPE_F32 ? 4 : dtype == DTYPE_BF16 ? 2 : 0;
   if (!size || B < 1 || B > 65535 || T_ < 1 || D < 1 || D > MOD_MAX_D ||
       (lanes != 8 && lanes != 16 && lanes != 32) || warps < 1 ||
       warps * 32 > MOD_MAX_THREADS || blocks_per_b < 1 ||
       (long long)blocks_per_b * warps * 32 > 0x7fffffffLL || cond_stride < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return nullptr;
   if (bytes < size || bytes % size || (D * size) % bytes || (cond_stride * size) % bytes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[] = {x, shift, scale, out};
+    return nullptr;
+  const void* ptrs[] = {a, c0, c1, out};
   for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % bytes) return static_cast<int>(cudaErrorInvalidValue);
+    if (reinterpret_cast<uintptr_t>(p) % bytes) return nullptr;
   const int nvec = D * size / bytes;
-  if (chunks > 0 ? chunks != (nvec + lanes - 1) / lanes : lanes != 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  for (const ModBody& body : MOD_BODIES) {
+  if (chunks > 0 ? chunks != (nvec + lanes - 1) / lanes : lanes != 32) return nullptr;
+  for (const RowBody& body : ROW_BODIES)
     if (body.dtype == dtype && body.bytes == bytes && body.lanes == lanes &&
-        body.chunks == chunks) {
-      body.launch(x, shift, scale, out, dim3(blocks_per_b, B), warps * 32, T_, D,
-                  cond_stride, eps, static_cast<cudaStream_t>(stream));
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+        body.chunks == chunks)
+      return &body;
+  return nullptr;
 }
 
+// The plan comes from the wrapper's plan(); a plan the operands cannot
+// take, or that no compiled body serves, is refused with
+// cudaErrorInvalidValue.
+extern "C" int adaln_modulate(const void* x, const void* shift, const void* scale,
+                              void* out, int B, int T_, int D,
+                              long long cond_stride, float eps, int dtype,
+                              int bytes, int lanes, int chunks, int warps,
+                              int blocks_per_b, void* stream) {
+  const RowBody* body = row_body(x, shift, scale, out, B, T_, D, cond_stride, dtype,
+                                 bytes, lanes, chunks, warps, blocks_per_b);
+  if (!body) return static_cast<int>(cudaErrorInvalidValue);
+  body->modulate(x, shift, scale, out, dim3(blocks_per_b, B), warps * 32, T_, D,
+                 cond_stride, eps, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same plan and refusals as adaln_modulate, the gate's row stride in
+// place of the conditioning stride.
 extern "C" int gate_residual(const void* resid, const void* gate, const void* y,
                              void* out, int B, int T_, int D,
-                             long long gate_stride, int dtype, void* stream) {
-  const long long td = (long long)T_ * D;
-  if (B < 1 || B > 65535 || T_ < 1 || D < 1 || td > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  long long blocks_x = (td + EW_THREADS - 1) / EW_THREADS;
-  if (blocks_x > MAX_EW_BLOCKS_X) blocks_x = MAX_EW_BLOCKS_X;
-  const dim3 grid(static_cast<unsigned>(blocks_x), static_cast<unsigned>(B));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) {
-    gate_residual_kernel<float><<<grid, EW_THREADS, 0, s>>>(
-        static_cast<const float*>(resid), static_cast<const float*>(gate),
-        static_cast<const float*>(y), static_cast<float*>(out),
-        static_cast<int>(td), D, gate_stride);
-  } else if (dtype == DTYPE_BF16) {
-    gate_residual_kernel<__nv_bfloat16><<<grid, EW_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(resid),
-        static_cast<const __nv_bfloat16*>(gate),
-        static_cast<const __nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(out),
-        static_cast<int>(td), D, gate_stride);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                             long long gate_stride, int dtype, int bytes, int lanes,
+                             int chunks, int warps, int blocks_per_b, void* stream) {
+  const RowBody* body = row_body(resid, gate, y, out, B, T_, D, gate_stride, dtype,
+                                 bytes, lanes, chunks, warps, blocks_per_b);
+  if (!body) return static_cast<int>(cudaErrorInvalidValue);
+  body->gate(resid, gate, y, out, dim3(blocks_per_b, B), warps * 32, T_, D,
+             gate_stride, 0.f, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

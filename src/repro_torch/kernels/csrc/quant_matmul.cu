@@ -41,9 +41,17 @@
 //   The epilogue stages each warp's accumulators in shared memory and
 //   writes rows of neighbouring column pairs, each scaled once. Tile 128 x
 //   128 x 32 (8 warps, each 32 x 64, two blocks an SM).
-// * skinny (bf16 or int8 x, M <= 64: the adaLN sites): the same WMMA body
-//   with a 16 x 32 x 128 tile (2 warps), where a 128-row tile would be
-//   almost all padding.
+// * skinny (bf16 or int8 x, M <= 64: the adaLN sites, M = 16). A GEMV
+//   more than a GEMM: the weight's bytes bound it, and each is used M
+//   times. A block owns a strip of 64 columns (32 where 64-column strips
+//   would leave a quarter of the SMs idle, or M > 32) and all of M; its 8
+//   warps split K and load their weight bytes and x straight into
+//   registers, every group of the warp at once, so the whole weight is in
+//   flight on the card. mma.sync m16n8k16 computes out^T = W^T x^T with
+//   the k order of each product chosen so that a lane's own loaded bytes
+//   are its A fragment, widened exactly in registers; the warps' sums
+//   meet in shared memory in a fixed order (no atomics). 108 blocks at
+//   ada (N = 6912), one wave. See the note at the kernel.
 // * cuda_cores (fp32 x): a 64 x 64 tile, BK 16, 4 x 4 outputs per thread,
 //   the weight tile widened to fp32 in shared memory, so fp32 activations
 //   are never rounded to bf16.
@@ -117,9 +125,7 @@ struct TcTile {
 };
 // the token sites: 8 warps, each 32 x 64, two blocks an SM (<= 128 registers)
 using BigTile = TcTile<128, 128, 32, 4, 2, 4, 2>;
-// M <= 64 (the adaLN sites, M = 16): 2 warps, each 16 x 16
-using SkinnyTile = TcTile<16, 32, 128, 1, 2, 4, 1>;
-constexpr int SKINNY_MAX_M = 64;
+constexpr int SKINNY_MAX_M = 64;  // and fewer rows take the skinny body
 
 // Shared-memory plan of one block: a ring of STAGES raw tiles as stored
 // (x: BM x BK, qw: BK x BN), and two bf16 tiles of qw (and of x when it is
@@ -751,6 +757,257 @@ static int launch_wg(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- skinny body (M <= 64: the adaLN sites) ---------------------------------
+
+constexpr int SK_MAX_SPLIT = 8;   // warps a block
+constexpr int SK_SMEM = 65536;    // the partial-sum buffer of a block, at most
+
+// 16-row groups of K a warp loads at once: up to 9 (the adaLN sites' K =
+// 1152 over 8 warps) while the loads and the accumulators fit a thread's
+// 255 registers
+__host__ __device__ constexpr int sk_batch(int m_tiles) {
+  return m_tiles == 2 ? 9 : m_tiles == 4 ? 5 : 3;
+}
+// dynamic shared memory of a block of `split` warps: their partial sums
+__host__ __device__ constexpr int sk_smem(int m_tiles, int vw, int split) {
+  return split * (vw / 2) * m_tiles * 32 * 16;
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// BYTES bytes from global memory into words, lowest first: one load where
+// the operand allows it, else byte loads of the first `bytes` and zeros
+template <int BYTES>
+__device__ __forceinline__ void sk_load(uint32_t (&v)[BYTES / 4], const unsigned char* p,
+                                        bool whole, int bytes) {
+  if (whole) {
+    if constexpr (BYTES == 8) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = u.x;
+      v[1] = u.y;
+    } else {
+      v[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < BYTES / 4; ++q) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * q + j < bytes) word |= static_cast<uint32_t>(p[4 * q + j]) << (8 * j);
+      v[q] = word;
+    }
+  }
+}
+
+// two int8 values (the low half of v, lowest first) as a bf16 pair
+__device__ __forceinline__ uint32_t widen2_i8(uint32_t v) {
+  float f[4];
+  widen4<int8_t>(v, f);
+  return bf16x2_of(f[0], f[1]);
+}
+
+// A block owns strips of 8 * VW output columns (strip blockIdx.x, then +
+// gridDim.x, ...) and every row of x (M <= 8 * MT), and sweeps all of K.
+// The product is computed transposed, out^T = W^T x^T: the weight is
+// operand A of mma.sync m16n8k16, x^T operand B (MT n8 tiles of x rows).
+// Both go from global memory straight to registers: no shared memory
+// until the sums, one barrier a strip.
+// * Lane (g, t) of a warp loads VW bytes (columns VW g ..) of the four k
+//   rows 4t .. 4t + 3 of a 16-row group; eight lanes read 8 VW contiguous
+//   bytes of a row. Warp w takes groups w, w + split, ... and issues the
+//   loads of up to sk_batch of them before it uses any: at the adaLN
+//   sites that is every group it has, so each block asks for its whole
+//   strip (72 KB at VW = 8) at once, and the card for the whole weight.
+// * The k order inside an m16n8k16 product is free as long as A and B
+//   agree: the fragment's k slots 2t, 2t + 1, 2t + 8, 2t + 9 are taken to
+//   be rows 4t .. 4t + 3, which the lane already holds. So a lane widens
+//   its own bytes exactly in registers (the byte-permute widening of the
+//   wgmma body) into the A fragments of VW / 2 products, fragment rows g
+//   and g + 8 being its columns 2j and 2j + 1: no shuffle, no ldmatrix.
+//   B is x rows 8mt + g at k 4t .. 4t + 3, one load a row (x is a few KB,
+//   read from L2), widened pairwise when it is int8.
+// * The warps' partial sums meet in shared memory, added in warp order
+//   (no atomics: the same sum on every run); each output is scaled once
+//   (the scales of a thread's first output are loaded before the sweep)
+//   and stored, neighbouring columns in pairs.
+// What bounds it on the H100 (ablate_kernels.py, PERF.md): the SM's
+// load requests in flight, not HBM; staging x in shared memory, or
+// splitting K over a cluster to read 128-byte rows, cost more in barriers
+// than they saved.
+template <int MT, int VW, typename XT, typename WT, typename OT>
+__global__ void __launch_bounds__(SK_MAX_SPLIT * 32, 1)
+qmm_skinny_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+                  const float* __restrict__ scale, OT* __restrict__ out, int M, int N, int K,
+                  long long ldx, long long ldw, long long ldo, int vec_x, int vec_w,
+                  int pairs) {
+  constexpr int NJ = VW / 2;              // products a lane a group (column pairs)
+  constexpr int BN = 8 * VW;              // columns a strip
+  constexpr int B = sk_batch(MT);
+  constexpr int GROUPS = NJ * MT * 32;    // float4 partial sums a warp
+  constexpr int XS = static_cast<int>(sizeof(XT));
+  constexpr int XB = 4 * XS;              // bytes of x a lane a row and group
+  extern __shared__ __align__(128) unsigned char smem[];
+  float4* red = reinterpret_cast<float4*>(smem);
+  const int split = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int groups = (K + 15) / 16;
+  const int mine = warp < groups ? (groups - warp - 1) / split + 1 : 0;
+  const int strips = (N + BN - 1) / BN;
+  const unsigned char* wb = reinterpret_cast<const unsigned char*>(w);
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  // output item e of a strip: partial sums (j, mt) of lane e % 32: rows
+  // 8mt + 2t (+ 1), columns VW g + 2j (+ 1) of the strip
+  auto item_col = [&](int strip, int e) {
+    return strip * BN + VW * ((e & 31) >> 2) + 2 * ((e >> 5) / MT);
+  };
+
+  for (int strip = blockIdx.x; strip < strips; strip += gridDim.x) {
+    const int n = strip * BN + VW * g8;  // this lane's first column
+    float s_first[2] = {0.f, 0.f};       // the scales of this thread's first item
+    if (threadIdx.x < GROUPS) {
+      const int col = item_col(strip, threadIdx.x);
+      if (col < N) s_first[0] = __ldg(scale + col);
+      if (col + 1 < N) s_first[1] = __ldg(scale + col + 1);
+    }
+    float acc[NJ][MT][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][mt][q] = 0.f;
+
+    for (int b0 = 0; b0 < mine; b0 += B) {
+      uint32_t v[B][4][VW / 4];   // weight: rows 4t + r of group, columns n ..
+      uint32_t xv[B][MT][XB / 4]; // x: rows 8mt + g, k 4t .. 4t + 3 of group
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        const int k0 = 16 * (warp + (b0 + u) * split) + 4 * t4;
+        const bool live = b0 + u < mine;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const bool in = live && k0 + r < K;
+          sk_load<VW>(v[u][r], wb + (k0 + r) * ldw + n, in && vec_w && n + VW <= N,
+                      in ? N - n : 0);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int m = 8 * mt + g8;
+          const bool in = live && m < M;
+          sk_load<XB>(xv[u][mt], xb + (m * ldx + k0) * XS, in && vec_x && k0 + 4 <= K,
+                      in ? (K - k0) * XS : 0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        if (b0 + u >= mine) break;
+        uint32_t bx[MT][2];  // the x^T fragments, bf16 pairs
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (XS == 2) {
+            bx[mt][0] = xv[u][mt][0];
+            bx[mt][1] = xv[u][mt][XB / 4 - 1];
+          } else {
+            bx[mt][0] = widen2_i8(xv[u][mt][0]);
+            bx[mt][1] = widen2_i8(xv[u][mt][0] >> 16);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < VW / 4; ++q) {
+          float f[4][4];  // rows 4t + r, columns 4q .. 4q + 3 of this lane's
+#pragma unroll
+          for (int r = 0; r < 4; ++r) widen4<WT>(v[u][r][q], f[r]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t a[4];  // fragment rows g / g + 8: columns 4q + 2h / + 1
+            a[0] = bf16x2_of(f[0][2 * h], f[1][2 * h]);
+            a[1] = bf16x2_of(f[0][2 * h + 1], f[1][2 * h + 1]);
+            a[2] = bf16x2_of(f[2][2 * h], f[3][2 * h]);
+            a[3] = bf16x2_of(f[2][2 * h + 1], f[3][2 * h + 1]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_16816(acc[2 * q + h][mt], a, bx[mt][0], bx[mt][1]);
+          }
+        }
+      }
+    }
+
+    // accumulator (j, mt): rows g / g + 8 are columns VW g + 2j / + 1 of
+    // the strip, its columns 2t / 2t + 1 rows 8mt + 2t (+ 1) of x
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        red[warp * GROUPS + (j * MT + mt) * 32 + lane] =
+            make_float4(acc[j][mt][0], acc[j][mt][1], acc[j][mt][2], acc[j][mt][3]);
+    __syncthreads();
+    for (int e = threadIdx.x; e < GROUPS; e += blockDim.x) {
+      float4 s4 = red[e];
+      for (int q = 1; q < split; ++q) {  // warp order
+        const float4 o = red[q * GROUPS + e];
+        s4.x += o.x;
+        s4.y += o.y;
+        s4.z += o.z;
+        s4.w += o.w;
+      }
+      const int m = 8 * ((e >> 5) % MT) + 2 * (e & 3), col = item_col(strip, e);
+      if (col >= N) continue;
+      const bool two = col + 1 < N;
+      const bool first = e == static_cast<int>(threadIdx.x);
+      const float s0 = first ? s_first[0] : scale[col];
+      const float s1 = first ? s_first[1] : two ? scale[col + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (m + h >= M) break;
+        OT* o = out + (m + h) * ldo + col;
+        const float v0 = (h ? s4.y : s4.x) * s0, v1 = (h ? s4.w : s4.z) * s1;
+        if (two && pairs) {
+          store_pair(o, v0, v1);
+        } else {
+          o[0] = from_f32<OT>(v0);
+          if (two) o[1] = from_f32<OT>(v1);
+        }
+      }
+    }
+    __syncthreads();  // the buffer is the next strip's
+  }
+}
+
+// The plan (m_tiles, the weight bytes a lane loads from a row, split,
+// grid, whole loads of x and of the weight) comes from the wrapper's
+// plan(); one the operands cannot take is refused.
+template <int MT, int VW, typename XT, typename WT, typename OT>
+static int launch_skinny(const Args& a, int split, int grid, int vec_x, int vec_w,
+                         cudaStream_t s) {
+  if (split < 1 || split > SK_MAX_SPLIT || grid > (a.N + 8 * VW - 1) / (8 * VW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_w && (reinterpret_cast<uintptr_t>(a.w) % VW || a.ldw % VW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool sized = false;  // once per instantiation
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm_skinny_kernel<MT, VW, XT, WT, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SK_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const int pairs =
+      a.ldo % 2 == 0 && reinterpret_cast<uintptr_t>(a.out) % (2 * sizeof(OT)) == 0;
+  qmm_skinny_kernel<MT, VW, XT, WT, OT><<<grid, split * 32, sk_smem(MT, VW, split), s>>>(
+      static_cast<const XT*>(a.x), static_cast<const WT*>(a.w), a.scale,
+      static_cast<OT*>(a.out), a.M, a.N, a.K, a.ldx, a.ldw, a.ldo, vec_x, vec_w, pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- CUDA-core body (fp32 x) -----------------------------------------------
 
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_THREADS = 256;
@@ -825,40 +1082,53 @@ static int launch_f32(const Args& a, cudaStream_t s) {
 constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
 
 // the tensor-core bodies, each a launcher over (x, w, out) element types
+// and the body's own plan arguments, if any
 struct WmmaBody {
   template <typename XT, typename WT, typename OT>
   static int run(const Args& a, cudaStream_t s) { return launch_tc<BigTile, XT, WT, OT>(a, s); }
-};
-struct SkinnyBody {
-  template <typename XT, typename WT, typename OT>
-  static int run(const Args& a, cudaStream_t s) {
-    return launch_tc<SkinnyTile, XT, WT, OT>(a, s);
-  }
 };
 struct WgmmaBody {
   template <typename XT, typename WT, typename OT>
   static int run(const Args& a, cudaStream_t s) { return launch_wg<XT, WT, OT>(a, s); }
 };
+struct SkinnyPlan {
+  int m_tiles, vw, split, grid, vec_x, vec_w;
+};
+// the compiled (x-row tiles, weight bytes a lane loads from a row): each
+// keeps 64 accumulator registers or fewer
+struct SkinnyBody {
+  template <typename XT, typename WT, typename OT>
+  static int run(const Args& a, cudaStream_t s, const SkinnyPlan& p) {
+    switch (p.m_tiles * 100 + p.vw) {
+      case 208: return launch_skinny<2, 8, XT, WT, OT>(a, p.split, p.grid, p.vec_x, p.vec_w, s);
+      case 204: return launch_skinny<2, 4, XT, WT, OT>(a, p.split, p.grid, p.vec_x, p.vec_w, s);
+      case 408: return launch_skinny<4, 8, XT, WT, OT>(a, p.split, p.grid, p.vec_x, p.vec_w, s);
+      case 404: return launch_skinny<4, 4, XT, WT, OT>(a, p.split, p.grid, p.vec_x, p.vec_w, s);
+      case 804: return launch_skinny<8, 4, XT, WT, OT>(a, p.split, p.grid, p.vec_x, p.vec_w, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+};
 
-template <class Body, typename XT, typename WT>
-static int tc_by_out(const Args& a, int out_code, cudaStream_t s) {
-  if (out_code == DTYPE_F32) return Body::template run<XT, WT, float>(a, s);
-  if (out_code == DTYPE_BF16) return Body::template run<XT, WT, bf16>(a, s);
+template <class Body, typename XT, typename WT, class... P>
+static int tc_by_out(const Args& a, int out_code, cudaStream_t s, const P&... p) {
+  if (out_code == DTYPE_F32) return Body::template run<XT, WT, float>(a, s, p...);
+  if (out_code == DTYPE_BF16) return Body::template run<XT, WT, bf16>(a, s, p...);
   return BAD;
 }
 
-template <class Body, typename XT>
-static int tc_by_w(const Args& a, int w_code, int out_code, cudaStream_t s) {
-  if (w_code == DTYPE_I8) return tc_by_out<Body, XT, int8_t>(a, out_code, s);
-  if (w_code == DTYPE_F8E4M3) return tc_by_out<Body, XT, fp8>(a, out_code, s);
+template <class Body, typename XT, class... P>
+static int tc_by_w(const Args& a, int w_code, int out_code, cudaStream_t s, const P&... p) {
+  if (w_code == DTYPE_I8) return tc_by_out<Body, XT, int8_t>(a, out_code, s, p...);
+  if (w_code == DTYPE_F8E4M3) return tc_by_out<Body, XT, fp8>(a, out_code, s, p...);
   return BAD;
 }
 
-template <class Body>
-static int tc_by_x(const Args& a, int x_code, int w_code, int out_code,
-                   cudaStream_t s) {
-  if (x_code == DTYPE_BF16) return tc_by_w<Body, bf16>(a, w_code, out_code, s);
-  if (x_code == DTYPE_I8) return tc_by_w<Body, int8_t>(a, w_code, out_code, s);
+template <class Body, class... P>
+static int tc_by_x(const Args& a, int x_code, int w_code, int out_code, cudaStream_t s,
+                   const P&... p) {
+  if (x_code == DTYPE_BF16) return tc_by_w<Body, bf16>(a, w_code, out_code, s, p...);
+  if (x_code == DTYPE_I8) return tc_by_w<Body, int8_t>(a, w_code, out_code, s, p...);
   return BAD;
 }
 
@@ -874,17 +1144,17 @@ enum BodyCode : int { BODY_CUDA_CORES = 0, BODY_WMMA = 1, BODY_SKINNY = 2, BODY_
 
 // x (M, K) of row stride ldx, qw (K, N) of row stride ldw, scale (N,) fp32,
 // out (M, N) of row stride ldo; codes as DTypeCode; `body` as chosen by the
-// wrapper (fp32 x: CUDA cores; M <= 64: skinny; wgmma where x and qw rows
-// are 16-byte aligned, as TMA needs; WMMA otherwise). Returns the launch's
-// cudaError_t; a body that cannot take the operands returns
-// cudaErrorInvalidValue.
+// wrapper (fp32 x: CUDA cores; wgmma where x and qw rows are 16-byte
+// aligned, as TMA needs; WMMA otherwise; M <= 64 takes the skinny body
+// through quant_matmul_skinny). Returns the launch's cudaError_t; a body
+// that cannot take the operands returns cudaErrorInvalidValue.
 extern "C" int quant_matmul(const void* x, const void* w, const float* scale,
                             void* out, int M, int N, int K, long long ldx,
                             long long ldw, long long ldo, int x_code,
                             int w_code, int out_code, int body, void* stream) {
   if (M < 1 || N < 1 || K < 1 || ldx < K || ldw < N || ldo < N) return BAD;
   if ((body == BODY_CUDA_CORES) != (x_code == DTYPE_F32)) return BAD;
-  if ((body == BODY_SKINNY) != (M <= SKINNY_MAX_M) && body != BODY_CUDA_CORES) return BAD;
+  if (M <= SKINNY_MAX_M && body != BODY_CUDA_CORES) return BAD;
   const Args a{x, w, scale, out, M, N, K, ldx, ldw, ldo};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (body) {
@@ -893,10 +1163,34 @@ extern "C" int quant_matmul(const void* x, const void* w, const float* scale,
       if (w_code == DTYPE_F8E4M3) return f32_by_out<fp8>(a, out_code, s);
       return BAD;
     case BODY_WMMA: return tc_by_x<WmmaBody>(a, x_code, w_code, out_code, s);
-    case BODY_SKINNY: return tc_by_x<SkinnyBody>(a, x_code, w_code, out_code, s);
     case BODY_WGMMA: return tc_by_x<WgmmaBody>(a, x_code, w_code, out_code, s);
     default: return BAD;
   }
+}
+
+// The skinny body (bf16 or int8 x, 1 <= M <= 64) on the wrapper's plan:
+// m_tiles the n8 tiles of x rows (2 up to M = 16, 4 up to 32, 8 up to 64),
+// vw the weight bytes a lane loads from a row (8 or 4; 4 with 8 x-row
+// tiles), split the warps a block (1-8), grid the blocks (at most one a
+// strip of 8 vw columns), vec_x / vec_w whole loads of x / the weight
+// (start and row stride aligned to 4 values of x, to vw bytes of the
+// weight), else element loads. A plan the operands cannot take returns
+// cudaErrorInvalidValue.
+extern "C" int quant_matmul_skinny(const void* x, const void* w, const float* scale,
+                                   void* out, int M, int N, int K, long long ldx,
+                                   long long ldw, long long ldo, int x_code, int w_code,
+                                   int out_code, int m_tiles, int vw, int split, int grid,
+                                   int vec_x, int vec_w, void* stream) {
+  if (M < 1 || M > SKINNY_MAX_M || N < 1 || K < 1 || ldx < K || ldw < N || ldo < N)
+    return BAD;
+  if (m_tiles != (M <= 16 ? 2 : M <= 32 ? 4 : 8) || grid < 1) return BAD;
+  const int xs = x_code == DTYPE_BF16 ? 2 : x_code == DTYPE_I8 ? 1 : 0;
+  if (!xs) return BAD;
+  if (vec_x && (reinterpret_cast<uintptr_t>(x) % (4 * xs) || (ldx * xs) % (4 * xs)))
+    return BAD;
+  const Args a{x, w, scale, out, M, N, K, ldx, ldw, ldo};
+  const SkinnyPlan p{m_tiles, vw, split, grid, vec_x != 0, vec_w != 0};
+  return tc_by_x<SkinnyBody>(a, x_code, w_code, out_code, static_cast<cudaStream_t>(stream), p);
 }
 
 EXPORT_ERROR_STRING

@@ -16,18 +16,37 @@ W_DTYPES = (torch.int8, torch.float8_e4m3fn)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_ROW_TILES = 65535       # grid.y of the WMMA bodies; their smallest row tile is 16
 SKINNY_MAX_M = 64
-# body -> (code shared with csrc/quant_matmul.cu, output tile BM x BN)
+# body -> (code shared with csrc/quant_matmul.cu, output tile BM x BN); a
+# skinny tile is every row (M <= 64) of a strip of 64 columns (32 where the
+# strips would not fill the card, or M > 32)
 BODIES = {"cuda_cores": (0, (64, 64)), "wmma": (1, (128, 128)),
-          "skinny": (2, (16, 32)), "wgmma": (3, (144, 128))}
+          "skinny": (2, (SKINNY_MAX_M, 64)), "wgmma": (3, (144, 128))}
+SKINNY_MAX_SPLIT = 8        # warps a skinny block (SK_MAX_SPLIT in the source)
+H100_SMS = 132
 
 
 @functools.cache
 def _launcher():
-    fn = build.library("quant_matmul").quant_matmul
+    """The C entry points (quant_matmul, quant_matmul_skinny)."""
+    lib = build.library("quant_matmul")
+    fn, sk = lib.quant_matmul, lib.quant_matmul_skinny
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    sk.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = sk.restype = ctypes.c_int
+    return fn, sk
+
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def skinny_smem(m_tiles: int, vw: int, split: int) -> int:
+    """Dynamic shared memory of a skinny block (sk_smem in the source):
+    the warps' partial sums."""
+    return split * vw // 2 * m_tiles * 32 * 16
 
 
 def _rows16(t: torch.Tensor) -> bool:
@@ -40,7 +59,17 @@ def plan(x: torch.Tensor, qw: torch.Tensor) -> dict:
     """Which body computes x @ qw, chosen by dtype and shape: fp32 x ->
     "cuda_cores"; M <= 64 (the adaLN sites) -> "skinny"; rows of x and qw
     on 16-byte boundaries -> "wgmma" (TMA loads); else "wmma". Returns the
-    body, its output tile and the number of tiles (blocks) of the grid."""
+    body, its output tile and the number of tiles of the output.
+
+    The skinny body's plan adds `m_tiles` (n8 tiles of x rows: 2, 4 or 8
+    for M up to 16, 32, 64), `vw` (weight bytes a lane loads from a row:
+    8, a strip of 64 columns, where such strips fill three quarters of the
+    SMs, else 4; always 4 with 8 x-row tiles), `split` (warps a block,
+    each taking every split-th 16-row group of K: one a group, at most 8),
+    `grid` (a block a strip, at most one an SM, the blocks then walking
+    the strips in turn) and `access_x` / `access_w` (whole loads, 4 values
+    of x and vw bytes of the weight, where the operand's start and row
+    stride are aligned to them; else its element size: element loads)."""
     M, N = x.shape[0], qw.shape[1]
     if x.dtype == torch.float32:
         body = "cuda_cores"
@@ -51,7 +80,23 @@ def plan(x: torch.Tensor, qw: torch.Tensor) -> dict:
     else:
         body = "wmma"
     bm, bn = BODIES[body][1]
-    return dict(body=body, tile=(bm, bn), blocks=-(-M // bm) * -(-N // bn))
+    if body != "skinny":
+        return dict(body=body, tile=(bm, bn),
+                    blocks=-(-M // bm) * -(-N // bn))
+    K = x.shape[1]
+    m_tiles = 2 if M <= 16 else 4 if M <= 32 else 8
+    sms = _sms(x.device.index) if x.is_cuda else H100_SMS
+    vw = 8 if m_tiles < 8 and -(-N // 64) * 4 >= 3 * sms else 4
+    strips = -(-N // (8 * vw))
+    xa = 4 * x.element_size()
+    aligned_x = x.data_ptr() % xa == 0 and x.stride(0) * x.element_size() % xa == 0
+    aligned_w = qw.data_ptr() % vw == 0 and qw.stride(0) % vw == 0
+    return dict(body=body, tile=(bm, 8 * vw), blocks=strips,
+                m_tiles=m_tiles, vw=vw,
+                split=min(SKINNY_MAX_SPLIT, -(-K // 16)),
+                grid=min(strips, sms),
+                access_x=xa if aligned_x else x.element_size(),
+                access_w=vw if aligned_w else 1)
 
 
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
@@ -82,11 +127,24 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
                          f"({N},) tensor; got {scale.dtype} "
                          f"{tuple(scale.shape)}")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    _launch(x, qw, scale, out, plan(x, qw))
+    return out
+
+
+def _launch(x, qw, scale, out, p) -> None:
+    """Launch the body of plan `p` (see plan()) into `out`."""
+    M, K = x.shape
+    N = qw.shape[1]
     code = build.operand_code
-    rc = _launcher()(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
-                     out.data_ptr(), M, N, K, x.stride(0), qw.stride(0), N,
-                     code(x.dtype), code(qw.dtype), code(out_dtype),
-                     BODIES[plan(x, qw)["body"]][0], build.stream_of(x))
+    args = (x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(), M,
+            N, K, x.stride(0), qw.stride(0), N, code(x.dtype), code(qw.dtype),
+            code(out.dtype))
+    fn, sk = _launcher()
+    if p["body"] == "skinny":
+        rc = sk(*args, p["m_tiles"], p["vw"], p["split"], p["grid"],
+                int(p["access_x"] > x.element_size()), int(p["access_w"] > 1),
+                build.stream_of(x))
+    else:
+        rc = fn(*args, BODIES[p["body"]][0], build.stream_of(x))
     build.check(rc, "quant_matmul")
     LAUNCHES["quant_matmul"] += 1
-    return out

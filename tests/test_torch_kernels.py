@@ -250,6 +250,69 @@ def test_card_modulate_refuses_what_it_cannot_take(cuda):
         adaln_kernel._launch_modulate(xu, shu, scu, out, 1e-5, p)
 
 
+def _gate_operands(B, T, D, dtype, layout, device, seed):
+    """resid, gate, y: resid and y (B, T, D) contiguous, the gate a (B, D)
+    view of a conditioning tensor. "dit": mod[:, 2D:3D] of the block's
+    (B, 6D) modulation; "unaligned": mod[:, 1:D+1] of a (B, D+1) tensor;
+    "rows": as "dit", with resid and y starting one element past an
+    aligned address (contiguous views at offset 1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    off = 1 if layout == "rows" else 0
+    resid, y = (torch.randn(B * T * D + off, generator=g, device=device).to(
+        dtype)[off:].view(B, T, D) for _ in range(2))
+    width, col = (D + 1, 1) if layout == "unaligned" else (6 * D, 2 * D)
+    mod = torch.randn(B, width, generator=g, device=device).to(dtype)
+    return resid, mod[:, col:col + D], y
+
+
+# (B, T, D, dtype, layout): each body plan_gate() picks
+GATE_EDGES = [
+    (16, 256, 1152, torch.bfloat16, "dit"),    # the main path
+    (2, 37, 1152, torch.float32, "dit"),       # phase 5's fp32 width
+    (4, 64, 384, torch.bfloat16, "dit"),       # dit-cifar
+    (2, 37, 128, torch.float32, "dit"),        # reduced
+    (2, 37, 72, torch.bfloat16, "dit"),
+    (2, 37, 72, torch.float32, "dit"),
+    (2, 37, 1004, torch.bfloat16, "dit"),      # rows no 16-byte multiple
+    (2, 5, 8192, torch.bfloat16, "dit"),       # MAX_D
+    (4, 37, 1152, torch.bfloat16, "unaligned"),
+    (4, 37, 1003, torch.float32, "unaligned"),
+    (4, 37, 1152, torch.bfloat16, "rows"),
+    (4, 37, 1152, torch.float32, "rows"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,D,dtype,layout", GATE_EDGES)
+def test_card_gate_residual_edges_match_plain(cuda, B, T, D, dtype, layout):
+    resid, gate, y = _gate_operands(B, T, D, dtype, layout, cuda, 12)
+    got, want = _card_pair(t_adaln.gate_residual, resid, gate, y)
+    assert _rel(got, want) <= TOL["bfloat16" if dtype == torch.bfloat16
+                                  else np.float32]
+
+
+@pytest.mark.gpu
+def test_card_gate_residual_refuses_what_it_cannot_take(cuda):
+    resid, gate, y = _gate_operands(2, 3, 1152, torch.bfloat16, "dit", cuda,
+                                    13)
+    out = torch.empty_like(resid)
+    p = adaln_kernel.plan_gate(resid, gate, y, out)
+    adaln_kernel._launch_gate(resid, gate, y, out, p)   # the plan launches
+    for bad in (dict(p, chunks=p["chunks"] + 1), dict(p, lanes=12),
+                dict(p, access_bytes=32), dict(p, rows_per_block=16)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            adaln_kernel._launch_gate(resid, gate, y, out, bad)
+    for layout in ("unaligned", "rows"):                 # misaligned
+        ru, gu, yu = _gate_operands(2, 3, 1152, torch.bfloat16, layout,
+                                    cuda, 13)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            adaln_kernel._launch_gate(ru, gu, yu, out, p)
+    with pytest.raises(ValueError, match="D <="):
+        t_adaln.gate_residual(torch.zeros(1, 2, 8200, device=cuda),
+                              torch.zeros(1, 8200, device=cuda),
+                              torch.zeros(1, 2, 8200, device=cuda))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D,S", [(16, 16, 72, 256), (4, 2, 32, 100)])
@@ -414,3 +477,69 @@ def test_modulate_plan_refuses_d_above_max_d():
     x, sh, sc = _modulate_operands(1, 2, D, torch.bfloat16, "dit", "cpu", 0)
     with pytest.raises(ValueError, match=f"D <= {adaln_kernel.MAX_D}"):
         adaln_kernel.plan(x, sh, sc, torch.empty_like(x))
+
+
+@pytest.mark.parametrize("D,dtype,body,access,lanes,chunks", [
+    (1152, torch.bfloat16, "registers", 16, 32, 5),   # dit-i256
+    (1152, torch.float32, "registers", 16, 32, 9),
+    (384, torch.bfloat16, "registers", 16, 16, 3),    # dit-cifar
+    (72, torch.bfloat16, "registers", 16, 16, 1),     # 9 of 16 lanes
+    (72, torch.float32, "registers", 16, 16, 2),
+    (1004, torch.bfloat16, "generic", 8, 32, 0),      # 2008-byte rows
+    (1004, torch.float32, "generic", 16, 32, 0),
+])
+def test_gate_plan_by_width_and_dtype(D, dtype, body, access, lanes, chunks):
+    """gate_residual's plan at the configs' widths, the gate read in place
+    from the (B, 6D) modulation (its row stride 6D)."""
+    resid, gate, y = _gate_operands(2, 9, D, dtype, "dit", "cpu", 0)
+    p = adaln_kernel.plan_gate(resid, gate, y, torch.empty_like(resid))
+    assert (p["body"], p["access_bytes"], p["lanes"], p["chunks"]) == (
+        body, access, lanes, chunks)
+    assert gate.stride(0) == 6 * D
+    assert p["rows_per_block"] == adaln_kernel.MOD_THREADS // lanes
+
+
+def test_gate_plan_main_path_shape_fills_one_wave():
+    """dit-i256: 4096 rows of 1152 bf16 -> a warp a row, five 16-byte
+    chunks a lane, 8 rows a block; 512 blocks would be two waves of 2
+    blocks on 132 SMs, so 256 blocks whose warps take 2 rows each."""
+    resid, gate, y = _gate_operands(16, 256, 1152, torch.bfloat16, "dit",
+                                    "cpu", 0)
+    assert adaln_kernel.plan_gate(resid, gate, y,
+                                  torch.empty_like(resid)) == dict(
+        body="registers", access_bytes=16, lanes=32, chunks=5,
+        rows_per_block=8, blocks=256)
+
+
+@pytest.mark.parametrize("layout,dtype,body,access", [
+    ("unaligned", torch.bfloat16, "generic", 2),   # gate 2 bytes off
+    ("unaligned", torch.float32, "generic", 4),
+    ("rows", torch.bfloat16, "generic", 2),        # resid/y 2 bytes off
+    ("rows", torch.float32, "generic", 4),
+])
+def test_gate_plan_narrows_to_what_every_operand_allows(layout, dtype, body,
+                                                        access):
+    resid, gate, y = _gate_operands(4, 5, 1152, dtype, layout, "cpu", 0)
+    p = adaln_kernel.plan_gate(resid, gate, y, torch.empty_like(resid))
+    assert (p["body"], p["access_bytes"]) == (body, access)
+    out = torch.empty(4 * 5 * 1152 + 8, dtype=dtype)[8 // dtype.itemsize + 1:]
+    p = adaln_kernel.plan_gate(*_gate_operands(4, 5, 1152, dtype, "dit",
+                                               "cpu", 0)[:3],
+                               out[:4 * 5 * 1152].view(4, 5, 1152))
+    assert p["access_bytes"] == dtype.itemsize     # the output's too
+
+
+def test_gate_residual_kernel_arithmetic_is_the_plain_versions():
+    """The kernel rounds resid + gate * y as the plain version does: the
+    product, then the sum, each to fp32 (no fused multiply-add), then once
+    to the output type. On the CPU the op is the plain version, so this
+    pins that version's order against a float64 reference rounded the same
+    way."""
+    rng = _rng(14)
+    r, g, y = (rng.normal(size=s_).astype(np.float32)
+               for s_ in ((2, 7, 72), (2, 72), (2, 7, 72)))
+    prod = (g[:, None].astype(np.float64) * y).astype(np.float32)
+    want = (prod.astype(np.float64) + r).astype(np.float32)
+    got = t_adaln.gate_residual(torch.as_tensor(r), torch.as_tensor(g),
+                                torch.as_tensor(y))
+    np.testing.assert_array_equal(got.numpy(), want)

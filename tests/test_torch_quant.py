@@ -543,23 +543,103 @@ def test_card_quant_matmul_token_sites_on_wgmma(cuda, site, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N,body", [
-    (4100, 1168, 1168, "wgmma"),   # M, N, K off every tile edge
-    (4100, 1160, 1160, "wmma"),    # qw rows of 1160 bytes: no TMA
-    (65, 40, 32, "wgmma"),         # one partial tile
-])
+@pytest.mark.parametrize("M,K,N,bodies", [
+    # M, N, K off every tile edge
+    (4100, 1168, 1168, {"w8a16": "wgmma", "w8a8": "wgmma"}),
+    # qw rows of 1160 bytes: no TMA
+    (4100, 1160, 1160, {"w8a16": "wmma", "w8a8": "wmma"}),
+    # one partial tile; w8a8's int8 x rows of 40 bytes are no 16-byte
+    # multiple, so TMA cannot take them
+    (65, 40, 32, {"w8a16": "wgmma", "w8a8": "wmma"}),
+    # one partial tile, int8 x rows of 48 bytes: wgmma under both
+    (65, 48, 32, {"w8a16": "wgmma", "w8a8": "wgmma"}),
+], ids=["4100-1168-1168", "4100-1160-1160", "65-40-32", "65-48-32"])
 @pytest.mark.parametrize("mode", ["w8a16", "w8a8"])
-def test_card_quant_matmul_ragged(cuda, M, K, N, body, mode):
+def test_card_quant_matmul_ragged(cuda, M, K, N, bodies, mode):
     got, want, used = _card_case(cuda, M, K, N, mode, torch.bfloat16, 5)
-    assert used == body
+    assert used == bodies[mode]
     assert _rel(got.float().cpu(), want.float().cpu()) <= 1e-2
+
+
+# the skinny body's edges: M around its x-row tiles (8, 16, 32, 64 rows),
+# N and K off its 64-column strips and 32-row ring tiles
+SKINNY_MS = [1, 2, 15, 16, 17, 33, 64]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", SKINNY_MS)
+@pytest.mark.parametrize("mode", MODES)
+def test_card_skinny_matches_plain(cuda, M, mode):
+    got, want, used = _card_case(cuda, M, 1000, 2000, mode, torch.bfloat16,
+                                 6)
+    assert used == "skinny"
+    assert _rel(got.float().cpu(), want.float().cpu()) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 16, 64])
+def test_card_skinny_byte_copies_and_fp32_out(cuda, M):
+    """x rows 2 bytes off 16-byte alignment and qw rows of 1001 bytes take
+    the byte copies; int8 x with an fp32 output (w8a8 of fp32
+    activations); both against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    xb = torch.randn(M, 1153, generator=g, device=cuda).to(torch.bfloat16)
+    qw, ws = t_qref.quantize(torch.randn(1130, 1001, generator=g,
+                                         device=cuda))
+    x, w = xb[:, 1:1131], qw[:, :1001]
+    p = t_qkernel.plan(x, w)
+    assert p["body"] == "skinny" and (p["access_x"], p["access_w"]) == (2, 1)
+    got = t_qops.quant_matmul(x, w, ws[:1001].contiguous())
+    want = t_qops.quant_matmul(x, w, ws[:1001].contiguous(), backend="plain")
+    assert _rel(got.float().cpu(), want.float().cpu()) <= 1e-2
+    x32 = torch.randn(M, 1130, generator=g, device=cuda)
+    sa = x32.abs().amax() / 127.0
+    got = t_qops.quant_matmul(x32, qw, ws, sa=sa)
+    want = t_qops.quant_matmul(x32, qw, ws, sa=sa, backend="plain")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _rel(got.cpu(), want.cpu()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_card_skinny_is_deterministic(cuda):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(16, 1152, generator=g, device=cuda).to(torch.bfloat16)
+    qw, ws = t_qref.quantize(torch.randn(1152, 6912, generator=g,
+                                         device=cuda))
+    first = t_qops.quant_matmul(x, qw, ws)
+    for _ in range(3):
+        assert torch.equal(t_qops.quant_matmul(x, qw, ws), first)
+
+
+@pytest.mark.gpu
+def test_card_skinny_refuses_what_it_cannot_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    xb = torch.randn(17, 1153, generator=g, device=cuda).to(torch.bfloat16)
+    qw, ws = t_qref.quantize(torch.randn(1152, 1001, generator=g, device=cuda))
+    x = xb[:, :1152]
+    out = torch.empty(17, 1001, dtype=torch.bfloat16, device=cuda)
+    p = t_qkernel.plan(x, qw)
+    t_qkernel._launch(x, qw, ws, out, p)      # the plan itself launches
+    for bad in (dict(p, m_tiles=2),           # 17 rows need 4 x-row tiles
+                dict(p, split=0), dict(p, split=9),
+                dict(p, grid=p["blocks"] + 1),            # a block a strip
+                dict(p, vw=16), dict(p, m_tiles=8, vw=8),  # not compiled
+                dict(p, access_w=p["vw"])):               # 1001-byte rows
+        with pytest.raises(RuntimeError, match="launch failed"):
+            t_qkernel._launch(x, qw, ws, out, bad)
+    xu = xb[:, 1:1153]                        # 2 bytes off alignment
+    with pytest.raises(RuntimeError, match="launch failed"):
+        t_qkernel._launch(xu, qw, ws, out, dict(p, access_x=8))
+    with pytest.raises(RuntimeError, match="launch failed"):  # not skinny
+        t_qkernel._launch(x, qw, ws, out, dict(p, body="wgmma"))
 
 
 @pytest.mark.parametrize("M,K,N,x_dtype,w_dtype,body,tiles", [
     (4096, 1152, 1152, torch.bfloat16, torch.int8, "wgmma", 29 * 9),
     (4096, 1152, 4608, torch.bfloat16, torch.int8, "wgmma", 29 * 36),
     (4096, 4608, 1152, torch.int8, torch.float8_e4m3fn, "wgmma", 29 * 9),
-    (16, 1152, 6912, torch.bfloat16, torch.int8, "skinny", 216),
+    (16, 1152, 6912, torch.bfloat16, torch.int8, "skinny", 108),
     (65, 1152, 1152, torch.bfloat16, torch.int8, "wgmma", 9),
     (4100, 1160, 1160, torch.bfloat16, torch.int8, "wmma", 33 * 10),
     (4096, 1152, 1152, torch.float32, torch.int8, "cuda_cores", 64 * 18),
@@ -568,7 +648,8 @@ def test_quant_matmul_plan_picks_body_and_tiles(M, K, N, x_dtype, w_dtype,
                                                  body, tiles):
     """The body and its tile count by dtype and shape: the token sites of
     dit-i256 on wgmma (144 x 128 tiles: 261 at N = 1152, 1.98 waves over
-    132 SMs), the adaLN sites (M = 16) on the skinny body, rows TMA cannot
+    132 SMs), the adaLN sites (M = 16) on the skinny body (a tile per
+    64-column strip: 108 at N = 6912), rows TMA cannot
     take on WMMA, fp32 x on CUDA cores."""
     x = torch.zeros(M, K, dtype=x_dtype)
     qw = torch.zeros(K, N, dtype=torch.int8).view(w_dtype)
@@ -582,3 +663,66 @@ def test_quant_matmul_plan_needs_aligned_rows_for_tma():
     qw = torch.zeros(1152, 1152, dtype=torch.int8)
     assert t_qkernel.plan(x[:, :1152], qw)["body"] == "wgmma"  # 2320-byte rows
     assert t_qkernel.plan(x[:, 1:1153], qw)["body"] == "wmma"  # 2 bytes off
+
+
+@pytest.mark.parametrize("M,K,N,m_tiles,vw,split,grid", [
+    (16, 1152, 6912, 2, 8, 8, 108),    # ada: 108 strips of 64 columns
+    (16, 1152, 2304, 2, 4, 8, 72),     # final_ada: 72 strips of 32
+    (1, 1152, 6912, 2, 8, 8, 108),     # one request, no CFG
+    (17, 1152, 6912, 4, 8, 8, 108),
+    (64, 1152, 6912, 8, 4, 8, 132),    # 216 strips: a wave walks them
+    (16, 1152, 36864, 2, 8, 8, 132),
+    (64, 4608, 1152, 8, 4, 8, 36),
+    (16, 40, 320, 2, 4, 3, 10),        # three 16-row groups of K
+])
+def test_skinny_plan_grid_split_and_tiles(M, K, N, m_tiles, vw, split, grid):
+    """The skinny plan at the adaLN sites and at M = 1 / 17 / 64: x-row
+    tiles by M; 8 weight bytes a lane (64-column strips) where those
+    strips fill three quarters of the SMs, else 4; a warp per 16-row
+    group of K up to 8; a block a strip, up to one an SM."""
+    x = torch.zeros(M, K, dtype=torch.bfloat16)
+    qw = torch.zeros(K, N, dtype=torch.int8)
+    p = t_qkernel.plan(x, qw)
+    assert p["body"] == "skinny" and p["tile"] == (64, 8 * vw)
+    assert p["blocks"] == -(-N // (8 * vw))
+    assert (p["m_tiles"], p["vw"], p["split"], p["grid"]) == (
+        m_tiles, vw, split, grid)
+    assert (p["access_x"], p["access_w"]) == (8, vw)
+    assert t_qkernel.skinny_smem(m_tiles, vw, split) <= 65536
+
+
+def test_skinny_plan_access_width_from_alignment():
+    """Whole loads where the operand's start and row stride allow them
+    (four values of x: 8 bytes bf16, 4 int8; a lane's 8 or 4 bytes of a
+    weight row), element loads (the element size) where not: x 2 bytes
+    off, int8 x rows of 1002 bytes, qw rows of 1001 and 1004 bytes."""
+    xb = torch.zeros(16, 1160, dtype=torch.bfloat16)
+    qw = torch.zeros(1152, 6912, dtype=torch.int8)
+    assert t_qkernel.plan(xb[:, :1152], qw)["access_x"] == 8
+    assert t_qkernel.plan(xb[:, 1:1153], qw)["access_x"] == 2
+    p = t_qkernel.plan(torch.zeros(16, 1000, dtype=torch.int8), qw[:1000])
+    assert (p["access_x"], p["access_w"]) == (4, 8)
+    p = t_qkernel.plan(torch.zeros(16, 1002, dtype=torch.int8), qw[:1002])
+    assert p["access_x"] == 1
+    p = t_qkernel.plan(xb[:, :1152], torch.zeros(1152, 1001,
+                                                 dtype=torch.int8))
+    assert (p["access_x"], p["access_w"]) == (8, 1)
+    w1004 = torch.zeros(1152, 1004, dtype=torch.int8)
+    assert t_qkernel.plan(xb[:, :1152], w1004)["access_w"] == 4
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int8])
+def test_skinny_plan_fits_shared_memory_for_every_m(x_dtype):
+    """Every M the skinny body takes gets a plan its source compiles: x-row
+    tiles that hold M, a compiled (x-row tiles, weight bytes) pair, at most
+    8 warps and 64 KB of partial sums."""
+    for M in range(1, t_qkernel.SKINNY_MAX_M + 1):
+        for K, N in ((1, 64), (32, 64), (33, 6912), (1152, 6912), (4608, 200)):
+            p = t_qkernel.plan(torch.zeros(M, K, dtype=x_dtype),
+                               torch.zeros(K, N, dtype=torch.int8))
+            assert p["m_tiles"] * 8 >= M > (p["m_tiles"] // 2) * 8 or M <= 16
+            assert (p["m_tiles"], p["vw"]) in {(2, 8), (2, 4), (4, 8), (4, 4),
+                                               (8, 4)}
+            assert p["split"] == min(8, -(-K // 16))
+            assert t_qkernel.skinny_smem(p["m_tiles"], p["vw"],
+                                         p["split"]) <= 65536
