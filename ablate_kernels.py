@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of the port's redesigned kernels (flash_attention,
-quant_matmul's wgmma and skinny bodies, adaln_modulate, gate_residual)
-goes, on the card: ablation timings at the main path's shapes.
+quant_matmul's wgmma and skinny bodies, adaln_modulate, gate_residual,
+unipc_update's sampler-row ops) goes, on the card: ablation timings at the
+main path's shapes.
 
     python3 ablate_kernels.py     # from the repository root, one CUDA card
 
 Each ablation is a copy of a kernel's CUDA source with one part of its work
 taken out (the product, the softmax's exponentials, the widening, the
 loads after the first ring's worth, modulate's reductions or conditioning
-loads, gate_residual's gate). Its output is wrong and unchecked; only its
-device time counts, next to the unchanged kernel built the same way.
-adaln_modulate, gate_residual and the skinny body are also timed on other
-plans than their plan() picks (ADALN_PLANS, GATE_PLANS, SKINNY_PLANS):
-other grids, 4-warp blocks, 8-byte accesses, half and double the K split.
+loads, gate_residual's gate, the row ops' weight prologue or ring write).
+Its output is wrong and unchecked; only its device time counts, next to
+the unchanged kernel built the same way. adaln_modulate, gate_residual,
+the skinny body and the row ops are also timed on other plans than their
+plan() picks (ADALN_PLANS, GATE_PLANS, SKINNY_PLANS, ROW_PLANS): other
+grids, 4-warp blocks, 8- and 4-byte accesses, half and double the K split.
 All copies build in parallel under build/ablate/; each is timed by
 chip_smoke.device_ms (100 calls in a CUDA graph), gate_residual and the
 skinny body also by chip_smoke.rotated_ms (operands rotated past the L2).
@@ -66,6 +68,32 @@ _SKINNY_NO_W = (
     "                      in ? N - n : 0);",
     "          for (int q = 0; q < VW / 4; ++q) v[u][r][q] = (k0 + r) * 131 + n + q;\n"
     "          (void)in;")
+
+# the row ops' weight prologue replaced by explicit weights: no index load,
+# no table row, no products (the weights and use_c read from RowArgs.weights)
+_ROW_EXPLICIT = (
+    "    long long r = __ldg(a.idx + (a.per_slot ? b : 0));\n"
+    "    r = r < 0 ? 0 : (r >= a.n_rows ? a.n_rows - 1 : r);\n"
+    "    const float* row = a.rows + r * a.cols;\n"
+    "    const float s = __fmul_rn(a.sign, __ldg(row + C_OUT_SCALE));\n"
+    "    const float* wcol = row + (MODE == PREDICT ? C_W : C_W + a.K);\n"
+    "    w[0] = __ldg(row + (MODE == PREDICT ? C_BASE_X : C_BASE_X_C));\n"
+    "    w[1] = __ldg(row + (MODE == PREDICT ? C_BASE_M0 : C_BASE_M0_C));\n"
+    "#pragma unroll\n"
+    "    for (int k = 0; k < MAX_TERMS - 2; ++k) w[2 + k] = k < a.K ? "
+    "__fmul_rn(s, __ldg(wcol + k)) : 0.f;\n"
+    "    if constexpr (MODE == CORRECT) {\n"
+    "      w[MAX_TERMS - 1] = __fmul_rn(s, __ldg(row + C_W_CORR_NEW));\n"
+    "      use_c = __ldg(row + C_USE_C);\n"
+    "    }\n",
+    "#pragma unroll\n"
+    "    for (int k = 0; k < MAX_TERMS; ++k) w[k] = __ldg(a.weights + k);\n"
+    "    use_c = __ldg(a.weights + MAX_TERMS);\n")
+_ROW_NO_RING = (
+    "    en.store(ring_out + row);\n#pragma unroll\n"
+    "    for (int k = 0; k < MAX_TERMS - 2; ++k)\n"
+    "      if (k < K) ch[1 + k].store(ring_out + (k + 1) * slot + row);\n",
+    "    (void)ring_out;\n    (void)slot;\n")
 
 # name -> (source, [(anchor, replacement)])
 ABLATIONS = {
@@ -135,6 +163,10 @@ ABLATIONS = {
     "quant_matmul skinny 16-warp blocks": ("quant_matmul", [
         ("constexpr int SK_MAX_SPLIT = 8;", "constexpr int SK_MAX_SPLIT = 16;"),
         ("  return m_tiles == 2 ? 9 :", "  return m_tiles == 2 ? 5 :")]),
+    "unipc_update": ("unipc_update", []),
+    "unipc_update no weight prologue (explicit weights)": (
+        "unipc_update", [_ROW_EXPLICIT]),
+    "unipc_update no ring write": ("unipc_update", [_ROW_NO_RING]),
 }
 
 # plans the adaLN libraries are timed on, as edits of plan()'s at the main
@@ -181,6 +213,26 @@ SKINNY_PLANS = {
         "quant_matmul skinny no loads")},
 }
 
+# the row ops' plans at the main state (the plan: 16-byte accesses, 16
+# blocks of 128 threads a row, one access a thread: it is already the grid
+# of all rows' accesses)
+ROW_PLANS = {
+    "unipc_update": {
+        "": lambda p: p,
+        ", 4-byte accesses (one element), the plan's grid (4 a thread)":
+            lambda p: dict(p, access_bytes=4),
+        ", 4-byte accesses, grid of all rows' accesses (64 blocks a row)":
+            lambda p: dict(p, access_bytes=4, blocks_per_row=64),
+        ", grid of all rows' accesses": lambda p: p,
+        ", a quarter of the grid (4 accesses a thread)": lambda p: dict(
+            p, blocks_per_row=4),
+        ", 256-thread blocks": lambda p: dict(p, threads=256,
+                                              blocks_per_row=8)},
+    "unipc_update no weight prologue (explicit weights)": {"": lambda p: p},
+    "unipc_update no ring write": {"": lambda p: p},
+}
+
+
 def build_all() -> dict:
     """Compile every ablation in parallel; {name: library path}."""
     OUT.mkdir(parents=True, exist_ok=True)
@@ -210,6 +262,7 @@ def use(src: str, so: Path) -> None:
     from repro_torch.kernels.adaln_modulate import kernel as adaln_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
+    from repro_torch.kernels.unipc_update import kernel as uni_kernel
 
     lib = ctypes.CDLL(str(so))
     lib.error_string.argtypes = [ctypes.c_int]
@@ -217,7 +270,45 @@ def use(src: str, so: Path) -> None:
     build._LIBS[src] = lib
     {"flash_attention": fa_kernel._launcher,
      "quant_matmul": qmm_kernel._launcher,
-     "adaln_modulate": adaln_kernel._launchers}[src].cache_clear()
+     "adaln_modulate": adaln_kernel._launchers,
+     "unipc_update": uni_kernel._launcher}[src].cache_clear()
+
+
+def row_operands(dev, g) -> dict:
+    """{op: (mode, RowArgs, like, plan, operands)} of the row ops at the
+    main state (8 requests of 256 x 32 fp32 latents, a ring of 3, the nfe
+    10 order 3 table, uniform row 5), each RowArgs also carrying the
+    explicit weights that the no-prologue ablation reads (and the others
+    ignore); `operands` holds the tensors its pointers point into."""
+    from repro_torch.core.coeffs import augment_step_rows
+    from repro_torch.core.unipc import rows_on
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec, SamplerEngine
+    from repro_torch.kernels.unipc_update import kernel as uni_kernel
+    from repro_torch.kernels.unipc_update import ops as uni_ops
+
+    tab = SamplerEngine(VPLinear(), eps=None).compile(
+        EngineSpec(nfe=10, order=3, cfg_scale=2.0))
+    rows = uni_ops.pack_weight_rows(rows_on(augment_step_rows(tab), dev))
+    K = tab.w_pred.shape[1]
+    x, e_new, x_pred = (torch.randn(8, 256, 32, generator=g, device=dev)
+                        for _ in range(3))
+    E = torch.randn(K + 1, 8, 256, 32, generator=g, device=dev)
+    idx = torch.tensor(5, device=dev)
+    weights = torch.randn(uni_kernel.MAX_TERMS + 1, generator=g, device=dev)
+    out, E_next = torch.empty_like(x), torch.empty_like(E)
+    ops = {}
+    for op, mode in (("predict", uni_kernel.PREDICT),
+                     ("correct", uni_kernel.CORRECT)):
+        args, bits = uni_kernel._row_args(x, E, rows, idx, tab.sign, out)
+        args.weights = weights.data_ptr()
+        if mode == uni_kernel.CORRECT:
+            args.e_new, args.rs_e = e_new.data_ptr(), 256 * 32
+            args.x_pred, args.rs_xp = x_pred.data_ptr(), 256 * 32
+            args.ring_out = E_next.data_ptr()
+        ops[op] = (mode, args, x, uni_kernel._plan(bits, 4, 8, 256 * 32, x),
+                   (x, E, e_new, x_pred, out, E_next, rows, idx, weights))
+    return ops
 
 
 def main():
@@ -227,6 +318,7 @@ def main():
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
     from repro_torch.kernels.quant_matmul import ref as qmm_ref
+    from repro_torch.kernels.unipc_update import kernel as uni_kernel
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -275,10 +367,18 @@ def main():
                for _ in range(-(-100_000_000 // (K * N)) + 1)]
         skinny[site] = (x, [w for w, _ in ws_], ws_[0][1].float().contiguous(),
                         torch.empty(M, N, dtype=torch.bfloat16, device=dev))
+    rows = row_operands(dev, g)
     for name, so in libs.items():
         src = ABLATIONS[name][0]
         use(src, so)
-        if src == "adaln_modulate":
+        if src == "unipc_update":
+            for label, edit in ROW_PLANS[name].items():
+                times = {op: chip_smoke.device_ms(functools.partial(
+                    uni_kernel._launch, mode, args, like, edit(p)))
+                    for op, (mode, args, like, p, _) in rows.items()}
+                print(f"row ops [{name}]{label}: " + ", ".join(
+                    f"{op} {t:.6f} ms" for op, t in times.items()))
+        elif src == "adaln_modulate":
             mod_plans = {} if name.startswith("gate_residual") else {
                 "": lambda p: p}
             for label, edit in ADALN_PLANS.get(name, mod_plans).items():

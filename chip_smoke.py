@@ -13,11 +13,21 @@ Phases (any failure exits non-zero):
      version and one PyTorch library call; the wrapper's host cost per
      call is reported apart. gate_residual and the adaLN sites of
      quant_matmul are also timed on buffers rotated past the 50 MB L2, as
-     the main path finds them.
+     the main path finds them. unipc_update's sampler-row ops (predictor
+     and corrector) are held bit-equal to their plain versions at fp32 at
+     the main path's state, and a whole row with a stub eps-net is
+     measured in three forms (the row ops; the earlier composition of torch
+     ops around two combine launches, fed a host index; the plain-pinned
+     row): launches, syncs and device ms per row from torch.profiler, host
+     ms per row, and device ms in a CUDA graph where the row can be
+     captured.
   4. main path — guided UniPC sampling of full-width dit-i256 (28 blocks,
      d_model 1152, 16 heads of dim 72, bf16 activations, fp32 params) through
      `repro_torch.launch.sample.sample`: launch counts, kernel vs plain-pinned
-     latents, wall time and peak memory; then the same call once more under
+     latents, wall time and peak memory; then one more row loop of an
+     engine whose step is already built, under
+     torch.cuda.set_sync_debug_mode("error"), so any host sync in the loop
+     (sampler or eps-net) fails the run; the same call once more under
      torch.profiler, outside the timed wall (device time by kernel and by
      kind, and the share of the wall with no kernel running), and a
      reduced-size card vs CPU check.
@@ -219,6 +229,7 @@ def kernel_phase(dev) -> dict:
         lambda: uni_ops.weighted_combine(t4, w4, backend="plain"),
         lambda: torch.einsum("k,kbtl->btl", w4, t4),
         nbytes(t4, w4) + nbytes(t4[0]), 2 * t4.numel(), torch.float32))
+    out["unipc_update"] = unipc_row_cases(dev, randn, out["unipc_update"])
 
     # B2/B3 at the dit-i256 block shape: net batch 16 (8 requests x CFG),
     # T = 256, D = 1152, bf16, conditioning read in place from the (B, 6D)
@@ -427,6 +438,236 @@ def kernel_phase(dev) -> dict:
     out["flash_attention"]["body"] = fa_kernel.plan(q, k, v, q)["body"]
     out["quant_matmul"] = quant_kernel_cases(dev, randn)
     return out
+
+
+def composed_step(model_fn, tab: dict, *, sign: float):
+    """The sampler row as the port composed it before its row ops: the row
+    index copied from the host (a blocking copy), a gather per table
+    column, torch ops for the weight columns, the differences, two terms
+    copies, the blend and the ring rotation around two weighted_combine
+    launches. Kept only as the yardstick of the row ops' launches and host
+    time (phase 3); no path of the port runs it."""
+    from repro_torch.kernels.unipc_update import ops as uni_ops
+
+    col_keys = sorted(k for k in tab if k.startswith("mc_"))
+    n_rows = tab["t"].shape[0]
+
+    def step(carry, idx, model_kwargs=None):
+        x, E = carry
+        idx = torch.as_tensor(idx, device=x.device).long().clamp(0, n_rows - 1)
+        per_slot = idx.ndim == 1
+        row = {k: v[idx] for k, v in tab.items()}
+
+        def wstack(base_x, base_m0, w_prev, w_new=None):
+            scale = row["out_scale"][..., None] if per_slot else row["out_scale"]
+            parts = [base_x[None], base_m0[None],
+                     torch.movedim(sign * scale * w_prev, -1, 0)]
+            if w_new is not None:
+                parts.append((sign * row["out_scale"] * w_new)[None])
+            return torch.cat(parts, dim=0)
+
+        m0 = E[0]
+        diffs = E[1:] - m0[None]
+        extras = {k[3:]: row[k] for k in col_keys}
+        terms = torch.cat([x[None], m0[None], diffs], dim=0)
+        x_pred = uni_ops.weighted_combine(terms, wstack(
+            row["base_x"], row["base_m0"], row["w_pred"]))
+        e_new = model_fn(x_pred, row["t"], **extras).to(E.dtype)
+        d_new = e_new - m0
+        terms_c = torch.cat([terms, d_new[None]], dim=0)
+        x_corr = uni_ops.weighted_combine(terms_c, wstack(
+            row["base_x_c"], row["base_m0_c"], row["w_corr_prev"],
+            row["w_corr_new"]))
+        use_c = (row["use_c"].reshape((-1,) + (1,) * (x.ndim - 1))
+                 if per_slot else row["use_c"])
+        x_next = x_pred + use_c * (x_corr - x_pred)
+        return x_next, torch.cat([e_new[None], E[:-1]], dim=0)
+
+    return step
+
+
+def row_profile(step, carry, index, n_rows: int, rows: int = 33) -> dict:
+    """Launches, device ms and host syncs per row of `rows` eager rows of
+    `step` (row j's index is index(j % n_rows)), from torch.profiler; and
+    host ms per row, the same rows timed unprofiled on the host clock to a
+    sync."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def loop():
+        c = carry
+        for j in range(rows):
+            c = step(c, index(j % n_rows))
+        return c
+
+    loop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / rows
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    syncs = [e for e in prof.events() if e.device_type == DeviceType.CPU
+             and "StreamSynchronize" in e.name]
+    return dict(launches_per_row=len(dev) / rows,
+                copies_to_device_per_row=sum("HtoD" in e.name
+                                             for e in dev) / rows,
+                device_ms_per_row=sum(e.time_range.elapsed_us()
+                                      for e in dev) / 1e3 / rows,
+                stream_syncs_per_row=len(syncs) / rows,
+                host_ms_per_row=host_ms,
+                kinds=sorted({e.name[:60] for e in dev}))
+
+
+def unipc_row_cases(dev, randn, combine: dict) -> dict:
+    """The sampler-row ops (unipc_row_predict / unipc_row_correct) at the
+    main path's state: dit-i256's 8 requests of 256 x 32 fp32 latents and
+    the eval ring of the nfe 10, order 3, cfg 2.0 table (K + 1 = 3 slots),
+    against their plain versions (fp32 bit-equal, bf16 <= 1e-2), timed in a
+    CUDA graph beside their bounds; then one row with a stub eps-net in
+    three forms (row_profile). `combine` is weighted_combine's record; the
+    returned entry keeps it under "combine" and reports the row ops, which
+    are what the main path launches, at its top level."""
+    from repro_torch.core.coeffs import augment_step_rows
+    from repro_torch.core.unipc import rows_on, step_fn_over_rows
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec, SamplerEngine
+    from repro_torch.kernels.unipc_update import kernel as uni_kernel
+    from repro_torch.kernels.unipc_update import ops as uni_ops
+
+    tab = SamplerEngine(VPLinear(), eps=None).compile(
+        EngineSpec(nfe=10, order=3, cfg_scale=2.0))
+    dtab = rows_on(augment_step_rows(tab), dev)
+    rows = uni_ops.pack_weight_rows(dtab)
+    sign, K, n_rows = tab.sign, tab.w_pred.shape[1], rows.shape[0]
+    B, shape = 8, (8, 256, 32)
+    x, e_new, x_pred = (randn(*shape) for _ in range(3))
+    E = randn(K + 1, *shape)
+    uniform = torch.tensor(5, device=dev)                  # a body row
+    # idle on the init row, warm-up, body, last, past the table
+    slots = torch.tensor([0, 1, 2, 3, 5, 8, 10, 40], device=dev)
+
+    def plan_of(x_, E_, idx):
+        args, bits = uni_kernel._row_args(x_, E_, rows, idx, sign,
+                                          torch.empty_like(x_))
+        p = uni_kernel._plan(bits, x_.element_size(), B, args.N, x_)
+        return (f"{p['access_bytes']}-byte, {p['blocks_per_row']} x {B} "
+                f"blocks of {p['threads']}")
+
+    def unaligned(t):
+        return randn(t.numel() + 1)[1:].view(t.shape)
+
+    cases, errs = {}, []
+
+    def check(label, got, want, bit_equal):
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            if not torch.isfinite(g_.float()).all():
+                fail(f"unipc_update [{label}]: non-finite kernel output")
+            err = rel_err(g_, w_)
+            abs_err = float((g_.double() - w_.double()).abs().max())
+            if bit_equal and not torch.equal(g_, w_):
+                fail(f"unipc_update [{label}] is not bit-equal to its plain "
+                     f"version at fp32: rel {err:.3e}")
+            if not err <= TOL[torch.bfloat16]:
+                fail(f"unipc_update [{label}] disagrees with its plain "
+                     f"version: rel {err:.3e}")
+            errs.append(abs_err)
+            cases[label] = max(cases.get(label, 0.0), err)
+        print(f"  unipc_update [{label}] "
+              f"{'bit-equal' if bit_equal else f'rel L-inf {cases[label]:.3e} (tol 0.01)'}")
+
+    operands = {"fp32": (x, E, e_new, x_pred),
+                "bf16": tuple(t.bfloat16() for t in (x, E, e_new, x_pred)),
+                "fp32 unaligned views": tuple(unaligned(t) for t in (
+                    x, E, e_new, x_pred))}
+    for name, (x_, E_, e_, xp_) in operands.items():
+        for kind, idx in (("uniform row 5", uniform), ("per-slot", slots)):
+            label = f"{{}} {name} {kind} (8, 256, 32) [{plan_of(x_, E_, idx)}]"
+            check(label.format("predict"),
+                  [uni_ops.unipc_row_predict(x_, E_, rows, idx, sign)],
+                  [uni_ops.unipc_row_predict(x_, E_, rows, idx, sign,
+                                             backend="plain")],
+                  name != "bf16")
+            check(label.format("correct"),
+                  uni_ops.unipc_row_correct(x_, E_, e_, xp_, rows, idx, sign),
+                  uni_ops.unipc_row_correct(x_, E_, e_, xp_, rows, idx, sign,
+                                            backend="plain"),
+                  name != "bf16")
+
+    row_bytes = rows.shape[1] * 4 + 8       # the weight row and the index
+    timed = {}
+    for kind, idx in (("uniform", uniform), ("per-slot", slots)):
+        n_idx = B if idx.ndim else 1
+        for op, fn, moved, flops in (
+                ("predict", lambda b=None, i=idx: uni_ops.unipc_row_predict(
+                    x, E, rows, i, sign, backend=b),
+                 nbytes(x, E, x), (3 * K + 3) * x.numel()),
+                ("correct", lambda b=None, i=idx: uni_ops.unipc_row_correct(
+                    x, E, e_new, x_pred, rows, i, sign, backend=b),
+                 nbytes(x, E, e_new, x_pred, x, E), (3 * K + 9) * x.numel())):
+            bms, by = bound(moved + n_idx * row_bytes, flops, torch.float32)
+            st = timed[f"{op} {kind}"] = dict(
+                ms=device_ms(fn), plain_ms=device_ms(lambda f=fn: f("plain")),
+                host_call_ms=host_call_ms(fn), bound_ms=bms, bound_by=by,
+                plan=plan_of(x, E, idx))
+            print(f"  unipc_update {op} {kind} fp32 (8, 256, 32), K = {K} "
+                  f"[{st['plan']}]: {st['ms']:.6f} ms in the graph (bound "
+                  f"{bms:.6f} by {by}, {bms / st['ms']:.0%}; plain "
+                  f"{st['plain_ms']:.6f}; host {st['host_call_ms']:.4f})")
+
+    # one row with a stub eps-net, three forms
+    def stub(x_, t, **kw):
+        return x_ * 0.5
+    row_ids = torch.arange(n_rows, device=dev)
+    forms = {
+        "row ops (kernel, device index)": (
+            step_fn_over_rows(stub, dtab, sign=sign), lambda j: row_ids[j]),
+        "composed row (torch ops + 2 combine launches, host index)": (
+            composed_step(stub, dtab, sign=sign), lambda j: j),
+        "plain-pinned row (device index)": (
+            step_fn_over_rows(stub, dtab, sign=sign, fused_update=False),
+            lambda j: row_ids[j]),
+    }
+    row_forms = {}
+    for label, (step, index) in forms.items():
+        st = row_forms[label] = row_profile(step, (x, E), index, n_rows)
+        if "host index" not in label:
+            st["graph_ms_per_row"] = device_ms(lambda s_=step: s_((x, E),
+                                                                  row_ids[5]))
+        graph = (f"; {st['graph_ms_per_row']:.6f} ms in a CUDA graph"
+                 if "graph_ms_per_row" in st else "; not capturable")
+        print(f"  row with a stub eps-net, {label}: "
+              f"{st['launches_per_row']:.2f} device activities "
+              f"({st['copies_to_device_per_row']:.2f} host-to-device copies), "
+              f"{st['stream_syncs_per_row']:.2f} cudaStreamSynchronize, "
+              f"{st['device_ms_per_row']:.6f} device ms and "
+              f"{st['host_ms_per_row']:.4f} host ms a row{graph}")
+        print(f"    device activity: {', '.join(st['kinds'])}")
+
+    pair = [timed["predict uniform"], timed["correct uniform"]]
+    return dict(
+        max_abs_err=max(errs + [combine["max_abs_err"]]),
+        max_rel_err=max(list(cases.values()) + [combine["max_rel_err"]]),
+        cases={**combine["cases"], **cases},
+        body="one body, three operand modes: combine (weighted_combine), "
+             "predict, correct",
+        ms=sum(t["ms"] for t in pair) / 2,
+        host_call_ms=sum(t["host_call_ms"] for t in pair) / 2,
+        plain_ms=sum(t["plain_ms"] for t in pair) / 2,
+        bound_ms=sum(t["bound_ms"] for t in pair) / 2, bound_by="bytes",
+        library_ms=None,
+        per_call_over="the main path's two launches a row (predict and "
+                      "correct, uniform row, fp32 (8, 256, 32), K = 2); no "
+                      "single PyTorch call forms a UniPC row",
+        row_ops=timed, row_forms=row_forms,
+        combine={k: combine[k] for k in ("ms", "host_call_ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by")})
 
 
 # the quantized dense sites of one dit-i256 eval at the main path's net
@@ -677,7 +918,7 @@ def expected_launches(cfg, rows: int, quantized: bool = False) -> dict:
 # substrings of device kernel names, by what runs them on the main path
 KERNEL_KINDS = (
     ("port kernels", ("modulate_kernel", "gate_kernel", "attn_", "qmm_",
-                      "combine_kernel")),
+                      "unipc_row_kernel")),
     ("matmul (torch.matmul / cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet",
                                         "sm90_")),
     ("copies and casts (fp32 -> bf16 weights, .to, cat)",
@@ -807,6 +1048,23 @@ def main_path_phase(dev, counts_out: dict) -> dict:
     print(f"  wall {wall:.3f} s for {batch} requests = "
           f"{wall / batch * 1e3:.1f} ms per request end to end; peak memory "
           f"{peak / 2**30:.2f} GiB")
+    # one row loop of a step built beforehand, with every host sync an
+    # error: the loop (sampler and eps-net) must leave the stream running
+    run = build_engine(cfg, params, VPLinear(), batch, seed=0,
+                       device=dev).build(EngineSpec(nfe=nfe, order=order,
+                                                    cfg_scale=g_scale))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x_nosync = run(x_T)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_err = rel_err(x_nosync.cpu(), torch.as_tensor(x0))
+    print(f"  row loop under set_sync_debug_mode('error'): {rows} rows, no "
+          f"host sync; vs the main run rel L-inf {sync_err:.3e}")
+    if not sync_err <= MAIN_TOL:
+        fail(f"the sync-checked row loop disagrees with the main run: "
+             f"{sync_err:.3e}")
     # the same call once more under the profiler, outside the timed wall
     split = profile_split(lambda: sample(
         "dit-i256", reduced=False, nfe=nfe, order=order, cfg_scale=g_scale,
@@ -829,7 +1087,8 @@ def main_path_phase(dev, counts_out: dict) -> dict:
         fail(f"reduced-size card vs CPU disagree: {small_err:.3e}")
     return dict(wall_s=wall, ms_per_request=wall / batch * 1e3,
                 peak_bytes=peak, rel_err_vs_plain=err, rows=rows,
-                small_rel_err=small_err, profile=split, latents=x0)
+                small_rel_err=small_err, sync_free_loop_rel_err=sync_err,
+                profile=split, latents=x0)
 
 
 # --------------------------------------------------------------------------
@@ -1212,9 +1471,10 @@ def main():
             host_call_ms=st["host_call_ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by=st["bound_by"], library_ms=st["library_ms"])
         if "sites" in st:
-            entry.update(per_call_over=st["per_call_over"], sites=st["sites"])
+            entry["sites"] = st["sites"]
         for key in ("layer_norm_subset_ms", "fp32_ms", "fp32_bound_ms",
-                    "rotated_ms", "rotated_library_ms"):
+                    "rotated_ms", "rotated_library_ms", "per_call_over",
+                    "row_ops", "row_forms", "combine"):
             if key in st:
                 entry[key] = st[key]
         entries.append(entry)

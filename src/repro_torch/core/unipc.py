@@ -5,8 +5,9 @@ reference solvers are not ported).
 `step_fn_over_rows` executes one table row per sample — a scalar row index
 for the whole batch (one iteration of the uniform sampler) or a per-slot
 (B,) index (the continuous-batching step). `unipc_sample_scan` is a Python
-loop over rows 0..M with a uniform index, the reference's `lax.scan`.
-Both combines of a row go through the `unipc_update` kernel op.
+loop over rows 0..M with a uniform device index, the reference's
+`lax.scan`. A row's predictor and corrector are the `unipc_update` row ops,
+one kernel launch each.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from ..kernels.unipc_update import ops as combine_ops
+from ..kernels.unipc_update import ops as row_ops
 from .coeffs import UniPCSchedule, augment_step_rows, build_unipc_schedule
 
 
@@ -64,53 +65,50 @@ def step_fn_over_rows(model_fn: Callable, tab: dict, *, sign: float,
     zero-padded weight rows over a zeroed ring. `model_kwargs` are passed to
     the model on top of the table's per-eval `mc_*` columns.
 
-    `fused_update=False` pins the combine's plain PyTorch version (the
+    The table is packed once: its weight columns into the `unipc_update`
+    row ops' (n_rows, 7 + 2K) table, the model's columns (`t`, `mc_*`)
+    into one more. A row gathers the model's columns with `idx` and runs
+    the predictor, the model and the corrector; an index already on the
+    device is not copied, so a row makes no host sync.
+    `fused_update=False` pins the row ops' plain PyTorch version (the
     reference's inline jnp form), kept for parity runs.
     """
     col_keys = sorted(k for k in tab if k.startswith("mc_"))
     n_rows = tab["t"].shape[0]
     backend = None if fused_update else "plain"
-
-    def combine(terms, weights):
-        return combine_ops.weighted_combine(terms, weights, backend=backend)
+    rows = row_ops.pack_weight_rows(tab)
+    model_cols = torch.stack([tab["t"]] + [tab[k] for k in col_keys], dim=1)
 
     def step(carry, idx, model_kwargs=None):
         x, E = carry
-        idx = torch.as_tensor(idx, device=x.device).long().clamp(0, n_rows - 1)
-        per_slot = idx.ndim == 1
-        row = {k: v[idx] for k, v in tab.items()}
-
-        def wstack(base_x, base_m0, w_prev, w_new=None):
-            # scalar rows: (K,) weights; per-slot rows: (B, K) -> (K, B)
-            scale = row["out_scale"][..., None] if per_slot else row["out_scale"]
-            parts = [base_x[None], base_m0[None],
-                     torch.movedim(sign * scale * w_prev, -1, 0)]
-            if w_new is not None:
-                parts.append((sign * row["out_scale"] * w_new)[None])
-            return torch.cat(parts, dim=0)
-
-        m0 = E[0]
-        diffs = E[1:] - m0[None]
-        extras = {k[3:]: row[k] for k in col_keys}
+        idx = torch.as_tensor(idx, device=x.device).long()
+        cols = model_cols.index_select(
+            0, idx.clamp(0, n_rows - 1).reshape(-1)).reshape(idx.shape + (-1,))
+        extras = {k[3:]: cols[..., i + 1] for i, k in enumerate(col_keys)}
         if model_kwargs:
             extras = {**extras, **model_kwargs}
-        # predictor
-        terms = torch.cat([x[None], m0[None], diffs], dim=0)
-        x_pred = combine(terms, wstack(row["base_x"], row["base_m0"],
-                                       row["w_pred"]))
-        e_new = model_fn(x_pred, row["t"], **extras).to(E.dtype)
+        x_pred = row_ops.unipc_row_predict(x, E, rows, idx, sign,
+                                           backend=backend)
+        e_new = model_fn(x_pred, cols[..., 0], **extras).to(E.dtype)
         # corrector (re-uses e_new; no extra NFE)
-        d_new = e_new - m0
-        terms_c = torch.cat([terms, d_new[None]], dim=0)
-        x_corr = combine(terms_c, wstack(row["base_x_c"], row["base_m0_c"],
-                                         row["w_corr_prev"], row["w_corr_new"]))
-        use_c = (row["use_c"].reshape((-1,) + (1,) * (x.ndim - 1))
-                 if per_slot else row["use_c"])
-        x_next = x_pred + use_c * (x_corr - x_pred)
-        E_next = torch.cat([e_new[None], E[:-1]], dim=0)
-        return x_next, E_next
+        return row_ops.unipc_row_correct(x, E, e_new, x_pred, rows, idx, sign,
+                                         backend=backend)
 
     return step
+
+
+def run_rows(step: Callable, n_rows: int, x_T: torch.Tensor, *, ring: int,
+             dtype=torch.float32, model_kwargs=None) -> torch.Tensor:
+    """Rows 0..n_rows-1 of `step` from x_T over a zeroed eval ring of `ring`
+    slots; returns the final state. Row j's index is a 0-d view of one
+    device arange, so no row copies an index from the host."""
+    row_ids = torch.arange(n_rows, device=x_T.device)
+    carry = (x_T.to(dtype),
+             torch.zeros((ring,) + tuple(x_T.shape), dtype=dtype,
+                         device=x_T.device))
+    for j in range(n_rows):
+        carry = step(carry, row_ids[j], model_kwargs)
+    return carry[0]
 
 
 def unipc_sample_scan(model_fn: Callable, x_T: torch.Tensor,
@@ -124,10 +122,5 @@ def unipc_sample_scan(model_fn: Callable, x_T: torch.Tensor,
     per row; the corrector re-uses it."""
     step, n_rows = unipc_step_fn(model_fn, sched, device=x_T.device,
                                  fused_update=fused_update, dtype=dtype)
-    K = sched.w_pred.shape[1]
-    carry = (x_T.to(dtype),
-             torch.zeros((K + 1,) + tuple(x_T.shape), dtype=dtype,
-                         device=x_T.device))
-    for j in range(n_rows):
-        carry = step(carry, j, model_kwargs)
-    return carry[0]
+    return run_rows(step, n_rows, x_T, ring=sched.w_pred.shape[1] + 1,
+                    dtype=dtype, model_kwargs=model_kwargs)

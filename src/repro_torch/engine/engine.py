@@ -22,7 +22,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..core.coeffs import SolverTable, augment_step_rows
-from ..core.unipc import rows_on, step_fn_over_rows, unipc_sample_scan
+from ..core.unipc import rows_on, run_rows, step_fn_over_rows, unipc_step_fn
 from ..diffusion.guidance import cfg_model_fused
 from ..diffusion.process import eps_to_x0
 from ..diffusion.schedules import NoiseSchedule
@@ -122,15 +122,18 @@ class SamplerEngine:
               table: Optional[SolverTable] = None) -> Callable:
         """spec -> run(x_T, **model_kwargs) -> x0, the uniform sampler.
         `model_kwargs` (e.g. class_ids for a per-request-conditioned
-        engine) reach the eps-net on every row."""
+        engine) reach the eps-net on every row. The step and its device
+        table are built here, once; a run only loops over the rows."""
         spec = spec.resolve()
         tab = table if table is not None else self.compile(spec)
-        model = self.model_fn(spec, tab)
+        step, n_rows = unipc_step_fn(self.model_fn(spec, tab), tab,
+                                     device=self.device,
+                                     fused_update=spec.fused_update)
+        ring = tab.w_pred.shape[1] + 1
 
         def run(x_T, **model_kwargs):
-            return unipc_sample_scan(model, x_T, tab,
-                                     fused_update=spec.fused_update,
-                                     model_kwargs=model_kwargs or None)
+            return run_rows(step, n_rows, x_T, ring=ring,
+                            model_kwargs=model_kwargs or None)
 
         return run
 
@@ -159,6 +162,9 @@ class SamplerEngine:
                                       fused_update=spec.fused_update)
 
         def step(state, idx, g=None, extras=None):
+            # a host index crosses to the card here, one blocking copy a
+            # tick: the serving scheduler, which keeps it there, is not
+            # ported yet
             idx = torch.as_tensor(idx, device=self.device).long()
             kw = dict(extras) if extras else {}
             if uses_cfg:

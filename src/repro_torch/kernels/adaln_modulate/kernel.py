@@ -23,10 +23,9 @@ REGISTER_BODIES = {
     (torch.float32, 16, 32, 3), (torch.float32, 16, 16, 2)}
 MOD_THREADS = 256
 # blocks of MOD_THREADS an SM holds at once with every register body of
-# either kernel (ptxas: at most 128 registers a thread); the SM count of a
-# CPU tensor's plan is the H100 SXM's
+# either kernel (ptxas: at most 128 registers a thread)
 BLOCKS_PER_SM = 2
-H100_SMS = 132
+H100_SMS = build.H100_SMS
 
 
 @functools.cache
@@ -66,11 +65,6 @@ def _check_rows(name, x, *conds):
     return row_stride
 
 
-@functools.cache
-def _sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _row_plan(x: torch.Tensor, conds, out: torch.Tensor) -> dict:
     """The plan of either kernel over the (B, T, D) rows of x, its (B, D)
     conditioning rows `conds` (one shared row stride) and `out`."""
@@ -92,7 +86,7 @@ def _row_plan(x: torch.Tensor, conds, out: torch.Tensor) -> dict:
     else:
         body, lanes, chunks = "generic", 32, 0
     rows = MOD_THREADS // lanes
-    sms = _sms(x.device.index) if x.is_cuda else H100_SMS
+    sms = build.sm_count(x)
     per_b = -(-T // rows)                       # one row a group
     turns = -(-B * per_b // (BLOCKS_PER_SM * sms))
     return dict(body=body, access_bytes=width, lanes=lanes, chunks=chunks,

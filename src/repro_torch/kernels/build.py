@@ -11,6 +11,7 @@ missing source, all at once, for callers that want the build up front.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,6 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # float kernels, OPERAND_CODES adds the quantized operands of quant_matmul
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 OPERAND_CODES = {**DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
+
+# the SM count a CPU tensor's plan assumes: an H100 SXM's, so the CPU tests
+# check the plans the card will run
+H100_SMS = 132
 
 _LIBS: dict = {}
 
@@ -116,3 +121,12 @@ def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on the tensor's device, as a pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream
 
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SM count of the card `t` lies on (H100_SMS for a CPU tensor)."""
+    return _sms(t.device.index) if t.is_cuda else H100_SMS

@@ -44,73 +44,6 @@
 constexpr int MOD_MAX_D = 8 * 1024;
 constexpr int MOD_MAX_THREADS = 256;
 
-template <int BYTES> struct Raw;
-template <> struct Raw<16> { using type = uint4; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<4> { using type = uint32_t; };
-template <> struct Raw<2> { using type = unsigned short; };
-
-// VEC consecutive elements of a row, held as the raw 32-bit words of one
-// 2-16 byte access (a 2-byte access keeps its bf16 in the low half).
-template <typename T, int VEC>
-struct Chunk {
-  static constexpr int BYTES = VEC * static_cast<int>(sizeof(T));
-  static constexpr int WORDS = BYTES >= 4 ? BYTES / 4 : 1;
-  uint32_t w[WORDS];
-
-  __device__ __forceinline__ void load(const T* p) {
-    const auto v = *reinterpret_cast<const typename Raw<BYTES>::type*>(p);
-    if constexpr (BYTES == 16) {
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    } else if constexpr (BYTES == 8) {
-      w[0] = v.x; w[1] = v.y;
-    } else {
-      w[0] = v;
-    }
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < WORDS; ++i) w[i] = 0u;
-  }
-  // element i as fp32 (bf16 widens exactly by a shift)
-  __device__ __forceinline__ float get(int i) const {
-    if constexpr (sizeof(T) == 4) {
-      return __uint_as_float(w[i]);
-    } else {
-      return __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u) : (w[i >> 1] << 16));
-    }
-  }
-};
-
-__device__ __forceinline__ uint32_t bf16_bits(float v) {  // round to nearest even
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// Store VEC fp32 values as one access of T.
-template <typename T, int VEC>
-__device__ __forceinline__ void store_chunk(T* p, const float (&f)[VEC]) {
-  using C = Chunk<T, VEC>;
-  typename Raw<C::BYTES>::type v;
-  uint32_t w[C::WORDS];
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) w[i] = __float_as_uint(f[i]);
-  } else if constexpr (VEC == 1) {
-    w[0] = bf16_bits(f[0]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC / 2; ++i) w[i] = bf16_bits(f[2 * i]) | (bf16_bits(f[2 * i + 1]) << 16);
-  }
-  if constexpr (C::BYTES == 16) {
-    v = make_uint4(w[0], w[1], w[2], w[3]);
-  } else if constexpr (C::BYTES == 8) {
-    v = make_uint2(w[0], w[1]);
-  } else {
-    v = static_cast<typename Raw<C::BYTES>::type>(w[0]);
-  }
-  *reinterpret_cast<typename Raw<C::BYTES>::type*>(p) = v;
-}
-
 // Sum over each aligned group of LANES lanes, returned to all of them.
 // Deterministic: a xor butterfly gives every lane the same sum.
 template <int LANES>

@@ -22,7 +22,6 @@ SKINNY_MAX_M = 64
 BODIES = {"cuda_cores": (0, (64, 64)), "wmma": (1, (128, 128)),
           "skinny": (2, (SKINNY_MAX_M, 64)), "wgmma": (3, (144, 128))}
 SKINNY_MAX_SPLIT = 8        # warps a skinny block (SK_MAX_SPLIT in the source)
-H100_SMS = 132
 
 
 @functools.cache
@@ -36,11 +35,6 @@ def _launcher():
         ctypes.c_longlong] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = sk.restype = ctypes.c_int
     return fn, sk
-
-
-@functools.cache
-def _sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def skinny_smem(m_tiles: int, vw: int, split: int) -> int:
@@ -85,7 +79,7 @@ def plan(x: torch.Tensor, qw: torch.Tensor) -> dict:
                     blocks=-(-M // bm) * -(-N // bn))
     K = x.shape[1]
     m_tiles = 2 if M <= 16 else 4 if M <= 32 else 8
-    sms = _sms(x.device.index) if x.is_cuda else H100_SMS
+    sms = build.sm_count(x)
     vw = 8 if m_tiles < 8 and -(-N // 64) * 4 >= 3 * sms else 4
     strips = -(-N // (8 * vw))
     xa = 4 * x.element_size()

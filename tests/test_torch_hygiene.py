@@ -79,6 +79,13 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 _OPS = {
     "unipc_update": lambda b: uni_ops.weighted_combine(
         torch.zeros(3, 2, 4), torch.zeros(3), backend=b),
+    "unipc_row_predict": lambda b: uni_ops.unipc_row_predict(
+        torch.zeros(2, 4), torch.zeros(3, 2, 4), torch.zeros(5, 11),
+        torch.tensor(1), 1.0, backend=b),
+    "unipc_row_correct": lambda b: uni_ops.unipc_row_correct(
+        torch.zeros(2, 4), torch.zeros(3, 2, 4), torch.zeros(2, 4),
+        torch.zeros(2, 4), torch.zeros(5, 11), torch.tensor([1, 0]), 1.0,
+        backend=b)[1],
     "adaln_modulate": lambda b: adaln_ops.modulate(
         torch.zeros(2, 3, 4), torch.zeros(2, 4), torch.zeros(2, 4), backend=b),
     "gate_residual": lambda b: adaln_ops.gate_residual(
