@@ -22,27 +22,41 @@ Phases (any failure exits non-zero):
      ms per row, and device ms in a CUDA graph where the row can be
      captured.
   4. main path — guided UniPC sampling of full-width dit-i256 (28 blocks,
-     d_model 1152, 16 heads of dim 72, bf16 activations, fp32 params) through
-     `repro_torch.launch.sample.sample`: launch counts, kernel vs plain-pinned
-     latents, wall time and peak memory; then one more row loop of an
-     engine whose step is already built, under
-     torch.cuda.set_sync_debug_mode("error"), so any host sync in the loop
-     (sampler or eps-net) fails the run; the same call once more under
-     torch.profiler, outside the timed wall (device time by kernel and by
-     kind, and the share of the wall with no kernel running), and a
-     reduced-size card vs CPU check.
+     d_model 1152, 16 heads of dim 72, bf16 activations, fp32 params, the
+     bf16 weights kept once) through `repro_torch.launch.sample.sample`,
+     whose run is a CUDA graph (one eager warm-up row, the capture, one
+     replay): launch counts of the call, kernel vs plain-pinned latents,
+     wall and peak memory. Then one engine's graph against its eager loop:
+     a replay alone counted (22 / 627 / 616 / 308 launches: captured x
+     replays), its latents bit-equal to the eager loop's and to
+     sample()'s, a later replay leaving an earlier result alone; the eager
+     loop and one replay under torch.cuda.set_sync_debug_mode("error");
+     the first-call (capture included), replay and eager walls, medians of
+     5 in turns; torch.profiler's split (device time by kernel and kind,
+     bfloat16_copy casts, share of the wall with no kernel running) of the
+     eager loop and of the replay; the weights kept once against the
+     per-use casts (latents bit-equal, bfloat16_copy launches, peak
+     memory); a full-width eval_dtype="bfloat16" run within 1e-2 of the
+     default path; and a reduced-size card vs CPU check.
   5. serving step — four requests admitted at staggered ticks into a
      per-slot `StepProgram` at full width (fp32 activations), and a fifth
      re-admitted into the slot the first one freed (over its stale eval
-     ring and class id); each held against a batch-1 uniform run, and one
-     uniform run held against the plain-pinned path at fp32.
+     ring and class id), through `step` (a host index) from its graph;
+     the same requests and one with a NaN in its x_T through
+     `step_flight` from its graph, the meta on the card and only the done
+     mask read back (each within SERVE_TOL of its batch-1 uniform run,
+     bit-equal to the eager step_flight, the NaN one DONE_NONFINITE); a
+     bank of `default_tier_specs(cfg_scale=2.0)` serving tagged requests,
+     each within SERVE_TOL of its tier's uniform run; one uniform run held
+     against the plain-pinned path at fp32.
   6. quantized main path — phase 4's sampling with the w8a16 tier
-     (`sample(quant="w8a16")`: 197 quant_matmul launches per eval), launch
-     counts and kernel vs plain-pinned latents, drift from phase 4's
-     latents, quantized weight bytes; the same call once more under
-     torch.profiler, outside the timed wall; w8a8 (calibrated on the card),
-     fp8a16 and w4a16 at depth 4, each against its plain-pinned run; a
-     w8a16 per-slot `StepProgram` at fp32 against its uniform runs.
+     (`sample(quant="w8a16")` through its graph: 197 quant_matmul launches
+     per eval), launch counts and kernel vs plain-pinned latents, drift
+     from phase 4's latents, quantized weight bytes; one engine's replay
+     counted (2167 quant_matmul launches) and bit-equal to its eager loop,
+     its walls and profile split as in phase 4; w8a8 (calibrated on the
+     card), fp8a16 and w4a16 at depth 4, each against its plain-pinned run;
+     a w8a16 per-slot `StepProgram` at fp32 against its uniform runs.
 The last three lines are the kernels JSON, the card's name and power
 limit as `nvidia-smi --query-gpu=name,power.limit` prints them, and
 {"ok": true, "device": {...}}.
@@ -50,7 +64,9 @@ limit as `nvidia-smi --query-gpu=name,power.limit` prints them, and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -539,7 +555,7 @@ def unipc_row_cases(dev, randn, combine: dict) -> dict:
     from repro_torch.kernels.unipc_update import kernel as uni_kernel
     from repro_torch.kernels.unipc_update import ops as uni_ops
 
-    tab = SamplerEngine(VPLinear(), eps=None).compile(
+    tab = SamplerEngine(VPLinear(), eps=None, device=dev).compile(
         EngineSpec(nfe=10, order=3, cfg_scale=2.0))
     dtab = rows_on(augment_step_rows(tab), dev)
     rows = uni_ops.pack_weight_rows(dtab)
@@ -936,10 +952,11 @@ def kernel_kind(name: str) -> str:
 def profile_split(fn, top: int = 12) -> dict:
     """Run `fn` once under torch.profiler with CUDA activity and split the
     device time: the top kernels by summed time with their counts, the sum
-    by kind, the sum of all device activity, the wall (host clock to a
-    sync, with the profiler's own cost inside) and the share of the wall
-    with no device activity (the union of kernel intervals against the
-    wall). Returns {} if the profiler recorded no device activity."""
+    by kind, the `bfloat16_copy` casts, the sum of all device activity, the
+    wall (host clock to a sync, with the profiler's own cost inside) and the
+    share of the wall with no device activity (the union of kernel
+    intervals against the wall). Returns {} if the profiler recorded no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -968,10 +985,15 @@ def profile_split(fn, top: int = 12) -> dict:
         k = kinds.setdefault(kernel_kind(name), [0, 0.0])
         k[0] += n
         k[1] += us / 1e3
+    casts = [(n, us) for name, (n, us) in by_name.items()
+             if "bfloat16_copy" in name]
+    bf16_copies = sum(n for n, _ in casts)
+    bf16_copy_ms = sum(us for _, us in casts) / 1e3
     idle = 1.0 - busy_us / 1e3 / (wall * 1e3)
     print(f"  profiled run: wall {wall:.4f} s (profiler on), device "
           f"activity {total_ms:.3f} ms summed, {busy_us / 1e3:.3f} ms as a "
-          f"union; no kernel running for {idle:.1%} of the wall")
+          f"union; no kernel running for {idle:.1%} of the wall; "
+          f"bfloat16_copy {bf16_copies} launches, {bf16_copy_ms:.3f} ms")
     for kind, (n, ms) in sorted(kinds.items(), key=lambda kv: -kv[1][1]):
         print(f"    {kind}: {ms:.3f} ms in {n} launches "
               f"({ms / total_ms:.1%} of device time)")
@@ -986,6 +1008,8 @@ def profile_split(fn, top: int = 12) -> dict:
               f"{us / 1e3 / n:.5f} ms a call  {name[:80]}")
     return dict(wall_s=wall, device_ms_sum=total_ms,
                 device_busy_ms=busy_us / 1e3, idle_share_of_wall=idle,
+                bfloat16_copy_launches=bf16_copies,
+                bfloat16_copy_ms=bf16_copy_ms,
                 by_kind={k: dict(launches=n, ms=ms)
                          for k, (n, ms) in kinds.items()},
                 top=[dict(name=name[:200], launches=n, ms=us / 1e3)
@@ -993,6 +1017,86 @@ def profile_split(fn, top: int = 12) -> dict:
                 port_kernels=[dict(name=name[:200], launches=n, ms=us / 1e3,
                                    ms_per_call=us / 1e3 / n)
                               for name, n, us in port])
+
+
+def median_walls(fns: dict, reps: int = 5) -> dict:
+    """Each of `fns` (name -> callable) `reps` times, in turns (a, b, c,
+    a, b, c, ...), each timed on the host clock to a sync; the median and
+    every repetition, in seconds."""
+    walls = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    return {name: dict(median_s=float(np.median(w)), reps_s=w)
+            for name, w in walls.items()}
+
+
+@contextlib.contextmanager
+def per_use_casts():
+    """`build_engine` without the weights kept once: every fp32 weight is
+    cast to the activation dtype at each use, as before they were kept."""
+    from repro_torch.models import api
+
+    kept = api.cast_weights_once
+    api.cast_weights_once = lambda cfg, params: params
+    try:
+        yield
+    finally:
+        api.cast_weights_once = kept
+
+
+def free_graphs():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def graph_checks(label: str, engine, spec, x_T, expected: dict,
+                 counts_out: dict) -> dict:
+    """The CUDA graph of one engine's sampling run against its eager loop:
+    the first call (one eager warm-up row, the capture, a replay) and then a
+    replay alone, counted (the replay's counts go to `counts_out` and must
+    be `expected` exactly); the replay's latents bit-equal to the eager
+    run's, and a second replay on other inputs leaves the first result
+    alone. Returns the run functions and the results."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+
+    run, eager = engine.build(spec), engine.build(spec, jit=False)
+    LAUNCHES.clear()
+    x_first = run(x_T)
+    torch.cuda.synchronize()
+    first_counts = dict(LAUNCHES)
+    LAUNCHES.clear()
+    x_graph = run(x_T)
+    torch.cuda.synchronize()
+    counts_out.update(LAUNCHES)
+    print(f"  {label}: launches of one replay {dict(sorted(counts_out.items()))}"
+          f" expected {expected}; the first call (a warm-up row, the "
+          f"capture, a replay) {dict(sorted(first_counts.items()))}")
+    if dict(counts_out) != expected:
+        fail(f"{label}: replay launch counts {dict(counts_out)} != "
+             f"{expected}")
+    LAUNCHES.clear()
+    x_eager = eager(x_T)
+    torch.cuda.synchronize()
+    if dict(LAUNCHES) != expected:
+        fail(f"{label}: eager launch counts {dict(LAUNCHES)} != {expected}")
+    kept = x_graph.clone()
+    other = run(torch.flip(x_T, dims=(0,)))
+    torch.cuda.synchronize()
+    same = (torch.equal(x_graph, x_eager) and torch.equal(x_first, x_eager)
+            and torch.equal(x_graph, kept)
+            and not torch.equal(other, x_graph))
+    print(f"  {label}: replay vs eager latents bit-equal: {same}; max abs "
+          f"{float((x_graph - x_eager).abs().max()):.3e}")
+    if not same:
+        fail(f"{label}: the CUDA graph replay differs from the eager run")
+    return dict(run=run, eager=eager, x_graph=x_graph, x_eager=x_eager,
+                first_call_counts=first_counts)
 
 
 def main_path_phase(dev, counts_out: dict) -> dict:
@@ -1003,24 +1107,30 @@ def main_path_phase(dev, counts_out: dict) -> dict:
     from repro_torch.launch.sample import build_engine, latent_shape, sample
 
     batch, nfe, order, g_scale = 8, 10, 3, 2.0
+    rows = nfe + 1
     cfg = get_config("dit-i256")
     assert cfg.dtype == "bfloat16" and cfg.head_dim == 72
     params = perturbed_params(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     x_T = torch.randn(latent_shape(cfg, batch), generator=gen, device=dev)
+    spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale)
+    expected = expected_launches(cfg, rows)
+    warm = expected_launches(cfg, 1)
 
-    # every op pinned to its plain version, same params and x_T
+    # every op pinned to its plain version, same params and x_T, eager
     engine = build_engine(plain_pinned(cfg), params, VPLinear(), batch,
                           seed=0, device=dev)
-    spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale,
-                      fused_update=False)
     LAUNCHES.clear()
-    x_plain = engine.build(spec)(x_T)
+    x_plain = engine.build(dataclasses.replace(spec, fused_update=False),
+                           jit=False)(x_T)
     torch.cuda.synchronize()
     if sum(LAUNCHES.values()):
         fail(f"the plain-pinned run launched kernels: {dict(LAUNCHES)}")
+    del engine
 
-    # the main path, through the user's entry point, counted
+    # the main path, through the user's entry point: its engine captures
+    # the run (after one eager warm-up row) and replays it once
+    free_graphs()
     torch.cuda.reset_peak_memory_stats(dev)
     LAUNCHES.clear()
     torch.cuda.synchronize()
@@ -1030,14 +1140,13 @@ def main_path_phase(dev, counts_out: dict) -> dict:
                 device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts_out.update(LAUNCHES)
+    sample_counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-
-    rows = nfe + 1
-    expected = expected_launches(cfg, rows)
-    print(f"  launches {dict(sorted(counts_out.items()))} expected {expected}")
-    if dict(counts_out) != expected:
-        fail(f"launch counts {dict(counts_out)} != expected {expected}")
+    want = {k: expected[k] + warm[k] for k in expected}
+    print(f"  sample(): launches {dict(sorted(sample_counts.items()))} = one "
+          f"eager warm-up row {warm} + one replay {expected}")
+    if sample_counts != want:
+        fail(f"sample() launch counts {sample_counts} != {want}")
     if x0.shape != tuple(x_T.shape) or not np.isfinite(x0).all():
         fail(f"main path output shape {x0.shape} / finite "
              f"{np.isfinite(x0).all()}")
@@ -1045,33 +1154,98 @@ def main_path_phase(dev, counts_out: dict) -> dict:
     print(f"  kernel vs plain latents: rel L-inf {err:.3e} (tol {MAIN_TOL:g})")
     if not err <= MAIN_TOL:
         fail(f"main path latents disagree with the plain path: {err:.3e}")
-    print(f"  wall {wall:.3f} s for {batch} requests = "
-          f"{wall / batch * 1e3:.1f} ms per request end to end; peak memory "
-          f"{peak / 2**30:.2f} GiB")
-    # one row loop of a step built beforehand, with every host sync an
-    # error: the loop (sampler and eps-net) must leave the stream running
-    run = build_engine(cfg, params, VPLinear(), batch, seed=0,
-                       device=dev).build(EngineSpec(nfe=nfe, order=order,
-                                                    cfg_scale=g_scale))
+    print(f"  sample() wall {wall:.3f} s for {batch} requests (first call: "
+          f"capture included); peak memory {peak / 2**30:.2f} GiB")
+
+    # one engine's graph: the replay alone, counted, against its eager loop
+    free_graphs()
+    engine = build_engine(cfg, params, VPLinear(), batch, seed=0, device=dev)
+    g = graph_checks("main path", engine, spec, x_T, expected, counts_out)
+    run, eager = g["run"], g["eager"]
+    if not torch.equal(g["x_graph"].cpu(), torch.as_tensor(x0)):
+        fail("sample()'s latents differ from the same engine's replay")
+
+    # any host sync is an error: the eager row loop, then one replay
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        x_nosync = run(x_T)
+        x_nosync = eager(x_T)
+        x_nosync_graph = run(x_T)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    sync_err = rel_err(x_nosync.cpu(), torch.as_tensor(x0))
-    print(f"  row loop under set_sync_debug_mode('error'): {rows} rows, no "
-          f"host sync; vs the main run rel L-inf {sync_err:.3e}")
-    if not sync_err <= MAIN_TOL:
-        fail(f"the sync-checked row loop disagrees with the main run: "
-             f"{sync_err:.3e}")
-    # the same call once more under the profiler, outside the timed wall
-    split = profile_split(lambda: sample(
-        "dit-i256", reduced=False, nfe=nfe, order=order, cfg_scale=g_scale,
-        batch=batch, params=params, x_T=x_T, device=dev))
+    if not (torch.equal(x_nosync, g["x_eager"])
+            and torch.equal(x_nosync_graph, g["x_graph"])):
+        fail("the sync-checked runs differ from the counted ones")
+    print(f"  eager row loop and one replay under "
+          f"set_sync_debug_mode('error'): {rows} rows, no host sync, latents "
+          f"bit-equal to the counted runs")
+
+    # walls: the first call (a new engine: weights kept once, table, warm-up
+    # row, capture, replay), the steady replay and the eager loop, in turns
+    def first_call():
+        e = build_engine(cfg, params, VPLinear(), batch, seed=0, device=dev)
+        e.build(spec)(x_T)
+
+    walls = median_walls({"first_call": first_call,
+                          "replay": lambda: run(x_T),
+                          "eager": lambda: eager(x_T)})
+    free_graphs()
+    for name, w in walls.items():
+        print(f"  wall {name}: median {w['median_s']:.4f} s of "
+              f"{[round(v, 4) for v in w['reps_s']]} ({batch} requests)")
+
+    # where the time goes: the eager loop and the replay under the profiler
+    # (outside the timed walls)
+    print("  profile of the eager loop:")
+    split_eager = profile_split(lambda: eager(x_T))
+    print("  profile of the replay:")
+    split_graph = profile_split(lambda: run(x_T))
+    del run, eager, g, engine
+
+    # the weights kept once against the per-use casts: bit-equal latents,
+    # the casts' launches and the peak memory of an eager run of each
+    kept = {}
+    for form in ("per_use", "kept_once"):
+        free_graphs()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with (per_use_casts() if form == "per_use"
+              else contextlib.nullcontext()):
+            e = build_engine(cfg, params, VPLinear(), batch, seed=0,
+                             device=dev)
+        eager_f = e.build(spec, jit=False)
+        x_f = eager_f(x_T)
+        torch.cuda.synchronize()
+        kept[form] = dict(peak_bytes=torch.cuda.max_memory_allocated(dev),
+                          latents=x_f)
+        print(f"  weights {form}:")
+        kept[form]["profile"] = profile_split(lambda: eager_f(x_T))
+        del e, eager_f
+    if not torch.equal(kept["per_use"]["latents"], kept["kept_once"]["latents"]):
+        fail("the weights kept once change the latents")
+    for form in kept:
+        kept[form].pop("latents")
+        prof = kept[form]["profile"]
+        print(f"  weights {form}: bfloat16_copy "
+              f"{prof.get('bfloat16_copy_launches', 'not measured')} "
+              f"launches, peak memory "
+              f"{kept[form]['peak_bytes'] / 2**30:.2f} GiB")
+    print("  weights kept once vs cast at use: latents bit-equal")
+
+    # the fast serving eval: every weight and activation in bf16
+    free_graphs()
+    x_bf16 = sample("dit-i256", reduced=False, nfe=nfe, order=order,
+                    cfg_scale=g_scale, batch=batch, params=params, x_T=x_T,
+                    eval_dtype="bfloat16", device=dev)
+    bf16_err = rel_err(torch.as_tensor(x_bf16), torch.as_tensor(x0))
+    print(f"  eval_dtype='bfloat16' vs the default path: rel L-inf "
+          f"{bf16_err:.3e} (tol {MAIN_TOL:g})")
+    if not (np.isfinite(x_bf16).all() and bf16_err <= MAIN_TOL):
+        fail(f"the bf16-eval run disagrees with the default path: "
+             f"{bf16_err:.3e}")
 
     # a small input through the kernels on the card and the plain path on
     # the CPU: the reduced config (fp32, GQA 4/2, head dim 32)
+    free_graphs()
     small = get_config("dit-i256").reduced()
     sp = perturbed_params(small, "cpu", seed=3)
     xs = torch.randn(latent_shape(small, 2), generator=torch.Generator(
@@ -1085,10 +1259,12 @@ def main_path_phase(dev, counts_out: dict) -> dict:
           f"{small_err:.3e} (tol {SMALL_TOL:g})")
     if not small_err <= SMALL_TOL:
         fail(f"reduced-size card vs CPU disagree: {small_err:.3e}")
-    return dict(wall_s=wall, ms_per_request=wall / batch * 1e3,
-                peak_bytes=peak, rel_err_vs_plain=err, rows=rows,
-                small_rel_err=small_err, sync_free_loop_rel_err=sync_err,
-                profile=split, latents=x0)
+    return dict(sample_wall_s=wall, sample_launches=sample_counts,
+                sample_peak_bytes=peak, rel_err_vs_plain=err, rows=rows,
+                walls=walls, profile_eager=split_eager,
+                profile_replay=split_graph, weights=kept, bf16_eval_rel_err=bf16_err,
+                small_rel_err=small_err,
+                latents=x0)
 
 
 # --------------------------------------------------------------------------
@@ -1097,11 +1273,11 @@ def main_path_phase(dev, counts_out: dict) -> dict:
 
 
 def run_slots(program, reqs, slots: int, dev):
-    """Drive a per-slot StepProgram: each request of `reqs` (dicts with rid,
-    arrival, g, x_T, cls) is admitted at its arrival tick into the first
-    free slot, and every slot steps by its own row (idle slots park on row
-    0) until all have finished. Sets r["slot"] and r["reused"]; returns
-    ({rid: latent}, ticks)."""
+    """Drive a per-slot StepProgram's `step` with a host index: each request
+    of `reqs` (dicts with rid, arrival, g, x_T, cls) is admitted at its
+    arrival tick into the first free slot, and every slot steps by its own
+    row (idle slots park on row 0) until all have finished. Sets r["slot"]
+    and r["reused"]; returns ({rid: latent}, ticks)."""
     state = program.init_state(slots, tuple(reqs[0]["x_T"].shape))
     g_slot = program.init_g(slots)
     cls_slot = torch.zeros(slots, dtype=torch.long, device=dev)
@@ -1136,10 +1312,66 @@ def run_slots(program, reqs, slots: int, dev):
     return done, tick
 
 
-def serving_phase(dev) -> float:
+def run_flight(program, reqs, slots: int, dev):
+    """Drive a StepProgram's `step_flight`: requests wait in arrival order
+    for a free slot; admission writes the slot's latent, a zeroed ring, its
+    guidance scale, class and [row 0, the tier's offset and budget, busy]
+    into the buffers the program handed out; the only read back a tick is
+    the (B,) done mask. Returns ({rid: latent}, {rid: done code}, ticks)."""
+    state = program.init_state(slots, tuple(reqs[0]["x_T"].shape))
+    meta = program.init_meta(slots)
+    g_slot = program.init_g(slots)
+    cls_slot = torch.zeros(slots, dtype=torch.long, device=dev)
+    queue = sorted(reqs, key=lambda r: r["arrival"])
+    owner = [None] * slots
+    out, codes, tick = {}, {}, 0
+    while len(out) < len(reqs):
+        while queue and queue[0]["arrival"] <= tick and None in owner:
+            r = queue.pop(0)
+            s = owner.index(None)
+            off, budget = program.resolve_tier(r.get("tier"))
+            state[0][s] = r["x_T"]
+            state[1][:, s] = 0
+            g_slot[s] = r["g"]
+            cls_slot[s] = r["cls"]
+            meta[:, s] = torch.tensor([0, off, budget, 1], dtype=torch.int32)
+            owner[s] = r["rid"]
+        state, meta, done = program.step_flight(state, meta, g_slot,
+                                                {"class_ids": cls_slot})
+        done = done.cpu().numpy()
+        for s in np.flatnonzero(done):
+            out[owner[s]] = state[0][s].clone()
+            codes[owner[s]] = int(done[s])
+            owner[s] = None
+        tick += 1
+    return out, codes, tick
+
+
+def serving_requests(dev, sample_shape, cases, seed0=100):
+    """Requests of the serving checks: (arrival, g[, tier]) each, with a
+    seeded latent and class."""
+    reqs = []
+    for rid, case in enumerate(cases):
+        seed = seed0 + rid
+        x_T = torch.randn(sample_shape, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+        cls = int(np.random.default_rng(seed).integers(0, 1000))
+        reqs.append(dict(rid=rid, arrival=case[0], g=case[1], x_T=x_T,
+                         cls=cls, tier=case[2] if len(case) > 2 else None))
+    return reqs
+
+
+def uniform_run(engine, spec, r, dev):
+    return engine.build(dataclasses.replace(spec, cfg_scale=r["g"]))(
+        r["x_T"][None], class_ids=torch.tensor([r["cls"]], device=dev))[0]
+
+
+def serving_phase(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.diffusion import VPLinear
     from repro_torch.engine import EngineSpec
+    from repro_torch.engine.compiler import DONE_NONFINITE, DONE_OK
+    from repro_torch.engine.specs import default_tier_specs
     from repro_torch.launch.sample import build_engine, latent_shape
 
     cfg = dataclasses.replace(get_config("dit-i256"), dtype="float32")
@@ -1153,35 +1385,79 @@ def serving_phase(dev) -> float:
     # holds rows 0..n_rows-1 from tick 0), so its freed slot first parks
     # idle on row 0 and is then re-admitted over a stale ring and class
     reuse_tick = program.n_rows + 1
-    reqs = []
-    for rid, (arrival, g) in enumerate(zip((0, 1, 2, 3, reuse_tick),
-                                           (1.0, 2.0, 3.5, 1.5, 2.5))):
-        seed = 100 + rid
-        x_T = torch.randn(sample_shape, generator=torch.Generator(
-            device=dev).manual_seed(seed), device=dev)
-        cls = int(np.random.default_rng(seed).integers(0, 1000))
-        reqs.append(dict(rid=rid, arrival=arrival, g=g, x_T=x_T, cls=cls))
+    reqs = serving_requests(dev, sample_shape, list(zip(
+        (0, 1, 2, 3, reuse_tick), (1.0, 2.0, 3.5, 1.5, 2.5))))
 
+    # `step` with a host index, replayed from its graph
     done, tick = run_slots(program, reqs, 4, dev)
     worst = 0.0
     uniform = {}
     for r in reqs:
-        ref = engine.build(dataclasses.replace(spec, cfg_scale=r["g"]))(
-            r["x_T"][None], class_ids=torch.tensor([r["cls"]], device=dev))[0]
-        uniform[r["rid"]] = ref
+        ref = uniform[r["rid"]] = uniform_run(engine, spec, r, dev)
         err = rel_err(done[r["rid"]], ref)
-        print(f"  request {r['rid']} (arrival {r['arrival']}, slot "
+        print(f"  step: request {r['rid']} (arrival {r['arrival']}, slot "
               f"{r['slot']}{' reused' if r['reused'] else ''}, g {r['g']}, "
               f"class {r['cls']}): staggered vs uniform rel L-inf {err:.3e}")
         if not torch.isfinite(done[r["rid"]]).all() or not err <= SERVE_TOL:
             fail(f"request {r['rid']}: staggered step disagrees with its "
                  f"uniform run ({err:.3e} > {SERVE_TOL:g})")
         worst = max(worst, err)
-    print(f"  {len(reqs)} requests over {tick} ticks, worst {worst:.3e} "
-          f"(tol {SERVE_TOL:g})")
+    print(f"  step: {len(reqs)} requests over {tick} ticks, worst "
+          f"{worst:.3e} (tol {SERVE_TOL:g})")
     if not reqs[-1]["reused"]:
         fail("the last request did not land in a slot a finished request "
              "had freed: re-admission went untested")
+
+    # `step_flight` from its graph, the meta on the card, only the done
+    # mask read back; one more request with a NaN in its x_T
+    bad = serving_requests(dev, sample_shape, [(4, 2.0)], seed0=150)[0]
+    bad["rid"] = len(reqs)
+    bad["x_T"][0, 0] = float("nan")
+    flight_reqs = reqs + [bad]
+    t0 = time.perf_counter()
+    got, codes, flight_ticks = run_flight(program, flight_reqs, 4, dev)
+    flight_wall = time.perf_counter() - t0
+    eager_got, eager_codes, _ = run_flight(
+        engine.build_step(spec, jit=False), flight_reqs, 4, dev)
+    worst_flight = 0.0
+    for r in reqs:
+        err = rel_err(got[r["rid"]], uniform[r["rid"]])
+        same = torch.equal(got[r["rid"]], eager_got[r["rid"]])
+        print(f"  step_flight: request {r['rid']}: done code "
+              f"{codes[r['rid']]}, vs uniform rel L-inf {err:.3e}, replay "
+              f"vs eager step_flight bit-equal: {same}")
+        if codes[r["rid"]] != DONE_OK or not err <= SERVE_TOL or not same:
+            fail(f"step_flight request {r['rid']}: code {codes[r['rid']]}, "
+                 f"{err:.3e} vs uniform, bit-equal to eager {same}")
+        worst_flight = max(worst_flight, err)
+    print(f"  step_flight: the NaN request's done code {codes[bad['rid']]} "
+          f"(eager {eager_codes[bad['rid']]}); {len(flight_reqs)} requests "
+          f"over {flight_ticks} ticks in {flight_wall:.3f} s (captures "
+          f"included)")
+    if codes[bad["rid"]] != DONE_NONFINITE or eager_codes != codes:
+        fail(f"the non-finite request came back {codes[bad['rid']]}, not "
+             f"DONE_NONFINITE ({DONE_NONFINITE})")
+
+    # a plan bank of the default tiers serving tagged requests
+    specs = default_tier_specs(cfg_scale=2.0)
+    bank = engine.build_bank(specs)
+    bank_reqs = serving_requests(dev, sample_shape, [
+        (0, 1.0, "fast"), (0, 2.0, "quality"), (1, 3.0, "balanced"),
+        (2, 1.5, "fast"), (6, 2.5, "balanced")], seed0=170)
+    got, codes, bank_ticks = run_flight(bank, bank_reqs, 4, dev)
+    worst_bank = 0.0
+    for r in bank_reqs:
+        ref = uniform_run(engine, specs[r["tier"]], r, dev)
+        err = rel_err(got[r["rid"]], ref)
+        print(f"  bank: request {r['rid']} tier {r['tier']} g {r['g']}: "
+              f"done code {codes[r['rid']]}, vs its tier's uniform run rel "
+              f"L-inf {err:.3e}")
+        if codes[r["rid"]] != DONE_OK or not err <= SERVE_TOL:
+            fail(f"bank request {r['rid']} ({r['tier']}): {err:.3e}")
+        worst_bank = max(worst_bank, err)
+    print(f"  bank {sorted(bank.tiers.items())}: {len(bank_reqs)} requests "
+          f"over {bank_ticks} ticks, worst {worst_bank:.3e} (tol "
+          f"{SERVE_TOL:g})")
 
     # the same fp32 full-width uniform run with every op pinned to its
     # plain version: the kernels at full width, at fp32 precision
@@ -1189,7 +1465,7 @@ def serving_phase(dev) -> float:
                          per_request_cond=True, device=dev)
     r = reqs[0]
     x_plain = plain.build(dataclasses.replace(
-        spec, cfg_scale=r["g"], fused_update=False))(
+        spec, cfg_scale=r["g"], fused_update=False), jit=False)(
             r["x_T"][None], class_ids=torch.tensor([r["cls"]], device=dev))[0]
     fp32_err = rel_err(uniform[r["rid"]], x_plain)
     print(f"  fp32 full width, kernels vs plain (request 0): rel L-inf "
@@ -1197,7 +1473,10 @@ def serving_phase(dev) -> float:
     if not fp32_err <= SERVE_TOL:
         fail(f"fp32 full-width kernels disagree with the plain path: "
              f"{fp32_err:.3e}")
-    return worst, fp32_err
+    return dict(step_worst_rel_err=worst, flight_worst_rel_err=worst_flight,
+                bank_worst_rel_err=worst_bank, flight_ticks=flight_ticks,
+                bank_ticks=bank_ticks,
+                fp32_full_width_kernel_vs_plain=fp32_err)
 
 
 # --------------------------------------------------------------------------
@@ -1207,8 +1486,9 @@ def serving_phase(dev) -> float:
 
 def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
     """Guided sampling of full-width dit-i256 with the w8a16 tier through
-    `sample(quant=...)`, counted and held against its plain-pinned run;
-    then w8a8 (calibrated on the card), fp8a16 and w4a16 at depth 4, each
+    `sample(quant=...)` (its graph), held against its plain-pinned run; one
+    engine's replay counted and held bit-equal to its eager loop; then
+    w8a8 (calibrated on the card), fp8a16 and w4a16 at depth 4, each
     against its plain-pinned run over the same quantized tree."""
     from repro_torch.configs import get_config
     from repro_torch.diffusion import VPLinear
@@ -1224,6 +1504,9 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
     params = perturbed_params(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(7)   # phase 4's x_T
     x_T = torch.randn(latent_shape(cfg, batch), generator=gen, device=dev)
+    spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale, quant="w8a16")
+    expected = expected_launches(cfg, rows, quantized=True)
+    warm = expected_launches(cfg, 1, quantized=True)
 
     def plain_run(cfg_q, params_q, tier, x):
         """The plain-pinned uniform run of a tier; `cfg_q` may carry the
@@ -1233,7 +1516,7 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
         spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale,
                           fused_update=False, quant=tier)
         LAUNCHES.clear()
-        out = engine.build(spec)(x)
+        out = engine.build(spec, jit=False)(x)
         torch.cuda.synchronize()
         if sum(LAUNCHES.values()):
             fail(f"the plain-pinned {tier} run launched kernels: "
@@ -1242,7 +1525,8 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
 
     x_plain = plain_run(cfg, params, "w8a16", x_T)
 
-    # the quantized main path, through the user's entry point, counted
+    # the quantized main path, through the user's entry point
+    free_graphs()
     torch.cuda.reset_peak_memory_stats(dev)
     LAUNCHES.clear()
     torch.cuda.synchronize()
@@ -1252,12 +1536,14 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
                 quant="w8a16", device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts_out.update(LAUNCHES)
+    sample_counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    expected = expected_launches(cfg, rows, quantized=True)
-    print(f"  launches {dict(sorted(counts_out.items()))} expected {expected}")
-    if dict(counts_out) != expected:
-        fail(f"quantized launch counts {dict(counts_out)} != {expected}")
+    want = {k: expected[k] + warm[k] for k in expected}
+    print(f"  sample(quant='w8a16'): launches "
+          f"{dict(sorted(sample_counts.items()))} = one eager warm-up row "
+          f"{warm} + one replay {expected}")
+    if sample_counts != want:
+        fail(f"quantized sample() launch counts {sample_counts} != {want}")
     if x0.shape != tuple(x_T.shape) or not np.isfinite(x0).all():
         fail(f"quantized main path output shape {x0.shape} / finite "
              f"{np.isfinite(x0).all()}")
@@ -1275,14 +1561,29 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
     print(f"  w8a16 vs unquantized latents (phase 4): rel L2 {drift:.3e}; "
           f"quantized weights {qbytes['quant']} B vs {qbytes['fp32']} B fp32 "
           f"({qbytes['quant'] / qbytes['fp32']:.3f}x)")
-    print(f"  wall {wall:.3f} s for {batch} requests = "
-          f"{wall / batch * 1e3:.1f} ms per request end to end (quantization "
-          f"included); peak memory {peak / 2**30:.2f} GiB")
-    # the same call once more under the profiler, outside the timed wall:
-    # the only place the adaLN sites' skinny body runs on cold weights
-    split = profile_split(lambda: sample(
-        "dit-i256", reduced=False, nfe=nfe, order=order, cfg_scale=g_scale,
-        batch=batch, params=params, x_T=x_T, quant="w8a16", device=dev))
+    print(f"  sample() wall {wall:.3f} s for {batch} requests (quantization "
+          f"and capture included); peak memory {peak / 2**30:.2f} GiB")
+
+    # one engine's graph: the replay alone, counted, against its eager loop
+    free_graphs()
+    engine = build_engine(cfg, params, VPLinear(), batch, seed=0,
+                          quant="w8a16", device=dev)
+    g = graph_checks("w8a16", engine, spec, x_T, expected, counts_out)
+    run, eager = g["run"], g["eager"]
+    if not torch.equal(g["x_graph"].cpu(), x0):
+        fail("sample(quant='w8a16')'s latents differ from the same "
+             "engine's replay")
+    walls = median_walls({"replay": lambda: run(x_T),
+                          "eager": lambda: eager(x_T)})
+    for name, w in walls.items():
+        print(f"  wall {name}: median {w['median_s']:.4f} s of "
+              f"{[round(v, 4) for v in w['reps_s']]} ({batch} requests)")
+    print("  profile of the eager loop:")
+    split_eager = profile_split(lambda: eager(x_T))
+    print("  profile of the replay:")
+    split_graph = profile_split(lambda: run(x_T))
+    del run, eager, g, engine
+    free_graphs()
 
     # the other tiers at depth 4, full widths; the plain-pinned run uses
     # the tree `sample` builds (w8a8 calibrated through the kernels on the
@@ -1298,30 +1599,36 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
                     quant=tier, num_layers=depth, device=dev)
         torch.cuda.synchronize()
         n_qmm = LAUNCHES["quant_matmul"]
-        want = expected_launches(cfg4, rows, quantized=True)["quant_matmul"]
+        # one eager warm-up row before the capture, then the replay
+        want = expected_launches(cfg4, rows + 1, quantized=True)[
+            "quant_matmul"]
         qcfg, qparams, _ = api.calibrate_and_quantize(cfg4, params4, tier,
                                                       schedule=VPLinear())
         xp = plain_run(qcfg, qparams, tier, x_T)
         t_err = rel_err(torch.as_tensor(xk), xp.cpu())
         print(f"  {tier} depth {depth}: {n_qmm} quant_matmul launches "
-              f"(expected {want}); kernel vs plain rel L-inf {t_err:.3e} "
-              f"(tol {MAIN_TOL:g})")
+              f"(a warm-up row and a replay: {want}); kernel vs plain rel "
+              f"L-inf {t_err:.3e} (tol {MAIN_TOL:g})")
         if n_qmm != want or not np.isfinite(xk).all():
-            fail(f"{tier}: {n_qmm} quant_matmul launches / finite "
-                 f"{np.isfinite(xk).all()}")
+            fail(f"{tier}: {n_qmm} quant_matmul launches (expected {want}) "
+                 f"/ finite {np.isfinite(xk).all()}")
         if not t_err <= MAIN_TOL:
             fail(f"{tier} latents disagree with the plain path: {t_err:.3e}")
         tiers[tier] = t_err
-    return dict(wall_s=wall, ms_per_request=wall / batch * 1e3,
-                peak_bytes=peak, rel_err_vs_plain=err,
+        free_graphs()
+    return dict(sample_wall_s=wall, sample_launches=sample_counts,
+                sample_peak_bytes=peak, rel_err_vs_plain=err,
                 rel_l2_vs_unquantized=drift, quant_param_bytes=qbytes,
-                tiers_depth4_rel_err_vs_plain=tiers, profile=split)
+                walls=walls, profile_eager=split_eager,
+                profile_replay=split_graph,
+                tiers_depth4_rel_err_vs_plain=tiers)
 
 
 def quant_serving_phase(dev) -> dict:
-    """A w8a16 per-slot StepProgram at fp32 (full widths, depth 4): two
-    requests admitted at staggered ticks, each against its batch-1 uniform
-    quantized run, and one uniform run against the plain-pinned path."""
+    """A w8a16 per-slot StepProgram at fp32 (full widths, depth 4), from
+    its graph: two requests admitted at staggered ticks, each against its
+    batch-1 uniform quantized run, and one uniform run against the
+    plain-pinned path."""
     from repro_torch.configs import get_config
     from repro_torch.diffusion import VPLinear
     from repro_torch.engine import EngineSpec
@@ -1336,26 +1643,21 @@ def quant_serving_phase(dev) -> dict:
     spec = EngineSpec(nfe=10, order=3, cfg_scale=2.0, quant="w8a16")
     program = engine.build_step(spec)
     sample_shape = latent_shape(cfg, 1)[1:]
-    reqs = []
-    for rid, (arrival, g) in enumerate(((0, 2.0), (3, 3.0))):
-        seed = 200 + rid
-        x_T = torch.randn(sample_shape, generator=torch.Generator(
-            device=dev).manual_seed(seed), device=dev)
-        cls = int(np.random.default_rng(seed).integers(0, 1000))
-        reqs.append(dict(rid=rid, arrival=arrival, g=g, x_T=x_T, cls=cls))
+    reqs = serving_requests(dev, sample_shape, [(0, 2.0), (3, 3.0)],
+                            seed0=200)
     LAUNCHES.clear()
     done, ticks = run_slots(program, reqs, 2, dev)
     torch.cuda.synchronize()
-    expected = expected_launches(cfg, ticks, quantized=True)["quant_matmul"]
+    # the first tick also runs once eagerly, before its capture
+    expected = expected_launches(cfg, ticks + 1,
+                                 quantized=True)["quant_matmul"]
     if LAUNCHES["quant_matmul"] != expected:
         fail(f"quantized step: {LAUNCHES['quant_matmul']} quant_matmul "
-             f"launches over {ticks} ticks, expected {expected}")
+             f"launches over {ticks} ticks and a warm-up tick, expected "
+             f"{expected}")
     worst, uniform = 0.0, {}
     for r in reqs:
-        spec_r = dataclasses.replace(spec, cfg_scale=r["g"])
-        ids = torch.tensor([r["cls"]], device=dev)
-        uniform[r["rid"]] = engine.build(spec_r)(r["x_T"][None],
-                                                 class_ids=ids)[0]
+        uniform[r["rid"]] = uniform_run(engine, spec, r, dev)
         err = rel_err(done[r["rid"]], uniform[r["rid"]])
         print(f"  quantized request {r['rid']} (arrival {r['arrival']}, slot "
               f"{r['slot']}, g {r['g']}): staggered vs uniform rel L-inf "
@@ -1368,7 +1670,7 @@ def quant_serving_phase(dev) -> dict:
                          per_request_cond=True, quant="w8a16", device=dev)
     r = reqs[0]
     x_plain = plain.build(dataclasses.replace(
-        spec, cfg_scale=r["g"], fused_update=False))(
+        spec, cfg_scale=r["g"], fused_update=False), jit=False)(
             r["x_T"][None], class_ids=torch.tensor([r["cls"]], device=dev))[0]
     fp32_err = rel_err(uniform[r["rid"]], x_plain)
     print(f"  w8a16 fp32, kernels vs plain (request 0): rel L-inf "
@@ -1446,7 +1748,7 @@ def main():
 
     print("== phase 5: serving step (4 slots, staggered, slot reuse, fp32 "
           "full width)")
-    serve_worst, fp32_err = serving_phase(dev)
+    serve_stats = serving_phase(dev)
 
     print("== phase 6: quantized main path (w8a16, dit-i256 full width, "
           "nfe 10, order 3, cfg 2.0, batch 8; w8a8/fp8a16/w4a16 at depth 4; "
@@ -1478,8 +1780,7 @@ def main():
             if key in st:
                 entry[key] = st[key]
         entries.append(entry)
-    summary = dict(main_path=main_stats, serving_worst_rel_err=serve_worst,
-                   fp32_full_width_kernel_vs_plain=fp32_err,
+    summary = dict(main_path=main_stats, serving=serve_stats,
                    quant_main_path=quant_stats, quant_serving=quant_serve,
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][
                        "other_operands_at_wq_site"])

@@ -1,5 +1,5 @@
-"""Classifier-free guidance fused into one batched eval, and guidance-scale
-schedules. Dynamic thresholding is not yet ported."""
+"""Classifier-free guidance fused into one batched eval, guidance-scale
+schedules, and dynamic thresholding."""
 
 from __future__ import annotations
 
@@ -52,3 +52,41 @@ def guidance_schedule(scale: float, n_evals: int, kind: str = "constant",
     if kind == "linear":
         return scale + (end - scale) * u
     return scale + (end - scale) * 0.5 * (1.0 - np.cos(np.pi * u))
+
+
+def _row_quantile(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(B,) quantile of each row of `rows` (B, n) at its level q (B,), by
+    `jnp.quantile`'s default linear interpolation in fp32: position
+    q * (n - 1) between the sorted elements at its floor and its ceiling,
+    weights (1 - f, f); a row holding a NaN gives NaN. Built from
+    `torch.sort` and gathers: `torch.quantile` takes no per-row level, and
+    its checks read tensors on the host, which a CUDA graph cannot
+    capture."""
+    n = rows.shape[1]
+    rows = torch.where(torch.isnan(rows).any(dim=1, keepdim=True),
+                       torch.nan, rows)
+    srt = torch.sort(rows, dim=1).values
+    pos = q * float(n - 1)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    w_hi = pos - lo
+    lo = lo.clamp(0, n - 1).long()[:, None]
+    hi = hi.clamp(0, n - 1).long()[:, None]
+    return (srt.gather(1, lo)[:, 0] * (1.0 - w_hi)
+            + srt.gather(1, hi)[:, 0] * w_hi)
+
+
+def dynamic_threshold(x0: torch.Tensor, percentile=0.995,
+                      floor: float = 1.0) -> torch.Tensor:
+    """Imagen-style dynamic thresholding (Saharia et al., 2022): clip x0 to
+    the per-sample `percentile` absolute value and rescale into
+    [-floor, floor]. `percentile` is a float or a 0-d or per-slot (B,)
+    tensor — per-slot percentiles in the continuous-batching step, each
+    sample quantiled at its own level. No host read: capturable in a CUDA
+    graph."""
+    B = x0.shape[0]
+    q = (percentile.to(torch.float32).reshape(-1).expand(B)
+         if torch.is_tensor(percentile) else   # a fill, not a host copy
+         torch.full((B,), percentile, dtype=torch.float32, device=x0.device))
+    s = _row_quantile(x0.reshape(B, -1).abs(), q).to(x0.dtype)
+    s = torch.clamp_min(s, floor).reshape((-1,) + (1,) * (x0.ndim - 1))
+    return torch.minimum(torch.maximum(x0, -s), s) / s * floor

@@ -1,33 +1,53 @@
 """SamplerEngine: spec -> weight table -> row-loop sampler, with fused CFG
 (the port of `repro.engine.engine`).
 
-    engine = SamplerEngine(schedule, eps=eps_fn, eps_stacked=stacked_fn,
-                           device="cuda")
+    engine = SamplerEngine(schedule, eps=eps_fn, eps_stacked=stacked_fn)
     x0 = engine.build(EngineSpec(nfe=10, cfg_scale=2.0))(x_T)
 
 `build` is the whole-trajectory path (one uniform batch); `build_step`
 compiles the same table into a per-slot `StepProgram`, the continuous-
 batching step where every slot gathers its own table row and guidance
-scale. CFG runs as ONE batched network call per row — cond and uncond
-stacked along the batch — with the guidance scale riding the table as a
-per-eval column. The reference's jit and buffer donation have no
-counterpart here: the step returns fresh state tensors.
+scale, and `build_bank` stacks several plans into one such program. CFG
+runs as ONE batched network call per row — cond and uncond stacked along
+the batch — with the guidance scale and the dynamic-thresholding
+percentile riding the table as per-eval columns.
+
+The engine runs on the card unless it is asked for the CPU. There,
+`jit=True` (the default) captures each run function into CUDA graphs and
+replays them (`graphs.py`, the counterpart of the reference's `jax.jit`),
+and `donate=True` updates a step program's slot state in place, as the
+reference's buffer donation does. `jit=False` runs the eager loop, the
+parity path.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace as dc_replace
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from ..core.coeffs import SolverTable, augment_step_rows
+from ..core.coeffs import SolverTable, stack_step_rows
 from ..core.unipc import rows_on, run_rows, step_fn_over_rows, unipc_step_fn
-from ..diffusion.guidance import cfg_model_fused
+from ..diffusion.guidance import cfg_model_fused, dynamic_threshold
 from ..diffusion.process import eps_to_x0
 from ..diffusion.schedules import NoiseSchedule
-from .compiler import apply_model_cols, compile_table, step_guidance_profile
+from . import graphs
+from .compiler import (apply_model_cols, compile_table, flag_done,
+                       step_guidance_profile)
 from .specs import EngineSpec
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's and the entry points' device: CUDA unless the caller
+    asks for the CPU. Raises when CUDA is asked for and there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; the port runs on the "
+                           "card by default — pass device='cpu' (--device "
+                           "cpu) to run the plain PyTorch path on the CPU")
+    return device
 
 
 @dataclass
@@ -42,27 +62,98 @@ class StepProgram:
     model eval per call. A request admitted at tick tau into a zeroed slot
     and stepped through rows 0..n_rows-1 reproduces the uniform `build()`
     run for its own (seed, class, cfg-scale).
+
+    step_flight(state, meta[, g, extras]) -> (state, meta, done) keeps the
+    per-slot bookkeeping on the device as `meta`, a (4, B) int32 tensor of
+    [row, offset, budget, busy] rows (`init_meta`). The program derives each
+    slot's table index from its own counters (`offset + row` while busy,
+    the parked init row otherwise), advances them, and returns the coded
+    int32 done mask (`compiler.DONE_*`): the tick a busy slot runs its last
+    budgeted row, with an on-device finite check of its latent. The host
+    never builds an index: it scatters admissions into `meta` and reads the
+    done mask back.
+
+    With `donate=True` both steps write the slot state (and the meta) in
+    place and return those tensors; the state passed in is consumed.
+    `init_state`, `init_meta` and `init_g` hand out the buffers a graphed
+    program replays on (`graphs.StepGraphs`).
     """
 
     step: Callable
-    n_rows: int          # ticks per request
+    n_rows: int          # total table rows (single plan: ticks per request)
+    table: SolverTable   # single-plan programs; first tier's table for banks
     spec: EngineSpec
     uses_cfg: bool
     ring: int            # eval-ring slots carried per sample, K + 1
     device: torch.device
+    step_flight: Optional[Callable] = None
+    # plan banks (`SamplerEngine.build_bank`): tier name -> (row_offset,
+    # n_rows) span in the stacked table. None for single-plan programs.
+    tiers: Optional[Dict[str, Tuple[int, int]]] = None
+    # per-row eval cost in full-eval units; None (every row one eval) until
+    # feature reuse is ported
+    row_cost: Optional[np.ndarray] = None
+    # the static buffers and graphs of a program captured on the card
+    step_graphs: Optional[graphs.StepGraphs] = None
+
+    def _handout(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return (t if self.step_graphs is None
+                else self.step_graphs.handout(name, t))
+
+    def resolve_tier(self, tier: Optional[str]) -> Tuple[int, int]:
+        """(row_offset, rows_to_run) for a request's tier tag. Single-plan
+        programs take untagged requests only; bank programs require a tag."""
+        if self.tiers is None:
+            if tier is not None:
+                raise ValueError(
+                    f"request tagged tier={tier!r} but the step program was "
+                    f"compiled from a single plan; build it with "
+                    f"SamplerEngine.build_bank")
+            return 0, self.n_rows
+        if tier is None:
+            raise ValueError(f"this program is a plan bank; tag requests "
+                             f"with tier= one of {sorted(self.tiers)}")
+        if tier not in self.tiers:
+            raise ValueError(f"unknown tier {tier!r}; this plan bank serves "
+                             f"{sorted(self.tiers)}")
+        return self.tiers[tier]
+
+    def span_cost(self, offset: int, n: int) -> float:
+        """Total eval cost (full-eval units) of rows offset..offset+n-1 — a
+        request's evals-per-latent when (offset, n) is its tier span."""
+        if self.row_cost is None:
+            return float(n)
+        return float(np.sum(self.row_cost[offset:offset + n]))
+
+    def tier_eval_cost(self, tier: Optional[str]) -> float:
+        """Evals-per-latent for a tier tag (or the whole single-plan span)."""
+        return self.span_cost(*self.resolve_tier(tier))
 
     def init_state(self, slots: int, sample_shape: Tuple[int, ...],
                    dtype=torch.float32):
         """Zeroed slot state: every slot idle on the init row."""
         shape = tuple(sample_shape)
-        return (torch.zeros((slots,) + shape, dtype=dtype, device=self.device),
-                torch.zeros((self.ring, slots) + shape, dtype=dtype,
-                            device=self.device))
+        return (self._handout("x", torch.zeros(
+                    (slots,) + shape, dtype=dtype, device=self.device)),
+                self._handout("E", torch.zeros(
+                    (self.ring, slots) + shape, dtype=dtype,
+                    device=self.device)))
 
     def init_g(self, slots: int) -> torch.Tensor:
         """Per-slot guidance scales, seeded with the spec's nominal scale."""
-        return torch.full((slots,), float(self.spec.cfg_scale or 0.0),
-                          dtype=torch.float32, device=self.device)
+        return self._handout("g", torch.full(
+            (slots,), float(self.spec.cfg_scale or 0.0), dtype=torch.float32,
+            device=self.device))
+
+    def init_meta(self, slots: int) -> torch.Tensor:
+        """Zeroed slot counters for `step_flight`: a (4, slots) int32 tensor
+        of [row, offset, budget, busy] rows on the program's device. Every
+        slot starts idle (busy 0, parked on the init row); budget is seeded
+        with the whole table so an un-admitted slot never trips the done
+        mask."""
+        meta = torch.zeros((4, slots), dtype=torch.int32, device=self.device)
+        meta[2] = self.n_rows
+        return self._handout("meta", meta)
 
 
 @dataclass
@@ -72,29 +163,53 @@ class SamplerEngine:
     eps:         (x, t, **extra) -> eps-hat (the cond branch).
     eps_stacked: (xx, t, **extra) -> eps-hat on a 2B batch whose
                  conditioning is [cond; null] — required for cfg_scale != 0.
+    device:      the card unless "cpu" is asked for (`resolve_device`).
     quant:       "none" or the models.quant tier the wired eps-net's params
                  were quantized for (`launch.sample.build_engine(quant=...)`
                  sets it); `model_fn`, and so `build` and `build_step`,
                  reject specs that disagree.
+    eval_dtype:  the precision the wired eps-net computes in
+                 (`build_engine(eval_dtype=...)` sets it when it casts the
+                 net); `model_fn` rejects specs that disagree, so the
+                 net-side cast and the engine-side fp32 boundary cannot
+                 silently desynchronize.
     """
 
     schedule: NoiseSchedule
     eps: Callable
     eps_stacked: Optional[Callable] = None
-    device: torch.device = torch.device("cpu")
+    device: Union[str, torch.device] = "cuda"
     quant: str = "none"
+    eval_dtype: str = "float32"
 
-    def compile(self, spec: EngineSpec) -> SolverTable:
-        """Compile the spec's weight table and attach its per-eval model
-        columns (the guidance schedule)."""
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def compile(self, spec: EngineSpec,
+                table: Optional[SolverTable] = None) -> SolverTable:
+        """Compile the spec's weight table (or take `table`, an externally
+        lowered one) and attach its per-eval model columns (the guidance
+        schedule, the thresholding percentile)."""
         spec = spec.resolve()
-        return apply_model_cols(compile_table(spec, self.schedule), spec)
+        tab = table if table is not None else compile_table(spec,
+                                                            self.schedule)
+        return apply_model_cols(tab, spec)
 
     def model_fn(self, spec: EngineSpec, tab: SolverTable) -> Callable:
         """Wrap the eps-net into the table's prediction type, consuming the
-        per-eval model column `g`; further keyword arguments (per-slot class
-        ids) pass through to the eps-net."""
+        per-eval model columns `g` and `tq`; further keyword arguments
+        (per-slot class ids) pass through to the eps-net.
+
+        `spec.eval_dtype` is the network-eval precision boundary (DESIGN.md
+        §11): for a reduced precision the state is cast down into the
+        eps-net and the prediction back up to fp32, so solver state,
+        combine weights and the eps <-> x0 conversion stay fp32."""
         spec = spec.resolve()
+        if spec.eval_dtype != self.eval_dtype:
+            raise ValueError(
+                f"spec.eval_dtype={spec.eval_dtype!r} but this engine's "
+                f"eps-net was wired for {self.eval_dtype!r}; pass the same "
+                f"eval_dtype to build_engine and the EngineSpec")
         if spec.quant != self.quant:
             raise ValueError(
                 f"spec.quant={spec.quant!r} but this engine's eps-net was "
@@ -108,22 +223,32 @@ class SamplerEngine:
             eps = cfg_model_fused(self.eps_stacked)
         else:
             eps = lambda x, t, g=None, **extra: self.eps(x, t, **extra)
+        if spec.eval_dtype != "float32":
+            eval_dtype = getattr(torch, spec.eval_dtype)
+            inner = eps
+            eps = lambda x, t, g=None, **extra: inner(
+                x.to(eval_dtype), t, g, **extra).to(torch.float32)
         schedule = self.schedule
 
-        def model(x, t, g=None, **extra):
+        def model(x, t, g=None, tq=None, **extra):
             e = eps(x, t, g, **extra)
             if tab.prediction == "noise":
                 return e
-            return eps_to_x0(schedule, x, t, e)
+            x0 = eps_to_x0(schedule, x, t, e)
+            if tq is not None:
+                x0 = dynamic_threshold(x0, tq)
+            return x0
 
         return model
 
-    def build(self, spec: EngineSpec,
+    def build(self, spec: EngineSpec, jit: bool = True,
               table: Optional[SolverTable] = None) -> Callable:
         """spec -> run(x_T, **model_kwargs) -> x0, the uniform sampler.
         `model_kwargs` (e.g. class_ids for a per-request-conditioned
         engine) reach the eps-net on every row. The step and its device
-        table are built here, once; a run only loops over the rows."""
+        table are built here, once. On the card with `jit`, a run is one
+        CUDA graph replay of all its rows (`graphs.graph_run`); otherwise
+        it loops over the rows eagerly."""
         spec = spec.resolve()
         tab = table if table is not None else self.compile(spec)
         step, n_rows = unipc_step_fn(self.model_fn(spec, tab), tab,
@@ -135,48 +260,159 @@ class SamplerEngine:
             return run_rows(step, n_rows, x_T, ring=ring,
                             model_kwargs=model_kwargs or None)
 
-        return run
+        if not graphs.graphed(jit, self.device):
+            return run
+        return graphs.graph_run(
+            run, lambda x_T, **kw: run_rows(step, 1, x_T, ring=ring,
+                                            model_kwargs=kw or None),
+            self.device)
 
-    def build_step(self, spec: EngineSpec) -> StepProgram:
+    def build_step(self, spec: EngineSpec, jit: bool = True,
+                   table: Optional[SolverTable] = None,
+                   donate: bool = True) -> StepProgram:
         """spec -> StepProgram: the per-slot step function for continuous
         batching. The same table rows `build` runs uniformly, gathered per
         slot; the guidance scale becomes per-slot state (times the table's
         schedule profile) so every request carries its own cfg scale."""
         spec = spec.resolve()
-        tab = self.compile(spec)
-        uses_cfg = bool(spec.cfg_scale)
-        model = self.model_fn(spec, tab)
-        step_tab = tab
-        prof = None
-        if uses_cfg:
-            # the absolute g column is replaced by per-slot state x the
-            # schedule profile; the core step must not gather it
-            prof = torch.as_tensor(step_guidance_profile(tab, spec),
-                                   dtype=torch.float32).to(self.device)
-            step_tab = dc_replace(tab, model_cols={
-                k: v for k, v in (tab.model_cols or {}).items() if k != "g"})
-        rows_np = augment_step_rows(step_tab)
-        n_rows = len(rows_np["t"])
-        core_step = step_fn_over_rows(model, rows_on(rows_np, self.device),
-                                      sign=tab.sign,
-                                      fused_update=spec.fused_update)
+        tab = table if table is not None else self.compile(spec)
+        return self._step_program({"_": (spec, tab)}, tiers=False, jit=jit,
+                                  donate=donate)
 
-        def step(state, idx, g=None, extras=None):
-            # a host index crosses to the card here, one blocking copy a
-            # tick: the serving scheduler, which keeps it there, is not
-            # ported yet
-            idx = torch.as_tensor(idx, device=self.device).long()
+    def build_bank(self, tier_specs: Dict[str, EngineSpec],
+                   tables: Optional[Dict[str, SolverTable]] = None,
+                   jit: bool = True, donate: bool = True) -> StepProgram:
+        """Compile several plans into ONE servable step program.
+
+        tier_specs: {tier_name: EngineSpec} in serving-priority order; tiers
+        may differ in order and NFE budget (and `tables` entries may replace
+        the registry compile per tier) but share prediction type, guidance
+        scale, `fused_update`, `eval_dtype` and `quant`: one program, one
+        model wrapper, one eval ring. The stacked row table
+        (`core.coeffs.stack_step_rows`) gives each tier a contiguous row
+        span; `StepProgram.tiers` maps tier -> (offset, n_rows)."""
+        if not tier_specs:
+            raise ValueError("build_bank needs at least one tier spec")
+        stray = set(tables or {}) - set(tier_specs)
+        if stray:
+            raise ValueError(f"tables carry tiers {sorted(stray)} not in "
+                             f"tier_specs {sorted(tier_specs)}; a typo'd "
+                             f"key would silently serve the untuned "
+                             f"registry table")
+        items = {}
+        for name, tspec in tier_specs.items():
+            tspec = tspec.resolve()
+            items[name] = (tspec, self.compile(tspec,
+                                               table=(tables or {}).get(name)))
+        return self._step_program(items, tiers=True, jit=jit, donate=donate)
+
+    def _step_program(self, items, tiers: bool, jit: bool,
+                      donate: bool) -> StepProgram:
+        """Shared lowering for build_step (single plan) and build_bank."""
+        names = list(items)
+        spec0, tab0 = items[names[0]]
+        uses_cfg = bool(spec0.cfg_scale)
+        for name, (s, _) in items.items():
+            if bool(s.cfg_scale) != uses_cfg or (
+                    uses_cfg and float(s.cfg_scale) != float(spec0.cfg_scale)):
+                raise ValueError(
+                    f"bank tiers must share the nominal guidance scale; tier "
+                    f"{name!r} has cfg_scale={s.cfg_scale}, expected "
+                    f"{spec0.cfg_scale} (per-request scales stay free)")
+            if s.fused_update != spec0.fused_update:
+                raise ValueError("bank tiers must agree on fused_update")
+            if s.eval_dtype != spec0.eval_dtype:
+                raise ValueError("bank tiers must agree on eval_dtype (one "
+                                 "compiled program, one model wrapper)")
+            if s.quant != spec0.quant:
+                raise ValueError(
+                    f"bank tiers must agree on quant (one quantized param "
+                    f"tree serves the whole program); tier {name!r} has "
+                    f"quant={s.quant!r}, expected {spec0.quant!r}")
+        model = self.model_fn(spec0, tab0)
+        profs, step_tabs = [], {}
+        for name, (s, t) in items.items():
+            if uses_cfg:
+                # the absolute g column is replaced by per-slot state x the
+                # schedule profile; the core step must not gather it
+                profs.append(step_guidance_profile(t, s))
+                t = dc_replace(t, model_cols={
+                    k: v for k, v in (t.model_cols or {}).items() if k != "g"})
+            step_tabs[name] = t
+        rows_np, spans = stack_step_rows(step_tabs)
+        n_rows = len(rows_np["t"])
+        dev = self.device
+        core_step = step_fn_over_rows(model, rows_on(rows_np, dev),
+                                      sign=tab0.sign,
+                                      fused_update=spec0.fused_update)
+        prof = (torch.as_tensor(np.concatenate(profs),
+                                dtype=torch.float32).to(dev)
+                if uses_cfg else None)
+        nominal = float(spec0.cfg_scale or 0.0)
+
+        def apply(state, idx, g, extras):
             kw = dict(extras) if extras else {}
             if uses_cfg:
-                gs = (torch.full(idx.shape, float(spec.cfg_scale),
-                                 dtype=torch.float32, device=self.device)
-                      if g is None else torch.as_tensor(
-                          g, dtype=torch.float32, device=self.device))
-                kw["g"] = gs * prof[idx.clamp(0, n_rows - 1)]
+                gs = (torch.full(idx.shape, nominal, dtype=torch.float32,
+                                 device=dev) if g is None else g)
+                kw["g"] = gs * prof.index_select(0, idx.clamp(0, n_rows - 1))
             return core_step(state, idx, model_kwargs=kw or None)
 
-        return StepProgram(step=step, n_rows=n_rows, spec=spec,
-                           uses_cfg=uses_cfg,
-                           ring=rows_np["w_pred"].shape[-1] + 1,
-                           device=torch.device(self.device))
+        def flight(state, meta, g, extras):
+            # the slot's table index comes from its own counters, never
+            # from the host
+            row, off, budget, busy = meta.unbind(0)
+            live = busy > 0
+            idx = torch.where(live, off + row, 0).long()
+            state = apply(state, idx, g, extras)
+            row = row + 1
+            done = live & (row >= budget)
+            live = live & ~done
+            # finished and idle slots park on the init row (idx 0, an
+            # identity update) until the readback collects their latent
+            meta = torch.stack([torch.where(live, row, 0),
+                                torch.where(live, off, 0), budget,
+                                live.to(torch.int32)])
+            return state, meta, flag_done(done, state[0])
 
+        def inputs(state, lead, g, extras):
+            g = (None if g is None or not uses_cfg else
+                 torch.as_tensor(g, dtype=torch.float32, device=dev))
+            return ([("x", state[0]), ("E", state[1]), lead, ("g", g)]
+                    + [(f"extra:{k}", v) for k, v in sorted(
+                        (extras or {}).items())])
+
+        def split(named):
+            extras = {k[6:]: v for k, v in named.items()
+                      if k.startswith("extra:")}
+            return (named["x"], named["E"]), named.get("g"), extras or None
+
+        def step_fn(named):
+            state, g, extras = split(named)
+            return apply(state, named["idx"], g, extras)
+
+        def flight_fn(named):
+            state, g, extras = split(named)
+            state, meta, done = flight(state, named["meta"], g, extras)
+            return state + (meta, done)
+
+        sgraphs = (graphs.StepGraphs(dev, donate)
+                   if graphs.graphed(jit, dev) else None)
+        runner = sgraphs or graphs.EagerSteps(donate)
+
+        def step(state, idx, g=None, extras=None):
+            idx = torch.as_tensor(idx, device=dev).long()
+            return runner.call("step", step_fn,
+                               inputs(state, ("idx", idx), g, extras), 2)
+
+        def step_flight(state, meta, g=None, extras=None):
+            x, E, meta, done = runner.call(
+                "flight", flight_fn, inputs(state, ("meta", meta), g, extras),
+                3)
+            return (x, E), meta, done
+
+        return StepProgram(step=step, step_flight=step_flight, n_rows=n_rows,
+                           table=tab0, spec=spec0, uses_cfg=uses_cfg,
+                           ring=rows_np["w_pred"].shape[-1] + 1,
+                           device=dev, tiers=dict(spans) if tiers else None,
+                           step_graphs=sgraphs)

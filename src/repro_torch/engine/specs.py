@@ -2,14 +2,16 @@
 
 Every multistep solver is a per-step weight table over one shared state
 update; `SOLVERS` maps a solver name to its table compiler. The port's
-registry holds `unipc` alone; the rest of the reference's zoo is not yet
-ported.
+registry holds `unipc` alone; the rest of the reference's zoo and feature
+reuse (`cache_block`) are not yet ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, Optional
+
+EVAL_DTYPES = ("float32", "bfloat16")
 
 SOLVERS: Dict[str, "SolverDef"] = {}
 
@@ -35,10 +37,19 @@ class EngineSpec:
     cfg_scale: float = 0.0
     cfg_schedule: str = "constant"     # constant | linear | cosine
     cfg_scale_end: Optional[float] = None
-    thresholding: bool = False         # not yet ported: raises
+    # Imagen-style dynamic thresholding of the x0 prediction, a per-eval
+    # table column like the guidance scale (data prediction only)
+    thresholding: bool = False
+    threshold_percentile: float = 0.995
     # execution: False pins the combine's plain PyTorch version
     fused_update: bool = True
-    eval_dtype: str = "float32"        # only float32 is ported
+    # feature reuse (DESIGN.md §12): not yet ported, raises unless 0
+    cache_block: int = 0
+    # the eps-net's eval precision (DESIGN.md §11): solver state, combine
+    # weights and the eps <-> x0 conversion stay fp32 either way. A
+    # contract like `quant`: the engine must be wired for it
+    # (`build_engine(eval_dtype=...)`), and `model_fn` rejects a mismatch.
+    eval_dtype: str = "float32"
     # quantized denoiser tier: "none" or a models.quant.QUANT_MODES name
     # ("w8a16", "w8a8", "fp8a16", "w4a16"). A contract, not a switch: the
     # engine must be wired with a matching quantized param tree
@@ -49,10 +60,12 @@ class EngineSpec:
         """Fill solver-dependent defaults; validate against the registry."""
         sd = solver_def(self.solver)
         out = self
-        if out.eval_dtype != "float32":
-            raise not_yet_ported(f"eval_dtype={out.eval_dtype!r}")
-        if out.thresholding:
-            raise not_yet_ported("dynamic thresholding")
+        if out.eval_dtype not in EVAL_DTYPES:
+            raise ValueError(f"eval_dtype must be 'float32' or 'bfloat16', "
+                             f"got {out.eval_dtype!r}")
+        if out.cache_block:
+            raise not_yet_ported(f"feature reuse (cache_block="
+                                 f"{out.cache_block})")
         if out.quant != "none":
             # import here: specs stays importable without the models package
             from ..models.quant import quant_spec
@@ -83,3 +96,15 @@ def solver_def(name: str) -> SolverDef:
     if name not in SOLVERS:
         raise not_yet_ported(f"solver {name!r} (ported: {sorted(SOLVERS)})")
     return SOLVERS[name]
+
+
+def default_tier_specs(**common) -> Dict[str, EngineSpec]:
+    """Hand-set quality-tier specs for plan-bank serving: one deployment,
+    three NFE budgets. `common` overrides shared knobs (cfg_scale, ...) on
+    every tier."""
+    tiers = {
+        "fast": EngineSpec(solver="unipc", nfe=5, order=2),
+        "balanced": EngineSpec(solver="unipc", nfe=8, order=3),
+        "quality": EngineSpec(solver="unipc", nfe=16, order=3),
+    }
+    return {k: replace(v, **common) for k, v in tiers.items()}

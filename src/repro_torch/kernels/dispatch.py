@@ -7,14 +7,20 @@ there is no fallback from a kernel to the plain version. `backend` is
 the plain version on any device, pinned explicitly by the parity runs that
 hold a kernel against it on the card.
 
-`LAUNCHES[name]` counts the kernel launches of each wrapper; it is bumped
-right where the kernel is launched and nowhere else.
+`LAUNCHES[name]` counts the kernel launches of each wrapper executed on the
+device. An eager call bumps it right where the kernel is launched and
+nowhere else. Under a CUDA graph (`engine/graphs.py`) the count is
+"captured x replays": `recording()` moves the bumps of a capture, which
+launches nothing, into the graph's own counter, and each replay adds that
+counter to `LAUNCHES`. So a run counts the same whether it ran eagerly or
+as a replay.
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional
+from contextlib import contextmanager
+from typing import Iterator, Optional
 
 import torch
 
@@ -44,3 +50,18 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: every tensor must be on the same CUDA "
                              f"device; got {[str(x.device) for x in tensors]}")
+
+
+@contextmanager
+def recording() -> Iterator[Counter]:
+    """Collect the launches bumped inside the block into a counter of their
+    own and take them back out of `LAUNCHES`: a CUDA graph capture records
+    its kernels without running them."""
+    before = Counter(LAUNCHES)
+    captured: Counter = Counter()
+    try:
+        yield captured
+    finally:
+        captured.update(LAUNCHES - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)

@@ -1,9 +1,11 @@
 """Diffusion sampling launcher (the port of `repro.launch.sample`): build the
 DiT eps-network for --arch, then sample with UniPC through the engine.
-Runs on the CUDA card unless `--device cpu` is given.
+Runs on the CUDA card unless `--device cpu` is given; there the sampling run
+is one CUDA graph replay (`engine/graphs.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-i256 \
-        --full --nfe 10 --order 3 --cfg-scale 2.0 --batch 8 [--quant w8a16]
+        --full --nfe 10 --order 3 --cfg-scale 2.0 --batch 8 [--quant w8a16] \
+        [--eval-dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -18,21 +20,12 @@ import torch
 from ..configs.registry import get_config
 from ..diffusion.schedules import VPLinear
 from ..engine import EngineSpec, SamplerEngine
+from ..engine.engine import resolve_device
+from ..engine.specs import EVAL_DTYPES
 from ..models import api
 from ..models.quant import quant_spec
 
 NULL_CLASS_ID = api.NUM_CLASSES
-
-
-def resolve_device(device) -> torch.device:
-    """The entry points' device: CUDA unless the caller asks for the CPU.
-    Raises when CUDA is asked for and there is no card."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; the port runs on the "
-                           "card by default — pass device='cpu' (--device "
-                           "cpu) to run the plain PyTorch path on the CPU")
-    return device
 
 
 def class_ids(batch: int, num_classes: int = 1000, seed: int = 0) -> np.ndarray:
@@ -43,6 +36,7 @@ def class_ids(batch: int, num_classes: int = 1000, seed: int = 0) -> np.ndarray:
 
 def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                  per_request_cond: bool = False, quant: str = "none",
+                 eval_dtype: str = "float32",
                  device="cuda") -> SamplerEngine:
     """Wire the DiT eps-network into a SamplerEngine on `device`: the cond
     branch and the stacked 2B cond+uncond branch guided sampling runs.
@@ -51,6 +45,18 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
     the eps branches take `class_ids` as a per-call (B,) keyword argument
     (the serving step scatters one per request into its slot).
 
+    eval_dtype="bfloat16" is the fast serving eval (DESIGN.md §11): the
+    config's activations and every float param leaf go to bf16
+    (`api.cast_params_for_eval`, before any quantization, as in the
+    reference); the engine side of the boundary stays fp32 through the
+    matching `EngineSpec.eval_dtype`.
+
+    The weights kept once: the leaves the DiT casts to its activation dtype
+    at each use (bf16 activations over fp32 params, the full-size default)
+    are installed as one cast copy each (`api.cast_weights_once`, after any
+    quantization, so the quant records are those of the fp32 tree). The
+    per-use casts then launch nothing, and the samples are bit-identical.
+
     quant != "none" (dit only) calibrates and installs the tier's quantized
     param tree (`api.calibrate_and_quantize`, deterministic given `seed`)
     once, after the params are on `device` (so a8 calibration runs there),
@@ -58,13 +64,19 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
     the quant_matmul op. A `cfg` that already carries the tier's spec (the
     cfg' of `api.calibrate_and_quantize`) comes with a quantized tree, which
     is wired as it is. The engine records the tier; its `model_fn` rejects
-    specs that disagree."""
+    specs that disagree, and likewise for eval_dtype."""
+    if eval_dtype not in EVAL_DTYPES:
+        raise ValueError(f"eval_dtype must be 'float32' or 'bfloat16', "
+                         f"got {eval_dtype!r}")
     if quant != "none" and cfg.family != "dit":
         raise ValueError(f"the quantized denoiser path needs the dit "
                          f"family; {cfg.arch_id!r} is family "
                          f"{cfg.family!r}")
     device = resolve_device(device)
     params = api.params_to(params, device)
+    if eval_dtype != "float32":
+        cfg = dataclasses.replace(cfg, dtype=eval_dtype)
+        params = api.cast_params_for_eval(params, eval_dtype)
     if quant != "none":
         if cfg.quant is None:
             cfg, params, _ = api.calibrate_and_quantize(
@@ -72,6 +84,7 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
         elif cfg.quant != quant_spec(quant):
             raise ValueError(f"cfg.quant={cfg.quant} is not the {quant!r} "
                              f"tier's spec {quant_spec(quant)}")
+    params = api.cast_weights_once(cfg, params)
     net = api.eps_network(cfg)
 
     def null_like(ids):
@@ -87,14 +100,15 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                        {"class_ids": torch.cat([ids, null_like(ids)])})
 
         return SamplerEngine(schedule, eps=eps_cond, eps_stacked=eps_stacked,
-                             device=device, quant=quant)
+                             device=device, quant=quant,
+                             eval_dtype=eval_dtype)
     ids = torch.as_tensor(class_ids(batch, seed=seed)).long().to(device)
     ids2 = torch.cat([ids, null_like(ids)])
     return SamplerEngine(
         schedule,
         eps=lambda x, t: net(params, x, t, {"class_ids": ids}),
         eps_stacked=lambda xx, t: net(params, xx, t, {"class_ids": ids2}),
-        device=device, quant=quant)
+        device=device, quant=quant, eval_dtype=eval_dtype)
 
 
 def latent_shape(cfg, batch):
@@ -104,14 +118,16 @@ def latent_shape(cfg, batch):
 def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
            prediction=None, batch=4, seed=0, params=None, x_T=None,
            cfg_scale=0.0, cfg_schedule="constant", thresholding=False,
-           fused_update=True, quant="none", num_layers=None, device="cuda"):
+           fused_update=True, quant="none", eval_dtype="float32",
+           num_layers=None, device="cuda"):
     """Sample `batch` latents with UniPC; returns them as a numpy array.
 
     `params` default to `api.init_params(cfg, seed)`; `x_T` to a standard
     normal draw from a torch.Generator seeded with `seed`; class ids come
     from numpy's default_rng(seed), as in the reference. `quant` picks a
-    quantized tier (models/quant.py, dit only); `num_layers` cuts the depth
-    of the config and keeps its widths."""
+    quantized tier (models/quant.py, dit only), `eval_dtype` the eps-net's
+    precision; `num_layers` cuts the depth of the config and keeps its
+    widths. On the card the run is a CUDA graph replay."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -122,11 +138,12 @@ def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
         params = api.init_params(cfg, seed, device)
     schedule = VPLinear()
     engine = build_engine(cfg, params, schedule, batch, seed, quant=quant,
-                          device=device)
+                          eval_dtype=eval_dtype, device=device)
     spec = EngineSpec(solver="unipc", nfe=nfe, order=order, variant=variant,
                       prediction=prediction, cfg_scale=cfg_scale,
                       cfg_schedule=cfg_schedule, thresholding=thresholding,
-                      fused_update=fused_update, quant=quant)
+                      fused_update=fused_update, quant=quant,
+                      eval_dtype=eval_dtype)
     if x_T is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         x_T = torch.randn(latent_shape(cfg, batch), generator=gen,
@@ -138,8 +155,10 @@ def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
     x0 = engine.build(spec, table=tab)(x_T)
     x0 = x0.cpu().numpy()  # waits for the device
     dt = time.perf_counter() - t0
-    tag = f"unipc-{order}" + (f" [{quant}]" if quant != "none" else "")
-    print(f"{tag} [{device.type}] nfe={len(tab.timesteps)} "
+    tag = (f"unipc-{order}" + (f" [{quant}]" if quant != "none" else "")
+           + (f" [{eval_dtype}]" if eval_dtype != "float32" else ""))
+    mode = " graph" if device.type == "cuda" else ""
+    print(f"{tag} [{device.type}{mode}] nfe={len(tab.timesteps)} "
           f"cfg={cfg_scale} wall={dt:.2f}s out_shape={x0.shape} "
           f"mean={x0.mean():+.4f} std={x0.std():.4f} "
           f"finite={np.isfinite(x0).all()}")
@@ -165,6 +184,9 @@ def main(argv=None):
                     help="quantized denoiser tier: int8/fp8 weight matmuls "
                          "through the quant_matmul kernel, calibrated "
                          "scales, fp32 accumulation; dit family only")
+    ap.add_argument("--eval-dtype", default="float32", choices=EVAL_DTYPES,
+                    help="the eps-net's eval precision; solver state stays "
+                         "fp32 (bfloat16: the fast serving eval)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
     scale = ap.add_mutually_exclusive_group()
@@ -179,7 +201,8 @@ def main(argv=None):
                   nfe=args.nfe, variant=args.variant,
                   prediction=args.prediction, batch=args.batch, seed=args.seed,
                   cfg_scale=args.cfg_scale, cfg_schedule=args.cfg_schedule,
-                  quant=args.quant, device=args.device)
+                  quant=args.quant, eval_dtype=args.eval_dtype,
+                  device=args.device)
 
 
 if __name__ == "__main__":

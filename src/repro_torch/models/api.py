@@ -74,6 +74,55 @@ def params_to(params: dict, device) -> dict:
     return params.to(device)
 
 
+def _is_record(node) -> bool:
+    return isinstance(node, dict) and "qw" in node
+
+
+def cast_params_for_eval(params, eval_dtype: str):
+    """Pre-cast every float param leaf to the serving eval dtype (DESIGN.md
+    §11.3) once, so reduced-precision serving halves the params' reads
+    instead of casting at use. Non-float leaves and quant records
+    ({"qw", "ws"[, "sa"]}) pass through."""
+    dt = getattr(torch, eval_dtype)
+
+    def conv(node):
+        if _is_record(node):
+            return node
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return node.to(dt) if node.is_floating_point() else node
+
+    return conv(params)
+
+
+# the leaves the DiT casts to the activation dtype at each use
+# (`layers.dense_apply`'s `w.to(x.dtype)` and the casts of `dit.py`);
+# t_mlp1, t_mlp2 and class_embed are read in fp32 and stay as they are
+_CAST_AT_USE = {
+    "in_proj": None, "final_ada": None, "final_ada_b": None, "out_proj": None,
+    "blocks": {"w1": None, "w2": None, "ada": None, "ada_b": None,
+               "attn": {"wq": None, "wk": None, "wv": None, "wo": None}},
+}
+
+
+def cast_weights_once(cfg: ModelConfig, params) -> dict:
+    """The weights kept once: `params` with one copy in the activation
+    dtype of each leaf the DiT would otherwise cast at every use, so the
+    per-use `.to()` is a no-op and launches nothing. The values are those
+    the per-use cast gives, so the samples are bit-identical. Quant records
+    and the leaves read in fp32 are shared, not copied."""
+    _require_dit(cfg)
+    act = cfg.activation_dtype
+
+    def conv(node, sel):
+        if sel is None:
+            return node if _is_record(node) else node.to(act)
+        return {k: conv(v, sel[k]) if k in sel else v
+                for k, v in node.items()}
+
+    return {**params, "backbone": conv(params["backbone"], _CAST_AT_USE)}
+
+
 def calibrate_and_quantize(cfg: ModelConfig, params, quant, *, schedule=None,
                            nfe: int = 6, calib_batch: int = 2, seed: int = 0):
     """The quantized path (models/quant.py): calibrate and install records.

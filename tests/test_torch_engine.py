@@ -93,7 +93,8 @@ def j_cfg_engine():
 def t_cfg_engine():
     ec, eu = t_gauss_eps(*COND), t_gauss_eps(*UNCOND)
     return TEngine(TVP(), eps=ec, eps_stacked=_stacked(
-        ec, eu, lambda a: torch.cat(a, 0), lambda a: torch.chunk(a, 2, 0)))
+        ec, eu, lambda a: torch.cat(a, 0), lambda a: torch.chunk(a, 2, 0)),
+        device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +263,7 @@ def test_staggered_step_matches_uniform_runs_and_reference(cfg_schedule):
 
 
 @pytest.mark.parametrize("kw", [
-    {"thresholding": True}, {"solver": "dpmpp"}, {"eval_dtype": "bfloat16"}])
+    {"solver": "ddim"}, {"solver": "dpmpp"}, {"cache_block": 2}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TSpec(**kw).resolve()

@@ -88,7 +88,7 @@ def test_engine_tables_with_guidance_bit_equal(schedule):
     spec_kw = dict(nfe=10, order=3, cfg_scale=2.5, cfg_schedule=schedule,
                    cfg_scale_end=0.5)
     tspec, jspec = TSpec(**spec_kw), JSpec(**spec_kw)
-    got = TEngine(tsched.VPLinear(), eps=None).compile(tspec)
+    got = TEngine(tsched.VPLinear(), eps=None, device="cpu").compile(tspec)
     want = JEngine(jsched.VPLinear(), eps=None).compile(jspec)
     _assert_rows_equal(tcoeffs.augment_step_rows(got),
                        jcoeffs.augment_step_rows(want))

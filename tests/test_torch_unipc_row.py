@@ -276,7 +276,7 @@ def test_engine_build_uploads_the_table_once(monkeypatch):
     rows_on = unipc.rows_on
     monkeypatch.setattr(unipc, "rows_on",
                         lambda *a, **kw: uploads.append(1) or rows_on(*a, **kw))
-    eng = SamplerEngine(VPLinear(), eps=lambda x, t: 0.3 * x)
+    eng = SamplerEngine(VPLinear(), eps=lambda x, t: 0.3 * x, device="cpu")
     run = eng.build(EngineSpec(nfe=6, order=3))
     x_T = torch.randn(2, 8, generator=torch.Generator().manual_seed(2))
     first, second = run(x_T), run(x_T)
