@@ -57,6 +57,19 @@ Phases (any failure exits non-zero):
      its walls and profile split as in phase 4; w8a8 (calibrated on the
      card), fp8a16 and w4a16 at depth 4, each against its plain-pinned run;
      a w8a16 per-slot `StepProgram` at fp32 against its uniform runs.
+  7. solver zoo — phase 4's run with DDIM + UniC-1, DPM-Solver++ 3M +
+     UniC-3, PNDM + UniC-4 (K = 3: a ring of 4, six corrector terms),
+     DEIS-3 + UniC-3 (a corrector base that is not the predictor's) and
+     DPM-Solver 3S (noise prediction, the expanded grid: 9 rows + init,
+     per-row out_scale, no corrector): the row ops bit-equal to their
+     plain versions on each table at fp32; each engine's replay counted
+     (2 row-op launches a row, the DiT's per-eval counts times the rows)
+     and bit-equal to its eager loop, no host sync, its latents within
+     MAIN_TOL of the plain-pinned run, the replay wall a median of 5; the
+     python-loop references (sequential CFG) of DPM-Solver++ 3M + UniC and
+     DPM-Solver 3S at NFE 12 against the engine at fp32 (<= LOOP_TOL); and
+     `sample(solver="dpmpp", order=3)`, counted and bit-equal to an
+     engine replay.
 The last three lines are the kernels JSON, the card's name and power
 limit as `nvidia-smi --query-gpu=name,power.limit` prints them, and
 {"ok": true, "device": {...}}.
@@ -1682,6 +1695,199 @@ def quant_serving_phase(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 7: the solver zoo
+# --------------------------------------------------------------------------
+
+# each run's label and EngineSpec keywords: the widest table (PNDM with
+# UniC-4, K = 3), a corrector base that is not the predictor's (DEIS),
+# noise-prediction tables (sign -1, out_scale sigma), the expanded grid of
+# DPM-Solver 3S (per-row out_scale, use_c 0, G * order rows)
+ZOO = (
+    ("ddim + UniC-1", dict(solver="ddim", use_corrector=True)),
+    ("dpmpp-3 + UniC-3", dict(solver="dpmpp", order=3, use_corrector=True)),
+    ("pndm + UniC-4", dict(solver="pndm", use_corrector=True)),
+    ("deis-3 + UniC-3", dict(solver="deis", order=3, use_corrector=True)),
+    ("dpm-3S", dict(solver="dpm", order=3)),
+)
+LOOP_TOL = 1e-4     # fp32 loop against the engine, relative L-inf
+
+
+def zoo_row_cases(dev, tab, label: str) -> dict:
+    """The row ops on one zoo table at the main path's state (8 requests
+    of 256 x 32 fp32 latents, the table's ring): every row as a uniform
+    index and one per-slot index over the table, predict and correct, each
+    bit-equal to its plain version; then each op at a body row timed in a
+    CUDA graph beside its bound."""
+    from repro_torch.core.coeffs import augment_step_rows
+    from repro_torch.core.unipc import rows_on
+    from repro_torch.kernels.unipc_update import ops as uni_ops
+
+    rows = uni_ops.pack_weight_rows(rows_on(augment_step_rows(tab), dev))
+    K, n_rows, sign = tab.w_pred.shape[1], rows.shape[0], tab.sign
+    g = torch.Generator(device=dev).manual_seed(100 + K)
+    x, e_new, x_pred = (torch.randn(8, 256, 32, generator=g, device=dev)
+                        for _ in range(3))
+    E = torch.randn(K + 1, 8, 256, 32, generator=g, device=dev)
+    idxs = [torch.tensor(i, device=dev) for i in range(n_rows)]
+    idxs.append(torch.arange(8, device=dev) * max(1, n_rows // 7))
+    worst = 0.0
+    for idx in idxs:
+        got = [uni_ops.unipc_row_predict(x, E, rows, idx, sign)]
+        got += uni_ops.unipc_row_correct(x, E, e_new, x_pred, rows, idx, sign)
+        want = [uni_ops.unipc_row_predict(x, E, rows, idx, sign,
+                                          backend="plain")]
+        want += uni_ops.unipc_row_correct(x, E, e_new, x_pred, rows, idx,
+                                          sign, backend="plain")
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            worst = max(worst, float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                fail(f"unipc_update on the {label} table, row {idx.tolist()}"
+                     f": not bit-equal to its plain version at fp32")
+    body = torch.tensor(n_rows // 2, device=dev)
+    timed = {}
+    for op, fn, moved, flops in (
+            ("predict", lambda: uni_ops.unipc_row_predict(
+                x, E, rows, body, sign), nbytes(x, E, x),
+             (3 * K + 3) * x.numel()),
+            ("correct", lambda: uni_ops.unipc_row_correct(
+                x, E, e_new, x_pred, rows, body, sign),
+             nbytes(x, E, e_new, x_pred, x, E), (3 * K + 9) * x.numel())):
+        bms, by = bound(moved + rows.shape[1] * 4 + 8, flops, torch.float32)
+        timed[op] = dict(ms=device_ms(fn), bound_ms=bms, bound_by=by)
+    print(f"  unipc_update on the {label} table (K = {K}, {n_rows} rows, "
+          f"sign {sign:+g}): predict and correct at every row and per slot, "
+          f"bit-equal to the plain version at fp32; at row {int(body)} "
+          f"predict {timed['predict']['ms']:.6f} ms (bound "
+          f"{timed['predict']['bound_ms']:.6f}), correct "
+          f"{timed['correct']['ms']:.6f} ms (bound "
+          f"{timed['correct']['bound_ms']:.6f}) in a CUDA graph")
+    return dict(solver=label, K=K, rows=n_rows, sign=sign,
+                max_abs_err=worst, row_ops=timed)
+
+
+def zoo_phase(dev) -> dict:
+    """Guided sampling of full-width dit-i256 (bf16 activations, the bf16
+    weights kept once) with each solver of ZOO at NFE 10: the row ops held
+    on each table; one engine's replay counted and bit-equal to its eager
+    loop (graph_checks); the eager loop and a replay under
+    set_sync_debug_mode("error"); the kernel run against the plain-pinned
+    run within MAIN_TOL; the replay wall, a median of 5. Then the fp32
+    loop references (sequential CFG) of dpmpp-3 + UniC and dpm-3S at NFE
+    12 against the engine, and `sample(solver="dpmpp", order=3)`."""
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.sample import build_engine, latent_shape, sample
+
+    batch, nfe, g_scale = 8, 10, 2.0
+    cfg = get_config("dit-i256")
+    params = perturbed_params(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)   # phase 4's x_T
+    x_T = torch.randn(latent_shape(cfg, batch), generator=gen, device=dev)
+    engine = build_engine(cfg, params, VPLinear(), batch, seed=0, device=dev)
+    plain = build_engine(plain_pinned(cfg), params, VPLinear(), batch, seed=0,
+                         device=dev)
+    runs, tables = {}, []
+    for label, kw in ZOO:
+        spec = EngineSpec(nfe=nfe, cfg_scale=g_scale, **kw)
+        tab = engine.compile(spec)
+        rows = len(tab.timesteps)
+        tables.append(zoo_row_cases(dev, tab, label))
+        expected = expected_launches(cfg, rows)
+        counts: dict = {}
+        free_graphs()
+        g = graph_checks(label, engine, spec, x_T, expected, counts)
+        run, eager = g["run"], g["eager"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x_nosync, x_nosync_graph = eager(x_T), run(x_T)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not (torch.equal(x_nosync, g["x_eager"])
+                and torch.equal(x_nosync_graph, g["x_graph"])):
+            fail(f"{label}: the sync-checked runs differ from the counted "
+                 f"ones")
+        LAUNCHES.clear()
+        x_plain = plain.build(dataclasses.replace(spec, fused_update=False),
+                              jit=False)(x_T)
+        torch.cuda.synchronize()
+        if sum(LAUNCHES.values()):
+            fail(f"{label}: the plain-pinned run launched kernels: "
+                 f"{dict(LAUNCHES)}")
+        x_graph = g["x_graph"]
+        err = rel_err(x_graph, x_plain)
+        finite = bool(torch.isfinite(x_graph).all())
+        walls = median_walls({"replay": lambda: run(x_T)})
+        print(f"  {label}: {rows} rows (K = {tab.w_pred.shape[1]}, "
+              f"{tab.prediction} prediction); no host sync in the eager loop "
+              f"or a replay; kernel vs plain latents rel L-inf {err:.3e} (tol "
+              f"{MAIN_TOL:g}); replay wall median "
+              f"{walls['replay']['median_s']:.4f} s of "
+              f"{[round(v, 4) for v in walls['replay']['reps_s']]}")
+        if not (finite and err <= MAIN_TOL):
+            fail(f"{label}: kernel vs plain latents {err:.3e}, finite "
+                 f"{finite}")
+        tables[-1]["launches"] = dict(counts)
+        runs[label] = dict(rows=rows, K=tab.w_pred.shape[1],
+                           prediction=tab.prediction, launches=dict(counts),
+                           rel_err_vs_plain=err, replay_wall=walls["replay"],
+                           first_call_counts=g["first_call_counts"])
+        del g, run, eager, x_plain
+    del plain
+    free_graphs()
+
+    # the loop references against the engine, fp32 activations (TF32 off)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    engine32 = build_engine(cfg32, params, VPLinear(), batch, seed=0,
+                            device=dev)
+    loops = {}
+    for label, kw in (("dpmpp-3 + UniC-3", ZOO[1][1]), ("dpm-3S", ZOO[4][1])):
+        spec = EngineSpec(nfe=12, cfg_scale=g_scale, **kw)
+        loop = engine32.build_loop(spec)
+        x_loop = loop(x_T)
+        x_eng = engine32.build(spec)(x_T)
+        torch.cuda.synchronize()
+        err = rel_err(x_loop, x_eng)
+        loops[label] = dict(rel_err=err, loop_nfe=loop.solver.model.nfe,
+                            engine_rows=len(engine32.compile(spec).timesteps))
+        print(f"  {label}, nfe 12, fp32 activations: build_loop (sequential "
+              f"CFG, {loop.solver.model.nfe} guided evals) vs build (fused "
+              f"CFG) rel L-inf {err:.3e} (tol {LOOP_TOL:g})")
+        if not (bool(torch.isfinite(x_loop).all()) and err <= LOOP_TOL):
+            fail(f"{label}: the loop reference and the engine disagree: "
+                 f"{err:.3e}")
+    del engine32
+    free_graphs()
+
+    # the entry point with a zoo solver: its graph's first call, counted
+    spec = EngineSpec(solver="dpmpp", order=3, nfe=nfe, cfg_scale=g_scale)
+    rows = len(engine.compile(spec).timesteps)
+    want = {k: a + b for (k, a), b in zip(
+        expected_launches(cfg, rows).items(),
+        expected_launches(cfg, 1).values())}
+    LAUNCHES.clear()
+    x0 = sample("dit-i256", reduced=False, solver="dpmpp", order=3, nfe=nfe,
+                cfg_scale=g_scale, batch=batch, params=params, x_T=x_T,
+                device=dev)
+    torch.cuda.synchronize()
+    sample_counts = dict(LAUNCHES)
+    same = torch.equal(torch.as_tensor(x0), engine.build(spec)(x_T).cpu())
+    print(f"  sample(solver='dpmpp', order=3): launches "
+          f"{dict(sorted(sample_counts.items()))} (a warm-up row + one "
+          f"replay: {want}); latents bit-equal to the engine's replay: {same}")
+    if sample_counts != want or not same or not np.isfinite(x0).all():
+        fail(f"sample(solver='dpmpp'): launches {sample_counts}, bit-equal "
+             f"{same}")
+    del engine
+    free_graphs()
+    return dict(runs=runs, tables=tables, loop_vs_engine=loops,
+                sample_dpmpp_launches=sample_counts)
+
+
+# --------------------------------------------------------------------------
 
 
 KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
@@ -1757,6 +1963,11 @@ def main():
     quant_stats = quant_path_phase(dev, qcounts, main_stats.pop("latents"))
     quant_serve = quant_serving_phase(dev)
 
+    print("== phase 7: the solver zoo (dit-i256 full width, nfe 10, cfg 2.0, "
+          "batch 8: ddim, dpmpp-3, pndm and deis-3 with UniC, dpm-3S; the "
+          "loop references at fp32)")
+    zoo = zoo_phase(dev)
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -1774,6 +1985,8 @@ def main():
             bound_by=st["bound_by"], library_ms=st["library_ms"])
         if "sites" in st:
             entry["sites"] = st["sites"]
+        if kname == "unipc_update":
+            entry["tables"] = zoo["tables"]
         for key in ("layer_norm_subset_ms", "fp32_ms", "fp32_bound_ms",
                     "rotated_ms", "rotated_library_ms", "per_call_over",
                     "row_ops", "row_forms", "combine"):
@@ -1782,6 +1995,7 @@ def main():
         entries.append(entry)
     summary = dict(main_path=main_stats, serving=serve_stats,
                    quant_main_path=quant_stats, quant_serving=quant_serve,
+                   zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][
                        "other_operands_at_wq_site"])
     print("summary " + json.dumps(summary))

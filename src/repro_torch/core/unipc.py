@@ -1,6 +1,11 @@
-"""The production UniPC sampler: a row loop over the static weight table
-(the port of `repro.core.unipc`'s scan path; the python-loop `UniPC`
-reference solvers are not ported).
+"""UniPC: the python-loop solvers and the production row-loop sampler (the
+port of `repro.core.unipc`).
+
+* `UniPC` — multistep UniPC on the GridSolver loop: any order, custom
+  order schedules (Table 4), UniC-oracle (Table 3), both prediction types
+  and every B(h) variant. The reference semantics.
+* `UniPCSinglestep` — the singlestep variant (Section 3.4).
+* the row-loop sampler below, what the engine runs.
 
 `step_fn_over_rows` executes one table row per sample — a scalar row index
 for the whole batch (one iteration of the uniform sampler) or a per-slot
@@ -12,12 +17,127 @@ one kernel launch each.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..kernels.unipc_update import ops as row_ops
-from .coeffs import UniPCSchedule, augment_step_rows, build_unipc_schedule
+from .coeffs import (UniPCSchedule, augment_step_rows, build_unipc_schedule,
+                     default_order_schedule)
+from .solver import CorrectorConfig, Grid, GridSolver, History, unified_step
+
+
+class UniPC(GridSolver):
+    """Multistep UniPC-p (Alg. 5-8). Predictor order = `order`; with the
+    corrector enabled the order of accuracy is order+1 (Thm 3.1)."""
+
+    def __init__(
+        self,
+        model_fn,
+        grid: Grid,
+        *,
+        order: int = 3,
+        prediction: str = "data",
+        variant: str = "bh2",
+        order_schedule: Optional[Sequence[int]] = None,
+        lower_order_final: bool = True,
+    ):
+        super().__init__(model_fn, grid)
+        self.order = order
+        self.prediction = prediction
+        self.variant = variant
+        M = len(grid)
+        self.order_schedule = (
+            list(order_schedule)
+            if order_schedule is not None
+            else default_order_schedule(M, order, lower_order_final)
+        )
+
+    def predict(self, i, x, hist: History):
+        g = self.grid
+        p_i = min(self.order_schedule[i - 1], i)
+        m0 = hist.at_lam(g.lam[i - 1])
+        pts = hist.last(p_i - 1, before_lam=float(g.lam[i - 1]))
+        points = [(lam, e) for lam, _, e in reversed(pts)]
+        return unified_step(
+            x, m0, points,
+            lam_s=g.lam[i - 1], lam_t=g.lam[i],
+            alpha_s=g.alpha[i - 1], alpha_t=g.alpha[i],
+            sigma_s=g.sigma[i - 1], sigma_t=g.sigma[i],
+            prediction=self.prediction, variant=self.variant,
+        )
+
+    def corrector_config(self, **kw) -> CorrectorConfig:
+        """UniC matched to this predictor's order/variant."""
+        return CorrectorConfig(order=self.order, variant=self.variant, **kw)
+
+    def sample_pc(self, x_T, *, oracle: bool = False, use_corrector: bool = True):
+        """Full UniPC = UniP + UniC with per-step order from the schedule."""
+        if not use_corrector:
+            return self.sample(x_T, corrector=None)
+        return self.sample(x_T, corrector=_ScheduledCorrector(self, oracle))
+
+
+class _ScheduledCorrector(CorrectorConfig):
+    """Corrector whose order follows the predictor's per-step order schedule
+    (UniC-p_i after UniP-p_i, Alg. 5). GridSolver._correct consults order_at()."""
+
+    def __init__(self, solver: UniPC, oracle: bool):
+        super().__init__(order=solver.order, variant=solver.variant, oracle=oracle)
+        self._solver = solver
+
+    def order_at(self, i: int) -> int:
+        return min(self._solver.order_schedule[i - 1], i)
+
+
+class UniPCSinglestep(GridSolver):
+    """Singlestep UniPC-p (p = 2 or 3): intermediate points at r in (0,1),
+    estimated with lower-order unified steps; costs p NFE per grid step."""
+
+    def __init__(self, model_fn, grid: Grid, noise_schedule, *, order: int = 2,
+                 prediction: str = "data", variant: str = "bh2"):
+        assert order in (2, 3)
+        super().__init__(model_fn, grid)
+        self.order = order
+        self.prediction = prediction
+        self.variant = variant
+        self.noise_schedule = noise_schedule
+        self.r_inner = [0.5] if order == 2 else [1.0 / 3.0, 2.0 / 3.0]
+
+    def predict(self, i, x, hist: History):
+        g = self.grid
+        lam_s, lam_t = float(g.lam[i - 1]), float(g.lam[i])
+        h = lam_t - lam_s
+        m0 = hist.at_lam(g.lam[i - 1])
+        # walk the intermediate points, each estimated with all points so far
+        points = []
+        sched = self.noise_schedule
+        for r in self.r_inner:
+            lam_m = lam_s + r * h
+            t_m = float(sched.t_of_lam(lam_m))
+            a_m, s_m = float(sched.alpha(t_m)), float(sched.sigma(t_m))
+            x_m = unified_step(
+                x, m0, points,
+                lam_s=lam_s, lam_t=lam_m,
+                alpha_s=g.alpha[i - 1], alpha_t=a_m,
+                sigma_s=g.sigma[i - 1], sigma_t=s_m,
+                prediction=self.prediction, variant=self.variant,
+            )
+            e_m = self.model(x_m, t_m)
+            hist.push(lam_m, t_m, e_m)
+            points.append((lam_m, e_m))
+        return unified_step(
+            x, m0, points,
+            lam_s=lam_s, lam_t=lam_t,
+            alpha_s=g.alpha[i - 1], alpha_t=g.alpha[i],
+            sigma_s=g.sigma[i - 1], sigma_t=g.sigma[i],
+            prediction=self.prediction, variant=self.variant,
+        )
+
+
+# ---------------------------------------------------------------------------
+# The production path: the row loop over the static weight table
+# ---------------------------------------------------------------------------
 
 
 def make_unipc_schedule(schedule, num_steps, *, order=3, prediction="data",

@@ -1,5 +1,14 @@
-"""Classifier-free guidance fused into one batched eval, guidance-scale
-schedules, and dynamic thresholding."""
+"""Guided sampling: classifier-free guidance, guidance-scale schedules and
+dynamic thresholding.
+
+Two CFG forms:
+
+* `cfg_model` — two sequential network evals per step (cond, then uncond);
+  the reference semantics, used by the python-loop solvers.
+* `cfg_model_fused` — one batched network eval per step on the stacked
+  [cond; uncond] batch; what the engine runs, with the guidance scale
+  riding the table as a per-eval column (`guidance_schedule`).
+"""
 
 from __future__ import annotations
 
@@ -8,7 +17,19 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .process import eps_to_x0
+from .schedules import NoiseSchedule
+
 GUIDANCE_SCHEDULES = ("constant", "linear", "cosine")
+
+
+def cfg_model(eps_cond: Callable, eps_uncond: Callable, scale: float):
+    """epsilon_tilde = (1 + s) * eps_cond - s * eps_uncond (Ho & Salimans)."""
+
+    def fn(x, t):
+        return (1.0 + scale) * eps_cond(x, t) - scale * eps_uncond(x, t)
+
+    return fn
 
 
 def cfg_model_fused(eps_stacked: Callable):
@@ -90,3 +111,29 @@ def dynamic_threshold(x0: torch.Tensor, percentile=0.995,
     s = _row_quantile(x0.reshape(B, -1).abs(), q).to(x0.dtype)
     s = torch.clamp_min(s, floor).reshape((-1,) + (1,) * (x0.ndim - 1))
     return torch.minimum(torch.maximum(x0, -s), s) / s * floor
+
+
+def guided_data_model(
+    schedule: NoiseSchedule,
+    eps_cond: Callable,
+    eps_uncond: Optional[Callable] = None,
+    guidance_scale: float = 0.0,
+    thresholding: bool = False,
+    threshold_percentile: float = 0.995,
+):
+    """Data-prediction model with CFG and optional dynamic thresholding: the
+    configuration the paper uses for conditional sampling (UniPC-B2,
+    Table 9)."""
+    eps = (
+        cfg_model(eps_cond, eps_uncond, guidance_scale)
+        if eps_uncond is not None and guidance_scale != 0.0
+        else eps_cond
+    )
+
+    def fn(x, t):
+        x0 = eps_to_x0(schedule, x, t, eps(x, t))
+        if thresholding:
+            x0 = dynamic_threshold(x0, threshold_percentile)
+        return x0
+
+    return fn

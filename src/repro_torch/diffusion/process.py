@@ -1,10 +1,24 @@
-"""Prediction-type conversion between the eps-net and the solver."""
+"""The forward process and prediction-type conversion between the eps-net
+and the solver."""
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
 from .schedules import NoiseSchedule
+
+
+def _t_like(t, x):
+    """`t` as a tensor on x's device. A host number takes x's precision
+    (at least fp32), so a float64 loop keeps float64 schedule values; a
+    tensor keeps its own dtype."""
+    if torch.is_tensor(t):
+        return t.to(x.device)
+    return torch.as_tensor(t, dtype=torch.promote_types(x.dtype,
+                                                        torch.float32),
+                           device=x.device)
 
 
 def _bcast_t(coef, t, x):
@@ -16,13 +30,38 @@ def _bcast_t(coef, t, x):
     return coef.reshape(coef.shape + (1,) * (x.ndim - t.ndim))
 
 
+def q_sample(schedule: NoiseSchedule, x0, t, noise):
+    """x_t = alpha_t x0 + sigma_t eps, with t broadcast over the batch."""
+    a, s = schedule.alpha_sigma_torch(_t_like(t, x0))
+    bshape = (-1,) + (1,) * (x0.ndim - 1)
+    return a.reshape(bshape) * x0 + s.reshape(bshape) * noise
+
+
 def eps_to_x0(schedule: NoiseSchedule, x_t, t, eps):
     """x0 = (x_t - sigma_t eps) / alpha_t. t: scalar or (B,).
 
     A low-precision eps (a bf16 network output) is widened first: JAX
     promotes bf16 x f32 to f32, where torch would keep a 0-d f32 coefficient
     times a bf16 tensor in bf16."""
-    t = torch.as_tensor(t, device=x_t.device)
+    t = _t_like(t, x_t)
     a, s = schedule.alpha_sigma_torch(t)
     eps = eps.to(torch.promote_types(eps.dtype, s.dtype))
     return (x_t - _bcast_t(s, t, x_t) * eps) / _bcast_t(a, t, x_t)
+
+
+def x0_to_eps(schedule: NoiseSchedule, x_t, t, x0):
+    """eps = (x_t - alpha_t x0) / sigma_t. t: scalar or (B,)."""
+    t = _t_like(t, x_t)
+    a, s = schedule.alpha_sigma_torch(t)
+    return (x_t - _bcast_t(a, t, x_t) * x0) / _bcast_t(s, t, x_t)
+
+
+def wrap_model(schedule: NoiseSchedule, eps_model: Callable, prediction: str):
+    """Adapt a noise-prediction network to the solver's prediction type."""
+    if prediction == "noise":
+        return eps_model
+
+    def data_model(x, t):
+        return eps_to_x0(schedule, x, t, eps_model(x, t))
+
+    return data_model

@@ -8,12 +8,14 @@ quantities needed on the device have fp32 torch twins.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-__all__ = ["NoiseSchedule", "VPLinear", "timestep_grid"]
+__all__ = ["NoiseSchedule", "VPLinear", "VPCosine", "EDMSchedule",
+           "timestep_grid"]
 
 
 class NoiseSchedule:
@@ -72,6 +74,59 @@ class VPLinear(NoiseSchedule):
 
     def log_alpha_torch(self, t):
         return -0.25 * t**2 * (self.beta_1 - self.beta_0) - 0.5 * t * self.beta_0
+
+
+@dataclass
+class VPCosine(NoiseSchedule):
+    """Cosine schedule (Nichol & Dhariwal, 2021), continuous form."""
+
+    s: float = 0.008
+    T: float = 0.9946  # keep beta bounded as in the iDDPM implementation
+    t_eps: float = 1e-3
+
+    def log_alpha(self, t):
+        t = np.asarray(t, np.float64)
+        f = np.cos((t + self.s) / (1 + self.s) * math.pi / 2)
+        f0 = math.cos(self.s / (1 + self.s) * math.pi / 2)
+        return np.log(np.clip(f / f0, 1e-30, None))
+
+    def t_of_lam(self, lam):
+        lam = np.asarray(lam, np.float64)
+        log_a2 = -np.logaddexp(0.0, -2.0 * lam)
+        f0 = math.cos(self.s / (1 + self.s) * math.pi / 2)
+        f = np.exp(0.5 * log_a2) * f0
+        return np.arccos(np.clip(f, -1.0, 1.0)) * 2 * (1 + self.s) / math.pi - self.s
+
+    def log_alpha_torch(self, t):
+        f = torch.cos((t + self.s) / (1 + self.s) * math.pi / 2)
+        f0 = math.cos(self.s / (1 + self.s) * math.pi / 2)
+        return torch.log(torch.clamp(f / f0, min=1e-20))
+
+
+@dataclass
+class EDMSchedule(NoiseSchedule):
+    """alpha = 1, sigma = t (Karras et al. style; lambda = -log t)."""
+
+    T: float = 80.0
+    t_eps: float = 0.002
+
+    def log_alpha(self, t):
+        return np.zeros_like(np.asarray(t, np.float64))
+
+    def sigma(self, t):
+        return np.asarray(t, np.float64)
+
+    def lam(self, t):
+        return -np.log(np.asarray(t, np.float64))
+
+    def t_of_lam(self, lam):
+        return np.exp(-np.asarray(lam, np.float64))
+
+    def log_alpha_torch(self, t):
+        return torch.zeros_like(t)
+
+    def alpha_sigma_torch(self, t):
+        return torch.ones_like(t), t
 
 
 def timestep_grid(schedule: NoiseSchedule, num_steps: int, spacing: str = "logsnr"):

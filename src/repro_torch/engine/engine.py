@@ -1,8 +1,15 @@
 """SamplerEngine: spec -> weight table -> row-loop sampler, with fused CFG
 (the port of `repro.engine.engine`).
 
-    engine = SamplerEngine(schedule, eps=eps_fn, eps_stacked=stacked_fn)
-    x0 = engine.build(EngineSpec(nfe=10, cfg_scale=2.0))(x_T)
+    engine = SamplerEngine(schedule, eps=eps_fn,
+                           eps_stacked=stacked_fn,    # for cfg_scale != 0
+                           eps_uncond=uncond_fn)      # for the loop reference
+    x0 = engine.build(EngineSpec(solver="dpmpp", order=3, nfe=10,
+                                 cfg_scale=2.0))(x_T)
+
+Every solver of the zoo (`SOLVERS`) compiles to the same row table, so
+`build` runs each of them through the one row loop; `build_loop` is the
+python-loop reference of the same spec.
 
 `build` is the whole-trajectory path (one uniform batch); `build_step`
 compiles the same table into a per-slot `StepProgram`, the continuous-
@@ -30,13 +37,13 @@ import torch
 
 from ..core.coeffs import SolverTable, stack_step_rows
 from ..core.unipc import rows_on, run_rows, step_fn_over_rows, unipc_step_fn
-from ..diffusion.guidance import cfg_model_fused, dynamic_threshold
+from ..diffusion.guidance import cfg_model, cfg_model_fused, dynamic_threshold
 from ..diffusion.process import eps_to_x0
 from ..diffusion.schedules import NoiseSchedule
 from . import graphs
-from .compiler import (apply_model_cols, compile_table, flag_done,
-                       step_guidance_profile)
-from .specs import EngineSpec
+from .compiler import (apply_model_cols, build_loop, compile_table,
+                       flag_done, step_guidance_profile)
+from .specs import SOLVERS, EngineSpec
 
 
 def resolve_device(device) -> torch.device:
@@ -163,6 +170,9 @@ class SamplerEngine:
     eps:         (x, t, **extra) -> eps-hat (the cond branch).
     eps_stacked: (xx, t, **extra) -> eps-hat on a 2B batch whose
                  conditioning is [cond; null] — required for cfg_scale != 0.
+    eps_uncond:  (x, t) -> eps-hat with null conditioning — only needed for
+                 `build_loop`'s guided reference (sequential, two evals a
+                 step).
     device:      the card unless "cpu" is asked for (`resolve_device`).
     quant:       "none" or the models.quant tier the wired eps-net's params
                  were quantized for (`launch.sample.build_engine(quant=...)`
@@ -178,6 +188,7 @@ class SamplerEngine:
     schedule: NoiseSchedule
     eps: Callable
     eps_stacked: Optional[Callable] = None
+    eps_uncond: Optional[Callable] = None
     device: Union[str, torch.device] = "cuda"
     quant: str = "none"
     eval_dtype: str = "float32"
@@ -416,3 +427,34 @@ class SamplerEngine:
                            ring=rows_np["w_pred"].shape[-1] + 1,
                            device=dev, tiers=dict(spans) if tiers else None,
                            step_graphs=sgraphs)
+
+    def build_loop(self, spec: EngineSpec) -> Callable:
+        """The python-loop GridSolver reference for the same spec: the same
+        math on the same grid, sequential CFG (two evals a step), the
+        constant guidance schedule only. The returned function exposes
+        its solver as `.solver` (`.solver.model.nfe` after a run)."""
+        spec = spec.resolve()
+        if spec.cfg_scale and spec.cfg_schedule != "constant":
+            raise ValueError("loop reference supports constant cfg only")
+        eps = self.eps
+        if spec.cfg_scale:
+            if self.eps_uncond is None:
+                raise ValueError("loop reference with cfg needs eps_uncond")
+            eps = cfg_model(self.eps, self.eps_uncond, spec.cfg_scale)
+        schedule = self.schedule
+        if spec.prediction == "noise":
+            if spec.thresholding:
+                raise ValueError("thresholding needs a data-prediction solver")
+            model = eps
+        else:
+            def model(x, t):
+                x0 = eps_to_x0(schedule, x, t, eps(x, t))
+                if spec.thresholding:
+                    x0 = dynamic_threshold(x0, spec.threshold_percentile)
+                return x0
+        return build_loop(spec, self.schedule, model)
+
+    @staticmethod
+    def solvers():
+        """Registered solver names (the --solver choices)."""
+        return sorted(SOLVERS)

@@ -1,9 +1,10 @@
 """Engine specs and the solver registry (the port of `repro.engine.specs`).
 
 Every multistep solver is a per-step weight table over one shared state
-update; `SOLVERS` maps a solver name to its table compiler. The port's
-registry holds `unipc` alone; the rest of the reference's zoo and feature
-reuse (`cache_block`) are not yet ported.
+update, so the whole zoo compiles to the one row-loop sampler. A
+`SolverDef` pairs that compiler with its python-loop reference (the
+`GridSolver` subclass the tests compare against); `SOLVERS` maps a solver
+name to it. Feature reuse (`cache_block`) is not yet ported.
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ class EngineSpec:
     variant: str = "bh2"               # B(h) variant
     spacing: str = "logsnr"
     lower_order_final: bool = True
-    use_corrector: Optional[bool] = None  # None -> solver default (on)
+    # corrector: UniPC's own, or the method-agnostic UniC bolt-on (Table 2)
+    # for any other multistep solver. None -> solver default (on for unipc).
+    use_corrector: Optional[bool] = None
+    corrector_order: Optional[int] = None  # None -> solver-matched UniC-p
     corrector_at_last: bool = False
     # classifier-free guidance, fused into one batched eval per row
     cfg_scale: float = 0.0
@@ -72,19 +76,43 @@ class EngineSpec:
             quant_spec(out.quant)  # raises on unknown tier names
         if out.prediction is None:
             out = replace(out, prediction=sd.prediction)
+        elif sd.fixed_prediction and out.prediction != sd.prediction:
+            raise ValueError(
+                f"solver {sd.name!r} is {sd.prediction}-prediction only, "
+                f"got prediction={out.prediction!r}")
         if out.use_corrector is None:
             out = replace(out, use_corrector=sd.corrector_default)
+        if out.use_corrector and sd.singlestep:
+            raise ValueError(
+                f"UniC bolt-on is grid-anchored; singlestep solver "
+                f"{sd.name!r} compiles with use_corrector=False")
+        if out.corrector_order is None:
+            out = replace(out, corrector_order=sd.unic_order(out))
         return out
 
 
 @dataclass(frozen=True)
 class SolverDef:
-    """One registry entry: compile(spec, noise_schedule) -> SolverTable."""
+    """One registry entry: a weight-table compiler plus its loop reference.
+
+    compile(spec, noise_schedule) -> SolverTable  (host-side float64 rows)
+    loop(spec, noise_schedule, model_fn) -> sample_fn(x_T)  (GridSolver path)
+    """
 
     name: str
     prediction: str                    # default prediction type
     compile: Callable
+    loop: Callable
+    fixed_prediction: bool = True
+    singlestep: bool = False
     corrector_default: bool = False
+    # UniC-p order matched to the solver (Table 2), as a function of the spec
+    default_corrector_order: Optional[Callable] = None
+
+    def unic_order(self, spec: EngineSpec) -> int:
+        if self.default_corrector_order is None:
+            return spec.order
+        return self.default_corrector_order(spec)
 
 
 def register(sd: SolverDef) -> SolverDef:
@@ -94,7 +122,8 @@ def register(sd: SolverDef) -> SolverDef:
 
 def solver_def(name: str) -> SolverDef:
     if name not in SOLVERS:
-        raise not_yet_ported(f"solver {name!r} (ported: {sorted(SOLVERS)})")
+        raise KeyError(f"unknown solver {name!r}; registered: "
+                       f"{sorted(SOLVERS)}")
     return SOLVERS[name]
 
 

@@ -1,11 +1,12 @@
 """Diffusion sampling launcher (the port of `repro.launch.sample`): build the
-DiT eps-network for --arch, then sample with UniPC through the engine.
-Runs on the CUDA card unless `--device cpu` is given; there the sampling run
-is one CUDA graph replay (`engine/graphs.py`).
+DiT eps-network for --arch, then sample with any solver of the zoo through
+the engine, or with its python-loop reference (`--loop`). Runs on the CUDA
+card unless `--device cpu` is given; there the engine's run is one CUDA
+graph replay (`engine/graphs.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-i256 \
-        --full --nfe 10 --order 3 --cfg-scale 2.0 --batch 8 [--quant w8a16] \
-        [--eval-dtype bfloat16]
+        --full --solver dpmpp --nfe 10 --order 3 --cfg-scale 2.0 --batch 8 \
+        [--loop] [--quant w8a16] [--eval-dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..configs.registry import get_config
 from ..diffusion.schedules import VPLinear
-from ..engine import EngineSpec, SamplerEngine
+from ..engine import SOLVERS, EngineSpec, SamplerEngine
 from ..engine.engine import resolve_device
 from ..engine.specs import EVAL_DTYPES
 from ..models import api
@@ -39,7 +40,8 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                  eval_dtype: str = "float32",
                  device="cuda") -> SamplerEngine:
     """Wire the DiT eps-network into a SamplerEngine on `device`: the cond
-    branch and the stacked 2B cond+uncond branch guided sampling runs.
+    branch, the stacked 2B cond+uncond branch guided sampling runs, and the
+    uncond branch (null class ids) for the sequential loop reference.
 
     per_request_cond: instead of baking per-row class ids drawn from `seed`,
     the eps branches take `class_ids` as a per-call (B,) keyword argument
@@ -90,6 +92,12 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
     def null_like(ids):
         return torch.full_like(ids, NULL_CLASS_ID)
 
+    null = torch.full((batch,), NULL_CLASS_ID, dtype=torch.long,
+                      device=device)
+
+    def eps_uncond(x, t):
+        return net(params, x, t, {"class_ids": null})
+
     if per_request_cond:
         def eps_cond(x, t, class_ids):
             return net(params, x, t, {"class_ids": class_ids.long()})
@@ -100,34 +108,44 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                        {"class_ids": torch.cat([ids, null_like(ids)])})
 
         return SamplerEngine(schedule, eps=eps_cond, eps_stacked=eps_stacked,
-                             device=device, quant=quant,
-                             eval_dtype=eval_dtype)
+                             eps_uncond=eps_uncond, device=device,
+                             quant=quant, eval_dtype=eval_dtype)
     ids = torch.as_tensor(class_ids(batch, seed=seed)).long().to(device)
     ids2 = torch.cat([ids, null_like(ids)])
     return SamplerEngine(
         schedule,
         eps=lambda x, t: net(params, x, t, {"class_ids": ids}),
         eps_stacked=lambda xx, t: net(params, xx, t, {"class_ids": ids2}),
-        device=device, quant=quant, eval_dtype=eval_dtype)
+        eps_uncond=eps_uncond, device=device, quant=quant,
+        eval_dtype=eval_dtype)
 
 
 def latent_shape(cfg, batch):
     return (batch, cfg.patch_tokens, cfg.latent_dim)
 
 
-def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
-           prediction=None, batch=4, seed=0, params=None, x_T=None,
-           cfg_scale=0.0, cfg_schedule="constant", thresholding=False,
-           fused_update=True, quant="none", eval_dtype="float32",
-           num_layers=None, device="cuda"):
-    """Sample `batch` latents with UniPC; returns them as a numpy array.
+def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
+           variant="bh2", prediction=None, batch=4, seed=0, params=None,
+           x_T=None, loop=False, fused_update=True, cfg_scale=0.0,
+           cfg_schedule="constant", thresholding=False, quant="none",
+           eval_dtype="float32", num_layers=None, device="cuda"):
+    """Sample `batch` latents with `solver` (any name in `SOLVERS`); returns
+    them as a numpy array.
 
     `params` default to `api.init_params(cfg, seed)`; `x_T` to a standard
     normal draw from a torch.Generator seeded with `seed`; class ids come
-    from numpy's default_rng(seed), as in the reference. `quant` picks a
-    quantized tier (models/quant.py, dit only), `eval_dtype` the eps-net's
-    precision; `num_layers` cuts the depth of the config and keeps its
-    widths. On the card the run is a CUDA graph replay."""
+    from numpy's default_rng(seed), as in the reference. `loop=True` runs
+    the python-loop reference (`SamplerEngine.build_loop`: sequential CFG,
+    fp32 only) instead of the engine's row loop. `quant` picks a quantized
+    tier (models/quant.py, dit only), `eval_dtype` the eps-net's precision;
+    `num_layers` cuts the depth of the config and keeps its widths. On the
+    card the engine's run is a CUDA graph replay."""
+    if loop and eval_dtype != "float32":
+        raise ValueError("the python-loop reference is fp32-only; "
+                         "eval_dtype rides the engine paths")
+    if loop and quant != "none":
+        raise ValueError("the python-loop reference is fp32-only; "
+                         "quantized tiers ride the engine paths")
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -139,7 +157,7 @@ def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
     schedule = VPLinear()
     engine = build_engine(cfg, params, schedule, batch, seed, quant=quant,
                           eval_dtype=eval_dtype, device=device)
-    spec = EngineSpec(solver="unipc", nfe=nfe, order=order, variant=variant,
+    spec = EngineSpec(solver=solver, nfe=nfe, order=order, variant=variant,
                       prediction=prediction, cfg_scale=cfg_scale,
                       cfg_schedule=cfg_schedule, thresholding=thresholding,
                       fused_update=fused_update, quant=quant,
@@ -151,14 +169,23 @@ def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
     x_T = torch.as_tensor(x_T, dtype=torch.float32).to(device)
 
     t0 = time.perf_counter()
-    tab = engine.compile(spec)
-    x0 = engine.build(spec, table=tab)(x_T)
+    if loop:
+        run = engine.build_loop(spec)
+        x0 = run(x_T)
+        nfe_used = run.solver.model.nfe  # measured eval count
+    else:
+        tab = engine.compile(spec)
+        x0 = engine.build(spec, table=tab)(x_T)
+        # the row loop evaluates the last row too; fused CFG keeps one
+        # (2B-batched) call a row
+        nfe_used = len(tab.timesteps)
     x0 = x0.cpu().numpy()  # waits for the device
     dt = time.perf_counter() - t0
-    tag = (f"unipc-{order}" + (f" [{quant}]" if quant != "none" else "")
+    tag = (f"{solver}-{order}" + (f" [{quant}]" if quant != "none" else "")
            + (f" [{eval_dtype}]" if eval_dtype != "float32" else ""))
-    mode = " graph" if device.type == "cuda" else ""
-    print(f"{tag} [{device.type}{mode}] nfe={len(tab.timesteps)} "
+    mode = (" loop" if loop else
+            " graph" if device.type == "cuda" else "")
+    print(f"{tag} [{device.type}{mode}] nfe={nfe_used} "
           f"cfg={cfg_scale} wall={dt:.2f}s out_shape={x0.shape} "
           f"mean={x0.mean():+.4f} std={x0.std():.4f} "
           f"finite={np.isfinite(x0).all()}")
@@ -168,17 +195,29 @@ def sample(arch: str, *, reduced=True, order=3, nfe=10, variant="bh2",
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dit-cifar")
+    ap.add_argument("--solver", default="unipc", choices=sorted(SOLVERS))
     ap.add_argument("--order", type=int, default=3)
     ap.add_argument("--nfe", type=int, default=10)
     ap.add_argument("--variant", default="bh2", choices=["bh1", "bh2", "vary"])
-    ap.add_argument("--prediction", default=None, choices=["data", "noise"])
+    ap.add_argument("--prediction", default=None, choices=["data", "noise"],
+                    help="override the solver's native prediction type "
+                         "(unipc/ddim/dpm support both)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--loop", action="store_true",
+                    help="python-loop GridSolver reference instead of the "
+                         "engine's row loop")
+    ap.add_argument("--no-fused-update", action="store_true",
+                    help="pin the row ops' plain PyTorch version (default: "
+                         "the unipc_update kernel on the card)")
     ap.add_argument("--cfg-scale", type=float, default=0.0,
                     help="classifier-free guidance scale (0 = off); one "
                          "batched cond+uncond eval per step")
     ap.add_argument("--cfg-schedule", default="constant",
                     choices=["constant", "linear", "cosine"])
+    ap.add_argument("--thresholding", action="store_true",
+                    help="Imagen-style dynamic thresholding of the x0 "
+                         "prediction (data-prediction solvers)")
     ap.add_argument("--quant", default="none",
                     choices=["none", "w8a16", "w8a8", "fp8a16", "w4a16"],
                     help="quantized denoiser tier: int8/fp8 weight matmuls "
@@ -194,15 +233,22 @@ def main(argv=None):
                        help="reduced CPU-scale config (the default)")
     scale.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
+    if args.loop and args.eval_dtype != "float32":
+        ap.error("--eval-dtype rides the engine paths; the python-loop "
+                 "reference is fp32-only")
+    if args.loop and args.quant != "none":
+        ap.error("--quant rides the engine paths; the python-loop "
+                 "reference is fp32-only")
     if args.quant != "none" and get_config(args.arch).family != "dit":
         ap.error(f"--quant needs the dit family; --arch {args.arch} is "
                  f"family {get_config(args.arch).family!r}")
-    return sample(args.arch, reduced=not args.full, order=args.order,
-                  nfe=args.nfe, variant=args.variant,
+    return sample(args.arch, reduced=not args.full, solver=args.solver,
+                  order=args.order, nfe=args.nfe, variant=args.variant,
                   prediction=args.prediction, batch=args.batch, seed=args.seed,
+                  loop=args.loop, fused_update=not args.no_fused_update,
                   cfg_scale=args.cfg_scale, cfg_schedule=args.cfg_schedule,
-                  quant=args.quant, eval_dtype=args.eval_dtype,
-                  device=args.device)
+                  thresholding=args.thresholding, quant=args.quant,
+                  eval_dtype=args.eval_dtype, device=args.device)
 
 
 if __name__ == "__main__":
