@@ -70,9 +70,28 @@ Phases (any failure exits non-zero):
      DPM-Solver 3S at NFE 12 against the engine at fp32 (<= LOOP_TOL); and
      `sample(solver="dpmpp", order=3)`, counted and bit-equal to an
      engine replay.
-The last three lines are the kernels JSON, the card's name and power
-limit as `nvidia-smi --query-gpu=name,power.limit` prints them, and
-{"ok": true, "device": {...}}.
+  8. serving at full width — dit-i256 (bf16, the weights kept once)
+     served through `repro_torch.launch.serve.serve_diffusion`: (a) 8
+     slots, UniPC-3, NFE 10, cfg 2.0, a `poisson_requests` trace of 24 at
+     0.5 a tick, each with its own class: depths 1, 2 and 3 bit-identical
+     (latents, completion order, tick metrics), 4 completions bit-equal
+     to their own uniform runs, one tick's replay counted (one
+     eval's 57 / 56 / 28 and 2 row ops), the depth-2 trace again under
+     torch.cuda.set_sync_debug_mode("error") (the readback event waits
+     turn it off by design), under torch.profiler, and the admission and
+     readback ops timed, the readback's two copies also alone on the
+     card; (b) cache_block 14, unguided: a plan with
+     cache_depth all 0 bit-equal to the uncached program, a shallow plan
+     finite and off the uncached run, its ticks counted (a shallow tick
+     29 / 28 / 14) and both graphs' replays timed; (c) the depth-2 trace
+     with a NaN and a desync fault, every latent bit-equal to (a)'s, the
+     event ledger printed; (d) a short w8a16 trace, 197 quant_matmul a
+     tick.
+The last three lines are the kernels JSON (each kernel's launches on the
+main path, and since phase 8 its launches per serving tick and in the
+serving run), the card's name and power limit as `nvidia-smi
+--query-gpu=name,power.limit` prints them, and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -178,6 +197,23 @@ def host_call_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_device_ms(fn, iters: int = 20) -> float:
+    """Median device ms of one `fn()` between CUDA events, each call queued
+    behind a spin kernel so the events time the card's work and not the
+    host's launches."""
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def bound(bytes_moved: float, flops: float, dtype) -> tuple:
@@ -1888,6 +1924,397 @@ def zoo_phase(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 8: serving at full width
+# --------------------------------------------------------------------------
+
+SERVE_TRACE = dict(arrival_rate=0.5, requests=24, cfg_scale=2.0)
+CACHE_BLOCK = 14
+# the shallow plan: NFE 10, every other body step from the 2nd to the 8th
+# reuses the deep features (4 of 11 evals at 14 of 28 blocks)
+SHALLOW_DEPTH = [0, CACHE_BLOCK, 0, CACHE_BLOCK, 0, CACHE_BLOCK, 0,
+                 CACHE_BLOCK, 0, 0]
+
+
+def completion_rows(sched) -> list:
+    """Each completion's bookkeeping, in completion order."""
+    return [(c.rid, c.arrival, c.admit_tick, c.finish_tick, c.finish_clock,
+             c.evals, c.tier, c.eval_cost, c.ok, c.retries, c.requeues)
+            for c in sched.completions]
+
+
+def tick_metrics(m) -> tuple:
+    """The tick-denominated ServeMetrics fields (depth aside)."""
+    return (m.requests, m.completed, m.ticks, m.evals, m.makespan_ticks,
+            m.throughput_per_tick, m.latency_ticks_p50, m.latency_ticks_p95,
+            m.occupancy, m.evals_per_latent, m.per_tier, m.rejected,
+            m.retries, m.failed, m.recoveries, m.faults_injected)
+
+
+def serve_summary(label: str, run, wall: float) -> dict:
+    """One serving run's numbers. `readback` is booked only on the flights
+    that carry completions (the host waits on no other), so it is also
+    given per completing tick."""
+    m = run.metrics
+    completing = len({c.finish_tick for c in run.sched.completions})
+    readback_us = run.sched.phase_ns["readback"] / 1e3 / max(completing, 1)
+    row = dict(capture_s=run.capture_s, wall_s=wall, serve_wall_s=m.wall_s,
+               ticks=m.ticks, tick_ms=m.tick_s * 1e3,
+               throughput_rps=m.throughput_rps,
+               latency_ms_p50=m.latency_s_p50 * 1e3,
+               latency_ms_p95=m.latency_s_p95 * 1e3,
+               latency_ticks_p50=m.latency_ticks_p50,
+               latency_ticks_p95=m.latency_ticks_p95,
+               occupancy=m.occupancy, completed=m.completed,
+               host_phase_us_per_tick=m.host_phase_us_per_tick,
+               completing_ticks=completing,
+               readback_us_per_completing_tick=readback_us)
+    print(f"  {label}: capture {run.capture_s:.3f} s; {m.completed}/"
+          f"{m.requests} requests in {m.ticks} ticks, trace wall "
+          f"{m.wall_s:.4f} s, tick {m.tick_s * 1e3:.3f} ms, throughput "
+          f"{m.throughput_rps:.2f} req/s, latency p50/p95 "
+          f"{m.latency_s_p50 * 1e3:.1f}/{m.latency_s_p95 * 1e3:.1f} ms "
+          f"({m.latency_ticks_p50:.1f}/{m.latency_ticks_p95:.1f} ticks), "
+          f"occupancy {m.occupancy:.3f}; host us/tick "
+          f"{ {k: round(v, 1) for k, v in m.host_phase_us_per_tick.items()} }"
+          f"; readback {readback_us:.1f} us on each of {completing} "
+          f"completing ticks")
+    return row
+
+
+def with_classes(reqs):
+    """Each request's class id drawn from its seed, as launch.serve does."""
+    from repro_torch.launch.sample import class_ids
+
+    for r in reqs:
+        r.extras = {"class_ids": int(class_ids(1, seed=r.seed)[0])}
+    return reqs
+
+
+def one_tick_launches(sched, reqs) -> dict:
+    """Submit `reqs` to a drained scheduler and count the launches of its
+    next tick (one replay of the flight graph), then drain it."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    sched.tick()
+    counts = dict(LAUNCHES)
+    sched.drain()
+    return counts
+
+
+def graph_replay_ms(graph, iters: int = 20) -> float:
+    """Device ms per replay of a captured step graph, between CUDA events
+    (the replays advance the state they run on; the work does not depend on
+    its values)."""
+    graph.graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def serving_at_width_phase(dev, counts_out: dict, qcounts_out: dict) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.sample import NULL_CLASS_ID, build_engine
+    from repro_torch.launch.serve import serve_diffusion
+    from repro_torch.serving import (FaultPlan, MetaFault, NanFault, Request,
+                                     ResilienceConfig, SlotScheduler,
+                                     poisson_requests, run_trace)
+    from repro_torch.serving.scheduler import _apply_admission, _gather_rows
+    from repro_torch.tuning import SolverPlan, save_bank
+
+    cfg = get_config("dit-i256")
+    L = cfg.num_layers
+    params = perturbed_params(cfg, dev)
+    sample_shape = (cfg.patch_tokens, cfg.latent_dim)
+    kw = dict(reduced=False, batch=8, nfe=10, order=3, params=params,
+              device=dev, return_run=True)
+    one_eval = {"unipc_update": 2, "adaln_modulate": 2 * L + 1,
+                "gate_residual": 2 * L, "flash_attention": L}
+    out: dict = {}
+
+    # (a) a Poisson trace at depths 1, 2 and 3; the depth-2 run is the
+    # serving main path, counted
+    runs, rows = {}, {}
+    for depth in (1, 2, 3):
+        free_graphs()
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        runs[depth] = serve_diffusion("dit-i256", pipeline_depth=depth,
+                                      **kw, **SERVE_TRACE)
+        wall = time.perf_counter() - t0
+        if depth == 2:
+            counts_out.update(LAUNCHES)
+        rows[depth] = serve_summary(f"depth {depth}", runs[depth], wall)
+    base = runs[1]
+    for depth in (2, 3):
+        r = runs[depth]
+        same = (np.array_equal(r.latents, base.latents)
+                and completion_rows(r.sched) == completion_rows(base.sched)
+                and tick_metrics(r.metrics) == tick_metrics(base.metrics))
+        print(f"  depth {depth} vs depth 1: latents, completion order, "
+              f"admit/finish ticks and tick metrics bit-identical: {same}")
+        if not same:
+            fail(f"serving at depth {depth} differs from depth 1")
+    if base.metrics.completed != SERVE_TRACE["requests"] or not np.isfinite(
+            base.latents).all():
+        fail(f"{base.metrics.completed} of {SERVE_TRACE['requests']} "
+             f"requests completed, finite {np.isfinite(base.latents).all()}")
+    print(f"  launches of the depth-2 serve_diffusion call (capture warm-up "
+          f"included): {dict(sorted(counts_out.items()))}")
+    if set(counts_out) != set(one_eval) or min(counts_out.values()) == 0:
+        fail(f"the serving run did not launch every kernel: {counts_out}")
+
+    # four completions against their own uniform runs (batch 1, the
+    # request's drawn x_T, class and the nominal scale), bit for bit: every
+    # op computes a row alike whatever the batch around it
+    free_graphs()
+    engine = build_engine(cfg, params, VPLinear(), 1, per_request_cond=True,
+                          device=dev)
+    uniform = engine.build(EngineSpec(nfe=10, order=3, cfg_scale=2.0))
+    sched2 = runs[2].sched
+    worst = 0.0
+    picks = [sched2.completions[i] for i in (0, 7, 15, 23)]
+    for c in picks:
+        req = with_classes([Request(rid=c.rid, seed=c.rid)])[0]
+        x = torch.as_tensor(sched2._draw(req), device=dev)[None]
+        ref = uniform(x, class_ids=torch.tensor(
+            [req.extras["class_ids"]], device=dev))[0].cpu().numpy()
+        err = rel_err(torch.as_tensor(c.latent), torch.as_tensor(ref))
+        worst = max(worst, err)
+        same = np.array_equal(c.latent, ref)
+        print(f"  request {c.rid} (admitted tick {c.admit_tick}, class "
+              f"{req.extras['class_ids']}): served vs its uniform run rel "
+              f"L-inf {err:.3e}, bit-equal {same}")
+        if not same:
+            fail(f"served request {c.rid} is not bit-equal to its uniform "
+                 f"run: rel L-inf {err:.3e}")
+    del engine, uniform
+    out["uniform_worst_rel_err"] = worst
+
+    # one tick of a replay: one eval's kernels and the two row ops
+    tick = one_tick_launches(sched2, with_classes(
+        [Request(rid=1000, seed=1000)]))
+    print(f"  one tick (a replay): launches {dict(sorted(tick.items()))}, "
+          f"expected {one_eval}")
+    if tick != one_eval:
+        fail(f"one serving tick launched {tick}, not {one_eval}")
+    out["launches_per_tick"] = tick
+
+    # the same depth-2 trace under sync debug mode: the only syncs are the
+    # flight-event waits of _consume, which turn the mode off by design
+    prog = runs[2].program
+    sched = SlotScheduler(prog, 8, sample_shape, pipeline_depth=2,
+                          extras_init={"class_ids": NULL_CLASS_ID})
+    sched.aot_compile()
+    reqs = with_classes(poisson_requests(SERVE_TRACE["requests"],
+                                         SERVE_TRACE["arrival_rate"]))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run_trace(sched, reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {c.rid: c.latent for c in sched.completions}
+    want = {c.rid: c.latent for c in sched2.completions}
+    same = all(np.array_equal(got[r], want[r]) for r in range(24))
+    print(f"  depth-2 trace under set_sync_debug_mode('error'): no host sync "
+          f"outside the readback event waits; latents bit-equal: {same}")
+    if not same or len(got) != 24:
+        fail("the sync-checked trace differs from the depth-2 run")
+    out["depths"] = rows
+
+    # where a serving trace's time goes: the same trace under the profiler
+    print("  profile of the depth-2 trace:")
+    sched = SlotScheduler(prog, 8, sample_shape, pipeline_depth=2,
+                          extras_init={"class_ids": NULL_CLASS_ID})
+    out["profile_depth2"] = profile_split(lambda: run_trace(
+        sched, with_classes(poisson_requests(SERVE_TRACE["requests"],
+                                             SERVE_TRACE["arrival_rate"]))))
+    # the per-tick ops around the replay, eager between CUDA events: the
+    # admission (one staging copy and the masked selects, here of an empty
+    # mask) and the readback of a completing tick (the padded gather and
+    # the two copies to pinned memory); then the two copies alone on the
+    # card, queued behind a spin so the host's launches do not count
+    stage = torch.zeros(sched._layout.nbytes, dtype=torch.uint8,
+                        pin_memory=dev.type == "cuda")
+    buf = sched._free[0]
+    done0 = torch.zeros(8, dtype=torch.int32, device=dev)
+    gathered = _gather_rows(sched.state[0], done0)
+
+    def admission():
+        sched._stage_dev.copy_(stage, non_blocking=True)
+        _apply_admission(sched.state, sched.meta, sched.g, sched.extras,
+                         sched._stage_views)
+
+    def readback():
+        buf.mask.copy_(done0, non_blocking=True)
+        buf.lat.copy_(_gather_rows(sched.state[0], done0), non_blocking=True)
+
+    def copies():
+        buf.mask.copy_(done0, non_blocking=True)
+        buf.lat.copy_(gathered, non_blocking=True)
+
+    out["admission_ms"] = host_call_ms(admission)
+    out["readback_ms"] = host_call_ms(readback)
+    out["readback_copy_ms"] = queued_device_ms(copies)
+    out["readback_bytes"] = nbytes(done0, gathered)
+    print(f"  a tick's admission {out['admission_ms']:.4f} ms and a "
+          f"completing tick's readback {out['readback_ms']:.4f} ms (eager "
+          f"calls between CUDA events); the readback's two copies alone "
+          f"{out['readback_copy_ms']:.4f} ms on the card "
+          f"({out['readback_bytes']} bytes to pinned memory)")
+    clean = base.latents
+    del runs, base, sched, sched2, prog
+
+    # (b) feature reuse at cache_block 14, unguided: 8 requests at tick 0
+    bank_dir = ROOT / "build" / "serving"
+    bank_dir.mkdir(parents=True, exist_ok=True)
+    plan = SolverPlan.default(10, order=3)
+    shallow_plan = dataclasses.replace(plan, cache_depth=SHALLOW_DEPTH)
+    cached = {}
+    for name, p in (("uncached", plan), ("shallow", shallow_plan)):
+        path = str(bank_dir / f"{name}.json")
+        save_bank(path, {"default": p})
+        free_graphs()
+        t0 = time.perf_counter()
+        cached[name] = serve_diffusion("dit-i256", plan_bank=path,
+                                       pipeline_depth=2, **kw)
+        serve_summary(f"bank {name}", cached[name], time.perf_counter() - t0)
+    # a plan with every step full is not a cached bank to launch.serve (its
+    # cache_block is 0), so its program is wired here as serve_diffusion
+    # wires a cached one: the engine at block 14, the bank, the scheduler
+    free_graphs()
+    engine = build_engine(cfg, params, VPLinear(), 8, per_request_cond=True,
+                          cache_block=CACHE_BLOCK, device=dev)
+    zero = dataclasses.replace(plan, cache_depth=[0] * 10)
+    program = engine.build_bank(
+        {"default": EngineSpec(nfe=10, order=3, cache_block=CACHE_BLOCK)},
+        {"default": zero.compile(engine.schedule)})
+    sched = SlotScheduler(program, 8, sample_shape, pipeline_depth=2,
+                          extras_init={"class_ids": NULL_CLASS_ID})
+    sched.aot_compile()
+    run_trace(sched, with_classes([Request(rid=i, seed=i, tier="default")
+                                   for i in range(8)]))
+    all_full = np.stack([c.latent for c in sorted(sched.completions,
+                                                  key=lambda c: c.rid)])
+    same = (np.array_equal(all_full, cached["uncached"].latents)
+            and sched.shallow_ticks == 0)
+    print(f"  cache_block {CACHE_BLOCK}, cache_depth all 0 vs the uncached "
+          f"program: latents bit-equal: {same}")
+    if not same:
+        fail("a cached program with every step full differs from the "
+             "uncached one")
+    del engine, program, sched
+    sh = cached["shallow"]
+    drift = rel_err(torch.as_tensor(sh.latents),
+                    torch.as_tensor(cached["uncached"].latents))
+    costs = sorted({c.eval_cost for c in sh.sched.completions})
+    want_cost = shallow_plan.eval_cost(L)
+    print(f"  shallow plan {SHALLOW_DEPTH}: finite "
+          f"{np.isfinite(sh.latents).all()}, rel L-inf from the uncached "
+          f"run {drift:.3e}, {sh.sched.shallow_ticks} shallow ticks of "
+          f"{sh.metrics.ticks}, eval_cost per request {costs} (plan: "
+          f"{want_cost})")
+    if (not np.isfinite(sh.latents).all() or drift == 0.0
+            or sh.sched.shallow_ticks == 0 or costs != [want_cost]):
+        fail("the shallow plan did not serve as planned")
+    shallow_ticks = sh.sched.shallow_ticks
+    # a tick of each graph, counted, on a new lockstep batch
+    s = sh.sched
+    for i in range(8):
+        s.submit(Request(rid=2000 + i, seed=2000 + i, tier="default",
+                         extras={"class_ids": NULL_CLASS_ID}))
+    per_kind = {}
+    while s.queue or s.active:
+        n0 = s.shallow_ticks
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        s.tick()
+        per_kind.setdefault("shallow" if s.shallow_ticks > n0 else "full",
+                            dict(LAUNCHES))
+    s.flush()
+    k = CACHE_BLOCK
+    want_shallow = {"unipc_update": 2, "adaln_modulate": 2 * k + 1,
+                    "gate_residual": 2 * k, "flash_attention": k}
+    print(f"  a full tick launches {per_kind.get('full')}, a shallow tick "
+          f"{per_kind.get('shallow')} (expected {want_shallow})")
+    if (per_kind.get("full") != one_eval
+            or per_kind.get("shallow") != want_shallow):
+        fail(f"cached tick launches {per_kind}")
+    graphs = sh.program.step_graphs.graphs
+    walls = {kind: graph_replay_ms(g) for (kind, *_), g in graphs.items()}
+    print(f"  replay of one tick (device ms, 20 replays): "
+          f"{ {k: round(v, 4) for k, v in walls.items()} }")
+    out["cache"] = dict(block=k, shallow_depth=SHALLOW_DEPTH,
+                        shallow_ticks=shallow_ticks,
+                        ticks=sh.metrics.ticks, eval_cost=want_cost,
+                        rel_err_vs_uncached=drift, launches=per_kind,
+                        replay_ms=walls)
+    del cached, sh, s, graphs
+
+    # (c) resilience: a NaN and a desync on the depth-2 trace; the retry
+    # and the requeued requests keep their x_T, so every latent is the
+    # clean run's
+    free_graphs()
+    plan_faults = FaultPlan(nans=(NanFault(rid=2, step=1),),
+                            metas=(MetaFault(tick=40),))
+    res = serve_diffusion("dit-i256", pipeline_depth=2,
+                          resilience=ResilienceConfig(max_retries=2),
+                          faults=plan_faults, **kw, **SERVE_TRACE)
+    m = res.metrics
+    kinds = [ev[0] for ev in res.sched.events]
+    same = np.array_equal(res.latents, clean)
+    print(f"  faults {plan_faults.describe()}: {m.completed}/{m.requests} "
+          f"completed, {m.retries} retries, {m.recoveries} recoveries, "
+          f"latents bit-equal to the clean run (a): {same}")
+    for ev in res.sched.events:
+        print(f"    event {ev}")
+    if (m.completed != SERVE_TRACE["requests"] or "retry" not in kinds
+            or "desync" not in kinds or not same
+            or not all(c.ok for c in res.sched.completions)):
+        fail("the faulted trace did not recover to the clean latents")
+    out["resilience"] = dict(events=[list(map(str, ev))
+                                     for ev in res.sched.events],
+                             retries=m.retries, recoveries=m.recoveries)
+    del res
+
+    # (d) the quantized path: a short w8a16 trace
+    free_graphs()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    q = serve_diffusion("dit-i256", quant="w8a16", pipeline_depth=2,
+                        arrival_rate=0.5, requests=8, cfg_scale=2.0, **kw)
+    q_wall = time.perf_counter() - t0
+    qcounts_out.update(LAUNCHES)
+    q_tick = one_tick_launches(q.sched, with_classes(
+        [Request(rid=3000, seed=3000)]))
+    want_q = {**one_eval, "quant_matmul": 7 * L + 1}
+    print(f"  w8a16: {q.metrics.completed}/8 completed, finite "
+          f"{np.isfinite(q.latents).all()}; one tick launches "
+          f"{dict(sorted(q_tick.items()))} (expected {want_q})")
+    if (q_tick != want_q or q.metrics.completed != 8
+            or not np.isfinite(q.latents).all()):
+        fail(f"the w8a16 serving tick launched {q_tick}")
+    out["quant"] = dict(launches_per_tick=q_tick,
+                        run=serve_summary("w8a16", q, q_wall))
+    del q
+    free_graphs()
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
@@ -1968,6 +2395,13 @@ def main():
           "loop references at fp32)")
     zoo = zoo_phase(dev)
 
+    print("== phase 8: serving at full width (dit-i256 through "
+          "launch.serve: 8 slots, 24 Poisson requests at depths 1/2/3; "
+          f"cache_block {CACHE_BLOCK}; NaN + desync faults; w8a16)")
+    scounts: dict = {}
+    sqcounts: dict = {}
+    served = serving_at_width_phase(dev, scounts, sqcounts)
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -1987,6 +2421,17 @@ def main():
             entry["sites"] = st["sites"]
         if kname == "unipc_update":
             entry["tables"] = zoo["tables"]
+        # phase 8: one serving tick (a replay) and the whole depth-2 serve
+        # run of phase 8 (a); (d)'s w8a16 run for quant_matmul
+        serve_tick = (served["quant"]["launches_per_tick"]
+                      if kname == "quant_matmul"
+                      else served["launches_per_tick"])
+        entry["serving_launches_per_tick"] = serve_tick.get(kname, 0)
+        entry["serving_launches"] = (sqcounts if kname == "quant_matmul"
+                                     else scounts).get(kname, 0)
+        if kname in served["cache"]["launches"].get("shallow", {}):
+            entry["serving_launches_per_shallow_tick"] = (
+                served["cache"]["launches"]["shallow"][kname])
         for key in ("layer_norm_subset_ms", "fp32_ms", "fp32_bound_ms",
                     "rotated_ms", "rotated_library_ms", "per_call_over",
                     "row_ops", "row_forms", "combine"):
@@ -1995,6 +2440,7 @@ def main():
         entries.append(entry)
     summary = dict(main_path=main_stats, serving=serve_stats,
                    quant_main_path=quant_stats, quant_serving=quant_serve,
+                   serving_at_width=served,
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][
                        "other_operands_at_wq_site"])

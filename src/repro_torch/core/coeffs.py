@@ -200,6 +200,26 @@ def augment_step_rows(sched: UniPCSchedule) -> dict:
     return rows
 
 
+def eval_cost_rows(rows: dict, *, cache_block: int = 0,
+                   n_blocks: int = 0) -> np.ndarray:
+    """Per-row model-eval cost as a fraction of one full denoiser eval.
+
+    `rows` is an augmented (or stacked) step-row dict. Without feature reuse
+    every row costs 1.0 — the NFE floor. With a cache boundary, rows whose
+    `mc_cache_reuse` column is set run only the first `cache_block` of
+    `n_blocks` DiT blocks, so they cost cache_block / n_blocks. (The patch
+    embed, conditioning MLP and final layer run on every eval and are
+    excluded from the fraction — the accounting is per block, DESIGN.md
+    §12.) Summing a request's row span gives its evals-per-latent.
+    """
+    n = len(rows["t"])
+    cost = np.ones(n, np.float64)
+    if cache_block and n_blocks and "mc_cache_reuse" in rows:
+        reuse = np.asarray(rows["mc_cache_reuse"], np.float64)
+        cost = np.where(reuse > 0.5, cache_block / n_blocks, 1.0)
+    return cost
+
+
 def stack_step_rows(tables: dict) -> tuple:
     """Concatenate several tables' augmented step rows into one plan bank.
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..kernels.unipc_update import ops as row_ops
@@ -162,18 +163,32 @@ def rows_on(rows_np: dict, device, dtype=torch.float32) -> dict:
 
 
 def unipc_step_fn(model_fn: Callable, sched: UniPCSchedule, *, device,
-                  fused_update: bool = True, dtype=torch.float32):
+                  fused_update: bool = True, dtype=torch.float32,
+                  cached: bool = False):
     """(step, n_rows) over `coeffs.augment_step_rows(sched)` — the init row
     (identity transfer, eval at timesteps[0]) then the M body rows. See
     `step_fn_over_rows` for the step's contract."""
     rows_np = augment_step_rows(sched)
     step = step_fn_over_rows(model_fn, rows_on(rows_np, device, dtype),
-                             sign=sched.sign, fused_update=fused_update)
+                             sign=sched.sign, fused_update=fused_update,
+                             cached=cached)
     return step, len(rows_np["t"])
 
 
+def deep_rows(rows_np: dict) -> list:
+    """Per row of an augmented (or stacked) row dict: whether a cached eval
+    of that row runs the deep blocks (every row without a set
+    `mc_cache_reuse` flag). The host's copy of the reuse column, which
+    decides what a CUDA graph of the row holds."""
+    reuse = rows_np.get("mc_cache_reuse")
+    n = len(rows_np["t"])
+    if reuse is None:
+        return [True] * n
+    return [bool(r <= 0.5) for r in np.asarray(reuse, np.float64)]
+
+
 def step_fn_over_rows(model_fn: Callable, tab: dict, *, sign: float,
-                      fused_update: bool = True):
+                      fused_update: bool = True, cached: bool = False):
     """The per-row step over an explicit row table of device tensors.
 
     `step((x, E), idx, model_kwargs=None) -> (x, E)`: x is the (B, ...)
@@ -184,6 +199,14 @@ def step_fn_over_rows(model_fn: Callable, tab: dict, *, sign: float,
     idle slots park on the init row, an identity update. Warm-up is data:
     zero-padded weight rows over a zeroed ring. `model_kwargs` are passed to
     the model on top of the table's per-eval `mc_*` columns.
+
+    `cached=True` is the feature-reuse contract (DESIGN.md §12): the carry
+    is (x, E, C), C the per-slot deep-feature cache, and
+    `model_fn(x, t, cache=C, deep=deep, **cols) -> (pred, C')`. The table's
+    `mc_cache_reuse` column reaches the model as `cache_reuse`, gathered per
+    slot on the device like every model column; `step(..., deep=False)`
+    tells the model that every slot runs a reuse row (see
+    `models.dit.dit_apply_cached`).
 
     The table is packed once: its weight columns into the `unipc_update`
     row ops' (n_rows, 7 + 2K) table, the model's columns (`t`, `mc_*`)
@@ -199,8 +222,8 @@ def step_fn_over_rows(model_fn: Callable, tab: dict, *, sign: float,
     rows = row_ops.pack_weight_rows(tab)
     model_cols = torch.stack([tab["t"]] + [tab[k] for k in col_keys], dim=1)
 
-    def step(carry, idx, model_kwargs=None):
-        x, E = carry
+    def step(carry, idx, model_kwargs=None, deep=True):
+        x, E = carry[0], carry[1]
         idx = torch.as_tensor(idx, device=x.device).long()
         cols = model_cols.index_select(
             0, idx.clamp(0, n_rows - 1).reshape(-1)).reshape(idx.shape + (-1,))
@@ -209,38 +232,59 @@ def step_fn_over_rows(model_fn: Callable, tab: dict, *, sign: float,
             extras = {**extras, **model_kwargs}
         x_pred = row_ops.unipc_row_predict(x, E, rows, idx, sign,
                                            backend=backend)
-        e_new = model_fn(x_pred, cols[..., 0], **extras).to(E.dtype)
+        if cached:
+            e_new, C = model_fn(x_pred, cols[..., 0], cache=carry[2],
+                                deep=deep, **extras)
+        else:
+            e_new = model_fn(x_pred, cols[..., 0], **extras)
         # corrector (re-uses e_new; no extra NFE)
-        return row_ops.unipc_row_correct(x, E, e_new, x_pred, rows, idx, sign,
-                                         backend=backend)
+        out = row_ops.unipc_row_correct(x, E, e_new.to(E.dtype), x_pred, rows,
+                                        idx, sign, backend=backend)
+        return out + (C,) if cached else out
 
     return step
 
 
 def run_rows(step: Callable, n_rows: int, x_T: torch.Tensor, *, ring: int,
-             dtype=torch.float32, model_kwargs=None) -> torch.Tensor:
+             dtype=torch.float32, model_kwargs=None, cache0=None,
+             deep=None) -> torch.Tensor:
     """Rows 0..n_rows-1 of `step` from x_T over a zeroed eval ring of `ring`
     slots; returns the final state. Row j's index is a 0-d view of one
-    device arange, so no row copies an index from the host."""
+    device arange, so no row copies an index from the host. `cache0` is the
+    zeroed deep-feature cache of a cached step (it rides the carry), and
+    `deep` its per-row host flags (`deep_rows`; None = every row deep)."""
     row_ids = torch.arange(n_rows, device=x_T.device)
     carry = (x_T.to(dtype),
              torch.zeros((ring,) + tuple(x_T.shape), dtype=dtype,
                          device=x_T.device))
+    carry += (cache0,) if cache0 is not None else ()
     for j in range(n_rows):
-        carry = step(carry, row_ids[j], model_kwargs)
+        carry = step(carry, row_ids[j], model_kwargs,
+                     deep=True if deep is None else deep[j])
     return carry[0]
 
 
 def unipc_sample_scan(model_fn: Callable, x_T: torch.Tensor,
                       sched: UniPCSchedule, *, fused_update: bool = True,
-                      dtype=torch.float32, model_kwargs=None) -> torch.Tensor:
+                      dtype=torch.float32, model_kwargs=None,
+                      cache0=None) -> torch.Tensor:
     """Multistep UniPC as a loop over rows 0..M of the augmented table with a
     uniform index (row 0 is the init eval at timesteps[0] over a zeroed
     ring). model_fn(x, t, **cols) -> prediction of `sched.prediction` type;
     `sched.model_cols` entries and `model_kwargs` (per-call conditioning,
     e.g. class ids) are passed to it as keyword arguments. One model eval
-    per row; the corrector re-uses it."""
+    per row; the corrector re-uses it.
+
+    `cache0` opts into the feature-reuse contract (DESIGN.md §12): the
+    zeroed (B, *cache_shape) deep-feature cache and a cached `model_fn`
+    ((x, t, cache=..., deep=..., **cols) -> (pred, cache)); the cache rides
+    the carry, and a row whose reuse flag is set runs no deep block. Zero
+    init is safe because the table's init row is always a full eval."""
+    cached = cache0 is not None
     step, n_rows = unipc_step_fn(model_fn, sched, device=x_T.device,
-                                 fused_update=fused_update, dtype=dtype)
+                                 fused_update=fused_update, dtype=dtype,
+                                 cached=cached)
     return run_rows(step, n_rows, x_T, ring=sched.w_pred.shape[1] + 1,
-                    dtype=dtype, model_kwargs=model_kwargs)
+                    dtype=dtype, model_kwargs=model_kwargs, cache0=cache0,
+                    deep=deep_rows(augment_step_rows(sched)) if cached
+                    else None)

@@ -10,10 +10,10 @@ from .specs import SOLVERS, EngineSpec, SolverDef, default_tier_specs, solver_de
 from .compiler import (DONE_IDLE, DONE_NONFINITE, DONE_OK, apply_model_cols,
                        build_loop, compile_table, flag_done,
                        step_guidance_profile)
-from .engine import SamplerEngine, StepProgram, resolve_device
+from .engine import CacheSpec, SamplerEngine, StepProgram, resolve_device
 
 __all__ = ["SOLVERS", "EngineSpec", "SolverDef", "solver_def",
-           "default_tier_specs", "SamplerEngine", "StepProgram",
+           "default_tier_specs", "CacheSpec", "SamplerEngine", "StepProgram",
            "resolve_device", "compile_table", "build_loop",
            "step_guidance_profile", "apply_model_cols", "flag_done",
            "DONE_IDLE", "DONE_OK", "DONE_NONFINITE"]

@@ -17,7 +17,9 @@ batching step where every slot gathers its own table row and guidance
 scale, and `build_bank` stacks several plans into one such program. CFG
 runs as ONE batched network call per row — cond and uncond stacked along
 the batch — with the guidance scale and the dynamic-thresholding
-percentile riding the table as per-eval columns.
+percentile riding the table as per-eval columns. Feature reuse (DESIGN.md
+§12) wires a cached eps-net (`eps_cached` + `CacheSpec`): the slot state
+grows a deep-feature cache, and which rows reuse it is a table column.
 
 The engine runs on the card unless it is asked for the CPU. There,
 `jit=True` (the default) captures each run function into CUDA graphs and
@@ -35,8 +37,10 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.coeffs import SolverTable, stack_step_rows
-from ..core.unipc import rows_on, run_rows, step_fn_over_rows, unipc_step_fn
+from ..core.coeffs import (SolverTable, augment_step_rows, eval_cost_rows,
+                           stack_step_rows)
+from ..core.unipc import (deep_rows, rows_on, run_rows, step_fn_over_rows,
+                          unipc_step_fn)
 from ..diffusion.guidance import cfg_model, cfg_model_fused, dynamic_threshold
 from ..diffusion.process import eps_to_x0
 from ..diffusion.schedules import NoiseSchedule
@@ -57,13 +61,37 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+@dataclass(frozen=True)
+class CacheSpec:
+    """Shape contract for the feature-reuse cache (DESIGN.md §12).
+
+    `shape` is the per-sample cache layout ((patch_tokens, d_model) for the
+    DiT's deep-feature delta), `block` the static boundary the wired cached
+    eps-net was built with (the first `block` of `n_blocks` blocks
+    recompute on shallow evals). The engine checks every spec's
+    `cache_block` against `block`, as it does `eval_dtype`, so the net-side
+    closure and the engine-side state cannot silently disagree.
+    """
+
+    shape: Tuple[int, ...]
+    block: int
+    n_blocks: int
+    dtype: str = "float32"
+
+    def zeros(self, slots: int, device="cpu") -> torch.Tensor:
+        return torch.zeros((slots,) + tuple(self.shape),
+                           dtype=getattr(torch, self.dtype), device=device)
+
+
 @dataclass
 class StepProgram:
     """A per-slot step program — what a serving loop drives.
 
     step(state, idx[, g, extras]) -> state advances every slot by one table
     row: `state = (x, E)` with x (B, *sample) and E the (K+1, B, *sample)
-    eval ring, `idx` (B,) the per-slot row index (0 = init row; idle slots
+    eval ring — or `(x, E, C)` for feature-reuse programs, C the (B,
+    *cache) deep-feature cache, which lives and is updated with the rest of
+    the slot state — `idx` (B,) the per-slot row index (0 = init row; idle slots
     park there), `g` (B,) the per-slot guidance scale (cfg programs only)
     and `extras` per-slot model keyword arguments (class ids). One batched
     model eval per call. A request admitted at tick tau into a zeroed slot
@@ -82,8 +110,16 @@ class StepProgram:
 
     With `donate=True` both steps write the slot state (and the meta) in
     place and return those tensors; the state passed in is consumed.
-    `init_state`, `init_meta` and `init_g` hand out the buffers a graphed
-    program replays on (`graphs.StepGraphs`).
+    `init_state`, `init_meta`, `init_g` and `init_extras` hand out the
+    buffers a graphed program replays on (`graphs.StepGraphs`);
+    `capture_flight` captures `step_flight`'s graphs without running a
+    tick (the reference's ahead-of-time compile).
+
+    A cached program's steps take `deep=` (default True): False replays a
+    graph without the deep blocks, right when every slot runs a reuse row
+    (`row_reuse`, the host copy of the table's reuse column). The host
+    decides it from its own bookkeeping; each slot's select still reads its
+    own flag on the device, so a wrong `deep=True` changes no number.
     """
 
     step: Callable
@@ -97,9 +133,13 @@ class StepProgram:
     # plan banks (`SamplerEngine.build_bank`): tier name -> (row_offset,
     # n_rows) span in the stacked table. None for single-plan programs.
     tiers: Optional[Dict[str, Tuple[int, int]]] = None
-    # per-row eval cost in full-eval units; None (every row one eval) until
-    # feature reuse is ported
+    # feature reuse: the cache contract (None for uncached programs), the
+    # per-row eval cost (n_rows,) in fractions of a full denoiser eval, and
+    # the host copy of the reuse column (n_rows,) bool
+    cache: Optional[CacheSpec] = None
     row_cost: Optional[np.ndarray] = None
+    row_reuse: Optional[np.ndarray] = None
+    capture_flight: Optional[Callable] = None
     # the static buffers and graphs of a program captured on the card
     step_graphs: Optional[graphs.StepGraphs] = None
 
@@ -138,13 +178,31 @@ class StepProgram:
 
     def init_state(self, slots: int, sample_shape: Tuple[int, ...],
                    dtype=torch.float32):
-        """Zeroed slot state: every slot idle on the init row."""
+        """Zeroed slot state: every slot idle on the init row (and a zeroed
+        cache for feature-reuse programs)."""
         shape = tuple(sample_shape)
-        return (self._handout("x", torch.zeros(
-                    (slots,) + shape, dtype=dtype, device=self.device)),
-                self._handout("E", torch.zeros(
-                    (self.ring, slots) + shape, dtype=dtype,
-                    device=self.device)))
+        state = (self._handout("x", torch.zeros(
+                     (slots,) + shape, dtype=dtype, device=self.device)),
+                 self._handout("E", torch.zeros(
+                     (self.ring, slots) + shape, dtype=dtype,
+                     device=self.device)))
+        if self.cache is None:
+            return state
+        return state + (self._handout("C", self.cache.zeros(slots,
+                                                             self.device)),)
+
+    def init_extras(self, slots: int, values: dict) -> dict:
+        """Per-slot model keyword arguments (class ids): one (slots,) column
+        per key, int32 for integer values, float32 otherwise, each a buffer
+        a graphed program replays on."""
+        out = {}
+        for k, v in values.items():
+            dt = (torch.int32 if np.issubdtype(np.asarray(v).dtype,
+                                               np.integer)
+                  else torch.float32)
+            out[k] = self._handout(f"extra:{k}", torch.full(
+                (slots,), v, dtype=dt, device=self.device))
+        return out
 
     def init_g(self, slots: int) -> torch.Tensor:
         """Per-slot guidance scales, seeded with the spec's nominal scale."""
@@ -183,6 +241,10 @@ class SamplerEngine:
                  net); `model_fn` rejects specs that disagree, so the
                  net-side cast and the engine-side fp32 boundary cannot
                  silently desynchronize.
+    eps_cached:  (x, t, cache, reuse, deep=True, **extra) -> (eps-hat,
+                 cache'), the feature-reuse eval, with `cache_spec` its
+                 contract (`build_engine(cache_block=...)` wires both);
+                 needed by specs with cache_block > 0.
     """
 
     schedule: NoiseSchedule
@@ -192,6 +254,8 @@ class SamplerEngine:
     device: Union[str, torch.device] = "cuda"
     quant: str = "none"
     eval_dtype: str = "float32"
+    eps_cached: Optional[Callable] = None
+    cache_spec: Optional[CacheSpec] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -227,6 +291,14 @@ class SamplerEngine:
                 f"wired for {self.quant!r}; the quantized param tree is "
                 f"baked into the net — pass the same quant to build_engine "
                 f"and the EngineSpec")
+        if spec.cache_block:
+            return self._cached_model_fn(spec, tab)
+        if "cache_reuse" in (tab.model_cols or {}):
+            raise ValueError(
+                "this table carries a cache_reuse column (a cached plan) but "
+                "spec.cache_block=0; build the engine and spec with the "
+                "plan's cache_block so its shallow steps actually reuse the "
+                "feature cache instead of silently paying full evals")
         if spec.cfg_scale:
             if self.eps_stacked is None:
                 raise ValueError("cfg_scale != 0 needs eps_stacked (a 2B "
@@ -252,6 +324,49 @@ class SamplerEngine:
 
         return model
 
+    def _cached_model_fn(self, spec: EngineSpec, tab: SolverTable) -> Callable:
+        """The feature-reuse model wrapper: (x, t, cache, cache_reuse=...,
+        tq=..., deep=True, **extra) -> (prediction, cache'). `cache_reuse`
+        arrives from the table's `cache_reuse` column when the plan
+        schedules shallow steps; a plain registry table has no such column
+        and every eval runs full (reuse 0) — the bit-identity parity
+        path."""
+        if self.eps_cached is None or self.cache_spec is None:
+            raise ValueError(
+                f"spec.cache_block={spec.cache_block} but this engine has no "
+                f"cached eps-net; wire one with "
+                f"build_engine(cache_block={spec.cache_block})")
+        if spec.cache_block != self.cache_spec.block:
+            raise ValueError(
+                f"spec.cache_block={spec.cache_block} but the engine's "
+                f"cached eps-net was wired for cache boundary "
+                f"{self.cache_spec.block}; the boundary is baked into the "
+                f"compiled program — pass the same cache_block to "
+                f"build_engine and the EngineSpec")
+        eps_cached = self.eps_cached
+        if spec.eval_dtype != "float32":
+            eval_dtype = getattr(torch, spec.eval_dtype)
+            inner = eps_cached
+
+            def eps_cached(x, t, cache, reuse, deep=True, **extra):
+                e, c = inner(x.to(eval_dtype), t, cache, reuse, deep=deep,
+                             **extra)
+                return e.to(torch.float32), c
+        schedule = self.schedule
+
+        def model(x, t, cache, cache_reuse=None, tq=None, deep=True,
+                  **extra):
+            reuse = 0.0 if cache_reuse is None else cache_reuse
+            e, cache = eps_cached(x, t, cache, reuse, deep=deep, **extra)
+            if tab.prediction == "noise":
+                return e, cache
+            x0 = eps_to_x0(schedule, x, t, e)
+            if tq is not None:
+                x0 = dynamic_threshold(x0, tq)
+            return x0, cache
+
+        return model
+
     def build(self, spec: EngineSpec, jit: bool = True,
               table: Optional[SolverTable] = None) -> Callable:
         """spec -> run(x_T, **model_kwargs) -> x0, the uniform sampler.
@@ -262,21 +377,31 @@ class SamplerEngine:
         it loops over the rows eagerly."""
         spec = spec.resolve()
         tab = table if table is not None else self.compile(spec)
+        cached = bool(spec.cache_block)
         step, n_rows = unipc_step_fn(self.model_fn(spec, tab), tab,
                                      device=self.device,
-                                     fused_update=spec.fused_update)
+                                     fused_update=spec.fused_update,
+                                     cached=cached)
         ring = tab.w_pred.shape[1] + 1
+        # a cached run carries its cache from a zeroed one; each row holds
+        # the deep blocks only where the table's reuse column says a full
+        # eval (the host knows every row of a uniform run)
+        deep = deep_rows(augment_step_rows(tab)) if cached else None
+        cache_spec = self.cache_spec
+
+        def rows(n, x_T, kw):
+            cache0 = (cache_spec.zeros(x_T.shape[0], x_T.device) if cached
+                      else None)
+            return run_rows(step, n, x_T, ring=ring, model_kwargs=kw or None,
+                            cache0=cache0, deep=deep)
 
         def run(x_T, **model_kwargs):
-            return run_rows(step, n_rows, x_T, ring=ring,
-                            model_kwargs=model_kwargs or None)
+            return rows(n_rows, x_T, model_kwargs)
 
         if not graphs.graphed(jit, self.device):
             return run
         return graphs.graph_run(
-            run, lambda x_T, **kw: run_rows(step, 1, x_T, ring=ring,
-                                            model_kwargs=kw or None),
-            self.device)
+            run, lambda x_T, **kw: rows(1, x_T, kw), self.device)
 
     def build_step(self, spec: EngineSpec, jit: bool = True,
                    table: Optional[SolverTable] = None,
@@ -323,7 +448,8 @@ class SamplerEngine:
         names = list(items)
         spec0, tab0 = items[names[0]]
         uses_cfg = bool(spec0.cfg_scale)
-        for name, (s, _) in items.items():
+        cached = bool(spec0.cache_block)
+        for name, (s, t) in items.items():
             if bool(s.cfg_scale) != uses_cfg or (
                     uses_cfg and float(s.cfg_scale) != float(spec0.cfg_scale)):
                 raise ValueError(
@@ -340,6 +466,18 @@ class SamplerEngine:
                     f"bank tiers must agree on quant (one quantized param "
                     f"tree serves the whole program); tier {name!r} has "
                     f"quant={s.quant!r}, expected {spec0.quant!r}")
+            if s.cache_block != spec0.cache_block:
+                raise ValueError(
+                    f"bank tiers must agree on cache_block (the boundary is "
+                    f"static in the compiled eps-net); tier {name!r} has "
+                    f"cache_block={s.cache_block}, expected "
+                    f"{spec0.cache_block}")
+            if not cached and "cache_reuse" in (t.model_cols or {}):
+                raise ValueError(
+                    f"tier {name!r} carries a cached plan (cache_reuse "
+                    f"column) but the bank specs have cache_block=0; set "
+                    f"cache_block on every tier spec (and the engine) to "
+                    f"serve it")
         model = self.model_fn(spec0, tab0)
         profs, step_tabs = [], {}
         for name, (s, t) in items.items():
@@ -349,33 +487,47 @@ class SamplerEngine:
                 profs.append(step_guidance_profile(t, s))
                 t = dc_replace(t, model_cols={
                     k: v for k, v in (t.model_cols or {}).items() if k != "g"})
+            if cached and "cache_reuse" not in (t.model_cols or {}):
+                # a bank may mix cached plans with plain tiers: a tier
+                # without a reuse schedule runs every eval full (an all-zero
+                # column), keeping the stacked tables' column sets equal
+                t = dc_replace(t, model_cols={
+                    **(t.model_cols or {}),
+                    "cache_reuse": np.zeros(len(t.timesteps))})
             step_tabs[name] = t
         rows_np, spans = stack_step_rows(step_tabs)
         n_rows = len(rows_np["t"])
         dev = self.device
         core_step = step_fn_over_rows(model, rows_on(rows_np, dev),
                                       sign=tab0.sign,
-                                      fused_update=spec0.fused_update)
+                                      fused_update=spec0.fused_update,
+                                      cached=cached)
+        row_cost = row_reuse = None
+        if cached:
+            row_cost = eval_cost_rows(rows_np, cache_block=spec0.cache_block,
+                                      n_blocks=self.cache_spec.n_blocks)
+            row_reuse = ~np.asarray(deep_rows(rows_np))
+        n_state = 3 if cached else 2
         prof = (torch.as_tensor(np.concatenate(profs),
                                 dtype=torch.float32).to(dev)
                 if uses_cfg else None)
         nominal = float(spec0.cfg_scale or 0.0)
 
-        def apply(state, idx, g, extras):
+        def apply(state, idx, g, extras, deep):
             kw = dict(extras) if extras else {}
             if uses_cfg:
                 gs = (torch.full(idx.shape, nominal, dtype=torch.float32,
                                  device=dev) if g is None else g)
                 kw["g"] = gs * prof.index_select(0, idx.clamp(0, n_rows - 1))
-            return core_step(state, idx, model_kwargs=kw or None)
+            return core_step(state, idx, model_kwargs=kw or None, deep=deep)
 
-        def flight(state, meta, g, extras):
+        def flight(state, meta, g, extras, deep):
             # the slot's table index comes from its own counters, never
             # from the host
             row, off, budget, busy = meta.unbind(0)
             live = busy > 0
             idx = torch.where(live, off + row, 0).long()
-            state = apply(state, idx, g, extras)
+            state = apply(state, idx, g, extras, deep)
             row = row + 1
             done = live & (row >= budget)
             live = live & ~done
@@ -389,43 +541,66 @@ class SamplerEngine:
         def inputs(state, lead, g, extras):
             g = (None if g is None or not uses_cfg else
                  torch.as_tensor(g, dtype=torch.float32, device=dev))
-            return ([("x", state[0]), ("E", state[1]), lead, ("g", g)]
+            names = ("x", "E", "C")[:n_state]
+            return (list(zip(names, state)) + [lead, ("g", g)]
                     + [(f"extra:{k}", v) for k, v in sorted(
                         (extras or {}).items())])
 
         def split(named):
             extras = {k[6:]: v for k, v in named.items()
                       if k.startswith("extra:")}
-            return (named["x"], named["E"]), named.get("g"), extras or None
+            state = tuple(named[k] for k in ("x", "E", "C")[:n_state])
+            return state, named.get("g"), extras or None
 
-        def step_fn(named):
-            state, g, extras = split(named)
-            return apply(state, named["idx"], g, extras)
+        # a cached program has two graphs of each step, keyed apart: with
+        # the deep blocks and without
+        def kind(name, deep):
+            return name if deep or not cached else name + "-shallow"
 
-        def flight_fn(named):
-            state, g, extras = split(named)
-            state, meta, done = flight(state, named["meta"], g, extras)
-            return state + (meta, done)
+        def step_fn(deep):
+            def fn(named):
+                state, g, extras = split(named)
+                return apply(state, named["idx"], g, extras, deep)
+            return fn
+
+        def flight_fn(deep):
+            def fn(named):
+                state, g, extras = split(named)
+                state, meta, done = flight(state, named["meta"], g, extras,
+                                           deep)
+                return state + (meta, done)
+            return fn
 
         sgraphs = (graphs.StepGraphs(dev, donate)
                    if graphs.graphed(jit, dev) else None)
         runner = sgraphs or graphs.EagerSteps(donate)
 
-        def step(state, idx, g=None, extras=None):
+        def step(state, idx, g=None, extras=None, deep=True):
             idx = torch.as_tensor(idx, device=dev).long()
-            return runner.call("step", step_fn,
-                               inputs(state, ("idx", idx), g, extras), 2)
+            return runner.call(kind("step", deep), step_fn(deep),
+                               inputs(state, ("idx", idx), g, extras),
+                               n_state)
 
-        def step_flight(state, meta, g=None, extras=None):
-            x, E, meta, done = runner.call(
-                "flight", flight_fn, inputs(state, ("meta", meta), g, extras),
-                3)
-            return (x, E), meta, done
+        def step_flight(state, meta, g=None, extras=None, deep=True):
+            *state, meta, done = runner.call(
+                kind("flight", deep), flight_fn(deep),
+                inputs(state, ("meta", meta), g, extras), n_state + 1)
+            return tuple(state), meta, done
+
+        def capture_flight(state, meta, g=None, extras=None):
+            for deep in ((True, False) if cached and row_reuse.any()
+                         else (True,)):
+                runner.capture(kind("flight", deep), flight_fn(deep),
+                               inputs(state, ("meta", meta), g, extras),
+                               n_state + 1)
 
         return StepProgram(step=step, step_flight=step_flight, n_rows=n_rows,
                            table=tab0, spec=spec0, uses_cfg=uses_cfg,
                            ring=rows_np["w_pred"].shape[-1] + 1,
                            device=dev, tiers=dict(spans) if tiers else None,
+                           cache=self.cache_spec if cached else None,
+                           row_cost=row_cost, row_reuse=row_reuse,
+                           capture_flight=capture_flight,
                            step_graphs=sgraphs)
 
     def build_loop(self, spec: EngineSpec) -> Callable:

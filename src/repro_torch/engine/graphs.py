@@ -163,15 +163,12 @@ class StepGraphs:
             s.copy_(t)
         return s
 
-    def call(self, kind: str, fn: Callable,
-             inputs: Sequence[Tuple[str, Optional[torch.Tensor]]],
-             n_state: int) -> tuple:
-        """Replay `fn` on `inputs` (named tensors; None leaves a name out),
-        capturing it first for a new signature. `fn(named: dict)` returns
-        the new values of the first `n_state` inputs (the slot state),
-        then any further outputs. The replay writes the state in place;
-        returns (state..., further outputs...), the further outputs as
-        fresh tensors."""
+    def capture(self, kind: str, fn: Callable,
+                inputs: Sequence[Tuple[str, Optional[torch.Tensor]]],
+                n_state: int) -> Graph:
+        """The graph of `fn` on `inputs`' signature, captured now if it is
+        new (the inputs are copied into the static buffers, the state is
+        left as it was); see `call` for the arguments."""
         present = [(n, t) for n, t in inputs if t is not None]
         names = [n for n, _ in present]
         statics = [self._static(n, t) for n, t in present]
@@ -186,7 +183,18 @@ class StepGraphs:
 
             g = self.graphs[key] = Graph(
                 body, statics, lambda *static: fn(dict(zip(names, static))))
-        outs = g.replay()
+        return g
+
+    def call(self, kind: str, fn: Callable,
+             inputs: Sequence[Tuple[str, Optional[torch.Tensor]]],
+             n_state: int) -> tuple:
+        """Replay `fn` on `inputs` (named tensors; None leaves a name out),
+        capturing it first for a new signature. `fn(named: dict)` returns
+        the new values of the first `n_state` inputs (the slot state),
+        then any further outputs. The replay writes the state in place;
+        returns (state..., further outputs...), the further outputs as
+        fresh tensors."""
+        outs = self.capture(kind, fn, inputs, n_state).replay()
         state = outs[:n_state]
         if not self.donate:
             state = tuple(s.clone() for s in state)
@@ -199,6 +207,9 @@ class EagerSteps:
 
     def __init__(self, donate: bool):
         self.donate = donate
+
+    def capture(self, kind, fn, inputs, n_state) -> None:
+        """Nothing to capture: an eager step runs when it is called."""
 
     def call(self, kind: str, fn: Callable,
              inputs: Sequence[Tuple[str, Optional[torch.Tensor]]],

@@ -4,7 +4,7 @@ Every multistep solver is a per-step weight table over one shared state
 update, so the whole zoo compiles to the one row-loop sampler. A
 `SolverDef` pairs that compiler with its python-loop reference (the
 `GridSolver` subclass the tests compare against); `SOLVERS` maps a solver
-name to it. Feature reuse (`cache_block`) is not yet ported.
+name to it.
 """
 
 from __future__ import annotations
@@ -47,7 +47,9 @@ class EngineSpec:
     threshold_percentile: float = 0.995
     # execution: False pins the combine's plain PyTorch version
     fused_update: bool = True
-    # feature reuse (DESIGN.md §12): not yet ported, raises unless 0
+    # feature reuse (DESIGN.md §12): the static DiT block boundary of a
+    # cached eval (0 = no cache). Like eval_dtype a contract: the engine
+    # must be wired for the same boundary (`build_engine(cache_block=...)`)
     cache_block: int = 0
     # the eps-net's eval precision (DESIGN.md §11): solver state, combine
     # weights and the eps <-> x0 conversion stay fp32 either way. A
@@ -67,13 +69,19 @@ class EngineSpec:
         if out.eval_dtype not in EVAL_DTYPES:
             raise ValueError(f"eval_dtype must be 'float32' or 'bfloat16', "
                              f"got {out.eval_dtype!r}")
-        if out.cache_block:
-            raise not_yet_ported(f"feature reuse (cache_block="
-                                 f"{out.cache_block})")
         if out.quant != "none":
             # import here: specs stays importable without the models package
             from ..models.quant import quant_spec
             quant_spec(out.quant)  # raises on unknown tier names
+        if out.cache_block < 0:
+            raise ValueError(f"cache_block must be >= 0, got "
+                             f"{out.cache_block}")
+        if out.cache_block and out.cfg_scale:
+            raise ValueError(
+                "feature reuse (cache_block > 0) serves unconditional "
+                "programs only: the fused-CFG eval stacks cond+uncond into "
+                "one 2B batch, which would need a 2B cache ring — tune and "
+                "serve cached plans with cfg_scale=0")
         if out.prediction is None:
             out = replace(out, prediction=sd.prediction)
         elif sd.fixed_prediction and out.prediction != sd.prediction:

@@ -20,10 +20,11 @@ import torch
 
 from ..configs.registry import get_config
 from ..diffusion.schedules import VPLinear
-from ..engine import SOLVERS, EngineSpec, SamplerEngine
+from ..engine import SOLVERS, CacheSpec, EngineSpec, SamplerEngine
 from ..engine.engine import resolve_device
 from ..engine.specs import EVAL_DTYPES
 from ..models import api
+from ..models.dit import dit_cache_shape
 from ..models.quant import quant_spec
 
 NULL_CLASS_ID = api.NUM_CLASSES
@@ -37,7 +38,7 @@ def class_ids(batch: int, num_classes: int = 1000, seed: int = 0) -> np.ndarray:
 
 def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                  per_request_cond: bool = False, quant: str = "none",
-                 eval_dtype: str = "float32",
+                 eval_dtype: str = "float32", cache_block: int = 0,
                  device="cuda") -> SamplerEngine:
     """Wire the DiT eps-network into a SamplerEngine on `device`: the cond
     branch, the stacked 2B cond+uncond branch guided sampling runs, and the
@@ -66,7 +67,13 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
     the quant_matmul op. A `cfg` that already carries the tier's spec (the
     cfg' of `api.calibrate_and_quantize`) comes with a quantized tree, which
     is wired as it is. The engine records the tier; its `model_fn` rejects
-    specs that disagree, and likewise for eval_dtype."""
+    specs that disagree, and likewise for eval_dtype.
+
+    cache_block > 0 also wires the feature-reuse eval (DESIGN.md §12): the
+    engine gets `eps_cached`, the same network with a deep-feature cache
+    split at block `cache_block`, and the matching `CacheSpec`; it then
+    serves cached plans whose specs carry the same `cache_block`
+    (unconditional only: `EngineSpec.resolve` refuses guidance)."""
     if eval_dtype not in EVAL_DTYPES:
         raise ValueError(f"eval_dtype must be 'float32' or 'bfloat16', "
                          f"got {eval_dtype!r}")
@@ -74,6 +81,9 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
         raise ValueError(f"the quantized denoiser path needs the dit "
                          f"family; {cfg.arch_id!r} is family "
                          f"{cfg.family!r}")
+    if cache_block and not 1 <= cache_block < cfg.num_layers:
+        raise ValueError(f"cache_block must be in "
+                         f"1..{cfg.num_layers - 1}, got {cache_block}")
     device = resolve_device(device)
     params = api.params_to(params, device)
     if eval_dtype != "float32":
@@ -88,6 +98,25 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                              f"tier's spec {quant_spec(quant)}")
     params = api.cast_weights_once(cfg, params)
     net = api.eps_network(cfg)
+
+    def cache_kw(baked=None):
+        """The cached eps-net and its CacheSpec ({} uncached). `baked` fixes
+        the class ids at build time; otherwise they come per call."""
+        if not cache_block:
+            return {}
+        cnet = api.eps_network_cached(cfg, cache_block)
+
+        def eps_cached(x, t, cache, reuse, deep=True, class_ids=None):
+            ids = (baked if baked is not None else
+                   None if class_ids is None else class_ids.long())
+            return cnet(params, x, t, {"class_ids": ids}, cache, reuse,
+                        deep=deep)
+
+        return {"eps_cached": eps_cached,
+                "cache_spec": CacheSpec(shape=dit_cache_shape(cfg),
+                                        block=cache_block,
+                                        n_blocks=cfg.num_layers,
+                                        dtype=cfg.dtype)}
 
     def null_like(ids):
         return torch.full_like(ids, NULL_CLASS_ID)
@@ -109,7 +138,8 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
 
         return SamplerEngine(schedule, eps=eps_cond, eps_stacked=eps_stacked,
                              eps_uncond=eps_uncond, device=device,
-                             quant=quant, eval_dtype=eval_dtype)
+                             quant=quant, eval_dtype=eval_dtype,
+                             **cache_kw())
     ids = torch.as_tensor(class_ids(batch, seed=seed)).long().to(device)
     ids2 = torch.cat([ids, null_like(ids)])
     return SamplerEngine(
@@ -117,7 +147,7 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
         eps=lambda x, t: net(params, x, t, {"class_ids": ids}),
         eps_stacked=lambda xx, t: net(params, xx, t, {"class_ids": ids2}),
         eps_uncond=eps_uncond, device=device, quant=quant,
-        eval_dtype=eval_dtype)
+        eval_dtype=eval_dtype, **cache_kw(baked=ids))
 
 
 def latent_shape(cfg, batch):

@@ -1,0 +1,402 @@
+"""Continuous-batching diffusion serving (the port of `repro.launch.serve`,
+dit family). One request = one latent to generate: a request-level
+scheduler over `--batch` slots drives the engine's per-slot step program,
+so requests admit the moment a slot frees, carry their own seed, class and
+guidance scale, and emit without waiting for a batch to drain. One batched
+(optionally 2B cond+uncond stacked) network eval per tick, any registered
+solver, a plan bank of quality tiers, feature reuse from a cached plan
+bank, the quantized and bf16 evals, resilience and fault injection. Runs
+on the CUDA card unless `--device cpu` is given; there each tick is a CUDA
+graph replay and finished latents come back as a pipelined trailing
+stream.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dit-i256 \
+        --full --batch 8 --nfe 10 --cfg-scale 2.0 --arrival-rate 0.5 \
+        --requests 24
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dit-cifar \
+        --batch 4 --nfe 8 --arrival-rate 0.5 --requests 16 --device cpu
+
+Not yet ported, and refused when asked for: `--trace-out`,
+`--metrics-out` and `--probe-fraction` (the tracer, the metrics report and
+the quality probe); the token families' prefill/decode serving; the mesh
+sharding of the slot batch (the port serves on one card).
+"""
+
+from __future__ import annotations
+
+import argparse
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..configs.registry import get_config
+from ..engine.engine import resolve_device
+from ..engine.specs import EVAL_DTYPES, not_yet_ported
+from ..models import api
+
+
+@dataclass
+class ServeRun:
+    """What one `serve_diffusion(..., return_run=True)` call served: the
+    finished latents ordered by rid, the scheduler (completions, events,
+    registry), the run's metrics, the capture seconds, and the program."""
+
+    latents: np.ndarray
+    sched: object
+    metrics: object
+    capture_s: float
+    program: object
+
+
+def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
+                    solver="unipc", fused_update=True, cfg_scale=0.0,
+                    cfg_schedule="constant", thresholding=False, seed=0,
+                    arrival_rate=None, trace=None, requests=None,
+                    plan_bank=None, tiers=None, eval_dtype="float32",
+                    quant="none", pipeline_depth=2, trace_out=None,
+                    metrics_out=None, probe_fraction=0.0, resilience=None,
+                    faults=None, device="cuda", params=None,
+                    return_run=False):
+    """Continuous-batching diffusion serving through the engine's per-slot
+    step program (`SamplerEngine.build_step` + `serving.SlotScheduler`):
+    `batch` slots, requests admitted the tick a slot frees, per-request
+    seed/class/cfg-scale, one batched eps-net eval per tick. `cfg_scale`
+    turns on fused classifier-free guidance — ONE 2B-batched cond+uncond
+    network call per tick, the per-slot guidance scale riding the step
+    state; `thresholding` adds dynamic thresholding of the x0 prediction.
+
+    Traffic: `trace` (a JSON arrival trace) or `arrival_rate` (Poisson,
+    requests per tick) serve asynchronous traffic; with neither, `batch`
+    requests all arrive at tick 0. The flight step is captured ahead of
+    time (`SlotScheduler.aot_compile`), so capture and steady-state serving
+    are reported apart. Returns the finished latents ordered by rid (a
+    `ServeRun` with `return_run=True`).
+
+    `pipeline_depth` (DESIGN.md §13) is how many ticks the scheduler keeps
+    in flight: the default 2 overlaps host bookkeeping and admission with
+    the card's work; 1 is the synchronous loop. Finished latents and
+    tick-denominated metrics are bit-identical across depths.
+
+    Quality tiers (DESIGN.md §10): `plan_bank` (a JSON bank of
+    `SolverPlan`s) or `tiers` (hand-set tier names of
+    `engine.default_tier_specs`) builds ONE `StepProgram` serving every
+    tier. A plan bank whose plans carry `cache_depth` wires feature reuse
+    (DESIGN.md §12) at their one `cache_block`; cached programs serve
+    unconditional sampling only.
+
+    Resilience (DESIGN.md §16): `resilience` (a `serving.ResilienceConfig`)
+    and `faults` (a `serving.FaultPlan`, CLI `--inject-faults`).
+
+    `params` (a DiT param tree) default to `api.init_params(cfg, seed)`.
+    Latents are drawn from a CPU torch.Generator seeded with each request's
+    seed, and each request's class id from numpy's default_rng(seed), as in
+    the reference. `trace_out`, `metrics_out` and `probe_fraction` are not
+    ported yet and raise when given.
+    """
+    from ..diffusion import VPLinear
+    from ..engine import EngineSpec, default_tier_specs
+    from ..serving import (Request, SlotScheduler, load_trace,
+                           poisson_requests, run_trace)
+    from .sample import NULL_CLASS_ID, build_engine, class_ids
+
+    if trace_out is not None:
+        raise not_yet_ported("the serving tracer (--trace-out)")
+    if metrics_out is not None:
+        raise not_yet_ported("the metrics artifact (--metrics-out)")
+    if probe_fraction:
+        raise not_yet_ported("the quality probe (--probe-fraction)")
+    device = resolve_device(device)
+    cfg = get_config(arch)
+    if cfg.family != "dit":
+        raise not_yet_ported(f"serving the {cfg.family!r} family "
+                             f"(prefill/decode)")
+    if reduced:
+        cfg = cfg.reduced()
+    if params is None:
+        params = api.init_params(cfg, seed, device)
+    # a cached plan bank (DESIGN.md §12) decides the engine's cache wiring,
+    # so load it before build_engine; every cached tier must agree on the one
+    # static block boundary the program bakes in
+    plans = None
+    cache_block = 0
+    if plan_bank is not None:
+        from ..tuning import load_bank
+
+        plans = load_bank(plan_bank)
+        blocks = sorted({p.cache_block for p in plans.values()
+                         if p.cache_block})
+        if len(blocks) > 1:
+            raise ValueError(
+                f"plan bank {plan_bank} mixes cache boundaries {blocks}; one "
+                f"program serves one static cache_block — retune the bank "
+                f"with a single --cache-block")
+        cache_block = blocks[0] if blocks else 0
+        if cache_block and cfg_scale != 0.0:
+            raise ValueError(
+                f"plan bank {plan_bank} schedules feature reuse "
+                f"(cache_block={cache_block}) but --cfg-scale={cfg_scale}; "
+                f"cached programs serve unconditional sampling only")
+        # a quant-tuned bank records its tier in plan meta; one quantized
+        # param tree serves the whole program, so the bank must be uniform
+        # and must agree with an explicit --quant
+        bank_quants = sorted({p.meta.get("quant", "none")
+                              for p in plans.values()})
+        if len(bank_quants) > 1:
+            raise ValueError(
+                f"plan bank {plan_bank} mixes quant tiers {bank_quants}; "
+                f"one quantized param tree serves one program — retune the "
+                f"bank with a single --quant")
+        if bank_quants[0] != "none":
+            if quant not in ("none", bank_quants[0]):
+                raise ValueError(
+                    f"plan bank {plan_bank} was tuned for "
+                    f"quant={bank_quants[0]!r} but --quant={quant!r}; a "
+                    f"plan's parity gate only holds for the tier it was "
+                    f"scored against")
+            quant = bank_quants[0]
+    engine = build_engine(cfg, params, VPLinear(), batch, seed,
+                          per_request_cond=True, eval_dtype=eval_dtype,
+                          cache_block=cache_block, quant=quant,
+                          device=device)
+    spec = EngineSpec(solver=solver, nfe=nfe, order=order,
+                      cfg_scale=cfg_scale, cfg_schedule=cfg_schedule,
+                      thresholding=thresholding, fused_update=fused_update,
+                      eval_dtype=eval_dtype, quant=quant)
+    common = dict(cfg_scale=cfg_scale, cfg_schedule=cfg_schedule,
+                  thresholding=thresholding, fused_update=fused_update,
+                  eval_dtype=eval_dtype, cache_block=cache_block,
+                  quant=quant)
+    tier_names = None
+    if plans is not None:
+        tier_specs = {
+            name: EngineSpec(solver="unipc", nfe=p.nfe,
+                             order=max(p.orders), prediction=p.prediction,
+                             **common)
+            for name, p in plans.items()}
+        tables = {name: p.compile(engine.schedule)
+                  for name, p in plans.items()}
+        program = engine.build_bank(tier_specs, tables)
+        tier_names = list(plans)
+    elif tiers:
+        all_specs = default_tier_specs(**common)
+        unknown = [t for t in tiers if t not in all_specs]
+        if unknown:
+            raise ValueError(f"unknown tiers {unknown}; hand-set tiers are "
+                             f"{sorted(all_specs)}")
+        program = engine.build_bank({t: all_specs[t] for t in tiers})
+        tier_names = list(tiers)
+    else:
+        program = engine.build_step(spec)
+    # idle slots are conditioned on the null class; every request carries its
+    # own class id (drawn from its seed), so conditioning is reproducible
+    # whichever slot the scheduler admits it into
+    sched = SlotScheduler(program, batch,
+                          (cfg.patch_tokens, cfg.latent_dim),
+                          extras_init={"class_ids": NULL_CLASS_ID},
+                          pipeline_depth=pipeline_depth,
+                          resilience=resilience, faults=faults)
+    capture_s = sched.aot_compile()
+    if trace is not None:
+        reqs = load_trace(trace)
+    elif arrival_rate is not None:
+        n_req = requests if requests is not None else 4 * batch
+        reqs = poisson_requests(n_req, arrival_rate, seed=seed,
+                                base_seed=seed, tiers=tier_names)
+    else:
+        reqs = [Request(rid=i, seed=seed + i) for i in range(batch)]
+    for r in reqs:
+        # single assignment point for untagged requests on a tiered program
+        # (trace requests may carry their own tags)
+        if tier_names is not None and r.tier is None:
+            r.tier = tier_names[r.rid % len(tier_names)]
+        if r.extras is None or "class_ids" not in r.extras:
+            r.extras = {**(r.extras or {}),
+                        "class_ids": int(class_ids(1, seed=r.seed)[0])}
+    m = run_trace(sched, reqs)
+    mode = (f"bank[{','.join(tier_names)}]" if tier_names
+            else f"{solver} nfe={nfe} order={order}")
+    print(f"diffusion [{device.type}] slots={batch} {mode} "
+          f"depth={m.pipeline_depth} cfg={cfg_scale} "
+          f"fused_update={fused_update} eval={eval_dtype} quant={quant}"
+          + (f" cache_block={cache_block}" if cache_block else "")
+          + f": capture {capture_s:.2f}s, tick {m.tick_s * 1e3:.1f} ms, "
+          f"{m.completed}/{m.requests} requests, "
+          f"throughput {m.throughput_rps:.2f} req/s, "
+          f"latency p50/p95 {m.latency_s_p50 * 1e3:.0f}/"
+          f"{m.latency_s_p95 * 1e3:.0f} ms, occupancy {m.occupancy:.2f}, "
+          f"evals/latent {m.evals_per_latent:.1f}")
+    if (m.rejected or m.retries or m.failed or m.recoveries
+            or m.faults_injected):
+        print(f"  resilience: {m.rejected} rejected "
+              f"({m.expired} expired), {m.degraded} shed-degraded, "
+              f"{m.retries} retries, {m.failed} failed, "
+              f"{m.recoveries} desync recoveries, "
+              f"{m.faults_injected} faults injected")
+        for ev in sched.events:
+            print(f"    event {ev}")
+    if m.per_tier:
+        for t, row in m.per_tier.items():
+            cost = (f" ({row['eval_cost']:.2f} full-eval units)"
+                    if row["eval_cost"] and row["eval_cost"] != row["evals"]
+                    else "")
+            print(f"  tier {t}: {row['completed']} done, "
+                  f"{row['evals']} evals/request{cost}, "
+                  f"p50 latency {row['latency_ticks_p50']:.0f} ticks")
+    # failed completions (retry budget exhausted on a non-finite latent)
+    # carry poisoned arrays; never ship those
+    order_by_rid = sorted((c for c in sched.completions if c.ok),
+                          key=lambda c: c.rid)
+    latents = (np.stack([c.latent for c in order_by_rid], axis=0)
+               if order_by_rid else  # e.g. an empty trace
+               np.zeros((0, cfg.patch_tokens, cfg.latent_dim), np.float32))
+    if return_run:
+        return ServeRun(latents=latents, sched=sched, metrics=m,
+                        capture_s=capture_s, program=program)
+    return latents
+
+
+def main(argv=None):
+    from ..engine import SOLVERS
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nfe", type=int, default=None,
+                    help="sampler steps (default 10; incompatible with "
+                         "--plan-bank/--tiers, which carry per-tier "
+                         "schedules)")
+    ap.add_argument("--order", type=int, default=None,
+                    help="solver order (default 3; incompatible with "
+                         "--plan-bank/--tiers)")
+    ap.add_argument("--solver", default=None, choices=sorted(SOLVERS),
+                    help="any registered solver (default unipc; "
+                         "incompatible with --plan-bank/--tiers)")
+    ap.add_argument("--no-fused-update", action="store_true",
+                    help="pin the row ops' plain PyTorch version")
+    ap.add_argument("--cfg-scale", type=float, default=0.0,
+                    help="fused classifier-free guidance scale (0 = off; "
+                         "one batched eval per step)")
+    ap.add_argument("--cfg-schedule", default="constant",
+                    choices=["constant", "linear", "cosine"])
+    ap.add_argument("--thresholding", action="store_true",
+                    help="dynamic thresholding (off by default)")
+    ap.add_argument("--eval-dtype", default="float32", choices=EVAL_DTYPES,
+                    help="the eps-net's eval precision; solver state and "
+                         "combine weights stay fp32 (DESIGN.md §11)")
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "w8a16", "w8a8", "fp8a16", "w4a16"],
+                    help="quantized denoiser tier (DESIGN.md §14); a "
+                         "quant-tuned plan bank pins its own tier")
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="Poisson request arrivals, in requests per tick "
+                         "(one tick = one batched eval); omit for all "
+                         "requests at tick 0")
+    ap.add_argument("--trace", default=None,
+                    help="JSON arrival trace (list of {rid, seed, arrival, "
+                         "cfg_scale, extras, tier, ttl})")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="request count for --arrival-rate traffic "
+                         "(default 4x batch)")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="ticks kept in flight (DESIGN.md §13); 1 = "
+                         "synchronous loop; finished latents are "
+                         "bit-identical at any depth")
+    ap.add_argument("--trace-out", default=None,
+                    help="not yet ported (the serving tracer)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="not yet ported (the metrics artifact)")
+    ap.add_argument("--probe-fraction", type=float, default=0.0,
+                    help="not yet ported (the quality probe)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="resilience (DESIGN.md §16): bound on queued "
+                         "requests; past it new submissions are shed per "
+                         "--shed-policy (default unbounded)")
+    ap.add_argument("--shed-policy", default="reject",
+                    choices=["reject", "degrade"])
+    ap.add_argument("--degrade-tier", default=None,
+                    help="tier shed requests are remapped to under "
+                         "--shed-policy degrade (needs --plan-bank/--tiers)")
+    ap.add_argument("--ttl", type=float, default=None,
+                    help="admission deadline in tick-clock units past "
+                         "arrival")
+    ap.add_argument("--max-retries", type=int, default=0,
+                    help="re-admissions after a non-finite latent (same "
+                         "seed) before emitting a failed completion")
+    ap.add_argument("--retry-fallback", default=None,
+                    help="comma-separated safer-tier chain walked on retry")
+    ap.add_argument("--recovery", default="recover",
+                    choices=["recover", "raise"],
+                    help="host/device desync handling")
+    ap.add_argument("--inject-faults", default=None,
+                    help="fault clauses, e.g. "
+                         "'nan:rid=2,step=1;meta:tick=6;skew:tick=3,delta=9' "
+                         "or 'seed:7,requests=8,nfe=4' for a seeded plan")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu for the plain PyTorch path")
+    bank = ap.add_mutually_exclusive_group()
+    bank.add_argument("--plan-bank", default=None,
+                      help="JSON bank of SolverPlans; serves every tier "
+                           "from one step program (a cached bank wires "
+                           "feature reuse)")
+    bank.add_argument("--tiers", default=None,
+                      help="comma-separated hand-set quality tiers "
+                           "(fast,balanced,quality) served from one step "
+                           "program")
+    scale = ap.add_mutually_exclusive_group()
+    scale.add_argument("--reduced", action="store_true",
+                       help="reduced CPU-scale config (the default)")
+    scale.add_argument("--full", action="store_true")
+    args = ap.parse_args(argv)
+    family = get_config(args.arch).family
+    if family != "dit":
+        ap.error(f"--arch {args.arch} is family '{family}': "
+                 f"{not_yet_ported('serving a token family')}")
+    if ((args.plan_bank or args.tiers)
+            and (args.solver is not None or args.nfe is not None
+                 or args.order is not None)):
+        ap.error("--solver/--nfe/--order configure a single-plan program; "
+                 "a plan bank / tier program takes its per-tier schedules "
+                 "from the bank (drop those flags)")
+    if args.arrival_rate is not None and args.arrival_rate <= 0:
+        ap.error(f"--arrival-rate must be > 0 requests per tick, "
+                 f"got {args.arrival_rate}")
+    if args.pipeline_depth < 1:
+        ap.error(f"--pipeline-depth must be >= 1, got {args.pipeline_depth}")
+    if not 0.0 <= args.probe_fraction <= 1.0:
+        ap.error(f"--probe-fraction must be in [0, 1], "
+                 f"got {args.probe_fraction}")
+    resilience = None
+    if (args.max_queue is not None or args.ttl is not None
+            or args.max_retries or args.retry_fallback or args.degrade_tier
+            or args.shed_policy != "reject" or args.recovery != "recover"):
+        from ..serving import ResilienceConfig
+        resilience = ResilienceConfig(
+            max_queue=args.max_queue, shed_policy=args.shed_policy,
+            degrade_tier=args.degrade_tier, default_ttl=args.ttl,
+            max_retries=args.max_retries,
+            fallback=(tuple(args.retry_fallback.split(","))
+                      if args.retry_fallback else ()),
+            recovery=args.recovery)
+    faults = None
+    if args.inject_faults:
+        from ..serving import parse_fault_spec
+        faults = parse_fault_spec(args.inject_faults)
+    return serve_diffusion(
+        args.arch, reduced=not args.full, batch=args.batch, seed=args.seed,
+        nfe=args.nfe if args.nfe is not None else 10,
+        order=args.order if args.order is not None else 3,
+        solver=args.solver if args.solver is not None else "unipc",
+        fused_update=not args.no_fused_update, cfg_scale=args.cfg_scale,
+        cfg_schedule=args.cfg_schedule, thresholding=args.thresholding,
+        arrival_rate=args.arrival_rate, trace=args.trace,
+        requests=args.requests, plan_bank=args.plan_bank,
+        tiers=(args.tiers.split(",") if args.tiers else None),
+        eval_dtype=args.eval_dtype, quant=args.quant,
+        pipeline_depth=args.pipeline_depth, trace_out=args.trace_out,
+        metrics_out=args.metrics_out, probe_fraction=args.probe_fraction,
+        resilience=resilience, faults=faults, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .dit import dit_apply, init_dit
+from .dit import dit_apply, dit_apply_cached, init_dit
 
 NUM_CLASSES = 1000  # init_params allocates NUM_CLASSES + 1 embeddings; the
                     # extra row is the CFG null class
@@ -150,3 +150,27 @@ def eps_network(cfg: ModelConfig) -> Callable:
     _require_dit(cfg)
     return lambda p, x_t, t, batch: dit_apply(
         p["backbone"], cfg, x_t, t, batch.get("class_ids"))
+
+
+def eps_network_cached(cfg: ModelConfig, cache_block: int) -> Callable:
+    """Feature-reuse eps-net (DESIGN.md §12), dit family only:
+
+        (params, x_t, t, batch, cache, reuse, deep=True) -> (eps-hat, cache')
+
+    `cache` is the (B, T, d_model) deep-feature delta state (see
+    `dit.dit_apply_cached`), `reuse` the per-sample shallow-eval flag and
+    `deep` the host's word on whether any sample runs a full eval. The
+    `cache_block` boundary is static; which steps reuse the cache is data
+    (a per-step table column)."""
+    if cfg.family != "dit":
+        raise ValueError(f"feature-reuse eval needs the dit family (residual "
+                         f"block stack); arch {cfg.arch_id!r} is family "
+                         f"{cfg.family!r}")
+
+    def f(params, x_t, t, batch, cache, reuse, deep=True):
+        return dit_apply_cached(params["backbone"], cfg, x_t, t,
+                                batch.get("class_ids"), cache=cache,
+                                reuse=reuse, cache_block=cache_block,
+                                deep=deep)
+
+    return f

@@ -1,6 +1,7 @@
-"""DiT — the eps-network the sampler drives (the port of `repro.models.dit`,
-uncached path): patch projection, adaLN-zero time/class conditioning, a
-stack of blocks, and the final adaLN + output projection.
+"""DiT — the eps-network the sampler drives (the port of `repro.models.dit`):
+patch projection, adaLN-zero time/class conditioning, a stack of blocks,
+and the final adaLN + output projection; `dit_apply_cached` is the
+feature-reuse eval (DESIGN.md §12).
 
 Params mirror the reference pytree: `blocks` holds each block parameter
 stacked over layers as (L, ...); `dit_apply` loops over them (the
@@ -136,3 +137,60 @@ def dit_apply(params, cfg, x_t, t, class_ids=None):
     for i in range(cfg.num_layers):
         x = _block(x, _layer(params["blocks"], i), cfg, c)
     return _head(params, cfg, x, c)
+
+
+def dit_cache_shape(cfg):
+    """Per-sample shape of the deep-feature cache (the residual delta of the
+    blocks past the cache boundary): one (T, d_model) array per slot."""
+    return (cfg.patch_tokens, cfg.d_model)
+
+
+def dit_apply_cached(params, cfg, x_t, t, class_ids=None, *, cache,
+                     reuse=None, cache_block: int, deep: bool = True):
+    """DiT eval with a deep-feature cache at a static block boundary.
+
+    cache: (B, T, d_model) — the deep segment's residual delta
+        (x_after_all_blocks - x_after_cache_block) recorded at each sample's
+        last full eval. Zero-init is safe: the first eval of a trajectory is
+        a full one (the table's init row always is).
+    reuse: scalar or (B,) flag, 1 = shallow eval (reuse the cached delta and
+        recompute only the first `cache_block` blocks and the head), 0 =
+        full eval (recompute everything, refresh the cache). None = 0.
+    cache_block: static split index k, 1 <= k < num_layers.
+    deep: whether the deep blocks [k, L) run. The reference decides this
+        on the device (`lax.cond` on any full sample); a CUDA graph cannot
+        branch, so the caller decides it on the host from the rows it knows
+        the batch runs. Every slot's select reads its own `reuse` flag
+        either way: with `deep=True` the numbers are those of the reference
+        whatever the flags; `deep=False` is right when every flag is set.
+
+    Returns (eps_hat, new_cache). With reuse 0 everywhere the output is
+    bit-identical to `dit_apply`: the shallow and deep loops run the same
+    block ops over the same params, and full samples take the deep output
+    itself, never a reconstruction through the delta.
+    """
+    L = int(cfg.num_layers)
+    k = int(cache_block)
+    if not 1 <= k < L:
+        raise ValueError(f"cache_block must be in 1..{L - 1} "
+                         f"(num_layers={L}), got {k}")
+    x, c = _embed(params, cfg, x_t, t, class_ids)
+    for i in range(k):
+        x = _block(x, _layer(params["blocks"], i), cfg, c)
+    x_k = x
+    if deep:
+        for i in range(k, L):
+            x = _block(x, _layer(params["blocks"], i), cfg, c)
+    B = x_t.shape[0]
+    reuse = (torch.zeros((B,), dtype=torch.float32, device=x_t.device)
+             if reuse is None else
+             torch.as_tensor(reuse, dtype=torch.float32,
+                             device=x_t.device).expand(B))
+    cache = cache.to(x_k.dtype)
+    r = (reuse > 0.5).reshape((B,) + (1,) * (x_k.dim() - 1))
+    # full slots take the freshly computed deep output and refresh their
+    # cache; shallow slots approximate it as x_k + the cached delta and keep
+    # their cache
+    x_out = torch.where(r, x_k + cache, x)
+    new_cache = torch.where(r, cache, x - x_k)
+    return _head(params, cfg, x_out, c), new_cache

@@ -263,13 +263,13 @@ def test_staggered_step_matches_uniform_runs_and_reference(cfg_schedule):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"cache_block": 2}, NotImplementedError, "not yet ported"),
+    ({"cache_block": 2, "cfg_scale": 2.0}, ValueError, "unconditional"),
     ({"solver": "heun"}, KeyError, "unknown solver 'heun'")])
 def test_unported_options_raise(kw, exc, match):
-    """Feature reuse is not yet ported; an unknown solver raises the
-    reference's KeyError (every solver of the reference's zoo is ported)."""
+    """Feature reuse is ported and, as in the reference, refuses guidance;
+    an unknown solver raises the reference's KeyError (every solver of the
+    reference's zoo is ported)."""
     with pytest.raises(exc, match=match):
         TSpec(**kw).resolve()
-    if exc is KeyError:
-        with pytest.raises(KeyError, match=match):
-            JSpec(**kw).resolve()
+    with pytest.raises(exc, match=match):
+        JSpec(**kw).resolve()

@@ -56,6 +56,18 @@ def test_port_files_were_found():
             "src/repro_torch/kernels/quant_matmul/ref.py"} <= names
 
 
+def test_serving_obs_and_tuning_subpackages_are_scanned():
+    """The subpackages ported with serving are in the import scan above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for sub, mods in (("serving", ("__init__", "scheduler", "server",
+                                   "resilience", "faults")),
+                      ("obs", ("__init__", "metrics")),
+                      ("tuning", ("__init__", "plans"))):
+        for mod in mods:
+            assert f"src/repro_torch/{sub}/{mod}.py" in names
+    assert "src/repro_torch/launch/serve.py" in names
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
@@ -67,6 +79,16 @@ def test_sample_defaults_to_the_card_and_raises_without_one():
         launch.sample("dit-cifar", nfe=2, batch=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.main(["--arch", "dit-cifar", "--nfe", "2", "--batch", "1"])
+
+
+def test_serve_defaults_to_the_card_and_raises_without_one():
+    _no_card()
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.serve_diffusion("dit-cifar", nfe=2, batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "dit-cifar", "--nfe", "2", "--batch", "1"])
 
 
 def test_cli_runs_on_the_cpu_when_asked(capsys):

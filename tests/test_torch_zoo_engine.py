@@ -446,11 +446,15 @@ def test_resolve_matches_reference(solver, kw):
 
 
 def test_unknown_solver_raises_key_error_and_cache_block_stays_unported():
+    """An unknown solver raises the reference's KeyError; `cache_block`,
+    ported since feature reuse, resolves as the reference's spec does."""
     for Spec in (EngineSpec, JSpec):
         with pytest.raises(KeyError, match="unknown solver 'heun'"):
             Spec(solver="heun").resolve()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        EngineSpec(solver="dpmpp", cache_block=2).resolve()
+    got = EngineSpec(solver="dpmpp", cache_block=2).resolve()
+    want = JSpec(solver="dpmpp", cache_block=2).resolve()
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 
 @pytest.mark.parametrize("kw,match", [
