@@ -11,11 +11,11 @@ Phases (any failure exits non-zero):
      the wrapper's plan() chose, timed on the device (a CUDA graph of many
      calls, replayed between CUDA events) beside its bound, its plain
      version and one PyTorch library call; the wrapper's host cost per
-     call is reported apart. gate_residual and the adaLN sites of
-     quant_matmul are also timed on buffers rotated past the 50 MB L2, as
-     the main path finds them. unipc_update's sampler-row ops (predictor
-     and corrector) are held bit-equal to their plain versions at fp32 at
-     the main path's state, and a whole row with a stub eps-net is
+     call is reported apart. adaln_modulate, gate_residual and the adaLN
+     sites of quant_matmul are also timed on buffers rotated past the 50
+     MB L2, as the main path finds them. unipc_update's sampler-row ops
+     (predictor and corrector) are held bit-equal to their plain versions
+     at fp32 at the main path's state, and a whole row with a stub eps-net is
      measured in three forms (the row ops; the earlier composition of torch
      ops around two combine launches, fed a host index; the plain-pinned
      row): launches, syncs and device ms per row from torch.profiler, host
@@ -87,9 +87,30 @@ Phases (any failure exits non-zero):
      with a NaN and a desync fault, every latent bit-equal to (a)'s, the
      event ledger printed; (d) a short w8a16 trace, 197 quant_matmul a
      tick.
+  9. observability and the tuner — dit-i256 at full width: (a) phase 8
+     (a)'s depth-2 trace again through serve_diffusion with trace_out,
+     metrics_out (a row every 8 ticks) and the probe (fraction 0.25 of
+     the completions, at most 4, against UniPC-3 at NFE 64): latents,
+     completion order and tick metrics bit-identical to phase 8 (a)'s
+     untraced run, both artifacts valid, `obsreport --check` passing, each
+     probe's discrepancy, the probe time kept out of the tick phases, at
+     most one probe capture, one probe replay again alone under
+     set_sync_debug_mode("error") (bit-equal discrepancy); the tracer's
+     host-counter cost against DESIGN.md §15.5's 5% of a tick; the traced
+     trace with the probe off under set_sync_debug_mode("error"). (b)
+     `launch.tune.tune` with train_steps=0 at NFE 8, reference NFE 48,
+     batch 4, budget 24, one round: one capture for the NFE, tuned <=
+     baseline, three plans scored in a row (under sync debug mode) with
+     terminal states bit-equal to engine.build replays of their tables,
+     one candidate's launches counted, the walls. (c) the cached search
+     at cache_block 14: at most two captures, the tuned plan and a forced
+     shallow plan bit-equal to cached engine.build replays,
+     evals_per_latent. (d) `sample(plan=)` on (b)'s plan from its JSON:
+     launches counted, bit-equal to the engine replay of its table.
 The last three lines are the kernels JSON (each kernel's launches on the
 main path, and since phase 8 its launches per serving tick and in the
-serving run), the card's name and power limit as `nvidia-smi
+serving run, since phase 9 in each of its four runs), the card's name and
+power limit as `nvidia-smi
 --query-gpu=name,power.limit` prints them, and {"ok": true, "device":
 {...}}.
 """
@@ -98,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -362,6 +384,21 @@ def kernel_phase(dev) -> dict:
           f"{st['ms']:.6f} ms (bound {st['bound_ms']:.6f} by "
           f"{st['bound_by']}; plain {st['plain_ms']:.6f}; host "
           f"{st['host_call_ms']:.4f})")
+    # the same call on six sets of x, out and modulation (119 MB): no call
+    # finds its operands in L2, as on the main path (in the graph above the
+    # 9.4 MB operands stay in the 50 MB L2, and the time beats the bound)
+    msets = [(randn(B, T, D, dtype=bf), randn(B, 6 * D, dtype=bf),
+              torch.empty_like(x)) for _ in range(6)]
+    mplan = adaln_kernel.plan(msets[0][0], msets[0][1][:, :D],
+                              msets[0][1][:, D:2 * D], msets[0][2])
+    st["rotated_ms"] = rotated_ms([
+        (lambda a=a: adaln_kernel._launch_modulate(
+            a[0], a[1][:, :D], a[1][:, D:2 * D], a[2], 1e-5, mplan))
+        for a in msets])
+    del msets
+    print(f"  adaln_modulate main bf16 (16, 256, 1152), rotated over 119 MB: "
+          f"{st['rotated_ms']:.6f} ms (bound {st['bound_ms']:.6f}; in the "
+          f"graph {st['ms']:.6f})")
     x32 = x.float()      # phase 5's fp32 width, the same conditioning rows
     sh32, sc32 = mod.float()[:, :D], mod.float()[:, D:2 * D]
     st["fp32_ms"] = device_ms(lambda: adaln_ops.modulate(x32, sh32, sc32))
@@ -2059,6 +2096,10 @@ def serving_at_width_phase(dev, counts_out: dict, qcounts_out: dict) -> dict:
             counts_out.update(LAUNCHES)
         rows[depth] = serve_summary(f"depth {depth}", runs[depth], wall)
     base = runs[1]
+    # phase 9 serves the same trace traced and probed and holds it to this
+    out["_clean"] = dict(latents=runs[2].latents,
+                         rows=completion_rows(runs[2].sched),
+                         metrics=tick_metrics(runs[2].metrics))
     for depth in (2, 3):
         r = runs[depth]
         same = (np.array_equal(r.latents, base.latents)
@@ -2314,6 +2355,452 @@ def serving_at_width_phase(dev, counts_out: dict, qcounts_out: dict) -> dict:
     return out
 
 
+
+# --------------------------------------------------------------------------
+# phase 9: observability and the tuner
+# --------------------------------------------------------------------------
+
+PROBE = dict(probe_fraction=0.25, probe_ref_nfe=64)
+PROBE_CAP = 4                 # QualityProbe(max_probes=) for phase 9 (a)
+OBS_OVERHEAD_LIMIT = 0.05     # DESIGN.md §15.5: tracer host cost / tick wall
+TUNE = dict(nfe=8, ref_nfe=48, batch=4, budget=24, rounds=1)
+CACHED_BUDGET = 8
+# a cached plan at NFE 8 whose even body steps from the 2nd reuse the deep
+# features, so the cached runner replays both of its row graphs
+TUNE_SHALLOW = [0, CACHE_BLOCK, 0, CACHE_BLOCK, 0, CACHE_BLOCK, 0, 0]
+
+
+def row_launches(L: int, rows: int) -> dict:
+    """Launches of `rows` rows of the sampler over a DiT of L blocks (the
+    two row ops and one eval's kernels a row)."""
+    return {"unipc_update": 2 * rows, "adaln_modulate": (2 * L + 1) * rows,
+            "gate_residual": 2 * L * rows, "flash_attention": L * rows}
+
+
+def need_every_kernel(label: str, counts: dict) -> None:
+    missing = [k for k in ("unipc_update", "adaln_modulate", "gate_residual",
+                           "flash_attention") if not counts.get(k)]
+    if missing:
+        fail(f"{label} launched no {missing}: {counts}")
+
+
+@contextlib.contextmanager
+def probe_capped(max_probes: int):
+    """serve_diffusion builds its QualityProbe uncapped, as the reference
+    does; within this block it builds it with `max_probes`."""
+    import repro_torch.obs as obs
+
+    orig = obs.QualityProbe
+    obs.QualityProbe = functools.partial(orig, max_probes=max_probes)
+    try:
+        yield
+    finally:
+        obs.QualityProbe = orig
+
+
+@contextlib.contextmanager
+def objectives_made(tune_mod):
+    """Yields the list of the PlanObjectives that launch.tune's `tune` makes
+    within this block (its report is plain data, as in the reference)."""
+    made, orig = [], tune_mod.make_objective
+
+    def spy(*args, **kwargs):
+        made.append(orig(*args, **kwargs))
+        return made[-1]
+
+    tune_mod.make_objective = spy
+    try:
+        yield made
+    finally:
+        tune_mod.make_objective = orig
+
+
+def sync_checked(fn):
+    """Run `fn` under torch.cuda.set_sync_debug_mode("error"): any host
+    sync outside the designed readback waits (graphs.readback_sync) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def obs_overhead(program, sample_shape, reps: int = 5) -> dict:
+    """The tracer's cost on the scheduler's own host counters (the
+    reference's methodology, DESIGN.md §15.5): the phase 8 trace served
+    untraced and traced in turns, `reps` times each, on one program; the
+    median host us a tick of each, their difference over the untraced
+    tick wall. The trace walls are given beside."""
+    from repro_torch.launch.sample import NULL_CLASS_ID
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import SlotScheduler, poisson_requests, run_trace
+
+    rows = {False: [], True: []}
+    for _ in range(reps):
+        for traced in (False, True):
+            sched = SlotScheduler(program, 8, sample_shape, pipeline_depth=2,
+                                  extras_init={"class_ids": NULL_CLASS_ID},
+                                  tracer=Tracer() if traced else None)
+            m = run_trace(sched, with_classes(poisson_requests(
+                SERVE_TRACE["requests"], SERVE_TRACE["arrival_rate"])))
+            rows[traced].append((m.host_us_per_tick, m.tick_s, m.wall_s))
+
+    def median(rs):
+        return sorted(rs)[len(rs) // 2]
+
+    base, traced = median(rows[False]), median(rows[True])
+    frac = (traced[0] - base[0]) / (base[1] * 1e6)
+    return dict(untraced_host_us_per_tick=base[0],
+                traced_host_us_per_tick=traced[0],
+                untraced_tick_ms=base[1] * 1e3, traced_tick_ms=traced[1] * 1e3,
+                untraced_wall_s=[r[2] for r in rows[False]],
+                traced_wall_s=[r[2] for r in rows[True]],
+                overhead_frac=frac, limit=OBS_OVERHEAD_LIMIT)
+
+
+def traced_serving_part(dev, cfg, params, clean: dict,
+                        counts_out: dict) -> dict:
+    """(a) phase 8 (a)'s depth-2 trace through serve_diffusion, traced, with
+    the metrics artifact and the probe; then its checks (see main)."""
+    import io
+
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import obsreport
+    from repro_torch.launch.sample import NULL_CLASS_ID
+    from repro_torch.launch.serve import serve_diffusion
+    from repro_torch.obs import Tracer, validate_metrics, validate_trace
+    from repro_torch.serving import (Request, SlotScheduler, poisson_requests,
+                                     run_trace)
+
+    art = ROOT / "build" / "obs"
+    art.mkdir(parents=True, exist_ok=True)
+    trace_path, metrics_path = str(art / "trace.json"), str(art / "metrics.json")
+    sample_shape = (cfg.patch_tokens, cfg.latent_dim)
+    free_graphs()
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with probe_capped(PROBE_CAP):
+        run = serve_diffusion("dit-i256", reduced=False, batch=8, nfe=10,
+                              order=3, params=params, device=dev,
+                              return_run=True, pipeline_depth=2,
+                              trace_out=trace_path, metrics_out=metrics_path,
+                              metrics_every=8, **PROBE, **SERVE_TRACE)
+    wall = time.perf_counter() - t0
+    counts_out.update(LAUNCHES)
+    print(f"  launches of the traced, probed serve_diffusion call (capture "
+          f"warm-ups and the probe's replays included): "
+          f"{dict(sorted(counts_out.items()))}")
+    need_every_kernel("the traced serving run", counts_out)
+    row = serve_summary("traced depth 2", run, wall)
+    same = {"latents": np.array_equal(run.latents, clean["latents"]),
+            "completions": completion_rows(run.sched) == clean["rows"],
+            "tick metrics": tick_metrics(run.metrics) == clean["metrics"]}
+    print(f"  traced + probed vs phase 8 (a)'s untraced depth-2 run, "
+          f"bit-identical: {same}")
+    if not all(same.values()):
+        fail("tracing or probing changed what serving computed")
+    with open(trace_path) as f:
+        trace = json.load(f)
+    with open(metrics_path) as f:
+        metrics = json.load(f)
+    t_errs, m_errs = validate_trace(trace), validate_metrics(metrics)
+    print(f"  trace: {len(trace['traceEvents'])} events, "
+          f"{trace['otherData']['dropped_events']} dropped, violations "
+          f"{t_errs}; metrics artifact: {len(metrics['rows'])} periodic rows, "
+          f"violations {m_errs}")
+    if t_errs or m_errs:
+        fail(f"invalid artifacts: trace {t_errs}, metrics {m_errs}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        obsreport.main(["--trace", trace_path, "--metrics", metrics_path,
+                        "--check"])
+    lines = text.getvalue().splitlines()
+    print(f"  obsreport --check: {lines[0]}")
+    for line in lines[lines.index("where a tick goes (measured, per "
+                                  "executed tick):"):][:9]:
+        print(f"    {line}")
+    if lines[0] != ("check ok: embedded ServeMetrics == re-derivation from "
+                    "the raw snapshot"):
+        fail("obsreport --check failed on the artifact")
+
+    # the probe: its replays, their walls, kept out of the tick phases
+    probe, sched = run.probe, run.sched
+    ref = probe.reference_fn
+    res = probe.results
+    captures = ref.captures()
+    probe_s = sched._probe_ns / 1e9
+    phase_s = sum(sched.phase_ns.values()) / 1e9
+    print(f"  probe: {len(res)} replays (cap {PROBE_CAP}) of "
+          f"fraction {PROBE['probe_fraction']} against UniPC-3 at NFE "
+          f"{PROBE['probe_ref_nfe']} (guided fp32 eval boundary, batch 1), "
+          f"{captures} capture(s); {probe_s:.4f} s of probe replays, kept out "
+          f"of the tick phases ({phase_s:.4f} s booked there)")
+    for r in res:
+        print(f"    rid {r['rid']} tier {r['tier']}: discrepancy "
+              f"{r['discrepancy']:.6e}")
+    ds = [r["discrepancy"] for r in res]
+    if (len(res) != PROBE_CAP or captures > 1
+            or not all(np.isfinite(d) and d > 0 for d in ds)
+            or sched._probe_ns <= 0):
+        fail(f"the probe did not run as asked: {len(res)} replays, "
+             f"{captures} captures, discrepancies {ds}")
+    # one probed request again, alone, and under sync debug mode: the
+    # replays make no host sync but the readback of x_ref
+    c = next(c for c in sched.completions if c.rid == res[0]["rid"])
+    req = with_classes([Request(rid=c.rid, seed=c.rid)])[0]
+    x = sched._draw(req)[None]
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        x_ref = sync_checked(lambda: ref(x, g=SERVE_TRACE["cfg_scale"],
+                                         extras=req.extras))
+        walls.append(time.perf_counter() - t0)
+    d = float(np.linalg.norm(np.asarray(c.latent, np.float32) - x_ref[0])
+              / max(float(np.linalg.norm(x_ref[0])), 1e-12))   # as observe
+    print(f"  a probe replay alone ({PROBE['probe_ref_nfe'] + 1} rows, "
+          f"under set_sync_debug_mode('error')): walls "
+          f"{[round(w, 4) for w in walls]} s, discrepancy {d:.6e} "
+          f"(in the run {res[0]['discrepancy']:.6e}), captures "
+          f"{ref.captures()}")
+    if d != res[0]["discrepancy"] or ref.captures() != captures:
+        fail("the probe's replay alone differs from the one in the run")
+    sg = ref.program.step_graphs
+    probe_row_ms = (graph_replay_ms(next(iter(sg.graphs.values())))
+                    if sg is not None else None)
+    print(f"  a probe row's replay on the card: {probe_row_ms} ms (20 "
+          f"replays between CUDA events), {ref.program.n_rows} rows a probe")
+
+    # the tracer's host cost, and the traced run under sync debug mode
+    overhead = obs_overhead(run.program, sample_shape)
+    print(f"  tracer host cost: {overhead['traced_host_us_per_tick']:.1f} "
+          f"vs {overhead['untraced_host_us_per_tick']:.1f} us a tick "
+          f"(medians of 5), {overhead['overhead_frac'] * 100:.3f}% of the "
+          f"{overhead['untraced_tick_ms']:.3f} ms tick (limit "
+          f"{OBS_OVERHEAD_LIMIT:.0%}); trace walls untraced "
+          f"{overhead['untraced_wall_s']} traced {overhead['traced_wall_s']}")
+    if overhead["overhead_frac"] > OBS_OVERHEAD_LIMIT:
+        fail(f"the tracer costs {overhead['overhead_frac']:.2%} of a tick")
+    tr = Tracer()
+    sched = SlotScheduler(run.program, 8, sample_shape, pipeline_depth=2,
+                          extras_init={"class_ids": NULL_CLASS_ID}, tracer=tr)
+    sched.aot_compile()
+    sync_checked(lambda: run_trace(sched, with_classes(poisson_requests(
+        SERVE_TRACE["requests"], SERVE_TRACE["arrival_rate"]))))
+    got = np.stack([c.latent for c in sorted(sched.completions,
+                                             key=lambda c: c.rid)])
+    same = np.array_equal(got, clean["latents"])
+    print(f"  traced depth-2 trace (probe off) under set_sync_debug_mode("
+          f"'error'): no host sync outside the readback event waits, "
+          f"{len(tr.events())} events, latents bit-equal: {same}")
+    if not same or validate_trace(tr.to_json()):
+        fail("the sync-checked traced run differs from phase 8 (a)")
+    return dict(run=row, trace_events=len(trace["traceEvents"]),
+                metrics_rows=len(metrics["rows"]),
+                probe=dict(discrepancy=ds, rids=[r["rid"] for r in res],
+                           captures=captures, probe_s=probe_s,
+                           replay_alone_s=walls, row_device_ms=probe_row_ms,
+                           summary=probe.summary()),
+                overhead=overhead)
+
+
+def tuner_part(dev, cfg, params, counts_out: dict) -> dict:
+    """(b) the objective and the search, unguided, through launch.tune's
+    `tune`; (c) the cached search at CACHE_BLOCK; (d) sample(plan=) on
+    (b)'s plan. Checks in main's docstring."""
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import tune as tune_mod
+    from repro_torch.launch.sample import build_engine, latent_shape, sample
+    from repro_torch.tuning import SolverPlan
+
+    L = cfg.num_layers
+    nfe, batch = TUNE["nfe"], TUNE["batch"]
+    rows = nfe + 1
+    out: dict = {}
+    free_graphs()
+    engine = build_engine(cfg, params, VPLinear(), batch, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x_T = torch.randn(latent_shape(cfg, batch), generator=gen, device=dev)
+    spec = EngineSpec(solver="unipc", nfe=nfe, order=2)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with objectives_made(tune_mod) as made:
+        plan, rep = tune_mod.tune("dit-i256", nfe=nfe,
+                                  budget=TUNE["budget"],
+                                  rounds=TUNE["rounds"],
+                                  ref_nfe=TUNE["ref_nfe"], batch=batch,
+                                  train_steps=0, engine=engine, x_T=x_T)
+    wall = time.perf_counter() - t0
+    counts_out["tune"] = dict(LAUNCHES)
+    need_every_kernel("the search", counts_out["tune"])
+    obj, = made
+    runner = obj._runner
+    print(f"  tune (b): NFE {nfe}, reference NFE {TUNE['ref_nfe']}, batch "
+          f"{batch}, budget {TUNE['budget']}, {TUNE['rounds']} round: "
+          f"baseline {rep['baseline']:.6f} -> tuned {rep['tuned']:.6f} in "
+          f"{rep['evals']} evals; search wall {rep['search_wall_s']:.4f} s "
+          f"({rep['search_wall_s'] / rep['evals'] * 1e3:.3f} ms a "
+          f"candidate), the call {wall:.4f} s with the reference and its "
+          f"capture; runner captures {runner.captures} for "
+          f"{runner.builds} table shape(s); launches "
+          f"{dict(sorted(counts_out['tune'].items()))}")
+    if runner.captures > runner.builds or runner.builds != 1:
+        fail(f"the search captured {runner.captures} graphs for "
+             f"{runner.builds} NFE")
+    if not rep["tuned"] <= rep["baseline"]:
+        fail(f"tuned {rep['tuned']} > baseline {rep['baseline']}")
+    # three plans in a row through the one capture, each against its own
+    # engine.build replay; the second's table differs from the first's
+    sched = engine.schedule
+    picks = {"baseline": SolverPlan.from_spec(spec), "tuned": plan,
+             "unipc-3": SolverPlan.default(nfe, order=3)}
+    states, walls = {}, {}
+    for name, p in picks.items():
+        t0 = time.perf_counter()
+        sync_checked(lambda p=p: obj(p, sched))
+        walls[name] = time.perf_counter() - t0
+        states[name] = runner.last
+    LAUNCHES.clear()
+    obj(plan, sched)
+    one = dict(LAUNCHES)
+    want_one = row_launches(L, rows)
+    print(f"  one candidate's replay launches {dict(sorted(one.items()))} "
+          f"(expected {want_one}); score walls (under sync debug mode) "
+          f"{ {k: round(v, 5) for k, v in walls.items()} } s; captures "
+          f"{runner.captures}")
+    if one != want_one or runner.captures != (dev.type == "cuda"):
+        fail(f"a candidate launched {one} with {runner.captures} captures")
+    # where a candidate's wall goes: the graph's replay on the card, and
+    # the host's lowering and packing of the plan's table
+    from repro_torch.core.coeffs import augment_step_rows
+    from repro_torch.core.unipc import pack_step_rows, rows_on
+
+    run_graph = next(iter(runner.entries.values()))["graphs"].get("run")
+    cand_dev_ms = graph_replay_ms(run_graph) if run_graph else None
+    t0 = time.perf_counter()
+    for _ in range(20):
+        pack_step_rows(rows_on(augment_step_rows(plan.compile(sched)),
+                               "cpu"))
+    pack_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"  a candidate: replay {cand_dev_ms} ms on the card (20 replays "
+          f"between CUDA events), the plan's lowering and packing "
+          f"{pack_ms:.3f} ms on the host")
+    for name, p in picks.items():
+        want = engine.build(spec, table=engine.compile(
+            spec, table=p.compile(sched)))(x_T).cpu().numpy()
+        same = np.array_equal(states[name], want)
+        print(f"    {name}: terminal states bit-equal to engine.build's "
+              f"replay of its table: {same}")
+        if not same:
+            fail(f"the runner's {name} plan differs from engine.build's")
+    out["search"] = dict(baseline=rep["baseline"], tuned=rep["tuned"],
+                         evals=rep["evals"],
+                         search_wall_s=rep["search_wall_s"],
+                         ms_per_candidate=rep["search_wall_s"]
+                         / rep["evals"] * 1e3, call_wall_s=wall,
+                         captures=runner.captures, score_walls_s=walls,
+                         launches_per_candidate=one,
+                         candidate_replay_ms=cand_dev_ms,
+                         host_pack_ms=pack_ms)
+    del obj, runner, rep, made
+
+    # (c) the cached search: at most two captures (the row graphs with and
+    # without the deep blocks), scores against cached engine.build replays
+    free_graphs()
+    cengine = build_engine(cfg, params, VPLinear(), batch,
+                           cache_block=CACHE_BLOCK, device=dev)
+    cspec = EngineSpec(solver="unipc", nfe=nfe, order=2,
+                       cache_block=CACHE_BLOCK)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with objectives_made(tune_mod) as made:
+        cplan, crep = tune_mod.tune("dit-i256", nfe=nfe,
+                                    budget=CACHED_BUDGET, rounds=1,
+                                    ref_nfe=TUNE["ref_nfe"], batch=batch,
+                                    train_steps=0, engine=cengine, x_T=x_T,
+                                    cache_block=CACHE_BLOCK)
+    counts_out["tune_cached"] = dict(LAUNCHES)
+    need_every_kernel("the cached search", counts_out["tune_cached"])
+    cobj, = made
+    crun = cobj._runner
+    forced = dataclasses.replace(SolverPlan.from_spec(spec),
+                                 cache_depth=TUNE_SHALLOW)
+    cpicks = {"cached tuned": cplan, "forced shallow": forced}
+    cstates = {}
+    for name, p in cpicks.items():
+        sync_checked(lambda p=p: cobj(p, sched))
+        cstates[name] = crun.last
+    print(f"  tune (c), cache_block {CACHE_BLOCK}: baseline "
+          f"{crep['baseline']:.6f} -> tuned {crep['tuned']:.6f} (no-cache "
+          f"anchor {crep['uncached_tuned']:.6f}, ratio "
+          f"{crep['cached_ratio']:.4f}) in {crep['evals']} evals, "
+          f"{crep['search_wall_s']:.4f} s; evals_per_latent "
+          f"{crep['evals_per_latent']:.4f} of {crep['nfe_evals']}; plan "
+          f"cache_depth {cplan.cache_depth}; runner captures "
+          f"{crun.captures}")
+    if crun.captures > 2 or crun.builds != 1:
+        fail(f"the cached search captured {crun.captures} graphs")
+    for name, p in cpicks.items():
+        want = cengine.build(cspec, table=cengine.compile(
+            cspec, table=p.compile(sched)))(x_T).cpu().numpy()
+        same = np.array_equal(cstates[name], want)
+        print(f"    {name} {p.cache_depth}: terminal states bit-equal to "
+              f"the cached engine.build replay: {same}")
+        if not same:
+            fail(f"the cached runner's {name} plan differs from "
+                 f"engine.build's")
+    out["cached_search"] = dict(
+        baseline=crep["baseline"], tuned=crep["tuned"],
+        uncached_tuned=crep["uncached_tuned"], evals=crep["evals"],
+        search_wall_s=crep["search_wall_s"],
+        evals_per_latent=crep["evals_per_latent"],
+        cache_depth=cplan.cache_depth, captures=crun.captures)
+    del cobj, crun, crep, cengine, made
+
+    # (d) sample(plan=) on (b)'s plan from its JSON, against the replay of
+    # the same table on (b)'s engine (the same class ids, from seed 0)
+    path = ROOT / "build" / "obs" / "plan.json"
+    plan.save(str(path))
+    free_graphs()
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    got = sample("dit-i256", reduced=False, batch=batch, plan=str(path),
+                 params=params, x_T=x_T, device=dev)
+    counts_out["sample_plan"] = dict(LAUNCHES)
+    want = engine.build(spec, table=engine.compile(
+        spec, table=SolverPlan.load(str(path)).compile(sched)))(
+            x_T).cpu().numpy()
+    same = np.array_equal(got, want)
+    # on the card the first call runs one eager warm-up row, then the
+    # capture's replay of every row
+    want_counts = row_launches(L, rows + (dev.type == "cuda"))
+    print(f"  sample(plan=) (d): launches "
+          f"{dict(sorted(counts_out['sample_plan'].items()))} (expected "
+          f"{want_counts}: a warm-up row and the replay), latents bit-equal "
+          f"to the engine replay of the plan's table: {same}")
+    if not same or counts_out["sample_plan"] != want_counts:
+        fail("sample(plan=) differs from the engine replay of its table")
+    out["sample_plan"] = dict(launches=counts_out["sample_plan"],
+                              bit_equal=same)
+    del engine
+    free_graphs()
+    return out
+
+
+def obs_and_tuner_phase(dev, clean: dict, counts_out: dict) -> dict:
+    from repro_torch.configs import get_config
+
+    cfg = get_config("dit-i256")
+    params = perturbed_params(cfg, dev)
+    counts_out["serve"] = {}
+    out = {"traced": traced_serving_part(dev, cfg, params, clean,
+                                         counts_out["serve"])}
+    out.update(tuner_part(dev, cfg, params, counts_out))
+    return out
+
 # --------------------------------------------------------------------------
 
 
@@ -2402,6 +2889,13 @@ def main():
     sqcounts: dict = {}
     served = serving_at_width_phase(dev, scounts, sqcounts)
 
+    print("== phase 9: observability and the tuner (dit-i256 full width: "
+          "phase 8's trace traced, with the metrics artifact and the "
+          "probe; tune at NFE 8, uncached and at cache_block "
+          f"{CACHE_BLOCK}; sample(plan=))")
+    ocounts: dict = {}
+    obs = obs_and_tuner_phase(dev, served.pop("_clean"), ocounts)
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -2429,6 +2923,10 @@ def main():
         entry["serving_launches_per_tick"] = serve_tick.get(kname, 0)
         entry["serving_launches"] = (sqcounts if kname == "quant_matmul"
                                      else scounts).get(kname, 0)
+        # phase 9: the traced and probed serving run, the search (the
+        # reference trajectory with it), the cached search, sample(plan=)
+        for part in ("serve", "tune", "tune_cached", "sample_plan"):
+            entry[f"obs_tuner_launches_{part}"] = ocounts[part].get(kname, 0)
         if kname in served["cache"]["launches"].get("shallow", {}):
             entry["serving_launches_per_shallow_tick"] = (
                 served["cache"]["launches"]["shallow"][kname])
@@ -2440,7 +2938,7 @@ def main():
         entries.append(entry)
     summary = dict(main_path=main_stats, serving=serve_stats,
                    quant_main_path=quant_stats, quant_serving=quant_serve,
-                   serving_at_width=served,
+                   serving_at_width=served, obs_and_tuner=obs,
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][
                        "other_operands_at_wq_site"])

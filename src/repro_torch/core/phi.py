@@ -57,3 +57,40 @@ def _varphi_recursive(k: int, h: np.ndarray) -> np.ndarray:
         for j in range(k):
             v = (v - 1.0 / math.factorial(j)) / h
     return v
+
+
+def phi_vec(p: int, h) -> np.ndarray:
+    """phi_p(h) = (phi_1..phi_p), phi_n = h^n n! varphi_{n+1}(h). Shape (p,) + h.shape."""
+    h = np.asarray(h, dtype=np.float64)
+    return np.stack([h**n * math.factorial(n) * varphi(n + 1, h) for n in range(1, p + 1)])
+
+
+def g_vec(p: int, h) -> np.ndarray:
+    """g_p(h) = (g_1..g_p), g_n = h^n n! psi_{n+1}(h). Shape (p,) + h.shape."""
+    h = np.asarray(h, dtype=np.float64)
+    return np.stack([h**n * math.factorial(n) * psi(n + 1, h) for n in range(1, p + 1)])
+
+
+# Closed forms used only by tests (App. E.1 / E.4):
+def varphi1_closed(h):
+    return np.expm1(h) / h
+
+
+def varphi2_closed(h):
+    return (np.exp(h) - h - 1.0) / h**2
+
+
+def varphi3_closed(h):
+    return (np.exp(h) - h**2 / 2 - h - 1.0) / h**3
+
+
+def psi1_closed(h):
+    return -np.expm1(-h) / h
+
+
+def psi2_closed(h):
+    return (h - 1.0 + np.exp(-h)) / h**2
+
+
+def psi3_closed(h):
+    return (h**2 / 2 - h + 1.0 - np.exp(-h)) / h**3

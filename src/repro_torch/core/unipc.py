@@ -187,6 +187,19 @@ def deep_rows(rows_np: dict) -> list:
     return [bool(r <= 0.5) for r in np.asarray(reuse, np.float64)]
 
 
+def pack_step_rows(tab: dict) -> tuple:
+    """(rows, model_cols, col_keys) of an augmented (or stacked) row dict of
+    tensors: the weight columns as the `unipc_update` row ops' packed
+    (n_rows, 7 + 2K) table, the model's columns — `t`, then the `mc_*`
+    columns in `col_keys` order — as one (n_rows, 1 + len(col_keys))
+    tensor. Packed on the host, the two are what a runner over static
+    buffers copies in to serve another table of the same shape."""
+    col_keys = sorted(k for k in tab if k.startswith("mc_"))
+    rows = row_ops.pack_weight_rows(tab)
+    model_cols = torch.stack([tab["t"]] + [tab[k] for k in col_keys], dim=1)
+    return rows, model_cols, col_keys
+
+
 def step_fn_over_rows(model_fn: Callable, tab: dict, *, sign: float,
                       fused_update: bool = True, cached: bool = False):
     """The per-row step over an explicit row table of device tensors.
@@ -208,19 +221,27 @@ def step_fn_over_rows(model_fn: Callable, tab: dict, *, sign: float,
     tells the model that every slot runs a reuse row (see
     `models.dit.dit_apply_cached`).
 
-    The table is packed once: its weight columns into the `unipc_update`
-    row ops' (n_rows, 7 + 2K) table, the model's columns (`t`, `mc_*`)
-    into one more. A row gathers the model's columns with `idx` and runs
-    the predictor, the model and the corrector; an index already on the
-    device is not copied, so a row makes no host sync.
-    `fused_update=False` pins the row ops' plain PyTorch version (the
+    The table is packed once (`pack_step_rows`) and the step reads the
+    packed tensors (`step_fn_over_packed`). A row gathers the model's
+    columns with `idx` and runs the predictor, the model and the corrector;
+    an index already on the device is not copied, so a row makes no host
+    sync. `fused_update=False` pins the row ops' plain PyTorch version (the
     reference's inline jnp form), kept for parity runs.
     """
-    col_keys = sorted(k for k in tab if k.startswith("mc_"))
-    n_rows = tab["t"].shape[0]
+    return step_fn_over_packed(model_fn, *pack_step_rows(tab), sign=sign,
+                               fused_update=fused_update, cached=cached)
+
+
+def step_fn_over_packed(model_fn: Callable, rows: torch.Tensor,
+                        model_cols: torch.Tensor, col_keys, *, sign: float,
+                        fused_update: bool = True, cached: bool = False):
+    """`step_fn_over_rows`' step over an already packed table
+    (`pack_step_rows`). The step reads `rows` and `model_cols` where they
+    lie on every call, so a caller that writes another table of the same
+    shape into them in place (the tuner's runner, between CUDA graph
+    replays) steps that table next."""
+    n_rows = rows.shape[0]
     backend = None if fused_update else "plain"
-    rows = row_ops.pack_weight_rows(tab)
-    model_cols = torch.stack([tab["t"]] + [tab[k] for k in col_keys], dim=1)
 
     def step(carry, idx, model_kwargs=None, deep=True):
         x, E = carry[0], carry[1]

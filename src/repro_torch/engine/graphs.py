@@ -33,11 +33,31 @@ falls back to an eager run.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels import dispatch
+
+
+@contextlib.contextmanager
+def readback_sync(device: torch.device):
+    """A designed wait on the card: the serving scheduler's flight-event
+    waits, its depth-1 fence and the device meta desync recovery reads, and
+    the one readback of a quality-probe replay or of a tuner candidate's
+    score. They run with torch's sync debug mode off, so a caller that runs
+    under `torch.cuda.set_sync_debug_mode("error")` is told of every other
+    sync (a serving tick makes none)."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def graphed(jit: bool, device: torch.device) -> bool:

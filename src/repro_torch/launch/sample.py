@@ -1,12 +1,13 @@
 """Diffusion sampling launcher (the port of `repro.launch.sample`): build the
 DiT eps-network for --arch, then sample with any solver of the zoo through
-the engine, or with its python-loop reference (`--loop`). Runs on the CUDA
-card unless `--device cpu` is given; there the engine's run is one CUDA
-graph replay (`engine/graphs.py`).
+the engine, or with its python-loop reference (`--loop`), or a tuned
+`SolverPlan` (`--plan`, from `launch.tune`). Runs on the CUDA card unless
+`--device cpu` is given; there the engine's run is one CUDA graph replay
+(`engine/graphs.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-i256 \
         --full --solver dpmpp --nfe 10 --order 3 --cfg-scale 2.0 --batch 8 \
-        [--loop] [--quant w8a16] [--eval-dtype bfloat16]
+        [--loop] [--quant w8a16] [--eval-dtype bfloat16] [--plan plan.json]
 """
 
 from __future__ import annotations
@@ -157,8 +158,9 @@ def latent_shape(cfg, batch):
 def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
            variant="bh2", prediction=None, batch=4, seed=0, params=None,
            x_T=None, loop=False, fused_update=True, cfg_scale=0.0,
-           cfg_schedule="constant", thresholding=False, quant="none",
-           eval_dtype="float32", num_layers=None, device="cuda"):
+           cfg_schedule="constant", thresholding=False, plan=None,
+           quant="none", eval_dtype="float32", num_layers=None,
+           device="cuda"):
     """Sample `batch` latents with `solver` (any name in `SOLVERS`); returns
     them as a numpy array.
 
@@ -169,7 +171,33 @@ def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
     fp32 only) instead of the engine's row loop. `quant` picks a quantized
     tier (models/quant.py, dit only), `eval_dtype` the eps-net's precision;
     `num_layers` cuts the depth of the config and keeps its widths. On the
-    card the engine's run is a CUDA graph replay."""
+    card the engine's run is a CUDA graph replay.
+
+    `plan` (a `tuning.SolverPlan` or the path of its JSON) replaces the
+    registry table: solver, NFE and order come from the plan, its lowered
+    table goes to `engine.build(spec, table=...)`, and a cached plan (one
+    with shallow steps) wires the engine's feature reuse at the plan's
+    `cache_block`. A plan has no python-loop reference."""
+    plan_tab = None
+    cache_block = 0
+    schedule = VPLinear()
+    if plan is not None:
+        # a tuned SolverPlan (path or object) replaces the registry table:
+        # the spec keeps only the conditioning/runtime knobs
+        from ..tuning import SolverPlan
+
+        if loop:
+            raise ValueError("a tuned plan runs the engine's table; there "
+                             "is no python-loop reference for searched "
+                             "plans")
+        if isinstance(plan, str):
+            plan = SolverPlan.load(plan)
+        solver, nfe, order = "unipc", plan.nfe, max(plan.orders)
+        prediction = plan.prediction
+        # a cached plan (nonzero cache_depth) needs the cache-wired engine
+        # and a spec carrying the same static boundary
+        cache_block = plan.cache_block
+        plan_tab = plan.compile(schedule)
     if loop and eval_dtype != "float32":
         raise ValueError("the python-loop reference is fp32-only; "
                          "eval_dtype rides the engine paths")
@@ -184,14 +212,14 @@ def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     if params is None:
         params = api.init_params(cfg, seed, device)
-    schedule = VPLinear()
     engine = build_engine(cfg, params, schedule, batch, seed, quant=quant,
-                          eval_dtype=eval_dtype, device=device)
+                          eval_dtype=eval_dtype, cache_block=cache_block,
+                          device=device)
     spec = EngineSpec(solver=solver, nfe=nfe, order=order, variant=variant,
                       prediction=prediction, cfg_scale=cfg_scale,
                       cfg_schedule=cfg_schedule, thresholding=thresholding,
                       fused_update=fused_update, quant=quant,
-                      eval_dtype=eval_dtype)
+                      eval_dtype=eval_dtype, cache_block=cache_block)
     if x_T is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         x_T = torch.randn(latent_shape(cfg, batch), generator=gen,
@@ -204,18 +232,21 @@ def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
         x0 = run(x_T)
         nfe_used = run.solver.model.nfe  # measured eval count
     else:
-        tab = engine.compile(spec)
+        tab = engine.compile(spec, table=plan_tab)
         x0 = engine.build(spec, table=tab)(x_T)
         # the row loop evaluates the last row too; fused CFG keeps one
         # (2B-batched) call a row
         nfe_used = len(tab.timesteps)
     x0 = x0.cpu().numpy()  # waits for the device
     dt = time.perf_counter() - t0
-    tag = (f"{solver}-{order}" + (f" [{quant}]" if quant != "none" else "")
+    tag = (f"{solver}-{order}" + (" [plan]" if plan_tab is not None else "")
+           + (f" [{quant}]" if quant != "none" else "")
            + (f" [{eval_dtype}]" if eval_dtype != "float32" else ""))
     mode = (" loop" if loop else
             " graph" if device.type == "cuda" else "")
-    print(f"{tag} [{device.type}{mode}] nfe={nfe_used} "
+    cache_note = (f" evals/latent={plan.eval_cost(cfg.num_layers):.2f} "
+                  f"(cache_block={cache_block})" if cache_block else "")
+    print(f"{tag} [{device.type}{mode}] nfe={nfe_used}{cache_note} "
           f"cfg={cfg_scale} wall={dt:.2f}s out_shape={x0.shape} "
           f"mean={x0.mean():+.4f} std={x0.std():.4f} "
           f"finite={np.isfinite(x0).all()}")
@@ -256,6 +287,11 @@ def main(argv=None):
     ap.add_argument("--eval-dtype", default="float32", choices=EVAL_DTYPES,
                     help="the eps-net's eval precision; solver state stays "
                          "fp32 (bfloat16: the fast serving eval)")
+    ap.add_argument("--plan", default=None,
+                    help="path to a tuned SolverPlan JSON "
+                         "(repro_torch.launch.tune); overrides --solver/"
+                         "--order/--nfe with the plan's searched per-step "
+                         "schedule")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
     scale = ap.add_mutually_exclusive_group()
@@ -263,6 +299,9 @@ def main(argv=None):
                        help="reduced CPU-scale config (the default)")
     scale.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
+    if args.plan and args.loop:
+        ap.error("--plan runs the engine's table; --loop has no python-loop "
+                 "reference for searched plans")
     if args.loop and args.eval_dtype != "float32":
         ap.error("--eval-dtype rides the engine paths; the python-loop "
                  "reference is fp32-only")
@@ -277,8 +316,9 @@ def main(argv=None):
                   prediction=args.prediction, batch=args.batch, seed=args.seed,
                   loop=args.loop, fused_update=not args.no_fused_update,
                   cfg_scale=args.cfg_scale, cfg_schedule=args.cfg_schedule,
-                  thresholding=args.thresholding, quant=args.quant,
-                  eval_dtype=args.eval_dtype, device=args.device)
+                  thresholding=args.thresholding, plan=args.plan,
+                  quant=args.quant, eval_dtype=args.eval_dtype,
+                  device=args.device)
 
 
 if __name__ == "__main__":

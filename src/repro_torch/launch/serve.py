@@ -5,21 +5,26 @@ so requests admit the moment a slot frees, carry their own seed, class and
 guidance scale, and emit without waiting for a batch to drain. One batched
 (optionally 2B cond+uncond stacked) network eval per tick, any registered
 solver, a plan bank of quality tiers, feature reuse from a cached plan
-bank, the quantized and bf16 evals, resilience and fault injection. Runs
-on the CUDA card unless `--device cpu` is given; there each tick is a CUDA
-graph replay and finished latents come back as a pipelined trailing
-stream.
+bank, the quantized and bf16 evals, resilience and fault injection, and
+observability: a Chrome trace of tick spans and request lifecycles
+(`--trace-out`), the metrics artifact (`--metrics-out`, rendered and
+checked by `launch.obsreport`), and the quality probe
+(`--probe-fraction`), which replays sampled completions against a
+high-NFE fp32 reference. Runs on the CUDA card unless `--device cpu` is
+given; there each tick is a CUDA graph replay and finished latents come
+back as a pipelined trailing stream.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dit-i256 \
         --full --batch 8 --nfe 10 --cfg-scale 2.0 --arrival-rate 0.5 \
         --requests 24
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dit-cifar \
-        --batch 4 --nfe 8 --arrival-rate 0.5 --requests 16 --device cpu
+        --batch 4 --nfe 8 --arrival-rate 0.5 --requests 16 --device cpu \
+        --trace-out trace.json --metrics-out metrics.json \
+        --probe-fraction 0.25 --probe-ref-nfe 16
 
-Not yet ported, and refused when asked for: `--trace-out`,
-`--metrics-out` and `--probe-fraction` (the tracer, the metrics report and
-the quality probe); the token families' prefill/decode serving; the mesh
-sharding of the slot batch (the port serves on one card).
+Not yet ported, and refused when asked for: the token families'
+prefill/decode serving; the mesh sharding of the slot batch (the port
+serves on one card).
 """
 
 from __future__ import annotations
@@ -33,19 +38,23 @@ from ..configs.registry import get_config
 from ..engine.engine import resolve_device
 from ..engine.specs import EVAL_DTYPES, not_yet_ported
 from ..models import api
+from ..obs import metrics as obsm
 
 
 @dataclass
 class ServeRun:
     """What one `serve_diffusion(..., return_run=True)` call served: the
     finished latents ordered by rid, the scheduler (completions, events,
-    registry), the run's metrics, the capture seconds, and the program."""
+    registry), the run's metrics, the capture seconds, the program, and the
+    tracer and quality probe when they were asked for."""
 
     latents: np.ndarray
     sched: object
     metrics: object
     capture_s: float
     program: object
+    tracer: object = None
+    probe: object = None
 
 
 def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
@@ -54,7 +63,8 @@ def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
                     arrival_rate=None, trace=None, requests=None,
                     plan_bank=None, tiers=None, eval_dtype="float32",
                     quant="none", pipeline_depth=2, trace_out=None,
-                    metrics_out=None, probe_fraction=0.0, resilience=None,
+                    metrics_out=None, metrics_every=None,
+                    probe_fraction=0.0, probe_ref_nfe=64, resilience=None,
                     faults=None, device="cuda", params=None,
                     return_run=False):
     """Continuous-batching diffusion serving through the engine's per-slot
@@ -87,24 +97,30 @@ def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
     Resilience (DESIGN.md §16): `resilience` (a `serving.ResilienceConfig`)
     and `faults` (a `serving.FaultPlan`, CLI `--inject-faults`).
 
+    Observability (DESIGN.md §15): `trace_out` writes the Chrome trace of
+    the run; `metrics_out` the metrics artifact (the registry's snapshot
+    delta, the derived ServeMetrics, a periodic row every `metrics_every`
+    executed ticks — 8 by default — and the Prometheus exposition);
+    `probe_fraction` > 0 replays that fraction of the completions against
+    a UniPC-3 reference at `probe_ref_nfe` on a second engine over the same
+    params (fp32, unquantized, uncached).
+
     `params` (a DiT param tree) default to `api.init_params(cfg, seed)`.
     Latents are drawn from a CPU torch.Generator seeded with each request's
     seed, and each request's class id from numpy's default_rng(seed), as in
-    the reference. `trace_out`, `metrics_out` and `probe_fraction` are not
-    ported yet and raise when given.
+    the reference.
     """
     from ..diffusion import VPLinear
     from ..engine import EngineSpec, default_tier_specs
+    from ..obs import (QualityProbe, Tracer, build_reference_fn,
+                       write_metrics_artifact)
     from ..serving import (Request, SlotScheduler, load_trace,
                            poisson_requests, run_trace)
     from .sample import NULL_CLASS_ID, build_engine, class_ids
 
-    if trace_out is not None:
-        raise not_yet_ported("the serving tracer (--trace-out)")
-    if metrics_out is not None:
-        raise not_yet_ported("the metrics artifact (--metrics-out)")
-    if probe_fraction:
-        raise not_yet_ported("the quality probe (--probe-fraction)")
+    if not 0.0 <= probe_fraction <= 1.0:
+        raise ValueError(f"probe_fraction must be in [0, 1], "
+                         f"got {probe_fraction}")
     device = resolve_device(device)
     cfg = get_config(arch)
     if cfg.family != "dit":
@@ -187,6 +203,25 @@ def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
         tier_names = list(tiers)
     else:
         program = engine.build_step(spec)
+    tracer = None
+    if trace_out is not None:
+        tracer = Tracer(meta={"arch": arch, "slots": batch,
+                              "pipeline_depth": pipeline_depth,
+                              "eval_dtype": eval_dtype, "quant": quant,
+                              "cache_block": cache_block,
+                              "cfg_scale": cfg_scale,
+                              "tiers": tier_names})
+    probe = None
+    if probe_fraction > 0.0:
+        # the reference engine is deliberately plain — fp32, unquantized,
+        # uncached — over the same param tensors, so the probe measures
+        # what the SERVING tier's precision tricks cost, against the
+        # converged solver trajectory
+        ref_engine = build_engine(cfg, params, VPLinear(), batch, seed,
+                                  per_request_cond=True, device=device)
+        probe = QualityProbe(
+            build_reference_fn(ref_engine, spec, ref_nfe=probe_ref_nfe),
+            probe_fraction)
     # idle slots are conditioned on the null class; every request carries its
     # own class id (drawn from its seed), so conditioning is reproducible
     # whichever slot the scheduler admits it into
@@ -194,6 +229,7 @@ def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
                           (cfg.patch_tokens, cfg.latent_dim),
                           extras_init={"class_ids": NULL_CLASS_ID},
                           pipeline_depth=pipeline_depth,
+                          tracer=tracer, probe=probe,
                           resilience=resilience, faults=faults)
     capture_s = sched.aot_compile()
     if trace is not None:
@@ -212,7 +248,32 @@ def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
         if r.extras is None or "class_ids" not in r.extras:
             r.extras = {**(r.extras or {}),
                         "class_ids": int(class_ids(1, seed=r.seed)[0])}
-    m = run_trace(sched, reqs)
+    snap0 = sched.registry.snapshot()
+    snapshot_log = [] if metrics_out is not None else None
+    if metrics_out is not None and not metrics_every:
+        metrics_every = 8
+    m = run_trace(sched, reqs, snapshot_every=metrics_every,
+                  snapshot_log=snapshot_log)
+    if trace_out is not None:
+        exported = tracer.export(trace_out)
+        print(f"trace: {len(exported['traceEvents'])} events "
+              f"({tracer.dropped} dropped) -> {trace_out}")
+    if metrics_out is not None:
+        write_metrics_artifact(
+            metrics_out,
+            metrics=obsm.delta(snap0, sched.registry.snapshot()),
+            serve_metrics=m.row(),
+            static={"mode": m.mode, "slots": m.slots, "n_rows": m.n_rows,
+                    "pipeline_depth": m.pipeline_depth},
+            exposition=sched.registry.exposition(),
+            rows=snapshot_log,
+            probe=probe.summary() if probe is not None else None)
+        print(f"metrics: {len(snapshot_log)} periodic rows -> {metrics_out}")
+    if probe is not None:
+        for t, row in sorted(probe.summary().items()):
+            print(f"  probe tier {t}: {row['count']} replayed, "
+                  f"discrepancy mean {row['mean']:.3e} max {row['max']:.3e} "
+                  f"(vs fp32 unipc-3 nfe={probe_ref_nfe})")
     mode = (f"bank[{','.join(tier_names)}]" if tier_names
             else f"{solver} nfe={nfe} order={order}")
     print(f"diffusion [{device.type}] slots={batch} {mode} "
@@ -251,7 +312,8 @@ def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
                np.zeros((0, cfg.patch_tokens, cfg.latent_dim), np.float32))
     if return_run:
         return ServeRun(latents=latents, sched=sched, metrics=m,
-                        capture_s=capture_s, program=program)
+                        capture_s=capture_s, program=program, tracer=tracer,
+                        probe=probe)
     return latents
 
 
@@ -303,11 +365,22 @@ def main(argv=None):
                          "synchronous loop; finished latents are "
                          "bit-identical at any depth")
     ap.add_argument("--trace-out", default=None,
-                    help="not yet ported (the serving tracer)")
+                    help="write a Chrome trace_event JSON of per-tick and "
+                         "per-request spans (open in chrome://tracing; "
+                         "DESIGN.md §15)")
     ap.add_argument("--metrics-out", default=None,
-                    help="not yet ported (the metrics artifact)")
+                    help="write the metrics artifact (registry snapshot + "
+                         "derived ServeMetrics + Prometheus exposition); "
+                         "render with python -m repro_torch.launch.obsreport")
+    ap.add_argument("--metrics-every", type=int, default=None,
+                    help="periodic snapshot row cadence in executed ticks "
+                         "for --metrics-out (default 8)")
     ap.add_argument("--probe-fraction", type=float, default=0.0,
-                    help="not yet ported (the quality probe)")
+                    help="replay this fraction of completed requests "
+                         "against a high-NFE fp32 reference and record "
+                         "per-tier trajectory-discrepancy gauges (0 = off)")
+    ap.add_argument("--probe-ref-nfe", type=int, default=64,
+                    help="NFE of the probe's UniPC-3 reference run")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="resilience (DESIGN.md §16): bound on queued "
                          "requests; past it new submissions are shed per "
@@ -394,8 +467,10 @@ def main(argv=None):
         tiers=(args.tiers.split(",") if args.tiers else None),
         eval_dtype=args.eval_dtype, quant=args.quant,
         pipeline_depth=args.pipeline_depth, trace_out=args.trace_out,
-        metrics_out=args.metrics_out, probe_fraction=args.probe_fraction,
-        resilience=resilience, faults=faults, device=args.device)
+        metrics_out=args.metrics_out, metrics_every=args.metrics_every,
+        probe_fraction=args.probe_fraction,
+        probe_ref_nfe=args.probe_ref_nfe, resilience=resilience,
+        faults=faults, device=args.device)
 
 
 if __name__ == "__main__":

@@ -182,10 +182,13 @@ def dit_apply_cached(params, cfg, x_t, t, class_ids=None, *, cache,
         for i in range(k, L):
             x = _block(x, _layer(params["blocks"], i), cfg, c)
     B = x_t.shape[0]
-    reuse = (torch.zeros((B,), dtype=torch.float32, device=x_t.device)
-             if reuse is None else
-             torch.as_tensor(reuse, dtype=torch.float32,
-                             device=x_t.device).expand(B))
+    # a host flag becomes a device fill, not a host-to-device copy, so a
+    # CUDA graph can capture it (an uncached table's rows pass reuse 0.0)
+    reuse = (torch.as_tensor(reuse, dtype=torch.float32,
+                             device=x_t.device).expand(B)
+             if torch.is_tensor(reuse) else
+             torch.full((B,), 0.0 if reuse is None else float(reuse),
+                        dtype=torch.float32, device=x_t.device))
     cache = cache.to(x_k.dtype)
     r = (reuse > 0.5).reshape((B,) + (1,) * (x_k.dim() - 1))
     # full slots take the freshly computed deep output and refresh their

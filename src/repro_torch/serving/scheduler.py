@@ -53,7 +53,6 @@ baseline continuous batching is compared with.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace as dc_replace
@@ -64,7 +63,7 @@ import torch
 
 from ..engine.compiler import DONE_NONFINITE
 from ..engine.engine import StepProgram
-from ..engine.specs import not_yet_ported
+from ..engine.graphs import readback_sync
 from ..obs.metrics import MetricsRegistry
 from .faults import FaultInjector, FaultPlan
 from .resilience import (DEFAULT_RESILIENCE, FAIL_NONFINITE,
@@ -94,25 +93,6 @@ EVENT_COUNTER_HELP = {
     "serve_requeued": "in-flight requests requeued by desync recovery",
     "fault_injected": "injected faults that fired (by kind)",
 }
-
-
-@contextlib.contextmanager
-def readback_sync(device: torch.device):
-    """The scheduler's designed waits on the card: a flight's event in
-    `_consume`, the trace runner's per-tick fence at depth 1 (`fence`), and
-    the device meta that desync recovery reads. They run with torch's sync
-    debug mode off, so a caller that serves under
-    `torch.cuda.set_sync_debug_mode("error")` is told of every other sync
-    (a tick makes none)."""
-    if device.type != "cuda":
-        yield
-        return
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
 
 
 class _Layout:
@@ -296,8 +276,11 @@ class SlotScheduler:
     every latent — is identical at every depth; the device done mask is
     verified against the prediction at consumption time.
 
-    `tracer=` and `probe=` (the reference's tracing and quality probe) are
-    not ported yet and accept only None.
+    `tracer=` (an `obs.Tracer`) records tick spans and request lifecycles;
+    `probe=` (an `obs.QualityProbe`) replays a sampled fraction of the
+    completions against its high-NFE reference. Both are opt-in: with None
+    every call site is skipped and a tick does exactly what it does
+    without them.
     """
 
     def __init__(self, program: StepProgram, slots: int,
@@ -312,10 +295,6 @@ class SlotScheduler:
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, "
                              f"got {pipeline_depth}")
-        if tracer is not None:
-            raise not_yet_ported("the serving tracer (tracer=)")
-        if probe is not None:
-            raise not_yet_ported("the quality probe (probe=)")
         self.program = program
         self.slots = slots
         self.sample_shape = tuple(sample_shape)
@@ -396,9 +375,19 @@ class SlotScheduler:
         self._blocked_ns = 0
         self._dispatch_ns = 0
         self._bookkeeping_ns = 0
-        # the registry is always on: it is the one accounting substrate
-        # ServeMetrics is derived from
+        self._probe_ns = 0  # quality-probe replays (excluded from phases)
+        # observability (DESIGN.md §15): the registry is always on — it is
+        # the one accounting substrate ServeMetrics is derived from — while
+        # the tracer and quality probe are opt-in (None = zero work: every
+        # call site is `if self.tracer is not None`-guarded).
         self.registry = registry if registry is not None else MetricsRegistry()
+        self.tracer = tracer
+        self.probe = probe
+        if probe is not None:
+            if probe.registry is None:
+                probe.registry = self.registry
+            if probe.tracer is None:
+                probe.tracer = tracer
         r = self.registry
         self._m_ticks = r.counter(
             "serve_ticks", help="executed batched step calls")
@@ -485,6 +474,10 @@ class SlotScheduler:
             self.events.append(("shed_degrade", req.arrival, req.rid))
             self._count_event("serve_shed_degraded")
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.async_begin("request", req.rid,
+                                    args={"tier": req.tier,
+                                          "arrival": req.arrival})
         return None
 
     def _rprov(self, rid: int) -> dict:
@@ -502,6 +495,16 @@ class SlotScheduler:
         self.events.append(("reject", rej.clock, req.rid, reason))
         self._rstate.pop(req.rid, None)
         self._count_event("serve_rejected", {"reason": reason})
+        if self.tracer is not None:
+            if reason == REJECT_EXPIRED:
+                # the lifecycle span opened at submit: close it as expired
+                self.tracer.async_end("request", req.rid,
+                                      args={"rejected": reason,
+                                            "tier": req.tier})
+            else:
+                # queue_full sheds before the span opens: a lone instant
+                self.tracer.instant("reject", cat="request",
+                                    args={"rid": req.rid, "reason": reason})
         return rej
 
     @property
@@ -599,6 +602,15 @@ class SlotScheduler:
         self.slot_budget[taken] = budgets
         self.slot_admit[taken] = self.ticks
         self._m_admitted.inc(n)
+        if self.tracer is not None:
+            # the admit instant opens the request's step segment: rows
+            # [offset, offset + budget) execute over the next `budget` ticks
+            for j, r in enumerate(reqs):
+                self.tracer.async_instant(
+                    "admit", r.rid,
+                    args={"slot": int(taken[j]), "tick": self.ticks,
+                          "offset": int(offs[j]), "budget": int(budgets[j]),
+                          "tier": r.tier})
         # full-width masked update buffers, written in numpy into one pinned
         # staging buffer, sent in one copy and folded into the device state
         # by one fixed-shape apply. The buffer is a fresh one from torch's
@@ -643,6 +655,7 @@ class SlotScheduler:
         ago (its readback has had N-1 device ticks to land)."""
         t0 = time.perf_counter_ns()
         b0 = self._blocked_ns
+        p0 = self._probe_ns
         self._admit()
         a1 = time.perf_counter_ns()
         adm_ns = a1 - t0
@@ -715,13 +728,24 @@ class SlotScheduler:
         while len(self._inflight) > self.pipeline_depth - 1:
             done.extend(self._consume(self._inflight.popleft()))
         t1 = time.perf_counter_ns()
-        book_ns = t1 - t0 - adm_ns - (d1 - d0) - (self._blocked_ns - b0)
+        book_ns = (t1 - t0 - adm_ns - (d1 - d0)
+                   - (self._blocked_ns - b0) - (self._probe_ns - p0))
         self._dispatch_ns += d1 - d0
         self._bookkeeping_ns += book_ns
         self._m_phase["admission"].inc(adm_ns)
         self._m_phase["dispatch"].inc(d1 - d0)
         self._m_phase["readback"].inc(self._blocked_ns - b0)
         self._m_phase["bookkeeping"].inc(book_ns)
+        if self.tracer is not None:
+            tr = self.tracer
+            tr.complete("admission", t0, a1)
+            tr.complete("dispatch", d0, d1)
+            tr.complete("tick", t0, t1,
+                        args={"tick": self.ticks, "busy": n_busy,
+                              "queue": len(self.queue),
+                              "emitted": len(done)})
+            tr.counter("slots", {"busy": n_busy, "queue": len(self.queue)},
+                       ts_ns=t0)
         return done
 
     def _inject(self) -> None:
@@ -739,6 +763,11 @@ class SlotScheduler:
                 self.events.append(("fault_nan", self.ticks, req.rid,
                                     int(self.slot_row[s])))
                 self._count_event("fault_injected", {"kind": "nan"})
+                if self.tracer is not None:
+                    self.tracer.async_instant(
+                        "fault_nan", req.rid,
+                        args={"tick": self.ticks,
+                              "step": int(self.slot_row[s])})
         mf = inj.take_meta(self.ticks)
         if mf is not None:
             slot = mf.slot
@@ -750,6 +779,11 @@ class SlotScheduler:
                 self.events.append(("fault_meta", self.ticks, slot,
                                     mf.delta))
                 self._count_event("fault_injected", {"kind": "meta"})
+                if self.tracer is not None:
+                    self.tracer.instant("fault_meta", cat="tick",
+                                        args={"tick": self.ticks,
+                                              "slot": slot,
+                                              "delta": mf.delta})
 
     def _land(self, f: _Flight) -> None:
         """Wait for a flight's event (its copies have landed) and give its
@@ -792,7 +826,7 @@ class SlotScheduler:
         # exhaustion emits a (marked-failed) completion.
         bad = mask_np[f.slots] == DONE_NONFINITE
         cfg = self.resilience
-        done: List[Completion] = []
+        emitted: List[Tuple[Request, Completion]] = []
         for j, req in enumerate(f.reqs):
             if bad[j]:
                 prov = self._rprov(req.rid)
@@ -815,7 +849,8 @@ class SlotScheduler:
             if not c.ok:
                 self.events.append(("failed", f.tick, c.rid))
                 self._count_event("serve_failed")
-            done.append(c)
+            emitted.append((req, c))
+        done = [c for _, c in emitted]
         self.completions.extend(done)
         reg = self.registry
         for c in done:
@@ -834,6 +869,30 @@ class SlotScheduler:
                 reg.histogram("tier_latency_ticks", LATENCY_TICK_BUCKETS,
                               lbl, help="per-tier request latency in "
                                         "ticks").observe(c.latency_ticks)
+        if self.tracer is not None:
+            for c in done:
+                args = {"tier": c.tier, "evals": c.evals,
+                        "eval_cost": c.eval_cost,
+                        "latency_ticks": c.latency_ticks,
+                        "admit_tick": c.admit_tick,
+                        "finish_tick": c.finish_tick}
+                if not c.ok or c.retries or c.requeues:
+                    args.update(ok=c.ok, retries=c.retries,
+                                requeues=c.requeues,
+                                fail_reason=c.fail_reason)
+                self.tracer.async_end("request", c.rid, args=args)
+            self.tracer.complete("readback", tb, te)
+            self.tracer.complete("emit", te, time.perf_counter_ns())
+        if self.probe is not None:
+            # replay a sampled fraction against the high-NFE reference; the
+            # replay is device work, not scheduler bookkeeping — timed apart
+            # so it never pollutes the per-phase host accounting. Failed
+            # completions are never probed (their latent is non-finite).
+            pp0 = time.perf_counter_ns()
+            for req, c in emitted:
+                if c.ok and self.probe.selected(c.rid):
+                    self.probe.observe(req, c, self._draw(req))
+            self._probe_ns += time.perf_counter_ns() - pp0
         return done
 
     def _retry(self, req: Request, f: _Flight, prov: dict) -> None:
@@ -847,6 +906,11 @@ class SlotScheduler:
         prov["retries"] += 1
         self.events.append(("retry", f.tick, req.rid, req.tier, nxt))
         self._count_event("serve_retries")
+        if self.tracer is not None:
+            self.tracer.async_instant(
+                "retry", req.rid,
+                args={"tick": f.tick, "from": req.tier, "to": nxt,
+                      "attempt": prov["retries"]})
         self.queue.appendleft(req if nxt == req.tier
                               else dc_replace(req, tier=nxt))
 
@@ -907,6 +971,15 @@ class SlotScheduler:
         self._count_event("serve_desync_recoveries")
         if affected:
             self._count_event("serve_requeued", n=len(affected))
+        if self.tracer is not None:
+            self.tracer.instant(
+                "desync_recover", cat="tick",
+                args={"tick": f.tick, "got": got.tolist(),
+                      "predicted": f.slots.tolist(),
+                      "requeued": [r.rid for r in affected]})
+            for r in affected:
+                self.tracer.async_instant("requeue", r.rid,
+                                          args={"tick": f.tick})
         return []
 
     def flush(self) -> List[Completion]:

@@ -1,6 +1,5 @@
 """Solver plans: the searchable per-step decision vector (the port of
-`repro.tuning.plans`, numpy only; the search and its objective are not
-ported yet).
+`repro.tuning.plans`, numpy only).
 
 A `SolverPlan` pins every choice the paper fixes by hand at a given NFE
 budget — where each timestep lands, the UniP order used at each step,
@@ -138,8 +137,8 @@ class SolverPlan:
 
         The table width is padded to MAX_ORDER-1 difference columns no matter
         the plan's own max order, so every candidate a search proposes shares
-        one shape signature, and stacked plan banks need no per-tier
-        padding.
+        one shape signature — the tuner's runner never captures anew — and
+        stacked plan banks need no per-tier padding.
         """
         t, lam, alpha, sigma = self.grid(noise_schedule)
         tab = build_unipc_schedule(

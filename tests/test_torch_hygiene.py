@@ -57,15 +57,18 @@ def test_port_files_were_found():
 
 
 def test_serving_obs_and_tuning_subpackages_are_scanned():
-    """The subpackages ported with serving are in the import scan above."""
+    """The subpackages ported with serving, observability and the tuner are
+    in the import scan above."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for sub, mods in (("serving", ("__init__", "scheduler", "server",
                                    "resilience", "faults")),
-                      ("obs", ("__init__", "metrics")),
-                      ("tuning", ("__init__", "plans"))):
+                      ("obs", ("__init__", "metrics", "trace", "report",
+                               "probe")),
+                      ("tuning", ("__init__", "plans", "objective",
+                                  "search")),
+                      ("launch", ("serve", "obsreport", "tune"))):
         for mod in mods:
             assert f"src/repro_torch/{sub}/{mod}.py" in names
-    assert "src/repro_torch/launch/serve.py" in names
 
 
 def _no_card():
@@ -89,6 +92,16 @@ def test_serve_defaults_to_the_card_and_raises_without_one():
         serve.serve_diffusion("dit-cifar", nfe=2, batch=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "dit-cifar", "--nfe", "2", "--batch", "1"])
+
+
+def test_tune_defaults_to_the_card_and_raises_without_one():
+    _no_card()
+    from repro_torch.launch import tune
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune.tune("dit-cifar", nfe=2, batch=1, train_steps=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune.main(["--nfe", "2", "--batch", "1", "--train-steps", "0"])
 
 
 def test_cli_runs_on_the_cpu_when_asked(capsys):

@@ -14,8 +14,8 @@ no counterpart of).
   `params_from_numpy`);
 * the framework-free pieces bit-equal: `poisson_requests`, trace files,
   the metrics registry and `serve_metrics_from_snapshot`;
-* `launch.serve` on the CPU: its latents against uniform runs, and what it
-  does not port yet refused.
+* `launch.serve` on the CPU: its latents against uniform runs, its
+  observability flags running, and what it does not port yet refused.
 
 Helpers here are shared by the other `test_torch_*serving` / resilience /
 cache files.
@@ -744,20 +744,27 @@ def test_serve_entry_point_latents_match_uniform_runs(capsys):
     assert err <= TOL
 
 
-def test_serve_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(capsys):
+def test_serve_cli_runs_on_the_cpu_and_refuses_what_is_not_ported(
+        capsys, tmp_path):
+    """The CLI serves on the CPU; the observability flags, once refused as
+    not yet ported, now run (tests/test_torch_obs.py holds them against the
+    reference) and the scheduler takes a tracer; what is still refused:
+    per-plan flags on a tier program."""
     out = t_serve.main(["--arch", "dit-cifar", "--batch", "2", "--nfe", "2",
                         "--arrival-rate", "0.5", "--requests", "3",
                         "--pipeline-depth", "3", "--device", "cpu"])
     assert out.shape == (3, 64, 32)
     assert "depth=3" in capsys.readouterr().out
-    for flag in (["--trace-out", "t.json"], ["--metrics-out", "m.json"],
-                 ["--probe-fraction", "0.5"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t_serve.main(["--arch", "dit-cifar", "--nfe", "2",
-                          "--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsv.SlotScheduler(t_engine().build_step(TSpec(nfe=2)), 2, (D,),
-                          tracer=object())
+    for flag in (["--trace-out", str(tmp_path / "t.json")],
+                 ["--metrics-out", str(tmp_path / "m.json")],
+                 ["--probe-fraction", "0.5", "--probe-ref-nfe", "3"]):
+        got = t_serve.main(["--arch", "dit-cifar", "--nfe", "2",
+                            "--batch", "2", "--device", "cpu"] + flag)
+        assert got.shape == (2, 64, 32)
+    from repro_torch.obs import Tracer
+    sched = tsv.SlotScheduler(t_engine().build_step(TSpec(nfe=2)), 2, (D,),
+                              tracer=Tracer())
+    assert sched.tracer is not None and sched.probe is None
     with pytest.raises(SystemExit):
         t_serve.main(["--arch", "dit-cifar", "--tiers", "fast", "--nfe", "4",
                       "--device", "cpu"])
