@@ -107,9 +107,32 @@ Phases (any failure exits non-zero):
      shallow plan bit-equal to cached engine.build replays,
      evals_per_latent. (d) `sample(plan=)` on (b)'s plan from its JSON:
      launches counted, bit-equal to the engine replay of its table.
+ 10. training at full width — dit-i256 (28 blocks, bf16 activations over
+     fp32 params, batch 8) through `repro_torch.launch.train`: (a) each
+     backward kernel (adaln_modulate_bwd, gate_residual_bwd,
+     flash_attention_bwd) against its plain version at the path's shapes
+     and strided operands and at edge shapes (fp32 1e-5 relative L-inf,
+     bf16 1e-2 relative L2), the attention forward with its log-sum-exp
+     bit-equal to the forward without it, each timed as in phase 3 beside
+     its bound, its plain version and a library yardstick; (b) `train`
+     for 20 steps: every loss finite, launches exactly 57 / 56 / 28
+     forward and backward a step, step walls, tokens/s, peak memory, one
+     step under torch.profiler and the forward / backward / optimizer
+     split by CUDA events; (c) one step's loss and every gradient leaf,
+     kernels against plain-pinned on the same perturbed params and draws
+     (bf16 full width <= 2e-2 relative L2, fp32 at 4 blocks <= 1e-4);
+     (d) the full step twice, bit-equal; (e) the trained params through
+     a checkpoint, bit-equal, then `launch.sample --ckpt`: bit-equal to
+     sampling the in-memory params, 24 / 684 / 672 / 336 launches (a
+     warm-up row and the replay) and a replay alone 22 / 627 / 616 / 308,
+     no backward launch; (f) `launch.tune.tune` as in phase 9 (b) with
+     train_steps=100 (the reference's default): finite losses, tuned <=
+     baseline, printed beside phase 9 (b)'s random-weight search.
 The last three lines are the kernels JSON (each kernel's launches on the
 main path, and since phase 8 its launches per serving tick and in the
-serving run, since phase 9 in each of its four runs), the card's name and
+serving run, since phase 9 in each of its four runs, since phase 10 in the
+training run; the backward kernels' launches are the training run's), the
+card's name and
 power limit as `nvidia-smi
 --query-gpu=name,power.limit` prints them, and {"ok": true, "device":
 {...}}.
@@ -1028,17 +1051,30 @@ KERNEL_KINDS = (
 )
 
 
-def kernel_kind(name: str) -> str:
-    for kind, keys in KERNEL_KINDS:
+def kernel_kind(name: str, kinds=KERNEL_KINDS) -> str:
+    for kind, keys in kinds:
         if any(k in name.lower() for k in keys):
             return kind
     return "other (elementwise, reductions, memset)"
 
 
-def profile_split(fn, top: int = 12) -> dict:
+# a training step's kernels: the backward kernels first ("attn_" would
+# take attention's)
+TRAIN_KINDS = (
+    ("backward kernels (port)", ("modulate_bwd_kernel", "gate_bwd_kernel",
+                                 "column_sum_kernel", "attn_bwd_")),
+    ("forward kernels (port)", ("modulate_kernel", "gate_kernel", "attn_")),
+) + KERNEL_KINDS[1:]
+
+
+def train_kind(name: str) -> str:
+    return kernel_kind(name, TRAIN_KINDS)
+
+
+def profile_split(fn, top: int = 12, kind=kernel_kind) -> dict:
     """Run `fn` once under torch.profiler with CUDA activity and split the
     device time: the top kernels by summed time with their counts, the sum
-    by kind, the `bfloat16_copy` casts, the sum of all device activity, the
+    by `kind` (a kernel name -> its kind), the `bfloat16_copy` casts, the sum of all device activity, the
     wall (host clock to a sync, with the profiler's own cost inside) and the
     share of the wall with no device activity (the union of kernel
     intervals against the wall). Returns {} if the profiler recorded no
@@ -1068,7 +1104,7 @@ def profile_split(fn, top: int = 12) -> dict:
         reach = max(reach, end)
     kinds: dict = {}
     for name, (n, us) in by_name.items():
-        k = kinds.setdefault(kernel_kind(name), [0, 0.0])
+        k = kinds.setdefault(kind(name), [0, 0.0])
         k[0] += n
         k[1] += us / 1e3
     casts = [(n, us) for name, (n, us) in by_name.items()
@@ -1087,7 +1123,8 @@ def profile_split(fn, top: int = 12) -> dict:
     for name, (n, us) in ranked:
         print(f"    {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
     port = sorted(((name, n, us) for name, (n, us) in by_name.items()
-                   if kernel_kind(name) == "port kernels"),
+                   if kernel_kind(name) == "port kernels"
+                   or train_kind(name).startswith("backward")),
                   key=lambda k: -k[2])
     for name, n, us in port:
         print(f"    port kernel in the path: {us / 1e3:.3f} ms in {n} = "
@@ -2802,6 +2839,574 @@ def obs_and_tuner_phase(dev, clean: dict, counts_out: dict) -> dict:
     return out
 
 # --------------------------------------------------------------------------
+# phase 10: training at full width
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH = 20, 8
+TRAIN_PROFILE_STEP = 10       # the step run under torch.profiler
+TUNE_TRAIN_STEPS = 100        # launch.tune's default, the reference's
+# one bf16 training step, kernels against plain-pinned: each gradient leaf
+# within this relative L2 (the ceiling; PERF.md states the measured value);
+# the same step at fp32 over STEP_FP32_DEPTH blocks within STEP_FP32_TOL
+STEP_TOL = 2e-2
+STEP_FP32_DEPTH = 4
+STEP_FP32_TOL = 1e-4
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # per backward case
+BWD_KERNELS = [  # name, source, replaces (the TPU kernel differentiated)
+    ("adaln_modulate_bwd", "src/repro_torch/kernels/csrc/adaln_modulate.cu",
+     "src/repro/kernels/adaln_modulate/kernel.py:61"),
+    ("gate_residual_bwd", "src/repro_torch/kernels/csrc/adaln_modulate.cu",
+     "src/repro/kernels/adaln_modulate/kernel.py:90"),
+    ("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:84"),
+]
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of `steps` training steps of the DiT: per step the
+    eval's 2L + 1 modulations, 2L gated residuals and L attentions, and
+    one backward launch of each."""
+    L = cfg.num_layers
+    per = {"adaln_modulate": 2 * L + 1, "gate_residual": 2 * L,
+           "flash_attention": L}
+    return {k + s: n * steps for k, n in per.items() for s in ("", "_bwd")}
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def backward_kernel_cases(dev) -> dict:
+    """(a) each backward kernel against its plain version (`ref.py`'s
+    formula) at the training path's shapes and operand layouts and at edge
+    shapes, each labelled with its plan; timed as phase 3 times (100 calls
+    in a CUDA graph) beside its bound, its plain version and one library
+    call (timed queued behind a spin kernel, as it runs through autograd or
+    has no graph-safe form)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.adaln_modulate import kernel as ak
+    from repro_torch.kernels.adaln_modulate import ref as ar
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    out = {}
+
+    def check(name, label, got, want, dt):
+        torch.cuda.synchronize()
+        linf = max(rel_err(a, b) for a, b in zip(got, want))
+        l2 = max(rel_l2(a, b) for a, b in zip(got, want))
+        abs_err = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(got, want))
+        if not all(torch.isfinite(a.float()).all() for a in got):
+            fail(f"{name} [{label}]: non-finite kernel output")
+        # fp32: relative L-inf; bf16 (P and dS rounded for the tensor
+        # cores, each output rounded once): relative L2
+        err = linf if dt == torch.float32 else l2
+        print(f"  {name} [{label}] rel L-inf {linf:.3e} rel L2 {l2:.3e} "
+              f"(tol {BWD_TOL[dt]:g} {'L-inf' if dt == torch.float32 else 'L2'})"
+              f" abs {abs_err:.3e}")
+        if not err <= BWD_TOL[dt]:
+            fail(f"{name} [{label}] disagrees with its plain version: "
+                 f"{err:.3e} > {BWD_TOL[dt]:g}")
+        st = out.setdefault(name, dict(cases={}, max_abs_err=0.0,
+                                       max_rel_err=0.0))
+        st["cases"][label] = dict(rel_linf=linf, rel_l2=l2)
+        st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+        st["max_rel_err"] = max(st["max_rel_err"], err)
+
+    def timed(name, k_fn, p_fn, lib, b, fl, dt, **extra):
+        bms, by = bound(b, fl, dt)
+        lib_ms = queued_device_ms(lib) if lib is not None else None
+        out[name].update(ms=device_ms(k_fn), host_call_ms=host_call_ms(k_fn),
+                         plain_ms=device_ms(p_fn), library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by, **extra)
+        st = out[name]
+        print(f"  {name}: {st['ms']:.6f} ms a call on the card (bound "
+              f"{bms:.6f} by {by}), plain {st['plain_ms']:.6f}, library "
+              f"{lib_ms if lib_ms is None else round(lib_ms, 6)}, host "
+              f"{st['host_call_ms']:.6f} ms a call eager; "
+              f"{ {k: v for k, v in extra.items()} }")
+
+    # adaLN modulate and gate_residual: (B, T, D, dtype, conditioning
+    # width): the path's block and head rows at batch 8, the fp32 run's,
+    # ragged D and T, dit-cifar, MAX_D
+    B, T, D = TRAIN_BATCH, 256, 1152
+    row_cases = [(B, T, D, torch.bfloat16, 6, "path block (B, 6D) rows"),
+                 (B, T, D, torch.bfloat16, 2, "path head (B, 2D) rows"),
+                 (B, T, D, torch.float32, 6, "fp32 run"),
+                 (3, 37, 100, torch.float32, 6, "fp32 ragged D 100, T 37"),
+                 (2, 5, 72, torch.float32, 6, "fp32 D 72"),
+                 (B, 64, 384, torch.bfloat16, 6, "dit-cifar"),
+                 (2, 33, 100, torch.bfloat16, 6, "bf16 ragged D 100"),
+                 (2, 5, 8192, torch.bfloat16, 6, "MAX_D")]
+    path = {}
+    for b_, t_, d_, dt, width, label in row_cases:
+        x, y, gr = (randn(b_, t_, d_, dtype=dt) for _ in range(3))
+        mod = randn(b_, width * d_, dtype=dt)
+        scale, gate = mod[:, d_:2 * d_], mod[:, (width - 1) * d_:width * d_]
+        tag = f"{label} ({b_}, {t_}, {d_}) {str(dt)[6:]}, rows {ak.bwd_rows(x)}"
+        check("adaln_modulate_bwd", tag, ak.modulate_bwd(gr, x, scale),
+              ar.modulate_bwd(gr, x, scale), dt)
+        check("gate_residual_bwd", tag, ak.gate_residual_bwd(gr, gate, y),
+              ar.gate_residual_bwd(gr, gate, y), dt)
+        if not path:
+            path = dict(x=x, y=y, g=gr, scale=scale, gate=gate)
+    x, y, gr, scale, gate = (path[k] for k in ("x", "y", "g", "scale",
+                                               "gate"))
+    ones = torch.ones(D, device=dev, dtype=x.dtype)
+    zeros = torch.zeros(D, device=dev, dtype=x.dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], ones, zeros,
+                                                     1e-5)
+    row_bytes = nbytes(gr, x, x) + 3 * B * D * x.element_size()
+    timed("adaln_modulate_bwd", lambda: ak.modulate_bwd(gr, x, scale),
+          lambda: ar.modulate_bwd(gr, x, scale),
+          lambda: torch.ops.aten.native_layer_norm_backward(
+              gr, x, [D], mean, rstd, ones, zeros, [True, True, True]),
+          row_bytes, 15 * x.numel(), torch.float32,
+          library="aten.native_layer_norm_backward (dx, and the column "
+                  "sums over all B*T rows)")
+    timed("gate_residual_bwd", lambda: ak.gate_residual_bwd(gr, gate, y),
+          lambda: ar.gate_residual_bwd(gr, gate, y), None,
+          row_bytes, 3 * x.numel(), torch.float32,
+          library="none: no one PyTorch call computes dy and the per-b "
+                  "sums")
+
+    # attention: (B, H, Sq, Skv, D, dtype, label); q, k, v, do as the
+    # head-major views of (B, S, H, D) projections the DiT passes
+    att_cases = [(B, 16, 256, 256, 72, torch.bfloat16, "path"),
+                 (B, 16, 256, 256, 72, torch.float32, "fp32 run"),
+                 (2, 3, 67, 67, 72, torch.float32, "fp32 ragged S 67"),
+                 (2, 2, 33, 50, 100, torch.float32, "fp32 D 100, Sq != Skv"),
+                 (2, 2, 33, 50, 100, torch.bfloat16, "bf16 D 100, Sq != Skv"),
+                 (B, 6, 64, 64, 64, torch.bfloat16, "dit-cifar D 64"),
+                 (B, 6, 64, 64, 64, torch.float32, "dit-cifar D 64 fp32"),
+                 (1, 2, 130, 70, 128, torch.bfloat16, "D 128")]
+    apath = {}
+    lse_same = True
+    for b_, h_, sq, skv, d_, dt, label in att_cases:
+        q = randn(b_, sq, h_, d_, dtype=dt).transpose(1, 2)
+        k, v = (randn(b_, skv, h_, d_, dtype=dt).transpose(1, 2)
+                for _ in range(2))
+        do = randn(b_, sq, h_, d_, dtype=dt).transpose(1, 2)
+        o_plain = fk.flash_attention(q, k, v, causal=False)
+        o, lse = fk.flash_attention(q, k, v, causal=False, lse=True)
+        torch.cuda.synchronize()
+        same = torch.equal(o, o_plain)
+        lse_err = rel_err(lse, fr.attention_lse(q, k, causal=False))
+        lse_same = lse_same and same
+        p = fk.plan_bwd(q, k, v, do)
+        tag = (f"{label} ({b_}, {h_}, {sq}, {skv}, {d_}) {str(dt)[6:]}, "
+               f"{p['body']} chunks {p['chunks']} vec_in {p['vec_in']}")
+        print(f"  flash_attention with lse [{label}]: output bit-equal to "
+              f"the forward without lse: {same}; lse rel L-inf {lse_err:.3e}")
+        if not same or not lse_err <= 1e-5:
+            fail(f"flash_attention with lse [{label}]: output equal {same}, "
+                 f"lse {lse_err:.3e}")
+        got = fk.flash_attention_bwd(q, k, v, o, lse, do)
+        want = fr.attention_bwd(q, k, v, o, lse, do)
+        for a, src in zip(got, (q, k, v)):
+            if a.stride() != src.stride():
+                fail(f"flash_attention_bwd [{label}]: gradient strides "
+                     f"{a.stride()} != the input's {src.stride()}")
+        check("flash_attention_bwd", tag, got, want, dt)
+        if not apath:
+            apath = dict(q=q, k=k, v=v, do=do, o=o, lse=lse)
+    q, k, v, do, o, lse = (apath[n] for n in ("q", "k", "v", "do", "o",
+                                              "lse"))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        out_ = F.scaled_dot_product_attention(*leaves)
+        return torch.autograd.grad(out_, leaves, do)
+
+    def ours_fwd_bwd():
+        o_, l_ = fk.flash_attention(q, k, v, causal=False, lse=True)
+        return fk.flash_attention_bwd(q, k, v, o_, l_, do)
+
+    Bq, H, S, Dh = q.shape
+    timed("flash_attention_bwd",
+          lambda: fk.flash_attention_bwd(q, k, v, o, lse, do),
+          lambda: fr.attention_bwd(q, k, v, o, lse, do), sdpa_fwd_bwd,
+          nbytes(q, k, v, o, do, lse) + 3 * nbytes(q),
+          5 * 2 * Bq * H * S * S * Dh, torch.bfloat16,
+          library="SDPA forward + backward through autograd",
+          fwd_bwd_queued_ms=queued_device_ms(ours_fwd_bwd),
+          lse_output_bit_equal=lse_same)
+    return out
+
+
+@contextlib.contextmanager
+def step_recorder(train_mod, profile_at=None):
+    """launch.train's steps within the block, instrumented: each step's
+    wall (host clock between syncs), its loss tensor, and CUDA event times
+    of the loss's forward, the backward and the optimizer's update; step
+    `profile_at` runs under torch.profiler instead (its wall kept out)."""
+    from repro_torch.models import api
+
+    rec = dict(n=0, walls=[], losses=[], phases=[], profile=None)
+    marks: dict = {}
+    orig_make, orig_loss = train_mod.make_train_step, api.train_loss
+
+    def mark(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+
+    def loss_fn(cfg, objective):
+        fn = orig_loss(cfg, objective)
+
+        def timed(*args):
+            mark("fwd0")
+            loss = fn(*args)
+            mark("fwd1")
+            return loss
+        return timed
+
+    class _Opt:
+        def __init__(self, opt):
+            self.opt = opt
+
+        def init(self, params):
+            return self.opt.init(params)
+
+        def update(self, *args):
+            mark("opt0")
+            res = self.opt.update(*args)
+            mark("opt1")
+            return res
+
+    def make(cfg, objective, opt):
+        step = orig_make(cfg, objective, _Opt(opt))
+
+        def run(*args):
+            idx = rec["n"]
+            rec["n"] += 1
+            torch.cuda.synchronize()
+            if idx == profile_at:
+                box = {}
+                rec["profile"] = profile_split(
+                    lambda: box.setdefault("r", step(*args)), kind=train_kind)
+                res = box["r"]
+            else:
+                t0 = time.perf_counter()
+                mark("step0")
+                res = step(*args)
+                mark("step1")
+                torch.cuda.synchronize()
+                rec["walls"].append(time.perf_counter() - t0)
+                rec["phases"].append({
+                    "forward": marks["fwd0"].elapsed_time(marks["fwd1"]),
+                    "backward": marks["fwd1"].elapsed_time(marks["opt0"]),
+                    "optimizer": marks["opt0"].elapsed_time(marks["opt1"]),
+                    "step": marks["step0"].elapsed_time(marks["step1"])})
+            rec["losses"].append(res[2])
+            return res
+        return run
+
+    train_mod.make_train_step, api.train_loss = make, loss_fn
+    try:
+        yield rec
+    finally:
+        train_mod.make_train_step, api.train_loss = orig_make, orig_loss
+
+
+def check_losses(label: str, rec: dict, steps: int) -> list:
+    losses = torch.stack(rec["losses"]).float().cpu()
+    if len(losses) != steps or not torch.isfinite(losses).all():
+        fail(f"{label}: {len(losses)} losses of {steps}, finite "
+             f"{torch.isfinite(losses).tolist()}")
+    return losses.tolist()
+
+
+def training_part(dev, counts_out: dict) -> dict:
+    """(b) launch.train.train at full width: every loss finite, launches a
+    step exact, step walls, tokens/s, peak memory, one step's profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config("dit-i256")
+    free_graphs()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with step_recorder(train_mod, profile_at=TRAIN_PROFILE_STEP) as rec:
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        params, hist = train_mod.train(
+            "dit-i256", reduced=False, objective="diffusion",
+            steps=TRAIN_STEPS, batch=TRAIN_BATCH, log_every=TRAIN_STEPS,
+            device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_out.update(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = check_losses("train()", rec, TRAIN_STEPS)
+    want = train_launches(cfg, TRAIN_STEPS)
+    print(f"  train(): {TRAIN_STEPS} steps at batch {TRAIN_BATCH} in "
+          f"{wall:.3f} s; launches {dict(sorted(counts_out.items()))} "
+          f"(expected {want}); losses {[round(x, 4) for x in losses]}")
+    if dict(counts_out) != want:
+        fail(f"train() launched {dict(counts_out)} != {want}")
+    walls = rec["walls"][1:]           # after the first
+    med = float(np.median(walls))
+    phases = {k: float(np.median([p[k] for p in rec["phases"][1:]]))
+              for k in rec["phases"][0]}
+    tokens = TRAIN_BATCH * cfg.patch_tokens
+    print(f"  step wall: first {rec['walls'][0]:.4f} s, median after it "
+          f"{med:.4f} s ({min(walls):.4f}-{max(walls):.4f}); "
+          f"{tokens / med:.1f} tokens/s ({TRAIN_BATCH / med:.2f} images/s); "
+          f"peak memory {peak / 2**30:.2f} GiB; device-timeline medians "
+          f"(CUDA events) forward {phases['forward']:.3f} ms, backward "
+          f"{phases['backward']:.3f} ms, optimizer {phases['optimizer']:.3f}"
+          f" ms, step {phases['step']:.3f} ms")
+    if any(p.requires_grad for p in tree_leaves(params)):
+        fail("train() returned params that require grad")
+    return dict(params=params, out=dict(
+        steps=TRAIN_STEPS, batch=TRAIN_BATCH, wall_s=wall, losses=losses,
+        first_step_s=rec["walls"][0], median_step_s=med,
+        step_walls_s=rec["walls"], tokens_per_s=tokens / med,
+        peak_memory_gib=peak / 2**30, phase_ms=phases,
+        launches=dict(counts_out), profile=rec["profile"],
+        history=hist))
+
+
+def loss_and_grads(cfg, params, batch, draws):
+    """The diffusion loss and its gradient leaves (sorted key order) at
+    `params`, with explicit draws."""
+    from repro_torch.models import api
+    from repro_torch.optim import tree_leaves, tree_map
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = api.diffusion_loss_fn(cfg)(leaves, batch, draws)
+    flat = tree_leaves(leaves)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def step_parity_part(dev) -> dict:
+    """(c) one step's loss and every gradient leaf, kernels against
+    plain-pinned, from the same perturbed params and draws: bf16 at full
+    width (<= STEP_TOL) and fp32 over STEP_FP32_DEPTH blocks
+    (<= STEP_FP32_TOL); (d) the full step (loss, gradients, AdamW) twice
+    from the same inputs, bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.diffusion.process import draw_t_noise
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.train import build_batch_fn, make_train_step
+    from repro_torch.optim import AdamW, tree_leaves, warmup_cosine
+
+    full = get_config("dit-i256")
+    out = {}
+    names = None
+    for label, cfg, tol in (
+            ("bf16, full width", full, STEP_TOL),
+            (f"fp32, {STEP_FP32_DEPTH} blocks", dataclasses.replace(
+                full, num_layers=STEP_FP32_DEPTH, dtype="float32"),
+             STEP_FP32_TOL)):
+        free_graphs()
+        params = perturbed_params(cfg, dev)
+        batch = build_batch_fn(cfg, TRAIN_BATCH, 32, seed=0, device=dev)(0)
+        draws = draw_t_noise(VPLinear(), batch["latents"],
+                             torch.Generator(device=dev).manual_seed(11))
+        LAUNCHES.clear()
+        loss_k, grads_k = loss_and_grads(cfg, params, batch, draws)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        if counts != train_launches(cfg, 1):
+            fail(f"step ({label}) launched {counts}")
+        loss_p, grads_p = loss_and_grads(plain_pinned(cfg), params, batch,
+                                         draws)
+        if names is None:
+            names = [k for k in _leaf_names(params)]
+        errs = {n: rel_l2(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+        loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        worst = max(errs, key=errs.get)
+        print(f"  one step ({label}), kernels vs plain-pinned: loss "
+              f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel "
+              f"{loss_err:.3e}); gradient leaves rel L2 max {errs[worst]:.3e}"
+              f" ({worst}), each "
+              f"{ {n: float(f'{e:.3e}') for n, e in errs.items()} } "
+              f"(tol {tol:g})")
+        if not (loss_err <= tol and max(errs.values()) <= tol):
+            fail(f"one step ({label}): kernels vs plain {loss_err:.3e} / "
+                 f"{errs[worst]:.3e} > {tol:g}")
+        out[label] = dict(loss=float(loss_k), loss_plain=float(loss_p),
+                          loss_rel=loss_err, grad_rel_l2=errs,
+                          max_grad_rel_l2=errs[worst])
+        del grads_k, grads_p
+        if cfg is full:
+            # (d) the whole step twice from the same inputs
+            opt = AdamW(lr=warmup_cosine(1e-3, 3, 20))
+            step = make_train_step(cfg, "diffusion", opt)
+            state = opt.init(params)
+            runs = [step(params, state, batch, draws) for _ in range(2)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(
+                [runs[0][2], *tree_leaves(runs[0][0]),
+                 *tree_leaves(runs[0][1].m), *tree_leaves(runs[0][1].v)],
+                [runs[1][2], *tree_leaves(runs[1][0]),
+                 *tree_leaves(runs[1][1].m), *tree_leaves(runs[1][1].v)]))
+            print(f"  the full-width step (loss, gradients, AdamW) twice "
+                  f"from the same inputs: loss, params and moments "
+                  f"bit-equal: {same}")
+            if not same:
+                fail("two runs of the same training step differ")
+            out["repeat_bit_equal"] = same
+            del runs, state
+        del params
+    return out
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """Leaf paths in sorted key order (optim.tree_leaves's order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}" if prefix
+                                     else k)]
+    return [prefix]
+
+
+def checkpoint_part(dev, params) -> dict:
+    """(e) the trained params through ckpt.save / restore at full width,
+    bit-equal; sampled through launch.sample's --ckpt path, bit-equal to
+    sampling the in-memory params, with sampling's launch counts and no
+    backward launch."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import sample as sample_mod
+    from repro_torch.models import api
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config("dit-i256")
+    nfe, order, g_scale, batch = 10, 3, 2.0, 8
+    rows = nfe + 1
+    expected = expected_launches(cfg, rows)
+    # on the card sample()'s first call runs one eager warm-up row more
+    warm = expected_launches(cfg, int(dev.type == "cuda"))
+    free_graphs()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(d, {"params": params}, step=TRAIN_STEPS)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, step = ckpt.restore(d)
+        restore_s = time.perf_counter() - t0
+        flat = tree_leaves(tree["params"])
+        same = step == TRAIN_STEPS and all(
+            np.array_equal(a, b.cpu().numpy())
+            for a, b in zip(flat, tree_leaves(params)))
+        nbytes_ = sum(a.nbytes for a in flat)
+        print(f"  checkpoint: {nbytes_ / 2**30:.2f} GiB saved in "
+              f"{save_s:.2f} s, restored in {restore_s:.2f} s, bit-equal "
+              f"to the trained params: {same}")
+        if not same:
+            fail("the restored checkpoint differs from the trained params")
+        free_graphs()
+        LAUNCHES.clear()
+        x_ckpt = sample_mod.main([
+            "--arch", "dit-i256", "--full", "--ckpt", d, "--nfe", str(nfe),
+            "--order", str(order), "--cfg-scale", str(g_scale), "--batch",
+            str(batch)])
+        torch.cuda.synchronize()
+        ckpt_counts = dict(LAUNCHES)
+    restored = api.params_from_numpy(tree["params"], cfg, dev)
+    del tree, flat
+    x_mem = sample_mod.sample("dit-i256", reduced=False, params=params,
+                              nfe=nfe, order=order, cfg_scale=g_scale,
+                              batch=batch, device=dev)
+    same = np.array_equal(x_ckpt, x_mem)
+    want = {k: expected[k] + warm[k] for k in expected}
+    print(f"  sample --ckpt: launches {dict(sorted(ckpt_counts.items()))} "
+          f"(expected a warm-up row and the replay {want}); latents "
+          f"bit-equal to sample(params=) on the in-memory params: {same}; "
+          f"finite {np.isfinite(x_ckpt).all()}, std {x_ckpt.std():.4f}")
+    if not same or ckpt_counts != want or not np.isfinite(x_ckpt).all():
+        fail("sampling the checkpoint differs from the in-memory params")
+    free_graphs()
+    engine = sample_mod.build_engine(cfg, restored, VPLinear(), batch,
+                                     device=dev)
+    spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale)
+    run = engine.build(spec)
+    x_T = torch.randn(sample_mod.latent_shape(cfg, batch),
+                      generator=torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    run(x_T)
+    LAUNCHES.clear()
+    x_rep = run(x_T)
+    torch.cuda.synchronize()
+    replay = dict(LAUNCHES)
+    print(f"  a replay alone of the restored params' engine: launches "
+          f"{dict(sorted(replay.items()))} (phase 4's {expected}); bit-equal "
+          f"to sample --ckpt: {np.array_equal(x_rep.cpu().numpy(), x_ckpt)}")
+    if replay != expected or not np.array_equal(x_rep.cpu().numpy(),
+                                                x_ckpt):
+        fail(f"the restored engine's replay launched {replay}")
+    del engine, run, restored
+    free_graphs()
+    return dict(checkpoint_gib=nbytes_ / 2**30, save_s=save_s,
+                restore_s=restore_s, restore_bit_equal=True,
+                sample_launches=ckpt_counts, replay_launches=replay,
+                sample_bit_equal=True)
+
+
+def tune_trained_part(dev, random_search: dict) -> dict:
+    """(f) launch.tune.tune as phase 9 (b), the eps-net trained first for
+    the reference's default TUNE_TRAIN_STEPS steps at full width."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch import tune as tune_mod
+
+    free_graphs()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with step_recorder(train_mod) as rec:
+        plan, rep = tune_mod.tune(
+            "dit-i256", reduced=False, nfe=TUNE["nfe"],
+            budget=TUNE["budget"], rounds=TUNE["rounds"],
+            ref_nfe=TUNE["ref_nfe"], batch=TUNE["batch"],
+            train_steps=TUNE_TRAIN_STEPS, device=dev)
+    wall = time.perf_counter() - t0
+    losses = check_losses("tune's training", rec, TUNE_TRAIN_STEPS)
+    med = float(np.median(rec["walls"][1:]))
+    print(f"  tune (f), trained {TUNE_TRAIN_STEPS} steps first (lr 1e-3, "
+          f"batch 8): loss {losses[0]:.4f} -> {losses[-1]:.4f} (min "
+          f"{min(losses):.4f}), median step {med:.4f} s; baseline "
+          f"{rep['baseline']:.6f} -> tuned {rep['tuned']:.6f} in "
+          f"{rep['evals']} evals; phase 9 (b) on random weights "
+          f"{random_search['baseline']:.6f} -> {random_search['tuned']:.6f};"
+          f" the call {wall:.2f} s; plan orders {plan.orders}")
+    if not rep["tuned"] <= rep["baseline"]:
+        fail(f"tuned {rep['tuned']} > baseline {rep['baseline']}")
+    return dict(train_steps=TUNE_TRAIN_STEPS, losses=losses,
+                median_step_s=med, baseline=rep["baseline"],
+                tuned=rep["tuned"], evals=rep["evals"],
+                random_weights=dict(baseline=random_search["baseline"],
+                                    tuned=random_search["tuned"]),
+                call_wall_s=wall, plan_orders=list(plan.orders))
+
+
+def training_phase(dev, counts_out: dict, random_search: dict) -> dict:
+    out = {"backward_kernels": backward_kernel_cases(dev)}
+    free_graphs()
+    trained = training_part(dev, counts_out)
+    out["train"] = trained["out"]
+    out["step_parity"] = step_parity_part(dev)
+    out["checkpoint"] = checkpoint_part(dev, trained.pop("params"))
+    out["tune_trained"] = tune_trained_part(dev, random_search)
+    return out
+
+# --------------------------------------------------------------------------
 
 
 KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
@@ -2896,6 +3501,14 @@ def main():
     ocounts: dict = {}
     obs = obs_and_tuner_phase(dev, served.pop("_clean"), ocounts)
 
+    print(f"== phase 10: training at full width (dit-i256 through "
+          f"launch.train: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}; the "
+          f"backward kernels; kernels vs plain-pinned step; checkpoint and "
+          f"sample --ckpt; tune with {TUNE_TRAIN_STEPS} training steps) "
+          f"on {smi[0]}")
+    tcounts: dict = {}
+    trained = training_phase(dev, tcounts, obs["search"])
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -2927,6 +3540,8 @@ def main():
         # reference trajectory with it), the cached search, sample(plan=)
         for part in ("serve", "tune", "tune_cached", "sample_plan"):
             entry[f"obs_tuner_launches_{part}"] = ocounts[part].get(kname, 0)
+        # phase 10: the training run
+        entry["training_launches"] = tcounts.get(kname, 0)
         if kname in served["cache"]["launches"].get("shallow", {}):
             entry["serving_launches_per_shallow_tick"] = (
                 served["cache"]["launches"]["shallow"][kname])
@@ -2936,9 +3551,23 @@ def main():
             if key in st:
                 entry[key] = st[key]
         entries.append(entry)
+    for kname, src, replaces in BWD_KERNELS:
+        st = trained["backward_kernels"][kname]
+        entries.append(dict(
+            name=kname, route="cuda", source=src, replaces=replaces,
+            launches=tcounts.get(kname, 0),
+            launches_per_step=tcounts.get(kname, 0) // TRAIN_STEPS,
+            max_abs_err=st["max_abs_err"], max_rel_err=st["max_rel_err"],
+            cases=st["cases"], ms=st["ms"], kernel_ms=st["ms"],
+            host_call_ms=st["host_call_ms"], plain_ms=st["plain_ms"],
+            bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+            library_ms=st["library_ms"], library=st["library"],
+            **{k: st[k] for k in ("fwd_bwd_queued_ms",
+                                  "lse_output_bit_equal") if k in st}))
     summary = dict(main_path=main_stats, serving=serve_stats,
                    quant_main_path=quant_stats, quant_serving=quant_serve,
                    serving_at_width=served, obs_and_tuner=obs,
+                   training=trained,
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][
                        "other_operands_at_wq_site"])

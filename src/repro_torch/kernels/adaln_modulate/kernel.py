@@ -1,5 +1,8 @@
 """Binding of `csrc/adaln_modulate.cu`, the Hopper kernels that replace
-`repro/kernels/adaln_modulate/kernel.py:adaln_modulate` and `:gate_residual`."""
+`repro/kernels/adaln_modulate/kernel.py:adaln_modulate` and `:gate_residual`,
+and of their backward kernels (`modulate_bwd`, `gate_residual_bwd`: the
+training path), which replace the gradients XLA derives from those
+forwards."""
 
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ MOD_THREADS = 256
 # either kernel (ptxas: at most 128 registers a thread)
 BLOCKS_PER_SM = 2
 H100_SMS = build.H100_SMS
+BWD_MAX_ROWS = 64       # rows of one tile of the backward (BWD_MAX_ROWS)
 
 
 @functools.cache
@@ -171,3 +175,78 @@ def _launch_gate(resid, gate, y, out, p) -> None:
         p["blocks"] // B, build.stream_of(resid))
     build.check(rc, "gate_residual", "adaln_modulate")
     LAUNCHES["gate_residual"] += 1
+
+
+@functools.cache
+def _bwd_launchers():
+    lib = build.library("adaln_modulate")
+    mod, gate = lib.adaln_modulate_bwd, lib.gate_residual_bwd
+    mod.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    gate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    mod.restype = gate.restype = ctypes.c_int
+    return mod, gate
+
+
+def bwd_rows(x: torch.Tensor) -> int:
+    """Rows of one tile of the backward kernels: about two blocks an SM over
+    the B * T rows, at most BWD_MAX_ROWS (each tile leaves one partial
+    row of the (B, D) sums in the workspace)."""
+    B, T, _ = x.shape
+    return max(1, min(BWD_MAX_ROWS, -(-B * T // (2 * build.sm_count(x)))))
+
+
+def _check_grad(name, g, x):
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError(f"{name}: the gradient must be a contiguous "
+                         f"{tuple(x.shape)} {x.dtype} tensor; got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    require_cuda(name, g, x)
+
+
+def modulate_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-5) -> tuple:
+    """(dx, dshift, dscale) of `adaln_modulate(x, shift, scale)` from the
+    output's gradient g (contiguous, x's shape and dtype); dshift and dscale
+    are new contiguous (B, D) tensors. Two launches (rows, then the sums
+    over T), counted once."""
+    stride = _check_rows("adaln_modulate_bwd", x, scale)
+    _check_grad("adaln_modulate_bwd", g, x)
+    B, T, D = x.shape
+    rows = bwd_rows(x)
+    dx = torch.empty_like(x)
+    dshift, dscale = (torch.empty((B, D), dtype=x.dtype, device=x.device)
+                      for _ in range(2))
+    part = torch.empty((B, -(-T // rows), 2, D), dtype=torch.float32,
+                       device=x.device)
+    rc = _bwd_launchers()[0](
+        g.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+        dshift.data_ptr(), dscale.data_ptr(), part.data_ptr(), B, T, D,
+        stride, eps, build.dtype_code(x.dtype), rows, build.stream_of(x))
+    build.check(rc, "adaln_modulate_bwd", "adaln_modulate")
+    LAUNCHES["adaln_modulate_bwd"] += 1
+    return dx, dshift, dscale
+
+
+def gate_residual_bwd(g: torch.Tensor, gate: torch.Tensor,
+                      y: torch.Tensor) -> tuple:
+    """(dresid, dgate, dy) of `gate_residual(resid, gate, y)` from the
+    output's gradient g: dresid is g itself, dgate a new contiguous (B, D)
+    tensor. Two launches, counted once."""
+    stride = _check_rows("gate_residual_bwd", y, gate)
+    _check_grad("gate_residual_bwd", g, y)
+    B, T, D = y.shape
+    rows = bwd_rows(y)
+    dy = torch.empty_like(y)
+    dgate = torch.empty((B, D), dtype=y.dtype, device=y.device)
+    part = torch.empty((B, -(-T // rows), D), dtype=torch.float32,
+                       device=y.device)
+    rc = _bwd_launchers()[1](
+        g.data_ptr(), gate.data_ptr(), y.data_ptr(), dy.data_ptr(),
+        dgate.data_ptr(), part.data_ptr(), B, T, D, stride,
+        build.dtype_code(y.dtype), rows, build.stream_of(y))
+    build.check(rc, "gate_residual_bwd", "adaln_modulate")
+    LAUNCHES["gate_residual_bwd"] += 1
+    return g, dgate, dy

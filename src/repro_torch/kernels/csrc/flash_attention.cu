@@ -68,9 +68,10 @@ struct Strides {
 template <int DPT>
 __global__ void __launch_bounds__(THREADS)
 attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv, int Sq,
-            int Skv, int D, Strides qs, Strides ks, Strides vs, Strides os,
-            int causal, int window, float scale) {
+            const float* __restrict__ v, float* __restrict__ o,
+            float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int D,
+            Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
+            float scale) {
   __shared__ float k_tile[BK * MAX_D];
   __shared__ float v_tile[BK * MAX_D];
   const int bh = blockIdx.x;
@@ -150,6 +151,7 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = sub + GROUP * j;
       if (d < D) op[d] = acc[j] / denom;
     }
+    if (lse != nullptr && sub == 0) lse[(long long)bh * Sq + qi] = m + logf(l);
   }
 }
 
@@ -163,6 +165,7 @@ constexpr int MMA_BQ = 16 * MMA_WARPS;  // 128 query rows per block
 constexpr int MMA_BK = 64;              // keys per tile
 constexpr int MMA_STAGES = 3;           // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ND: the head dim in 8-column (16-byte) chunks as compiled
 template <int ND>
@@ -245,14 +248,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // a row): zeros past `limit` rows and past D columns. vec: 16-byte
 // cp.async chunks (D % 8 == 0, aligned rows); else 2-byte loads and
 // stores, complete before the caller's next barrier.
-template <int ND>
+template <int ND, int NT = MMA_THREADS>
 __device__ __forceinline__ void fill_rows(unsigned char* dst, const bf16* __restrict__ src,
                                           long long ld, int r0, int limit, int rows,
                                           int D, bool vec) {
   constexpr int PITCH = FaTile<ND>::PITCH;
   if (vec) {
     const unsigned base = smem_u32(dst);
-    for (int e = threadIdx.x; e < rows * ND; e += MMA_THREADS) {
+    for (int e = threadIdx.x; e < rows * ND; e += NT) {
       const int r = e / ND, c = e - r * ND;
       const bool ok = r0 + r < limit && c * 8 < D;
       const bf16* g = ok ? src + (long long)(r0 + r) * ld + c * 8 : src;
@@ -261,7 +264,7 @@ __device__ __forceinline__ void fill_rows(unsigned char* dst, const bf16* __rest
     return;
   }
   const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int e = threadIdx.x; e < rows * ND * 8; e += MMA_THREADS) {
+  for (int e = threadIdx.x; e < rows * ND * 8; e += NT) {
     const int r = e / (ND * 8), d = e - r * (ND * 8);
     *reinterpret_cast<bf16*>(dst + r * PITCH + d * 2) =
         (r0 + r < limit && d < D) ? src[(long long)(r0 + r) * ld + d] : zero;
@@ -271,10 +274,10 @@ __device__ __forceinline__ void fill_rows(unsigned char* dst, const bf16* __rest
 template <int ND>
 __global__ void __launch_bounds__(MMA_THREADS, FaTile<ND>::MIN_BLOCKS)
 attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int Hq, int Hkv,
-                int Sq, int Skv, int D, Strides qs, Strides ks, Strides vs,
-                Strides os, int causal, int window, float scale_log2, int vec_in,
-                int vec_out) {
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int D,
+                Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
+                float scale_log2, int vec_in, int vec_out) {
   using T = FaTile<ND>;
   constexpr int PITCH = T::PITCH;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -449,6 +452,13 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     denom[r] = fmaxf(l_r[r], 1e-30f);
   }
+  if (lse != nullptr && t4 == 0) {  // natural log: m_r and l_r are base 2
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = row0 + r * 8;
+      if (qr < Sq) lse[(long long)bh * Sq + qr] = (m_r[r] + log2f(l_r[r])) * LN2;
+    }
+  }
   unsigned char* stage = q_s + warp * 16 * PITCH;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -475,8 +485,8 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int ND>
-static int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-                      int Hq, int Hkv, int Sq, int Skv, int D, const long long* st,
+static int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                      int B, int Hq, int Hkv, int Sq, int Skv, int D, const long long* st,
                       int causal, int window, float scale, int vec_in, int vec_out,
                       cudaStream_t s) {
   static bool sized = false;  // once per instantiation
@@ -490,14 +500,14 @@ static int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int 
   const long long blocks = (long long)B * Hq * ((Sq + MMA_BQ - 1) / MMA_BQ);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   attn_mma_kernel<ND><<<static_cast<unsigned>(blocks), MMA_THREADS, FaTile<ND>::SMEM, s>>>(
-      q, k, v, o, Hq, Hkv, Sq, Skv, D, Strides{st[0], st[1], st[2]},
+      q, k, v, o, lse, Hq, Hkv, Sq, Skv, D, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]}, causal, window, scale * LOG2E, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 static int launch_cuda_cores(const void* q, const void* k, const void* v,
-                             void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                             void* o, float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                              int D, const long long* st, int causal, int window,
                              float scale, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(B * Hq),
@@ -509,28 +519,30 @@ static int launch_cuda_cores(const void* q, const void* k, const void* v,
   const float* vp = static_cast<const float*>(v);
   float* op = static_cast<float*>(o);
   if (D <= 32) {
-    attn_kernel<8><<<grid, THREADS, 0, s>>>(qp, kp, vp, op, Hq, Hkv, Sq, Skv,
+    attn_kernel<8><<<grid, THREADS, 0, s>>>(qp, kp, vp, op, lse, Hq, Hkv, Sq, Skv,
                                                D, qs, ks, vs, os, causal, window,
                                                scale);
   } else if (D <= 72) {
-    attn_kernel<18><<<grid, THREADS, 0, s>>>(qp, kp, vp, op, Hq, Hkv, Sq, Skv,
+    attn_kernel<18><<<grid, THREADS, 0, s>>>(qp, kp, vp, op, lse, Hq, Hkv, Sq, Skv,
                                                 D, qs, ks, vs, os, causal,
                                                 window, scale);
   } else {
-    attn_kernel<32><<<grid, THREADS, 0, s>>>(qp, kp, vp, op, Hq, Hkv, Sq, Skv,
+    attn_kernel<32><<<grid, THREADS, 0, s>>>(qp, kp, vp, op, lse, Hq, Hkv, Sq, Skv,
                                                 D, qs, ks, vs, os, causal,
                                                 window, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// strides: 12 values, (b, h, s) strides of q, k, v, o in elements. fp32
+// strides: 12 values, (b, h, s) strides of q, k, v, o in elements. lse_out:
+// nullptr, or the fp32 (B, Hq, Sq) log-sum-exp of each query's scaled
+// scores, written beside o for the backward (nothing else changes). fp32
 // runs on CUDA cores. bf16 runs the mma body compiled for nd 8-column
 // chunks (4, 8, 9 or 16; nd * 8 >= D); vec_in: q/k/v rows load as 16-byte
 // chunks, vec_out: o rows store so (both need D % 8 == 0 and 16-byte
 // aligned rows, which is checked here too).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                               void* o, void* lse_out, int B, int Hq, int Hkv, int Sq, int Skv,
                                int D, const long long* strides, int causal,
                                int window, float scale, int dtype, int nd,
                                int vec_in, int vec_out, void* stream) {
@@ -538,8 +550,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       D > MAX_D || (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == DTYPE_F32)
-    return launch_cuda_cores(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
+    return launch_cuda_cores(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, strides,
                              causal, window, scale, s);
   if (dtype != DTYPE_BF16 || nd * 8 < D) return static_cast<int>(cudaErrorInvalidValue);
   const long long* st = strides;
@@ -556,7 +569,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
 #define FA_MMA(ND)                                                                \
-  launch_mma<ND>(qp, kp, vp, op, B, Hq, Hkv, Sq, Skv, D, st, causal, window, scale, \
+  launch_mma<ND>(qp, kp, vp, op, lse, B, Hq, Hkv, Sq, Skv, D, st, causal, window, scale, \
                  vec_in, vec_out, s)
   switch (nd) {
     case 4: return FA_MMA(4);
@@ -566,6 +579,601 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FA_MMA
+}
+
+// ---- backward: non-causal, Hq == Hkv (the training path) --------------------
+//
+// The reference defines no backward of its own: jax.value_and_grad
+// differentiates the TPU kernel's forward through XLA. Here the forward is a
+// hand-written kernel, so its gradient is one too: FlashAttention-2's
+// backward in two passes, neither with atomics, so a step repeats bit for bit.
+// * dq pass — a block per (b, h, 64-query tile). Delta = rowsum(do * o) of
+//   its rows (fp32, written for the second pass), then over every 64-key
+//   tile: P = exp(scale q k^T - lse) from the forward's saved log-sum-exp,
+//   dP = do v^T, dS = P (dP - Delta), dq += dS k; dq * scale at the end.
+// * dk/dv pass — a block per (b, h, 64-key tile), launched after the dq
+//   pass on the same stream. Over every 64-query tile the same P^T and
+//   dS^T with the queries as columns: dv += P^T do, dk += dS^T q.
+// Bound on the H100 at the training shape (batch 8, 16 heads, S = 256,
+// head dim 72, bf16): the algorithm's five products (S, dP, dq, dk, dv) of
+// 2 B H S^2 D flops each are 6.04 GFLOP, 6.1 us at 989 TFLOP/s, against q,
+// k, v, o, do read and dq, dk, dv written (37.9 MB with the log-sum-exp,
+// 11.3 us at 3.35 TB/s): the bytes bound it. This design computes S and dP
+// in both passes (7 products) and reads K/V (dq pass) and Q/dO (dk/dv
+// pass) once per tile of the other side.
+// bf16 runs on mma.sync m16n8k16 as the forward does: each warp owns 16 rows
+// of its block's tile; S/dP accumulate in registers and become the bf16 A
+// fragments of the next products without leaving them; the streamed tiles
+// arrive by cp.async into a ring of two stages. fp32 runs on CUDA cores
+// with the forward's layout (4 threads a row). Causal, window and GQA
+// backward are not written; the wrapper refuses them.
+
+constexpr int BW_WARPS = 4;
+constexpr int BW_THREADS = BW_WARPS * 32;
+constexpr int BW_ROWS = 16 * BW_WARPS;  // rows of a block's own tile
+constexpr int BW_TILE = 64;             // rows of a streamed tile
+
+template <int ND>
+struct BwTile {
+  static constexpr int PITCH = (ND | 1) * 16;
+  static constexpr int TILE = BW_TILE * PITCH;  // bytes of one 64-row tile
+  // two own tiles, two stages of two streamed tiles, two stages of 2 x 64
+  // fp32 row statistics
+  static constexpr int SMEM = 6 * TILE + 2 * 2 * BW_TILE * 4;
+};
+
+// The A fragments (16 rows x ND chunks, bf16) of the rows at `row_u`
+// (this lane's row: the warp's first row + (lane & 15)).
+template <int ND>
+__device__ __forceinline__ void load_a(unsigned row_u, uint32_t (&f)[ND / 2 > 0 ? ND / 2 : 1][4],
+                                       uint32_t (&f8)[2]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < ND / 2; ++kk)
+    ldsm_x4(row_u + (2 * kk + (lane >> 4)) * 16, f[kk][0], f[kk][1], f[kk][2], f[kk][3]);
+  if (ND & 1) ldsm_x2(row_u + (ND - 1) * 16, f8[0], f8[1]);
+}
+
+// acc (16 x 64, fp32) = A (16 x D) B^T, B the 64-row tile at b_u
+// (contraction over the head dim, as the forward's Q K^T).
+template <int ND>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
+                                        const uint32_t (&f)[ND / 2 > 0 ? ND / 2 : 1][4],
+                                        const uint32_t (&f8)[2], unsigned b_u) {
+  constexpr int PITCH = BwTile<ND>::PITCH;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    const unsigned row = b_u + (n * 8 + (lane & 7)) * PITCH;
+    int kk = 0;
+#pragma unroll
+    for (; kk + 1 < ND / 2; kk += 2) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4(row + (2 * kk + (lane >> 3)) * 16, b0, b1, b2, b3);
+      mma_k16(acc[n], f[kk], b0, b1);
+      mma_k16(acc[n], f[kk + 1], b2, b3);
+    }
+#pragma unroll
+    for (; kk < ND / 2; ++kk) {
+      uint32_t b0, b1;
+      ldsm_x2(row + (2 * kk + ((lane >> 3) & 1)) * 16, b0, b1);
+      mma_k16(acc[n], f[kk], b0, b1);
+    }
+    if (ND & 1) {
+      uint32_t b0;
+      ldsm_x1(row + (ND - 1) * 16, b0);
+      mma_k8(acc[n], f8[0], f8[1], b0);
+    }
+  }
+}
+
+// acc (16 x D, fp32) += P (16 x 64, fp32 in the accumulator layout, rounded
+// to bf16 here) B, B the 64-row tile at b_u (contraction over its rows, as
+// the forward's P V).
+template <int ND>
+__device__ __forceinline__ void mma_pb(float (&acc)[ND][4], const float (&p)[8][4],
+                                       unsigned b_u) {
+  constexpr int PITCH = BwTile<ND>::PITCH;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < BW_TILE / 16; ++kk) {
+    uint32_t pf[4];
+    pf[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    pf[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    pf[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pf[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    const unsigned row = b_u + (kk * 16 + (lane & 15)) * PITCH;
+#pragma unroll
+    for (int n = 0; n + 1 < ND; n += 2) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_t(row + (n + (lane >> 4)) * 16, b0, b1, b2, b3);
+      mma_k16(acc[n], pf, b0, b1);
+      mma_k16(acc[n + 1], pf, b2, b3);
+    }
+    if (ND & 1) {
+      uint32_t b0, b1;
+      ldsm_x2_t(row + (ND - 1) * 16, b0, b1);
+      mma_k16(acc[ND - 1], pf, b0, b1);
+    }
+  }
+}
+
+// Store a warp's 16 x D fp32 accumulator times `mul` as bf16 rows r0.. of
+// a head (row stride ld), skipping rows >= limit and columns >= D.
+template <int ND>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, long long ld, int r0,
+                                           int limit, int D, const float (&acc)[ND][4],
+                                           float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = n * 8 + 2 * t4 + c;
+        if (d < D) dst[(long long)row * ld + d] = __float2bfloat16_rn(acc[n][2 * r + c] * mul);
+      }
+  }
+}
+
+struct BwStrides {
+  Strides q, k, v, o, dout, dq, dk, dv;
+};
+
+template <int ND>
+__global__ void __launch_bounds__(BW_THREADS)
+attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ o,
+                   const bf16* __restrict__ dout, const float* __restrict__ lse,
+                   float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq, int Skv,
+                   int D, BwStrides st, float scale, int vec_in) {
+  using T = BwTile<ND>;
+  constexpr int PITCH = T::PITCH;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned q_u = smem_u32(smem), do_u = q_u + T::TILE;
+  unsigned char* kv_s = smem + 2 * T::TILE;  // stage s: K at 2s, V at 2s + 1
+  const unsigned kv_u = smem_u32(kv_s);
+
+  const int nq = (Sq + BW_ROWS - 1) / BW_ROWS;
+  const int bh = blockIdx.x / nq, q0 = (blockIdx.x - bh * nq) * BW_ROWS;
+  const int b = bh / H, h = bh - b * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* qb = q + b * st.q.b + h * st.q.h;
+  const bf16* kb = k + b * st.k.b + h * st.k.h;
+  const bf16* vb = v + b * st.v.b + h * st.v.h;
+  const bf16* ob = o + b * st.o.b + h * st.o.h;
+  const bf16* db = dout + b * st.dout.b + h * st.dout.h;
+  const int n_tiles = (Skv + BW_TILE - 1) / BW_TILE;
+
+  auto issue = [&](int i) {  // key tile i into stage i & 1
+    if (i < n_tiles) {
+      unsigned char* buf = kv_s + (i & 1) * 2 * T::TILE;
+      fill_rows<ND, BW_THREADS>(buf, kb, st.k.s, i * BW_TILE, Skv, BW_TILE, D, vec_in);
+      fill_rows<ND, BW_THREADS>(buf + T::TILE, vb, st.v.s, i * BW_TILE, Skv, BW_TILE, D, vec_in);
+    }
+    cp_async_commit();
+  };
+  fill_rows<ND, BW_THREADS>(smem, qb, st.q.s, q0, Sq, BW_ROWS, D, vec_in);
+  fill_rows<ND, BW_THREADS>(smem + T::TILE, db, st.dout.s, q0, Sq, BW_ROWS, D, vec_in);
+  issue(0);
+
+  // this thread's rows g and g + 8 of the warp's 16: Delta (a quad's four
+  // lanes split the head dim) and the log-sum-exp in base 2
+  float dlt[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    float acc = 0.f;
+    if (qi < Sq)
+      for (int d = t4; d < D; d += 4)
+        acc += to_f32(ob[(long long)qi * st.o.s + d]) * to_f32(db[(long long)qi * st.dout.s + d]);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dlt[r] = acc;
+    lse2[r] = qi < Sq ? lse[(long long)bh * Sq + qi] * LOG2E : 0.f;
+    if (qi < Sq && t4 == 0) delta[(long long)bh * Sq + qi] = acc;
+  }
+
+  const float scale_log2 = scale * LOG2E;
+  const unsigned arow = (warp * 16 + (lane & 15)) * PITCH;
+  float dqacc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) dqacc[n][0] = dqacc[n][1] = dqacc[n][2] = dqacc[n][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();  // tile i (and Q, dO) landed
+    __syncthreads();     // ... for every thread; tile i - 1 consumed
+    issue(i + 1);        // into the stage tile i - 1 left
+    const unsigned k_u = kv_u + (i & 1) * 2 * T::TILE, v_u = k_u + T::TILE;
+    float sc[8][4], dp[8][4];
+    {
+      uint32_t f[ND / 2 > 0 ? ND / 2 : 1][4], f8[2];
+      load_a<ND>(q_u + arow, f, f8);
+      mma_abt<ND>(sc, f, f8, k_u);
+      load_a<ND>(do_u + arow, f, f8);
+      mma_abt<ND>(dp, f, f8, v_u);
+    }
+    const int key0 = i * BW_TILE;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + n * 8 + 2 * t4 + (e & 1);
+        const float pv = key < Skv ? exp2f(sc[n][e] * scale_log2 - lse2[e >> 1]) : 0.f;
+        sc[n][e] = pv * (dp[n][e] - dlt[e >> 1]);  // dS
+      }
+    mma_pb<ND>(dqacc, sc, k_u);
+  }
+  cp_async_wait<0>();
+  store_rows<ND>(dq + b * st.dq.b + h * st.dq.h, st.dq.s, q0 + warp * 16, Sq, D, dqacc,
+                 scale);
+}
+
+template <int ND>
+__global__ void __launch_bounds__(BW_THREADS)
+attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv,
+                     int D, BwStrides st, float scale, int vec_in) {
+  using T = BwTile<ND>;
+  constexpr int PITCH = T::PITCH;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned k_u = smem_u32(smem), v_u = k_u + T::TILE;
+  unsigned char* qd_s = smem + 2 * T::TILE;  // stage s: Q at 2s, dO at 2s + 1
+  const unsigned qd_u = smem_u32(qd_s);
+  float* stats = reinterpret_cast<float*>(smem + 6 * T::TILE);  // [stage][lse2 | delta]
+
+  const int nk = (Skv + BW_ROWS - 1) / BW_ROWS;
+  const int bh = blockIdx.x / nk, k0 = (blockIdx.x - bh * nk) * BW_ROWS;
+  const int b = bh / H, h = bh - b * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const bf16* qb = q + b * st.q.b + h * st.q.h;
+  const bf16* kb = k + b * st.k.b + h * st.k.h;
+  const bf16* vb = v + b * st.v.b + h * st.v.h;
+  const bf16* db = dout + b * st.dout.b + h * st.dout.h;
+  const float* lse_bh = lse + (long long)bh * Sq;
+  const float* dlt_bh = delta + (long long)bh * Sq;
+  const int n_tiles = (Sq + BW_TILE - 1) / BW_TILE;
+
+  auto issue = [&](int i) {  // query tile i into stage i & 1
+    if (i < n_tiles) {
+      unsigned char* buf = qd_s + (i & 1) * 2 * T::TILE;
+      fill_rows<ND, BW_THREADS>(buf, qb, st.q.s, i * BW_TILE, Sq, BW_TILE, D, vec_in);
+      fill_rows<ND, BW_THREADS>(buf + T::TILE, db, st.dout.s, i * BW_TILE, Sq, BW_TILE, D,
+                                vec_in);
+      float* sst = stats + (i & 1) * 2 * BW_TILE;
+      for (int e = threadIdx.x; e < BW_TILE; e += BW_THREADS) {
+        const int qi = i * BW_TILE + e;
+        sst[e] = qi < Sq ? lse_bh[qi] * LOG2E : 0.f;
+        sst[BW_TILE + e] = qi < Sq ? dlt_bh[qi] : 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+  fill_rows<ND, BW_THREADS>(smem, kb, st.k.s, k0, Skv, BW_ROWS, D, vec_in);
+  fill_rows<ND, BW_THREADS>(smem + T::TILE, vb, st.v.s, k0, Skv, BW_ROWS, D, vec_in);
+  issue(0);
+
+  const float scale_log2 = scale * LOG2E;
+  const unsigned arow = (warp * 16 + (lane & 15)) * PITCH;
+  float dkacc[ND][4], dvacc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();
+    issue(i + 1);
+    const unsigned q_u = qd_u + (i & 1) * 2 * T::TILE, do_u = q_u + T::TILE;
+    const float* sst = stats + (i & 1) * 2 * BW_TILE;
+    float pt[8][4], dst[8][4];
+    {
+      uint32_t f[ND / 2 > 0 ? ND / 2 : 1][4], f8[2];
+      load_a<ND>(k_u + arow, f, f8);
+      mma_abt<ND>(pt, f, f8, q_u);  // S^T: keys x queries
+      load_a<ND>(v_u + arow, f, f8);
+      mma_abt<ND>(dst, f, f8, do_u);  // dP^T
+    }
+    const int qbase = i * BW_TILE;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t4 + (e & 1);
+        const float pv = qbase + col < Sq ? exp2f(pt[n][e] * scale_log2 - sst[col]) : 0.f;
+        pt[n][e] = pv;
+        dst[n][e] = pv * (dst[n][e] - sst[BW_TILE + col]);  // dS^T
+      }
+    mma_pb<ND>(dvacc, pt, do_u);
+    mma_pb<ND>(dkacc, dst, q_u);
+  }
+  cp_async_wait<0>();
+  store_rows<ND>(dk + b * st.dk.b + h * st.dk.h, st.dk.s, k0 + warp * 16, Skv, D, dkacc,
+                 scale);
+  store_rows<ND>(dv + b * st.dv.b + h * st.dv.h, st.dv.s, k0 + warp * 16, Skv, D, dvacc,
+                 1.f);
+}
+
+// fp32 on CUDA cores: the forward's layout, GROUP threads a row, each owning
+// every GROUP-th column; the streamed tiles (BK rows) in static shared memory.
+template <int DPT>
+__global__ void __launch_bounds__(THREADS)
+attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ o,
+                const float* __restrict__ dout, const float* __restrict__ lse,
+                float* __restrict__ delta, float* __restrict__ dq, int H, int Sq, int Skv,
+                int D, BwStrides st, float scale) {
+  __shared__ float k_tile[BK * MAX_D];
+  __shared__ float v_tile[BK * MAX_D];
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int sub = threadIdx.x % GROUP;
+  const int qi = blockIdx.y * BQ + threadIdx.x / GROUP;
+  const bool q_ok = qi < Sq;
+  const long long row = q_ok ? qi : 0;
+  const float* qp = q + b * st.q.b + h * st.q.h + row * st.q.s;
+  const float* op = o + b * st.o.b + h * st.o.h + row * st.o.s;
+  const float* dp_ = dout + b * st.dout.b + h * st.dout.h + row * st.dout.s;
+  float qv[DPT], dov[DPT], acc[DPT];
+  float dl = 0.f;
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) {
+    const int d = sub + GROUP * j;
+    const bool ok = q_ok && d < D;
+    qv[j] = ok ? qp[d] : 0.f;
+    dov[j] = ok ? dp_[d] : 0.f;
+    dl += ok ? dov[j] * op[d] : 0.f;
+    acc[j] = 0.f;
+  }
+  dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+  dl += __shfl_xor_sync(0xffffffffu, dl, 2);
+  if (q_ok && sub == 0) delta[(long long)bh * Sq + qi] = dl;
+  const float ls = q_ok ? lse[(long long)bh * Sq + qi] : 0.f;
+  const float* kb = k + b * st.k.b + h * st.k.h;
+  const float* vb = v + b * st.v.b + h * st.v.h;
+
+  for (int k0 = 0; k0 < Skv; k0 += BK) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
+      const int r = e / D, d = e - r * D;
+      const bool ok = k0 + r < Skv;
+      k_tile[e] = ok ? kb[(long long)(k0 + r) * st.k.s + d] : 0.f;
+      v_tile[e] = ok ? vb[(long long)(k0 + r) * st.v.s + d] : 0.f;
+    }
+    __syncthreads();
+    const int n = min(BK, Skv - k0);
+    for (int r = 0; r < n; ++r) {
+      float ps = 0.f, pd = 0.f;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const int d = sub + GROUP * j;
+        if (d < D) {
+          ps += qv[j] * k_tile[r * D + d];
+          pd += dov[j] * v_tile[r * D + d];
+        }
+      }
+      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+      pd += __shfl_xor_sync(0xffffffffu, pd, 1);
+      pd += __shfl_xor_sync(0xffffffffu, pd, 2);
+      const float ds = expf(ps * scale - ls) * (pd - dl);
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const int d = sub + GROUP * j;
+        if (d < D) acc[j] += ds * k_tile[r * D + d];
+      }
+    }
+  }
+  if (q_ok) {
+    float* out = dq + b * st.dq.b + h * st.dq.h + (long long)qi * st.dq.s;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int d = sub + GROUP * j;
+      if (d < D) out[d] = acc[j] * scale;
+    }
+  }
+}
+
+template <int DPT>
+__global__ void __launch_bounds__(THREADS)
+attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Skv,
+                  int D, BwStrides st, float scale) {
+  __shared__ float q_tile[BK * MAX_D];
+  __shared__ float d_tile[BK * MAX_D];
+  __shared__ float ls_t[BK], dl_t[BK];
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int sub = threadIdx.x % GROUP;
+  const int ki = blockIdx.y * BQ + threadIdx.x / GROUP;
+  const bool k_ok = ki < Skv;
+  const long long row = k_ok ? ki : 0;
+  const float* kp = k + b * st.k.b + h * st.k.h + row * st.k.s;
+  const float* vp = v + b * st.v.b + h * st.v.h + row * st.v.s;
+  float kv[DPT], vv[DPT], dka[DPT], dva[DPT];
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) {
+    const int d = sub + GROUP * j;
+    const bool ok = k_ok && d < D;
+    kv[j] = ok ? kp[d] : 0.f;
+    vv[j] = ok ? vp[d] : 0.f;
+    dka[j] = dva[j] = 0.f;
+  }
+  const float* qb = q + b * st.q.b + h * st.q.h;
+  const float* db = dout + b * st.dout.b + h * st.dout.h;
+
+  for (int q0 = 0; q0 < Sq; q0 += BK) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
+      const int r = e / D, d = e - r * D;
+      const bool ok = q0 + r < Sq;
+      q_tile[e] = ok ? qb[(long long)(q0 + r) * st.q.s + d] : 0.f;
+      d_tile[e] = ok ? db[(long long)(q0 + r) * st.dout.s + d] : 0.f;
+    }
+    for (int e = threadIdx.x; e < BK; e += THREADS) {
+      const bool ok = q0 + e < Sq;
+      ls_t[e] = ok ? lse[(long long)bh * Sq + q0 + e] : 0.f;
+      dl_t[e] = ok ? delta[(long long)bh * Sq + q0 + e] : 0.f;
+    }
+    __syncthreads();
+    const int n = min(BK, Sq - q0);
+    for (int r = 0; r < n; ++r) {
+      float ps = 0.f, pd = 0.f;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const int d = sub + GROUP * j;
+        if (d < D) {
+          ps += kv[j] * q_tile[r * D + d];
+          pd += vv[j] * d_tile[r * D + d];
+        }
+      }
+      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+      pd += __shfl_xor_sync(0xffffffffu, pd, 1);
+      pd += __shfl_xor_sync(0xffffffffu, pd, 2);
+      const float p = expf(ps * scale - ls_t[r]);
+      const float ds = p * (pd - dl_t[r]);
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const int d = sub + GROUP * j;
+        if (d < D) {
+          dva[j] += p * d_tile[r * D + d];
+          dka[j] += ds * q_tile[r * D + d];
+        }
+      }
+    }
+  }
+  if (k_ok) {
+    float* ko = dk + b * st.dk.b + h * st.dk.h + (long long)ki * st.dk.s;
+    float* vo = dv + b * st.dv.b + h * st.dv.h + (long long)ki * st.dv.s;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int d = sub + GROUP * j;
+      if (d < D) {
+        ko[d] = dka[j] * scale;
+        vo[d] = dva[j];
+      }
+    }
+  }
+}
+
+template <int ND>
+static int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                          const bf16* dout, const float* lse, float* delta, bf16* dq,
+                          bf16* dk, bf16* dv, int B, int H, int Sq, int Skv, int D,
+                          const BwStrides& st, float scale, int vec_in, cudaStream_t s) {
+  static bool sized = false;  // once per instantiation
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_dq_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize, BwTile<ND>::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<ND>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 BwTile<ND>::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const long long bq = (long long)B * H * ((Sq + BW_ROWS - 1) / BW_ROWS);
+  const long long bk = (long long)B * H * ((Skv + BW_ROWS - 1) / BW_ROWS);
+  if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_bwd_dq_kernel<ND><<<static_cast<unsigned>(bq), BW_THREADS, BwTile<ND>::SMEM, s>>>(
+      q, k, v, o, dout, lse, delta, dq, H, Sq, Skv, D, st, scale, vec_in);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dkdv_kernel<ND><<<static_cast<unsigned>(bk), BW_THREADS, BwTile<ND>::SMEM, s>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, Sq, Skv, D, st, scale, vec_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DPT>
+static int launch_bwd_f32(const float* q, const float* k, const float* v, const float* o,
+                          const float* dout, const float* lse, float* delta, float* dq,
+                          float* dk, float* dv, int B, int H, int Sq, int Skv, int D,
+                          const BwStrides& st, float scale, cudaStream_t s) {
+  attn_bwd_dq_f32<DPT><<<dim3(B * H, (Sq + BQ - 1) / BQ), THREADS, 0, s>>>(
+      q, k, v, o, dout, lse, delta, dq, H, Sq, Skv, D, st, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dkdv_f32<DPT><<<dim3(B * H, (Skv + BQ - 1) / BQ), THREADS, 0, s>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, Sq, Skv, D, st, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward of a non-causal forward with Hq == Hkv == H. strides: 24
+// values, (b, h, s) strides of q, k, v, o, dout, dq, dk, dv in elements
+// (unit column stride); lse: the forward's (B, H, Sq) log-sum-exp; delta:
+// a (B, H, Sq) fp32 workspace. bf16 runs the mma bodies compiled for nd
+// 8-column chunks (4, 8, 9 or 16; nd * 8 >= D), vec_in loading q, k, v and
+// dout rows as 16-byte chunks (D % 8 == 0 and 16-byte aligned rows, checked
+// here too); fp32 runs on CUDA cores.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* o, const void* dout, const void* lse,
+                                   void* delta, void* dq, void* dk, void* dv, int B, int H,
+                                   int Sq, int Skv, int D, const long long* strides,
+                                   float scale, int dtype, int nd, int vec_in,
+                                   void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || D < 1 || D > MAX_D ||
+      (Sq + BQ - 1) / BQ > 65535 || (Skv + BQ - 1) / BQ > 65535 ||
+      (long long)B * H > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long* x = strides;
+  const BwStrides st{{x[0], x[1], x[2]},    {x[3], x[4], x[5]},    {x[6], x[7], x[8]},
+                     {x[9], x[10], x[11]},  {x[12], x[13], x[14]}, {x[15], x[16], x[17]},
+                     {x[18], x[19], x[20]}, {x[21], x[22], x[23]}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == DTYPE_F32) {
+    const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k),
+                *vp = static_cast<const float*>(v), *op = static_cast<const float*>(o),
+                *dp = static_cast<const float*>(dout);
+    float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk),
+          *gv = static_cast<float*>(dv);
+    if (D <= 32)
+      return launch_bwd_f32<8>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, B, H, Sq, Skv, D, st,
+                               scale, s);
+    if (D <= 72)
+      return launch_bwd_f32<18>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, B, H, Sq, Skv, D,
+                                st, scale, s);
+    return launch_bwd_f32<32>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, B, H, Sq, Skv, D, st,
+                              scale, s);
+  }
+  if (dtype != DTYPE_BF16 || nd * 8 < D) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_in) {
+    const void* ptrs[] = {q, k, v, dout};
+    const int firsts[] = {0, 3, 6, 12};
+    for (int i = 0; i < 4; ++i) {
+      bool ok = D % 8 == 0 && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+      for (int j = firsts[i]; j < firsts[i] + 3; ++j) ok = ok && x[j] % 8 == 0;
+      if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *op = static_cast<const bf16*>(o),
+             *dp = static_cast<const bf16*>(dout);
+  bf16 *gq = static_cast<bf16*>(dq), *gk = static_cast<bf16*>(dk), *gv = static_cast<bf16*>(dv);
+#define FA_BWD(ND)                                                                          \
+  launch_bwd_mma<ND>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, B, H, Sq, Skv, D, st, scale, \
+                     vec_in, s)
+  switch (nd) {
+    case 4: return FA_BWD(4);
+    case 8: return FA_BWD(8);
+    case 9: return FA_BWD(9);
+    case 16: return FA_BWD(16);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FA_BWD
 }
 
 EXPORT_ERROR_STRING

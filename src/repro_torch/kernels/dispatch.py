@@ -52,6 +52,25 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"device; got {[str(x.device) for x in tensors]}")
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Grad mode is on and an operand requires grad: a kernel call must then
+    go through its autograd Function (or refuse, where it has no
+    backward)."""
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in tensors)
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel without a backward would be asked for a
+    gradient: its output would come back detached, and a loss built on it
+    would train nothing behind it without an error."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an operand requires "
+            f"grad with grad mode on; run it under torch.no_grad(), detach "
+            f"the operands, or pin the plain version (backend=\"plain\")")
+
+
 @contextmanager
 def recording() -> Iterator[Counter]:
     """Collect the launches bumped inside the block into a counter of their

@@ -1,5 +1,7 @@
 """Binding of `csrc/flash_attention.cu`, the Hopper kernel that replaces
-`repro/kernels/flash_attention/kernel.py:flash_attention`."""
+`repro/kernels/flash_attention/kernel.py:flash_attention`, and of its
+backward (`flash_attention_bwd`, the training path: non-causal, Hq == Hkv),
+which replaces the gradient XLA derives from that forward."""
 
 from __future__ import annotations
 
@@ -24,9 +26,19 @@ MMA_BLOCK_Q = 128
 @functools.cache
 def _launcher():
     fn = build.library("flash_attention").flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    fn = build.library("flash_attention").flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,12 +70,14 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    lse: bool = False):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); Hq % Hkv == 0, D <= 128,
     fp32 or bf16, any (b, h, s) strides with unit column stride. Returns
     (B, Hq, Sq, D) laid out like q (so a head-major view of a (B, S, H, D)
-    projection comes back as one, ready to reshape)."""
+    projection comes back as one, ready to reshape). With `lse=True` also
+    the (B, Hq, Sq) fp32 log-sum-exp of each query's scaled scores, which
+    the backward needs: (out, lse). The output is the same either way."""
     require_cuda("flash_attention", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q (B, Hq, Sq, D), k/v (B, Hkv, "
@@ -83,14 +97,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if -(-Sq // BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention: Sq <= {65535 * BLOCK_Q}, got {Sq}")
     out = torch.empty_like(q)   # keeps q's layout; dense, so stride(3) == 1
+    lse_out = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+               if lse else None)
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)])
     p = plan(q, k, v, out)
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     0 if lse_out is None else lse_out.data_ptr(),
                      B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides),
                      int(causal), int(window or 0), 1.0 / math.sqrt(D),
                      build.dtype_code(q.dtype), p["chunks"], int(p["vec_in"]),
                      int(p["vec_out"]), build.stream_of(q))
     build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out if lse_out is None else (out, lse_out)
+
+
+def plan_bwd(q, k, v, do) -> dict:
+    """The backward's body: fp32 -> "cuda_cores"; bf16 -> "mma" with the
+    forward's head-dim chunks, q, k, v and do rows loaded as 16-byte chunks
+    where D % 8 == 0 and every row is 16-byte aligned (`vec_in`). `blocks`
+    is the grid of each of its two passes: one block per (b, h) and
+    64-query tile (dq), and per (b, h) and 64-key tile (dk, dv)."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    grids = (B * H * -(-Sq // BLOCK_Q), B * H * -(-Skv // BLOCK_Q))
+    if q.dtype == torch.float32:
+        return dict(body="cuda_cores", chunks=0, vec_in=False, blocks=grids)
+    return dict(body="mma", chunks=next(c for c in MMA_CHUNKS if 8 * c >= D),
+                vec_in=D % 8 == 0 and all(_rows16(t) for t in (q, k, v, do)),
+                blocks=grids)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor) -> tuple:
+    """(dq, dk, dv) of a non-causal `flash_attention(q, k, v)` with Hq ==
+    Hkv, from its output `o`, its log-sum-exp `lse` (B, H, Sq, fp32) and
+    the output's gradient `do`. Any (b, h, s) strides with unit column
+    stride; each gradient is laid out like its input. Causal, window and
+    GQA backward are not written yet (ROADMAP item 12)."""
+    require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    B, H, Sq, D = q.shape
+    if (q.ndim != 4 or k.ndim != 4 or v.shape != k.shape
+            or k.shape[0] != B or k.shape[1] != H or k.shape[3] != D
+            or o.shape != q.shape or do.shape != q.shape):
+        raise ValueError(f"flash_attention_bwd: q/o/do (B, H, Sq, D), k/v "
+                         f"(B, H, Skv, D) with Hq == Hkv; got q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} o {tuple(o.shape)} do "
+                         f"{tuple(do.shape)}")
+    if D > MAX_D or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise ValueError(f"flash_attention_bwd: D <= {MAX_D} and one dtype; "
+                         f"got D {D}, {[t.dtype for t in (q, k, v, o, do)]}")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"fp32 ({B}, {H}, {Sq}); got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    if any(t.stride(3) != 1 for t in (q, k, v, o)):
+        raise ValueError("flash_attention_bwd: the head dim must have "
+                         "stride 1")
+    if -(-max(Sq, k.shape[2]) // BLOCK_Q) > 65535:
+        raise ValueError(f"flash_attention_bwd: Sq, Skv <= {65535 * BLOCK_Q}")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    strides = (ctypes.c_longlong * 24)(*[
+        t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in (0, 1, 2)])
+    p = plan_bwd(q, k, v, do)
+    rc = _bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, H, Sq, k.shape[2], D, ctypes.addressof(strides),
+        1.0 / math.sqrt(D), build.dtype_code(q.dtype), p["chunks"],
+        int(p["vec_in"]), build.stream_of(q))
+    build.check(rc, "flash_attention_bwd", "flash_attention")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -9,7 +9,7 @@ import functools
 import torch
 
 from .. import build
-from ..dispatch import LAUNCHES, require_cuda
+from ..dispatch import LAUNCHES, refuse_grad, require_cuda
 
 X_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 W_DTYPES = (torch.int8, torch.float8_e4m3fn)
@@ -98,8 +98,10 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
     """x: (M, K) fp32/bf16/int8; qw: (K, N) int8 or fp8 e4m3; scale: (N,)
     fp32, contiguous. x and qw may have any row stride (unit column
     stride). Returns (x @ qw) * scale as a new contiguous (M, N) tensor of
-    `out_dtype` (fp32 or bf16), fp32-accumulated."""
+    `out_dtype` (fp32 or bf16), fp32-accumulated. No backward: raises under
+    grad (dispatch.refuse_grad)."""
     require_cuda("quant_matmul", x, qw, scale)
+    refuse_grad("quant_matmul", x, scale)
     if x.ndim != 2 or qw.ndim != 2 or x.shape[1] != qw.shape[0]:
         raise ValueError(f"quant_matmul: x (M, K) @ qw (K, N); got "
                          f"{tuple(x.shape)} @ {tuple(qw.shape)}")

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from . import kernel, ref
-from ..dispatch import use_kernel
+from ..dispatch import refuse_grad, use_kernel
 
 
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor, ws: torch.Tensor, *,
@@ -26,6 +26,8 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, ws: torch.Tensor, *,
     (kernels/dispatch.py)."""
     if not use_kernel(backend, x):
         return ref.quant_matmul(x, qw, ws, sa=sa)
+    # no backward kernel: checked here too, as W8A8's int8 x2 drops x's grad
+    refuse_grad("quant_matmul", x, ws, sa)
     lead, K = x.shape[:-1], x.shape[-1]
     x2, scale = ref.fold_act(x.reshape(-1, K), ws, sa)
     out = kernel.quant_matmul(x2, qw, scale, out_dtype=x.dtype)

@@ -10,7 +10,7 @@ import functools
 import torch
 
 from .. import build
-from ..dispatch import LAUNCHES, require_cuda
+from ..dispatch import LAUNCHES, refuse_grad, require_cuda
 from .ref import ROW_FIXED
 
 MAX_TERMS = 8
@@ -85,8 +85,10 @@ def fused_combine_batched(terms: torch.Tensor,
                           weights: torch.Tensor) -> torch.Tensor:
     """terms: (K, B, N) contiguous fp32/bf16 on the card; weights: (K,) or
     per-slot (K, B) fp32. Returns the (B, N) weighted sum, fp32-accumulated,
-    in the terms' dtype."""
+    in the terms' dtype. There is no backward: raises under grad
+    (dispatch.refuse_grad)."""
     require_cuda("unipc_update", terms, weights)
+    refuse_grad("unipc_update", terms, weights)
     if terms.ndim != 3 or not terms.is_contiguous():
         raise ValueError(f"unipc_update: terms must be a contiguous (K, B, N) "
                          f"tensor, got shape {tuple(terms.shape)}")
@@ -176,6 +178,7 @@ def unipc_row_predict(x: torch.Tensor, E: torch.Tensor, rows: torch.Tensor,
     clipped to the table on the device) of the packed fp32 `rows`; x (B, ...)
     and the (K + 1, B, ...) ring E fp32 or bf16, their per-sample dims
     contiguous."""
+    refuse_grad("unipc_update", x, E, rows)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     args, bits = _row_args(x, E, rows, idx, sign, out)
     _launch(PREDICT, args, x, _plan(bits, out.element_size(), args.B, args.N,
@@ -190,6 +193,7 @@ def unipc_row_correct(x: torch.Tensor, E: torch.Tensor, e_new: torch.Tensor,
     """(x_next, E_next) of the row `idx`, as `unipc_row_predict` takes its
     operands; e_new and x_pred are x-shaped, of x's dtype. E_next is a new
     tensor: E, which the caller may still hold, is never written."""
+    refuse_grad("unipc_update", x, E, e_new, x_pred, rows)
     x_next = torch.empty_like(x, memory_format=torch.contiguous_format)
     E_next = torch.empty_like(E, memory_format=torch.contiguous_format)
     args, bits = _row_args(x, E, rows, idx, sign, x_next)

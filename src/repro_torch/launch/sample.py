@@ -8,6 +8,7 @@ the engine, or with its python-loop reference (`--loop`), or a tuned
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-i256 \
         --full --solver dpmpp --nfe 10 --order 3 --cfg-scale 2.0 --batch 8 \
         [--loop] [--quant w8a16] [--eval-dtype bfloat16] [--plan plan.json]
+        [--ckpt ckpt_dir]
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import ckpt
 from ..configs.registry import get_config
 from ..diffusion.schedules import VPLinear
 from ..engine import SOLVERS, CacheSpec, EngineSpec, SamplerEngine
@@ -298,6 +300,10 @@ def main(argv=None):
     scale.add_argument("--reduced", action="store_true",
                        help="reduced CPU-scale config (the default)")
     scale.add_argument("--full", action="store_true")
+    ap.add_argument("--ckpt", default=None,
+                    help="a checkpoint directory (launch/train.py "
+                         "--ckpt-dir, of either package): sample its "
+                         "params")
     args = ap.parse_args(argv)
     if args.plan and args.loop:
         ap.error("--plan runs the engine's table; --loop has no python-loop "
@@ -311,9 +317,18 @@ def main(argv=None):
     if args.quant != "none" and get_config(args.arch).family != "dit":
         ap.error(f"--quant needs the dit family; --arch {args.arch} is "
                  f"family {get_config(args.arch).family!r}")
+    params = None
+    if args.ckpt:
+        tree, _ = ckpt.restore(args.ckpt)
+        cfg = get_config(args.arch)
+        if not args.full:
+            cfg = cfg.reduced()
+        params = api.params_from_numpy(tree["params"], cfg,
+                                       resolve_device(args.device))
     return sample(args.arch, reduced=not args.full, solver=args.solver,
                   order=args.order, nfe=args.nfe, variant=args.variant,
                   prediction=args.prediction, batch=args.batch, seed=args.seed,
+                  params=params,
                   loop=args.loop, fused_update=not args.no_fused_update,
                   cfg_scale=args.cfg_scale, cfg_schedule=args.cfg_schedule,
                   thresholding=args.thresholding, plan=args.plan,

@@ -9,20 +9,16 @@ winning plan(s) as JSON for `launch/sample.py --plan` and
 is given; there every candidate of an NFE replays the same CUDA graphs.
 
     PYTHONPATH=src python -m repro_torch.launch.tune --arch dit-cifar \
-        --nfe 8 --budget 80 --train-steps 0 --out plan8.json
+        --nfe 8 --budget 80 --out plan8.json
     PYTHONPATH=src python -m repro_torch.launch.tune --arch dit-cifar \
-        --bank fast=5,balanced=8,quality=16 --train-steps 0 --out bank.json
-    PYTHONPATH=src python -m repro_torch.launch.tune --smoke \
-        --train-steps 0 --device cpu
+        --bank fast=5,balanced=8,quality=16 --out bank.json
+    PYTHONPATH=src python -m repro_torch.launch.tune --smoke --device cpu
 
+The eps-net is trained `--train-steps` steps first (the reference's
+default 100, `launch/train.py`); `--train-steps 0` tunes the random init.
 The smoke runs a tiny search and exits nonzero unless the tuned plan's
 discrepancy is no worse than the hand-set UniPC-2 baseline it starts from
 (the search never regresses, so a failure means the tuner itself broke).
-
-Not yet ported: training the eps-net before the search. The reference's
-default `--train-steps 100` is kept so the interface does not drift, and
-any `--train-steps` above 0 is refused as not yet ported; pass
-`--train-steps 0` to tune the random init.
 """
 
 from __future__ import annotations
@@ -37,7 +33,6 @@ from ..configs.registry import get_config
 from ..diffusion.schedules import VPLinear
 from ..engine import EngineSpec
 from ..engine.engine import resolve_device
-from ..engine.specs import not_yet_ported
 from ..models import api
 from ..tuning import (SearchConfig, SolverPlan, make_objective,
                       quant_parity_gate, reference_trajectory, save_bank,
@@ -48,27 +43,32 @@ from .sample import build_engine, latent_shape
 def _setup(arch: str, reduced: bool, batch: int, seed: int,
            train_steps: int = 0, cache_block: int = 0, quant: str = "none",
            device="cuda"):
-    """Engine + probe latents for the objective. `train_steps > 0` would
-    briefly train the eps-net first (the reference's default: at random
-    init the reduced nets are nearly linear and plan rankings drown in fp32
-    noise); training is not ported yet, so it raises.
+    """Engine + probe latents for the objective. `train_steps > 0` briefly
+    trains the eps-net first (diffusion objective, `launch/train.py`, on
+    `device`): at random init the reduced nets are nearly linear and every
+    solver lands within fp32 noise of the reference, so plan rankings are
+    meaningless; ~100 steps makes the trajectory curvature real.
 
     Returns (engine, x_T, fp32_engine). With `quant != "none"` the primary
     engine serves the quantized denoiser (DESIGN.md §14) and `fp32_engine`
     is a second engine over the SAME params at fp32 — the parity gate's
     reference and baseline anchor. Otherwise fp32_engine IS engine.
-    Params are `api.init_params(cfg, seed)`; x_T is a standard normal draw
-    from a torch.Generator seeded with `seed` on `device`."""
-    if train_steps > 0:
-        raise not_yet_ported(
-            f"training the eps-net before tuning (train_steps="
-            f"{train_steps}, ROADMAP item 10; pass train_steps=0, "
-            f"--train-steps 0, to tune the random init)")
+    Params are the trained ones, or `api.init_params(cfg, seed)`; x_T is a
+    standard normal draw from a torch.Generator seeded with `seed` on
+    `device`."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    params = api.init_params(cfg, seed, device)
+    if train_steps > 0:
+        from .train import train as _train
+
+        params, _ = _train(arch, reduced=reduced, objective="diffusion",
+                           steps=train_steps, batch=8, seq=32, lr=1e-3,
+                           log_every=max(1, train_steps), seed=seed,
+                           device=device)
+    else:
+        params = api.init_params(cfg, seed, device)
     engine = build_engine(cfg, params, VPLinear(), batch, seed,
                           cache_block=cache_block, quant=quant, device=device)
     fp32_engine = engine
@@ -108,8 +108,8 @@ def tune(arch: str = "dit-cifar", *, nfe: int = 8, budget: int = 80,
     `QuantParityError` otherwise. The emitted plan's meta records the tier,
     so a serving bank pins it (`launch/serve.py --plan-bank`).
 
-    Without a prebuilt engine, `_setup` builds one on `device`;
-    `train_steps > 0` raises there (not yet ported)."""
+    Without a prebuilt engine, `_setup` builds one on `device`, training
+    the eps-net `train_steps` steps first."""
     if engine is None:
         engine, x_T, fp32_engine = _setup(arch, reduced, batch, seed,
                                           train_steps,
@@ -252,8 +252,7 @@ def main(argv=None) -> None:
                     help="probe latent batch size")
     ap.add_argument("--train-steps", type=int, default=100,
                     help="brief diffusion-objective training of the eps-net "
-                         "before tuning; not yet ported: pass 0 to tune the "
-                         "random init")
+                         "before tuning (0 = tune the random init)")
     ap.add_argument("--cache-block", type=int, default=0,
                     help="jointly tune a DiT feature-reuse schedule at this "
                          "block boundary (0 = no caching); shallow steps "

@@ -9,6 +9,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..diffusion.process import draw_t_noise, q_sample
+from ..diffusion.schedules import VPLinear
 from .dit import dit_apply, dit_apply_cached, init_dit
 
 NUM_CLASSES = 1000  # init_params allocates NUM_CLASSES + 1 embeddings; the
@@ -174,3 +176,33 @@ def eps_network_cached(cfg: ModelConfig, cache_block: int) -> Callable:
                                 deep=deep)
 
     return f
+
+
+def diffusion_loss_fn(cfg: ModelConfig, schedule=None) -> Callable:
+    """(params, batch, rng) -> the DiT's diffusion loss, a 0-d fp32 tensor:
+    mean((eps_hat - noise)^2) over x_t = q_sample(latents, t, noise). `rng`
+    is a torch.Generator or the (t, noise) pair (`draw_t_noise`). Only the
+    dit family is ported; the diffusion-LM rounding loss of the token
+    families waits for them (ROADMAP item 12)."""
+    _require_dit(cfg)
+    schedule = schedule or VPLinear()
+    net = eps_network(cfg)
+
+    def loss(params, batch, rng):
+        x0 = batch["latents"]
+        t, noise = draw_t_noise(schedule, x0, rng)
+        x_t = q_sample(schedule, x0, t, noise)
+        eps_hat = net(params, x_t, t, batch)
+        # both widened first: a bf16 eps_hat would keep the difference bf16
+        return torch.mean((eps_hat.to(torch.float32)
+                           - noise.to(torch.float32)) ** 2)
+
+    return loss
+
+
+def train_loss(cfg: ModelConfig, objective: str = "ar") -> Callable:
+    if objective == "ar":
+        raise NotImplementedError(
+            "the autoregressive objective (ar_loss) is not yet ported to "
+            "repro_torch (ROADMAP item 12); objective='diffusion' is")
+    return diffusion_loss_fn(cfg)

@@ -124,18 +124,23 @@ def _head(params, cfg, x, c, tap=None):
     return torch.matmul(x, params["out_proj"].to(x.dtype))
 
 
-def _layer(tree, i):
-    """Block i of the stacked block params (quant records included)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+def _layers(tree, L: int) -> list:
+    """Every block's params (quant records included) as views of the
+    stacked (L, ...) leaves, unbound once: under autograd the blocks'
+    gradients are then stacked in one op, where indexing each block apart
+    gives each one a zero-filled (L, ...) gradient and sums the L of
+    them."""
+    cols = {k: _layers(v, L) if isinstance(v, dict) else torch.unbind(v)
             for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(L)]
 
 
 def dit_apply(params, cfg, x_t, t, class_ids=None):
     """x_t: (B, T, latent_dim); t: scalar or (B,). Returns eps-hat, same
     shape, in the activation dtype."""
     x, c = _embed(params, cfg, x_t, t, class_ids)
-    for i in range(cfg.num_layers):
-        x = _block(x, _layer(params["blocks"], i), cfg, c)
+    for bp in _layers(params["blocks"], cfg.num_layers):
+        x = _block(x, bp, cfg, c)
     return _head(params, cfg, x, c)
 
 
@@ -175,12 +180,13 @@ def dit_apply_cached(params, cfg, x_t, t, class_ids=None, *, cache,
         raise ValueError(f"cache_block must be in 1..{L - 1} "
                          f"(num_layers={L}), got {k}")
     x, c = _embed(params, cfg, x_t, t, class_ids)
-    for i in range(k):
-        x = _block(x, _layer(params["blocks"], i), cfg, c)
+    layers = _layers(params["blocks"], L)
+    for bp in layers[:k]:
+        x = _block(x, bp, cfg, c)
     x_k = x
     if deep:
-        for i in range(k, L):
-            x = _block(x, _layer(params["blocks"], i), cfg, c)
+        for bp in layers[k:]:
+            x = _block(x, bp, cfg, c)
     B = x_t.shape[0]
     # a host flag becomes a device fill, not a host-to-device copy, so a
     # CUDA graph can capture it (an uncached table's rows pass reuse 0.0)

@@ -129,9 +129,9 @@ def calibrate_act_stats(cfg, params, *, schedule=None, nfe: int = 6,
 
     def tapped_eps(x_t, t):
         h, c = dit._embed(bk, cfg, x_t, t, class_ids)
-        for i in range(L):
+        for i, bp in enumerate(dit._layers(bk["blocks"], L)):
             cur["i"] = i
-            h = dit._block(h, dit._layer(bk["blocks"], i), cfg, c, tap=tap)
+            h = dit._block(h, bp, cfg, c, tap=tap)
         return dit._head(bk, cfg, h, c, tap=tap)
 
     # coarse DDIM trajectory, T -> t_eps: the probe visits the noise levels

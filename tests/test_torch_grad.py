@@ -1,0 +1,323 @@
+"""The gradients of the port's kernel ops: the plain backward formulas, the
+autograd Functions over the kernels, and the refusals.
+
+On the CPU each op runs its plain PyTorch version under autograd, as the
+reference's gradient is XLA's derivative of its forward. The backward
+formulas written out in `ref.py` (`modulate_bwd`, `gate_residual_bwd`,
+`attention_bwd`), which the backward kernels compute, are held against
+`torch.autograd.grad` through the forward `ref.py`:
+
+* fp32: <= 1e-6 relative L-inf (the same fp32 arithmetic in another order);
+* bf16 inputs: both compute in fp32 and round once to bf16 at the end, and
+  fp32 values a few ulps apart can round to neighbouring bf16 values: one
+  bf16 ulp, 2^-7 relative L-inf (8 significant bits). Attention's Delta = rowsum(do * o)
+  uses the saved bf16 output, as the kernels do, where autograd's softmax
+  backward uses the unrounded one: given the unrounded output the formula
+  is held to one bf16 ulp; given the bf16 output, as the kernel sees
+  it, to 1e-2 relative L2 (measured 1.0e-3 to 1.4e-3).
+
+The `gpu` tests hold each backward kernel against its plain version on the
+card (1e-5 relative L-inf at fp32; 1e-2 relative L2 at bf16, where the
+kernels round P and dS to bf16 for the tensor cores) and pin the grad-mode
+rules, and skip elsewhere.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.adaln_modulate import kernel as adaln_kernel
+from repro_torch.kernels.adaln_modulate import ops as adaln_ops
+from repro_torch.kernels.adaln_modulate import ref as adaln_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.quant_matmul import ops as qmm_ops
+from repro_torch.kernels.quant_matmul import ref as qmm_ref
+from repro_torch.kernels.unipc_update import ops as uni_ops
+
+torch.set_num_threads(2)
+
+FP32_TOL = 1e-6
+BF16_ULP = 2.0 ** -7
+BF16_O_TOL = 1e-2
+
+
+def _linf(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _randn(shape, seed, dtype=torch.float32):
+    """Inputs made with numpy from a seed, rounded once to `dtype`."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return torch.from_numpy(x).to(dtype)
+
+
+# (B, T, D): the DiT's head width, a ragged width, odd T throughout
+ROW_SHAPES = [(2, 7, 72), (3, 5, 100), (2, 33, 1152)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,D", ROW_SHAPES)
+def test_modulate_bwd_formula_matches_autograd(B, T, D, dtype):
+    """dx, dshift, dscale written out against autograd through
+    `ref.modulate`, shift/scale as strided views of a (B, 6D) modulation
+    as the DiT passes them."""
+    x = _randn((B, T, D), 0, dtype).requires_grad_()
+    mod = _randn((B, 6 * D), 1, dtype).requires_grad_()
+    shift, scale = mod[:, :D], mod[:, D:2 * D]
+    out = adaln_ref.modulate(x, shift, scale)
+    g = _randn(out.shape, 2, dtype)
+    gx, gmod = torch.autograd.grad(out, (x, mod), g)
+    dx, dshift, dscale = adaln_ref.modulate_bwd(g, x.detach(),
+                                                scale.detach())
+    assert dx.dtype == dshift.dtype == dscale.dtype == dtype
+    assert dshift.shape == dscale.shape == (B, D)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_ULP
+    for got, want in ((dx, gx), (dshift, gmod[:, :D]),
+                      (dscale, gmod[:, D:2 * D])):
+        assert _linf(got, want) <= tol
+    assert not gmod[:, 2 * D:].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,D", ROW_SHAPES)
+def test_gate_residual_bwd_formula_matches_autograd(B, T, D, dtype):
+    resid = _randn((B, T, D), 3, dtype).requires_grad_()
+    y = _randn((B, T, D), 4, dtype).requires_grad_()
+    mod = _randn((B, 6 * D), 5, dtype).requires_grad_()
+    gate = mod[:, 2 * D:3 * D]
+    out = adaln_ref.gate_residual(resid, gate, y)
+    g = _randn(out.shape, 6, dtype)
+    want = torch.autograd.grad(out, (resid, gate, y), g)
+    got = adaln_ref.gate_residual_bwd(g, gate.detach(), y.detach())
+    assert got[0] is g
+    tol = FP32_TOL if dtype == torch.float32 else BF16_ULP
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _linf(a, b) <= tol
+
+
+# (B, H, Sq, Skv, D): dit-i256's head dim at a ragged Sq, Sq != Skv at a
+# ragged D, dit-cifar's head dim 64, D = 128
+ATTN_SHAPES = [(2, 3, 67, 67, 72), (1, 2, 33, 50, 100), (2, 2, 64, 64, 64),
+               (1, 2, 19, 70, 128)]
+
+
+def _attn_inputs(B, H, Sq, Skv, D, dtype, seed=10):
+    """q, k, v as head-major views of (B, S, H, D) projections."""
+    q = _randn((B, Sq, H, D), seed, dtype).transpose(1, 2)
+    k = _randn((B, Skv, H, D), seed + 1, dtype).transpose(1, 2)
+    v = _randn((B, Skv, H, D), seed + 2, dtype).transpose(1, 2)
+    do = _randn((B, Sq, H, D), seed + 3, dtype).transpose(1, 2)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,H,Sq,Skv,D", ATTN_SHAPES)
+def test_attention_bwd_formula_matches_autograd_fp32(B, H, Sq, Skv, D):
+    q, k, v, do = _attn_inputs(B, H, Sq, Skv, D, torch.float32)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa_ref.attention(*leaves, causal=False)
+    want = torch.autograd.grad(o, leaves, do)
+    lse = fa_ref.attention_lse(q, k, causal=False)
+    got = fa_ref.attention_bwd(q, k, v, o.detach(), lse, do)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _linf(a, b) <= FP32_TOL
+
+
+@pytest.mark.parametrize("B,H,Sq,Skv,D", ATTN_SHAPES)
+def test_attention_bwd_formula_matches_autograd_bf16(B, H, Sq, Skv, D):
+    q, k, v, do = _attn_inputs(B, H, Sq, Skv, D, torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa_ref.attention(*leaves, causal=False),
+                               leaves, do)
+    lse = fa_ref.attention_lse(q, k, causal=False)
+    # the unrounded output: autograd's own Delta, one bf16 rounding apart
+    o32 = fa_ref.attention(q.float(), k.float(), v.float(), causal=False)
+    got = fa_ref.attention_bwd(q, k, v, o32, lse, do)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _linf(a, b) <= BF16_ULP
+    # the bf16 output, as the kernels see it
+    o16 = fa_ref.attention(q, k, v, causal=False)
+    got = fa_ref.attention_bwd(q, k, v, o16, lse, do)
+    for a, b in zip(got, want):
+        assert _l2(a, b) <= BF16_O_TOL
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None),
+                                           (True, 5)])
+def test_attention_lse_is_the_masked_logsumexp(causal, window):
+    q, k, _, _ = _attn_inputs(2, 4, 21, 21, 72, torch.float32, seed=20)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(72)
+    pos = torch.arange(21)
+    ok = torch.ones(21, 21, dtype=torch.bool)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window:
+        ok &= pos[None, :] > pos[:, None] - window
+    want = torch.logsumexp(s.masked_fill(~ok, -1e30), dim=-1)
+    got = fa_ref.attention_lse(q, k, causal=causal, window=window)
+    assert _linf(got, want) <= FP32_TOL
+
+
+def test_plain_path_keeps_autograd():
+    """On the CPU every op is its plain version, differentiable as it is:
+    the ops with a backward kernel and the two without one."""
+    x = _randn((2, 5, 72), 30).requires_grad_()
+    mod = _randn((2, 6 * 72), 31).requires_grad_()
+    h = adaln_ops.modulate(x, mod[:, :72], mod[:, 72:144])
+    h = adaln_ops.gate_residual(h, mod[:, 144:216], h)
+    qkv = h.reshape(2, 5, 1, 72).transpose(1, 2)
+    a = fa_ops.attention(qkv, qkv, qkv, causal=False)
+    terms = torch.stack([a.reshape(2, -1), h.reshape(2, -1)])
+    c = uni_ops.weighted_combine(terms, torch.tensor([0.5, 0.25]))
+    qw, ws = qmm_ref.quantize(_randn((72, 8), 32))
+    out = qmm_ops.quant_matmul(c.reshape(2, 5, 72), qw, ws.float())
+    for t in (h, a, c, out):
+        assert t.requires_grad and t.grad_fn is not None
+    gx, gmod = torch.autograd.grad(out.square().sum(), (x, mod))
+    assert gx.abs().sum() > 0 and gmod.abs().sum() > 0
+
+
+def test_refuse_grad_only_under_grad():
+    w = torch.ones(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dispatch.refuse_grad("unipc_update", torch.ones(3), w)
+    with torch.no_grad():
+        dispatch.refuse_grad("unipc_update", w)
+    dispatch.refuse_grad("unipc_update", w.detach(), 0.5, None)
+    assert dispatch.needs_grad(None, w) and not dispatch.needs_grad(0.5)
+
+
+@pytest.mark.parametrize("dtype,D,chunks,vec", [
+    (torch.bfloat16, 72, 9, True), (torch.bfloat16, 64, 8, True),
+    (torch.bfloat16, 100, 16, False), (torch.float32, 72, 0, False)])
+def test_attention_bwd_plan(dtype, D, chunks, vec):
+    q, k, v, do = _attn_inputs(2, 3, 130, 70, D, dtype)
+    p = fa_kernel.plan_bwd(q, k, v, do)
+    assert p["chunks"] == chunks and p["vec_in"] == vec
+    assert p["body"] == ("mma" if dtype == torch.bfloat16 else "cuda_cores")
+    assert p["blocks"] == (2 * 3 * 3, 2 * 3 * 2)
+
+
+@pytest.mark.parametrize("B,T,rows", [(8, 256, 8), (1, 1, 1), (16, 256, 16),
+                                      (64, 4096, 64), (2, 37, 1)])
+def test_adaln_bwd_rows(B, T, rows):
+    """About two blocks an SM (132 on a CPU tensor's plan), at most 64 rows
+    a tile."""
+    assert adaln_kernel.bwd_rows(torch.empty(B, T, 8)) == rows
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels against their plain versions (card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_tol(dtype):
+    return 1e-5 if dtype == torch.float32 else 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,D", ROW_SHAPES + [(8, 256, 1152), (2, 3, 8192)])
+def test_card_adaln_bwd_kernels_match_plain(cuda, B, T, D, dtype):
+    x, y, g = (_randn((B, T, D), s, dtype).to(cuda) for s in (40, 41, 42))
+    mod = _randn((B, 6 * D), 43, dtype).to(cuda)
+    scale, gate = mod[:, D:2 * D], mod[:, 2 * D:3 * D]
+    for got, want in ((adaln_kernel.modulate_bwd(g, x, scale),
+                       adaln_ref.modulate_bwd(g, x, scale)),
+                      (adaln_kernel.gate_residual_bwd(g, gate, y),
+                       adaln_ref.gate_residual_bwd(g, gate, y))):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            tol = _card_tol(dtype)
+            assert (_linf(a, b) if dtype == torch.float32
+                    else _l2(a, b)) <= tol
+    again = adaln_kernel.modulate_bwd(g, x, scale)
+    assert all(torch.equal(a, b) for a, b in
+               zip(again, adaln_kernel.modulate_bwd(g, x, scale)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,Sq,Skv,D", ATTN_SHAPES + [(8, 16, 256, 256, 72)])
+def test_card_attention_bwd_matches_plain(cuda, B, H, Sq, Skv, D, dtype):
+    q, k, v, do = (t.to(cuda) for t in _attn_inputs(B, H, Sq, Skv, D, dtype))
+    out0 = fa_kernel.flash_attention(q, k, v, causal=False)
+    out, lse = fa_kernel.flash_attention(q, k, v, causal=False, lse=True)
+    assert torch.equal(out, out0)
+    assert _linf(lse, fa_ref.attention_lse(q, k, causal=False)) <= 1e-5
+    got = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do)
+    want = fa_ref.attention_bwd(q, k, v, out, lse, do)
+    for a, b, src in zip(got, want, (q, k, v)):
+        assert a.stride() == src.stride()
+        assert (_linf(a, b) if dtype == torch.float32
+                else _l2(a, b)) <= _card_tol(dtype)
+    again = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_card_functions_carry_grad_and_count(cuda):
+    """Under grad each op's output requires grad and its backward launches
+    the backward kernel; under no_grad the forward kernel alone runs."""
+    x = _randn((2, 37, 72), 50, torch.bfloat16).to(cuda).requires_grad_()
+    mod = _randn((2, 6 * 72), 51, torch.bfloat16).to(cuda).requires_grad_()
+    dispatch.LAUNCHES.clear()
+    h = adaln_ops.modulate(x, mod[:, :72], mod[:, 72:144])
+    qkv = h.reshape(2, 37, 1, 72).transpose(1, 2)
+    a = fa_ops.attention(qkv, qkv, qkv, causal=False)
+    out = adaln_ops.gate_residual(h, mod[:, 144:216],
+                                  a.transpose(1, 2).reshape(2, 37, 72))
+    assert h.requires_grad and a.requires_grad and out.requires_grad
+    out.float().square().sum().backward()
+    assert x.grad is not None and mod.grad is not None
+    assert dict(dispatch.LAUNCHES) == {
+        "adaln_modulate": 1, "gate_residual": 1, "flash_attention": 1,
+        "adaln_modulate_bwd": 1, "gate_residual_bwd": 1,
+        "flash_attention_bwd": 1}
+    dispatch.LAUNCHES.clear()
+    with torch.no_grad():
+        h = adaln_ops.modulate(x, mod[:, :72], mod[:, 72:144])
+    assert not h.requires_grad and dict(dispatch.LAUNCHES) == {
+        "adaln_modulate": 1}
+
+
+@pytest.mark.gpu
+def test_card_refusals_under_grad(cuda):
+    """No detached results: the kernels without a backward raise under
+    grad, and attention raises for the cases its backward does not cover."""
+    w = torch.tensor([0.5, 0.5], device=cuda)
+    terms = torch.randn(2, 2, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        uni_ops.weighted_combine(terms, w)
+    with torch.no_grad():
+        uni_ops.weighted_combine(terms, w)
+    qw, ws = qmm_ref.quantize(torch.randn(64, 32, device=cuda))
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        qmm_ops.quant_matmul(x, qw, ws.float())
+    q = torch.randn(1, 4, 16, 72, device=cuda, requires_grad=True)
+    kv = torch.randn(1, 2, 16, 72, device=cuda)
+    for kw in ({"causal": True}, {"causal": False, "window": 4}):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            fa_ops.attention(q, q, q, **kw)
+    with pytest.raises(NotImplementedError, match="GQA"):
+        fa_ops.attention(q, kv, kv, causal=False)

@@ -104,6 +104,28 @@ def test_tune_defaults_to_the_card_and_raises_without_one():
         tune.main(["--nfe", "2", "--batch", "1", "--train-steps", "0"])
 
 
+def test_train_defaults_to_the_card_and_raises_without_one():
+    _no_card()
+    from repro_torch.launch import train, tune
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train("dit-cifar", objective="diffusion", steps=1, batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "dit-cifar", "--objective", "diffusion",
+                    "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune.main(["--nfe", "2", "--batch", "1", "--train-steps", "1"])
+
+
+def test_training_subpackages_are_scanned():
+    """The modules ported with training are in the import scan above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("data/__init__", "data/synthetic", "optim/__init__",
+                "optim/adamw", "optim/schedule", "checkpoint/__init__",
+                "checkpoint/ckpt", "launch/train"):
+        assert f"src/repro_torch/{mod}.py" in names
+
+
 def test_cli_runs_on_the_cpu_when_asked(capsys):
     x0 = launch.main(["--arch", "dit-cifar", "--nfe", "2", "--batch", "1",
                       "--device", "cpu"])

@@ -226,8 +226,8 @@ def test_tapped_replay_is_dit_apply(reduced_i256):
     sites = []
     tap = lambda site, v: sites.append(site)
     h, c = t_dit._embed(bk, tcfg, x, 0.5, cls)
-    for i in range(tcfg.num_layers):
-        h = t_dit._block(h, t_dit._layer(bk["blocks"], i), tcfg, c, tap=tap)
+    for bp in t_dit._layers(bk["blocks"], tcfg.num_layers):
+        h = t_dit._block(h, bp, tcfg, c, tap=tap)
     got = t_dit._head(bk, tcfg, h, c, tap=tap)
     np.testing.assert_array_equal(
         got.numpy(), t_dit.dit_apply(bk, tcfg, x, 0.5, cls).numpy())

@@ -15,7 +15,8 @@
   never rescans a table; on the port's own objective a tuned plan beats
   the UniPC-2 baseline and never regresses;
 * the launchers: `quant_parity_gate`, `tune` / `tune --smoke` with
-  `train_steps=0` on the CPU (training is not ported yet and refused),
+  `train_steps=0` on the CPU, and `--train-steps N` training first (the
+  refusal this test once pinned went when training was ported),
   `sample(plan=)` uncached and cached within 1e-5 of the reference's, and
   `--plan` with `--loop` refused;
 * on the card (`gpu`): the runner captures once per NFE (twice cached),
@@ -49,6 +50,7 @@ from repro_torch.diffusion import VPLinear as TVP
 from repro_torch.engine import EngineSpec as TSpec
 from repro_torch.engine import SamplerEngine as TEngine
 from repro_torch.launch import sample as t_sample
+from repro_torch.launch import train as t_train
 from repro_torch.launch import tune as t_tune
 from repro_torch.launch.sample import build_engine as t_build_engine
 from repro_torch.models import api as t_api
@@ -381,10 +383,19 @@ def test_tune_runs_on_the_cpu_and_refuses_training(monkeypatch):
     assert rep["evals"] <= 6 and plan.meta["arch"] == "dit-cifar"
     json.dumps(rep)                      # the report is plain data
     assert len(made) == 1 and made[0]._runner.builds == 1
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_tune.tune("dit-cifar", nfe=4, device="cpu")       # default 100
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_tune.main(["--train-steps", "5", "--device", "cpu"])
+    # training is ported (ROADMAP item 10): --train-steps N trains first,
+    # with the reference's arguments (src/repro/launch/tune.py:56-61)
+    calls, train = [], t_train.train
+    monkeypatch.setattr(t_train, "train",
+                        lambda *a, **k: calls.append((a, k)) or train(*a, **k))
+    plan = t_tune.main(["--nfe", "4", "--budget", "4", "--rounds", "1",
+                        "--ref-nfe", "8", "--batch", "2", "--train-steps",
+                        "3", "--device", "cpu"])
+    assert plan.nfe == 4 and len(calls) == 1
+    (arch,), kw = calls[0]
+    assert arch == "dit-cifar" and kw["reduced"] and kw["steps"] == 3
+    assert (kw["objective"], kw["batch"], kw["seq"], kw["lr"]) == (
+        "diffusion", 8, 32, 1e-3)
 
 
 def test_tune_smoke_bank_and_quant_cli_on_the_cpu(tmp_path, capsys):
