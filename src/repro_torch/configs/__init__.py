@@ -1,6 +1,8 @@
-"""Model configurations of the DiT family (the port's slice of `repro.configs`)."""
+"""Model configurations of the ported families (the port's slice of
+`repro.configs`): the decoder-only token family and the DiTs."""
 
-from .base import ModelConfig
+from .base import INPUT_SHAPES, InputShape, ModelConfig
 from .registry import ARCH_IDS, get_config
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config"]
+__all__ = ["ModelConfig", "InputShape", "INPUT_SHAPES", "ARCH_IDS",
+           "get_config"]

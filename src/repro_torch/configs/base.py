@@ -1,4 +1,6 @@
-"""Model configuration dataclass: the DiT fields of `repro.configs.base`."""
+"""Model configuration dataclass shared by every architecture family (the
+port of `repro.configs.base`: the same fields, defaults and `reduced()`;
+`activation_dtype` and `weight_dtype` are torch dtypes)."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 @dataclass
 class ModelConfig:
     arch_id: str
-    family: str                     # only "dit" is ported
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio | dit
     source: str = ""                # citation for the exact numbers
 
     # transformer core
@@ -22,14 +24,53 @@ class ModelConfig:
     num_kv_heads: Optional[int] = None
     head_dim: Optional[int] = None
     d_ff: int = 1024
+    vocab_size: int = 1000
+    qkv_bias: bool = False
+    norm: str = "rmsnorm"           # rmsnorm | layernorm | nonparam_ln
+    act: str = "swiglu"             # swiglu | gelu
+    rope_theta: float = 10000.0
+    sliding_window: Optional[int] = None
+    tie_embeddings: bool = False
+
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: Optional[int] = None  # per-expert hidden (granite: 512)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # SSM (Mamba2 / SSD); not yet ported, kept so the dataclass is whole
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_chunk: int = 128
+
+    # hybrid (zamba2-style shared attention)
+    attn_every: int = 0             # one shared attn block per this many ssm layers
+
+    # VLM (llama-3.2-vision-style cross-attention layers)
+    cross_attn_every: int = 0
+    image_tokens: int = 0
+
+    # audio enc-dec (whisper-style)
+    encoder_layers: int = 0
+    audio_frames: int = 0
 
     # diffusion
-    latent_dim: int = 0
+    latent_dim: int = 0             # diffusion-LM latent width (0 = AR only)
     patch_tokens: int = 0           # DiT tokens per image
 
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    remat: bool = False            # checkpoint each block (training)
+
+    # performance knobs (0 = baseline)
+    attention_chunk: int = 0       # blockwise attention over query chunks
+    moe_shard_map: bool = False    # MoE block under a mesh (none on one card)
+    moe_dispatch_groups: int = 0   # group-local MoE dispatch: G groups
 
     # kernel dispatch pins (kernels/dispatch.py): None = by the tensor's
     # device (the kernel on CUDA, the plain version on the CPU); "plain"
@@ -57,6 +98,14 @@ class ModelConfig:
     def weight_dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
     def reduced(self, **overrides) -> "ModelConfig":
         """CPU-smoke-test variant of the same family (<=2 layers, small dims);
         the same numbers as `repro.configs.base.ModelConfig.reduced`."""
@@ -67,10 +116,42 @@ class ModelConfig:
             num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads else None,
             head_dim=32,
             d_ff=min(self.d_ff, 256) or 256,
+            vocab_size=min(self.vocab_size, 512),
             dtype="float32",
             param_dtype="float32",
         )
+        if self.num_experts:
+            base.update(num_experts=min(self.num_experts, 4),
+                        experts_per_token=min(self.experts_per_token, 2),
+                        moe_d_ff=min(self.moe_d_ff or self.d_ff, 128))
+        if self.ssm_state:
+            base.update(ssm_state=min(self.ssm_state, 16), ssm_head_dim=32,
+                        ssm_chunk=32)
+        if self.attn_every:
+            base.update(attn_every=2, num_layers=4)
+        if self.cross_attn_every:
+            base.update(cross_attn_every=2, num_layers=4,
+                        image_tokens=min(self.image_tokens, 16) or 16)
+        if self.encoder_layers:
+            base.update(encoder_layers=2,
+                        audio_frames=min(self.audio_frames, 32) or 32)
         if self.latent_dim:
             base.update(latent_dim=min(self.latent_dim, 32))
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -9,5 +9,6 @@ def config() -> ModelConfig:
     return ModelConfig(
         arch_id="dit-cifar", family="dit", source="arXiv:2011.13456",
         num_layers=8, d_model=384, num_heads=6, num_kv_heads=6,
-        d_ff=1536, latent_dim=48, patch_tokens=64,
+        d_ff=1536, vocab_size=0, act="gelu", norm="layernorm",
+        latent_dim=48, patch_tokens=64,
     )

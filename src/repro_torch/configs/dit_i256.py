@@ -10,5 +10,6 @@ def config() -> ModelConfig:
     return ModelConfig(
         arch_id="dit-i256", family="dit", source="arXiv:2212.09748",
         num_layers=28, d_model=1152, num_heads=16, num_kv_heads=16,
-        d_ff=4608, latent_dim=32, patch_tokens=256,
+        d_ff=4608, vocab_size=0, act="gelu", norm="layernorm",
+        latent_dim=32, patch_tokens=256,
     )

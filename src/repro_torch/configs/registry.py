@@ -1,4 +1,6 @@
-"""Architecture registry: --arch lookup over the ported (DiT) configs."""
+"""Architecture registry: --arch lookup over the ported configs (the
+decoder-only token family and the two DiTs). Each config file cites its
+source."""
 
 from __future__ import annotations
 
@@ -6,14 +8,31 @@ import importlib
 
 from .base import ModelConfig
 
-ARCH_IDS = ["dit-i256", "dit-cifar"]
+ARCH_IDS = [
+    # decoder-only token family: dense and MoE transformers
+    "qwen2-0.5b", "qwen2.5-3b", "olmo-1b", "deepseek-67b",
+    "granite-moe-3b-a800m", "mixtral-8x7b",
+    # paper-native diffusion backbones
+    "dit-i256", "dit-cifar",
+]
 
-_MODULES = {a: a.replace("-", "_") for a in ARCH_IDS}
+# the reference's other families, each waiting for its model code
+NOT_YET_PORTED = {
+    "zamba2-7b": "hybrid", "mamba2-780m": "ssm",
+    "llama-3.2-vision-90b": "vlm", "whisper-small": "audio",
+}
+
+_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def get_config(arch_id: str) -> ModelConfig:
+    if arch_id in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} (family {NOT_YET_PORTED[arch_id]!r}) is not "
+            f"yet ported to repro_torch (ROADMAP item 12); ported: "
+            f"{sorted(_MODULES)}")
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; "
-                       f"ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; ported: "
+                       f"{sorted(_MODULES)}")
     mod = importlib.import_module(f"{__package__}.{_MODULES[arch_id]}")
     return mod.config()

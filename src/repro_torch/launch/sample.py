@@ -1,14 +1,17 @@
 """Diffusion sampling launcher (the port of `repro.launch.sample`): build the
-DiT eps-network for --arch, then sample with any solver of the zoo through
-the engine, or with its python-loop reference (`--loop`), or a tuned
-`SolverPlan` (`--plan`, from `launch.tune`). Runs on the CUDA card unless
-`--device cpu` is given; there the engine's run is one CUDA graph replay
-(`engine/graphs.py`).
+eps-network for --arch (the DiT, or for a token arch the diffusion-LM head
+over its transformer backbone, unguided, over a 64-token latent window),
+then sample with any solver of the zoo through the engine, or with its
+python-loop reference (`--loop`), or a tuned `SolverPlan` (`--plan`, from
+`launch.tune`). Runs on the CUDA card unless `--device cpu` is given; there
+the engine's run is one CUDA graph replay (`engine/graphs.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-i256 \
         --full --solver dpmpp --nfe 10 --order 3 --cfg-scale 2.0 --batch 8 \
         [--loop] [--quant w8a16] [--eval-dtype bfloat16] [--plan plan.json]
         [--ckpt ckpt_dir]
+    PYTHONPATH=src python -m repro_torch.launch.sample --arch qwen2-0.5b \
+        --full --nfe 10 --batch 8
 """
 
 from __future__ import annotations
@@ -43,9 +46,12 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                  per_request_cond: bool = False, quant: str = "none",
                  eval_dtype: str = "float32", cache_block: int = 0,
                  device="cuda") -> SamplerEngine:
-    """Wire the DiT eps-network into a SamplerEngine on `device`: the cond
-    branch, the stacked 2B cond+uncond branch guided sampling runs, and the
-    uncond branch (null class ids) for the sequential loop reference.
+    """Wire the arch's eps-network into a SamplerEngine on `device`. For the
+    DiT: the cond branch, the stacked 2B cond+uncond branch guided sampling
+    runs, and the uncond branch (null class ids) for the sequential loop
+    reference. For a token arch: the unguided diffusion-LM eps-net only
+    (the reference's, `launch/sample.py:125-130`); guidance, quantization
+    and feature reuse need the dit family.
 
     per_request_cond: instead of baking per-row class ids drawn from `seed`,
     the eps branches take `class_ids` as a per-call (B,) keyword argument
@@ -84,6 +90,9 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
         raise ValueError(f"the quantized denoiser path needs the dit "
                          f"family; {cfg.arch_id!r} is family "
                          f"{cfg.family!r}")
+    if cache_block and cfg.family != "dit":
+        raise ValueError(f"cache_block needs the dit family; "
+                         f"{cfg.arch_id!r} is family {cfg.family!r}")
     if cache_block and not 1 <= cache_block < cfg.num_layers:
         raise ValueError(f"cache_block must be in "
                          f"1..{cfg.num_layers - 1}, got {cache_block}")
@@ -101,6 +110,10 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
                              f"tier's spec {quant_spec(quant)}")
     params = api.cast_weights_once(cfg, params)
     net = api.eps_network(cfg)
+    if cfg.family != "dit":
+        return SamplerEngine(schedule, eps=lambda x, t: net(params, x, t, {}),
+                             device=device, quant=quant,
+                             eval_dtype=eval_dtype)
 
     def cache_kw(baked=None):
         """The cached eps-net and its CacheSpec ({} uncached). `baked` fixes
@@ -154,7 +167,9 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
 
 
 def latent_shape(cfg, batch):
-    return (batch, cfg.patch_tokens, cfg.latent_dim)
+    if cfg.family == "dit":
+        return (batch, cfg.patch_tokens, cfg.latent_dim)
+    return (batch, 64, cfg.latent_dim)  # diffusion-LM over a 64-token window
 
 
 def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
@@ -164,7 +179,8 @@ def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
            quant="none", eval_dtype="float32", num_layers=None,
            device="cuda"):
     """Sample `batch` latents with `solver` (any name in `SOLVERS`); returns
-    them as a numpy array.
+    them as a numpy array: (batch, patch_tokens, latent_dim) for the DiT,
+    (batch, 64, latent_dim) for a token arch's diffusion LM (unguided).
 
     `params` default to `api.init_params(cfg, seed)`; `x_T` to a standard
     normal draw from a torch.Generator seeded with `seed`; class ids come
@@ -208,6 +224,9 @@ def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
                          "quantized tiers ride the engine paths")
     device = resolve_device(device)
     cfg = get_config(arch)
+    if cfg_scale and cfg.family != "dit":
+        raise ValueError("classifier-free guidance needs the dit family "
+                         "(class-conditional eps-net)")
     if reduced:
         cfg = cfg.reduced()
     if num_layers is not None:
@@ -314,9 +333,17 @@ def main(argv=None):
     if args.loop and args.quant != "none":
         ap.error("--quant rides the engine paths; the python-loop "
                  "reference is fp32-only")
-    if args.quant != "none" and get_config(args.arch).family != "dit":
+    try:
+        family = get_config(args.arch).family
+    except NotImplementedError as err:
+        ap.error(str(err))
+    if args.cfg_scale and family != "dit":
+        ap.error(f"--cfg-scale needs a class-conditional eps-net; --arch "
+                 f"{args.arch} is family '{family}', not 'dit' (try "
+                 f"dit-cifar or dit-i256)")
+    if args.quant != "none" and family != "dit":
         ap.error(f"--quant needs the dit family; --arch {args.arch} is "
-                 f"family {get_config(args.arch).family!r}")
+                 f"family {family!r}")
     params = None
     if args.ckpt:
         tree, _ = ckpt.restore(args.ckpt)

@@ -1,19 +1,26 @@
-"""Continuous-batching diffusion serving (the port of `repro.launch.serve`,
-dit family). One request = one latent to generate: a request-level
-scheduler over `--batch` slots drives the engine's per-slot step program,
-so requests admit the moment a slot frees, carry their own seed, class and
-guidance scale, and emit without waiting for a batch to drain. One batched
-(optionally 2B cond+uncond stacked) network eval per tick, any registered
-solver, a plan bank of quality tiers, feature reuse from a cached plan
-bank, the quantized and bf16 evals, resilience and fault injection, and
-observability: a Chrome trace of tick spans and request lifecycles
-(`--trace-out`), the metrics artifact (`--metrics-out`, rendered and
-checked by `launch.obsreport`), and the quality probe
+"""Batched serving (the port of `repro.launch.serve`). Token models
+(the decoder-only dense and MoE family): prefill a batch of prompts, then
+greedy or temperature decode with the stacked KV cache, each decode step a
+CUDA graph replay on the card (`TokenDecoder`). Diffusion models (dit
+family): continuous batching, one request = one latent to generate. A
+request-level scheduler over `--batch` slots drives the engine's per-slot
+step program, so requests admit the moment a slot frees, carry their own
+seed, class and guidance scale, and emit without waiting for a batch to
+drain. One batched (optionally 2B cond+uncond stacked) network eval per
+tick, any registered solver, a plan bank of quality tiers, feature reuse
+from a cached plan bank, the quantized and bf16 evals, resilience and fault
+injection, and observability: a Chrome trace of tick spans and request
+lifecycles (`--trace-out`), the metrics artifact (`--metrics-out`,
+rendered and checked by `launch.obsreport`), and the quality probe
 (`--probe-fraction`), which replays sampled completions against a
 high-NFE fp32 reference. Runs on the CUDA card unless `--device cpu` is
 given; there each tick is a CUDA graph replay and finished latents come
 back as a pipelined trailing stream.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --full --batch 8 --prompt-len 512 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --batch 2 --prompt-len 12 --gen 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dit-i256 \
         --full --batch 8 --nfe 10 --cfg-scale 2.0 --arrival-rate 0.5 \
         --requests 24
@@ -22,23 +29,166 @@ back as a pipelined trailing stream.
         --trace-out trace.json --metrics-out metrics.json \
         --probe-fraction 0.25 --probe-ref-nfe 16
 
-Not yet ported, and refused when asked for: the token families'
-prefill/decode serving; the mesh sharding of the slot batch (the port
-serves on one card).
+Not yet ported, and refused when asked for: the ssm, hybrid, vlm and audio
+families; the mesh sharding of the slot batch (the port serves on one
+card).
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..configs.registry import get_config
+from ..data.synthetic import TokenStream
+from ..engine import graphs
 from ..engine.engine import resolve_device
-from ..engine.specs import EVAL_DTYPES, not_yet_ported
+from ..engine.specs import EVAL_DTYPES
 from ..models import api
 from ..obs import metrics as obsm
+
+
+class TokenDecoder:
+    """The decode loop's step on static buffers: `token` (B, 1) int64 and
+    `pos` a 0-d int64, both on the device, and the KV cache, which the step
+    updates in place at `pos % W`. `step()` runs one decode step on what
+    they hold and returns the (B, 1, V) logits. With `jit` on the card the
+    step is a CUDA graph (the reference's `jax.jit(decode)`), captured at
+    the first `step()` after one eager step on a side stream, which writes
+    the cache slot the replay then writes again with the same values; the
+    logits are the graph's static output, which the next step overwrites.
+    Otherwise the step runs eagerly."""
+
+    def __init__(self, params, cfg, cache: dict, batch: int, device,
+                 jit: bool = True):
+        self.params, self.cache = params, cache
+        self.decode = api.decode_fn(cfg)
+        self.token = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.graphed = graphs.graphed(jit, device)
+        self.graph = None
+
+    def _step(self, token, pos):
+        return self.decode(self.params, self.cache, token, pos)[0]
+
+    def step(self) -> torch.Tensor:
+        if not self.graphed:
+            return self._step(self.token, self.pos)
+        if self.graph is None:
+            self.graph = graphs.Graph(self._step, (self.token, self.pos),
+                                      self._step)
+        return self.graph.replay()
+
+
+def choose_token(logits: torch.Tensor, temperature: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """(B, S, V) logits -> (B,) int64 tokens from the last position: greedy
+    `argmax` (the first maximum, as `jnp.argmax`), or with temperature > 0
+    a categorical draw by the Gumbel-max trick (`jax.random.categorical`'s
+    method) from `generator`, on the device and without a host sync."""
+    last = logits[:, -1]
+    if temperature <= 0:
+        return torch.argmax(last, dim=-1)
+    u = torch.rand(last.shape, generator=generator, device=last.device,
+                   dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(last.to(torch.float32) / temperature
+                        - torch.log(-torch.log(u)), dim=-1)
+
+
+def decode_tokens(decoder: TokenDecoder, first: torch.Tensor, start: int,
+                  gen: int, temperature: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """`gen` tokens (B, gen) on the device: `first`, then each step's choice
+    fed back at positions start, start + 1, ... The tokens stay on the card
+    (the reference reads each back); no step syncs with the host."""
+    out = torch.empty((first.shape[0], gen), dtype=torch.int64,
+                      device=first.device)
+    tok = first
+    for i in range(gen):
+        out[:, i] = tok
+        decoder.token.copy_(tok[:, None])
+        decoder.pos.fill_(start + i)
+        tok = choose_token(decoder.step(), temperature, generator)
+    return out
+
+
+@dataclass
+class TokenRun:
+    """What one `serve(..., return_run=True)` call served: the (batch, gen)
+    tokens, the prefill and decode walls (host clock to a sync), the
+    prompts, the last-position prefill logits and the decoder (its params,
+    cache and graph)."""
+
+    tokens: np.ndarray
+    prefill_s: float
+    decode_s: float
+    prompts: torch.Tensor
+    prefill_logits: torch.Tensor
+    decoder: TokenDecoder
+
+
+def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen=32,
+          temperature=0.0, seed=0, device="cuda", params=None, prompts=None,
+          jit=True, return_run=False):
+    """Token serving: prefill a batch of prompts, then decode `gen` tokens
+    greedily (`temperature` 0) or by temperature sampling from a
+    torch.Generator seeded with `seed`. Returns the (batch, gen) int32
+    tokens (a `TokenRun` with `return_run=True`).
+
+    `params` default to `api.init_params(cfg, seed)` on `device`; the
+    weights the model casts at each use are kept once in the activation
+    dtype (`api.cast_weights_once`). `prompts` (batch, prompt_len) default
+    to block 0 of a `TokenStream` seeded with `seed` (its block seed comes
+    from Python's string hash, so pass prompts to compare processes).
+    Prefill runs eagerly (the attention kernel's causal GQA path); each
+    decode step is a CUDA graph replay on the card with `jit` (the eager
+    step without)."""
+    device = resolve_device(device)
+    cfg = get_config(arch)
+    if cfg.family not in api.TOKEN_FAMILIES:
+        raise ValueError(f"serve() decodes the token families "
+                         f"{api.TOKEN_FAMILIES}; arch {arch!r} is family "
+                         f"{cfg.family!r} (serve_diffusion serves dit)")
+    if reduced:
+        cfg = cfg.reduced()
+    if params is None:
+        params = api.init_params(cfg, seed, device)
+    params = api.cast_weights_once(cfg, api.params_to(params, device))
+    max_len = prompt_len + gen
+    if prompts is None:
+        prompts = TokenStream(cfg.vocab_size, prompt_len, batch,
+                              seed).block(0)["tokens"]
+    prompts = torch.as_tensor(np.asarray(prompts)).long().to(device)
+    if prompts.shape != (batch, prompt_len):
+        raise ValueError(f"prompts must be ({batch}, {prompt_len}), got "
+                         f"{tuple(prompts.shape)}")
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    logits, cache = api.prefill_fn(cfg)(params, {"tokens": prompts}, max_len)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    decoder = TokenDecoder(params, cfg, cache, batch, device, jit=jit)
+    t0 = time.perf_counter()
+    out = decode_tokens(decoder, choose_token(logits, temperature, generator),
+                        prompt_len, gen, temperature, generator)
+    tokens = out.cpu().numpy().astype(np.int32)    # the one readback
+    decode_s = time.perf_counter() - t0
+    mode = " graph" if decoder.graphed else ""
+    print(f"token [{device.type}{mode}] {arch}: prefill {prefill_s*1e3:.1f} "
+          f"ms; decode {gen} steps {decode_s*1e3:.1f} ms "
+          f"({decode_s/gen*1e3:.2f} ms/tok, batch={batch})")
+    if return_run:
+        return TokenRun(tokens=tokens, prefill_s=prefill_s,
+                        decode_s=decode_s, prompts=prompts,
+                        prefill_logits=logits, decoder=decoder)
+    return tokens
 
 
 @dataclass
@@ -124,8 +274,9 @@ def serve_diffusion(arch: str, *, reduced=True, batch=4, nfe=10, order=3,
     device = resolve_device(device)
     cfg = get_config(arch)
     if cfg.family != "dit":
-        raise not_yet_ported(f"serving the {cfg.family!r} family "
-                             f"(prefill/decode)")
+        raise ValueError(f"serve_diffusion serves the dit family; arch "
+                         f"{arch!r} is family {cfg.family!r} (serve() "
+                         f"decodes the token families)")
     if reduced:
         cfg = cfg.reduced()
     if params is None:
@@ -405,6 +556,13 @@ def main(argv=None):
                     help="fault clauses, e.g. "
                          "'nan:rid=2,step=1;meta:tick=6;skew:tick=3,delta=9' "
                          "or 'seed:7,requests=8,nfe=4' for a seeded plan")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="token serving: prompt length")
+    ap.add_argument("--gen", type=int, default=32,
+                    help="token serving: tokens to decode")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="token serving: 0 = greedy, else temperature "
+                         "sampling")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
     bank = ap.add_mutually_exclusive_group()
@@ -421,10 +579,49 @@ def main(argv=None):
                        help="reduced CPU-scale config (the default)")
     scale.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
-    family = get_config(args.arch).family
+    try:
+        family = get_config(args.arch).family
+    except NotImplementedError as err:
+        ap.error(str(err))
+    # the reference's refusals of the diffusion-only flags for token archs
+    if family != "dit" and args.cfg_scale:
+        ap.error(f"--cfg-scale needs a class-conditional eps-net; --arch "
+                 f"{args.arch} is family '{family}', not 'dit' (try "
+                 f"dit-cifar or dit-i256)")
+    if family != "dit" and (args.arrival_rate is not None or args.trace):
+        ap.error(f"--arrival-rate/--trace drive the diffusion request "
+                 f"scheduler; --arch {args.arch} is family '{family}' "
+                 f"(token serving decodes a fixed batch)")
+    if family != "dit" and (args.plan_bank or args.tiers):
+        ap.error(f"--plan-bank/--tiers serve diffusion quality tiers; "
+                 f"--arch {args.arch} is family '{family}'")
+    if family != "dit" and args.eval_dtype != "float32":
+        ap.error(f"--eval-dtype configures the diffusion engine's network "
+                 f"eval; --arch {args.arch} is family '{family}'")
+    if family != "dit" and args.quant != "none":
+        ap.error(f"--quant configures the diffusion engine's denoiser; "
+                 f"--arch {args.arch} is family '{family}'")
+    if family != "dit" and args.pipeline_depth != 2:
+        ap.error(f"--pipeline-depth configures the diffusion serving loop; "
+                 f"--arch {args.arch} is family '{family}'")
+    if family != "dit" and (args.trace_out or args.metrics_out
+                            or args.probe_fraction):
+        ap.error(f"--trace-out/--metrics-out/--probe-fraction instrument the "
+                 f"diffusion serving loop; --arch {args.arch} is family "
+                 f"'{family}'")
+    wants_resilience = (args.max_queue is not None or args.ttl is not None
+                        or args.max_retries or args.retry_fallback
+                        or args.degrade_tier or args.shed_policy != "reject"
+                        or args.recovery != "recover")
+    if family != "dit" and (wants_resilience or args.inject_faults):
+        ap.error(f"--max-queue/--ttl/--max-retries/--inject-faults and "
+                 f"friends configure the diffusion serving scheduler; "
+                 f"--arch {args.arch} is family '{family}'")
     if family != "dit":
-        ap.error(f"--arch {args.arch} is family '{family}': "
-                 f"{not_yet_ported('serving a token family')}")
+        return serve(args.arch, reduced=not args.full, batch=args.batch,
+                     prompt_len=args.prompt_len, gen=args.gen,
+                     temperature=args.temperature, seed=args.seed,
+                     device=args.device)
     if ((args.plan_bank or args.tiers)
             and (args.solver is not None or args.nfe is not None
                  or args.order is not None)):
@@ -440,9 +637,7 @@ def main(argv=None):
         ap.error(f"--probe-fraction must be in [0, 1], "
                  f"got {args.probe_fraction}")
     resilience = None
-    if (args.max_queue is not None or args.ttl is not None
-            or args.max_retries or args.retry_fallback or args.degrade_tier
-            or args.shed_policy != "reject" or args.recovery != "recover"):
+    if wants_resilience:
         from ..serving import ResilienceConfig
         resilience = ResilienceConfig(
             max_queue=args.max_queue, shed_policy=args.shed_policy,

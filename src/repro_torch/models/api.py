@@ -1,4 +1,17 @@
-"""Per-family model API, DiT family (the port's slice of `repro.models.api`)."""
+"""Per-family model API (the port's slice of `repro.models.api`): the dit
+family and the decoder-only token family (dense and MoE transformers).
+
+    init_params(cfg, seed, device)              -> params
+    eps_network(cfg)(params, x_t, t, batch)     -> eps-hat (UniPC's model)
+    init_cache(cfg, batch, max_len, device)     -> cache
+    prefill_fn(cfg)(params, batch, max_len)     -> (logits, cache)
+    decode_fn(cfg)(params, cache, tok, pos)     -> (logits, cache)
+
+The token families' eps-net is the diffusion-LM head over the backbone run
+bidirectionally (`models/diffusion_lm.py`, DESIGN.md §7.1). Not yet ported,
+and refused: the ssm, hybrid, vlm and audio families; the token families'
+training (`ar_loss`, the diffusion-LM loss).
+"""
 
 from __future__ import annotations
 
@@ -11,23 +24,39 @@ import torch
 from ..configs.base import ModelConfig
 from ..diffusion.process import draw_t_noise, q_sample
 from ..diffusion.schedules import VPLinear
+from ..engine.specs import not_yet_ported
+from . import transformer
+from .diffusion_lm import diffusion_lm_apply, init_diffusion_head
 from .dit import dit_apply, dit_apply_cached, init_dit
+from .layers import dense_init
 
 NUM_CLASSES = 1000  # init_params allocates NUM_CLASSES + 1 embeddings; the
                     # extra row is the CFG null class
+TOKEN_FAMILIES = ("dense", "moe")
 
 
-def _require_dit(cfg: ModelConfig):
-    if cfg.family != "dit":
-        raise NotImplementedError(f"family {cfg.family!r} is not yet ported "
-                                  f"(only the dit family is)")
+def _require(cfg: ModelConfig, families=("dit",) + TOKEN_FAMILIES,
+             what: str = "the family"):
+    if cfg.family not in families:
+        raise not_yet_ported(f"{what} of family {cfg.family!r} (ported: "
+                             f"{', '.join(families)}; ROADMAP item 12)")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
-    """Random params from a seeded torch.Generator on `device`."""
-    _require_dit(cfg)
+    """Random params from a seeded torch.Generator on `device`: the
+    backbone, then (token families with `latent_dim`) the diffusion head
+    and the token latents."""
+    _require(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return {"backbone": init_dit(cfg, gen, device, num_classes=NUM_CLASSES)}
+    if cfg.family == "dit":
+        return {"backbone": init_dit(cfg, gen, device,
+                                     num_classes=NUM_CLASSES)}
+    p = {"backbone": transformer.init_lm(cfg, gen, device)}
+    if cfg.latent_dim:
+        p["diffusion_head"] = init_diffusion_head(cfg, gen, device)
+        p["token_latents"] = dense_init(gen, cfg.vocab_size, cfg.latent_dim,
+                                        cfg.weight_dtype, device, scale=1.0)
+    return p
 
 
 def _record_leaf(a: np.ndarray, device) -> torch.Tensor:
@@ -45,16 +74,22 @@ def _record_leaf(a: np.ndarray, device) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     """The port's params from the reference's `init_params` pytree given as
-    nested dicts of numpy arrays (stacked (L, ...) blocks, (K, N) dense
-    layout, class_embed (NUM_CLASSES + 1, d)). Same layout, same values.
-    A tree the reference has quantized (`models.quant.quantize_params`)
-    carries its records {"qw", "ws"[, "sa"]} over at their stored dtypes;
-    every other leaf is cast to the config's weight dtype."""
-    _require_dit(cfg)
-    w1 = tree["backbone"]["blocks"]["w1"]
-    depth = np.shape(w1["qw"] if isinstance(w1, dict) else w1)[0]
+    nested dicts of numpy arrays. Same layout, same values: for the dit
+    family stacked (L, ...) `blocks`, (K, N) dense layout, class_embed
+    (NUM_CLASSES + 1, d); for the token families stacked (L, ...) `layers`
+    of ln1 / attn / ln2 / mlp|moe, `embed`, `final_ln`, an optional
+    `lm_head`, and the diffusion leaves (`diffusion_head`,
+    `token_latents`). A tree the reference has quantized
+    (`models.quant.quantize_params`, dit only) carries its records
+    {"qw", "ws"[, "sa"]} over at their stored dtypes; every other leaf is
+    cast to the config's weight dtype."""
+    _require(cfg)
+    stack = "blocks" if cfg.family == "dit" else "layers"
+    probe = (tree["backbone"]["blocks"]["w1"] if cfg.family == "dit"
+             else tree["backbone"]["layers"]["attn"]["wq"])
+    depth = np.shape(probe["qw"] if isinstance(probe, dict) else probe)[0]
     if depth != cfg.num_layers:
-        raise ValueError(f"blocks are stacked over {depth} layers, cfg has "
+        raise ValueError(f"{stack} are stacked over {depth} layers, cfg has "
                          f"num_layers={cfg.num_layers}")
 
     def conv(node):
@@ -97,32 +132,45 @@ def cast_params_for_eval(params, eval_dtype: str):
     return conv(params)
 
 
-# the leaves the DiT casts to the activation dtype at each use
-# (`layers.dense_apply`'s `w.to(x.dtype)` and the casts of `dit.py`);
-# t_mlp1, t_mlp2 and class_embed are read in fp32 and stay as they are
+# the leaves each family casts to the activation dtype at each use
+# (`layers.dense_apply`'s `w.to(x.dtype)` and the casts of the model code);
+# None selects a whole subtree. The DiT reads t_mlp1, t_mlp2 and
+# class_embed in fp32; the token backbone casts every leaf (the embedding
+# table, tied or not, the norms, the router and the experts included); the
+# diffusion head reads t_mlp1 and t_mlp2 in fp32, and the token latents
+# are the training loss's
 _CAST_AT_USE = {
-    "in_proj": None, "final_ada": None, "final_ada_b": None, "out_proj": None,
-    "blocks": {"w1": None, "w2": None, "ada": None, "ada_b": None,
-               "attn": {"wq": None, "wk": None, "wv": None, "wo": None}},
+    "dit": {"backbone": {
+        "in_proj": None, "final_ada": None, "final_ada_b": None,
+        "out_proj": None,
+        "blocks": {"w1": None, "w2": None, "ada": None, "ada_b": None,
+                   "attn": {"wq": None, "wk": None, "wv": None,
+                            "wo": None}}}},
+    "token": {"backbone": None,
+              "diffusion_head": {"in_proj": None, "out_proj": None}},
 }
 
 
 def cast_weights_once(cfg: ModelConfig, params) -> dict:
     """The weights kept once: `params` with one copy in the activation
-    dtype of each leaf the DiT would otherwise cast at every use, so the
-    per-use `.to()` is a no-op and launches nothing. The values are those
-    the per-use cast gives, so the samples are bit-identical. Quant records
+    dtype of each leaf the model would otherwise cast at every use, so the
+    per-use `.to()` is a no-op and launches nothing (for a tied embedding,
+    the whole table on every decode step otherwise). The values are those
+    the per-use cast gives, so the results are bit-identical. Quant records
     and the leaves read in fp32 are shared, not copied."""
-    _require_dit(cfg)
+    _require(cfg)
     act = cfg.activation_dtype
 
     def conv(node, sel):
         if sel is None:
+            if isinstance(node, dict) and not _is_record(node):
+                return {k: conv(v, None) for k, v in node.items()}
             return node if _is_record(node) else node.to(act)
         return {k: conv(v, sel[k]) if k in sel else v
                 for k, v in node.items()}
 
-    return {**params, "backbone": conv(params["backbone"], _CAST_AT_USE)}
+    sel = _CAST_AT_USE["dit" if cfg.family == "dit" else "token"]
+    return conv(params, sel)
 
 
 def calibrate_and_quantize(cfg: ModelConfig, params, quant, *, schedule=None,
@@ -148,10 +196,22 @@ def calibrate_and_quantize(cfg: ModelConfig, params, quant, *, schedule=None,
 
 
 def eps_network(cfg: ModelConfig) -> Callable:
-    """(params, x_t (B, S, L), t, batch) -> eps-hat — what UniPC samples from."""
-    _require_dit(cfg)
-    return lambda p, x_t, t, batch: dit_apply(
-        p["backbone"], cfg, x_t, t, batch.get("class_ids"))
+    """(params, x_t (B, S, L), t, batch) -> eps-hat — what UniPC samples from.
+    The dit family's DiT; the token families' diffusion-LM head over the
+    backbone run bidirectionally (`inputs_embeds`, no causal mask)."""
+    _require(cfg)
+    if cfg.family == "dit":
+        return lambda p, x_t, t, batch: dit_apply(
+            p["backbone"], cfg, x_t, t, batch.get("class_ids"))
+
+    def f(params, x_t, t, batch):
+        return diffusion_lm_apply(
+            params["diffusion_head"],
+            lambda e: transformer.forward(params["backbone"], cfg, None,
+                                          causal=False, inputs_embeds=e),
+            cfg, x_t, t)
+
+    return f
 
 
 def eps_network_cached(cfg: ModelConfig, cache_block: int) -> Callable:
@@ -183,8 +243,8 @@ def diffusion_loss_fn(cfg: ModelConfig, schedule=None) -> Callable:
     mean((eps_hat - noise)^2) over x_t = q_sample(latents, t, noise). `rng`
     is a torch.Generator or the (t, noise) pair (`draw_t_noise`). Only the
     dit family is ported; the diffusion-LM rounding loss of the token
-    families waits for them (ROADMAP item 12)."""
-    _require_dit(cfg)
+    families waits for their training (ROADMAP item 12)."""
+    _require(cfg, ("dit",), "the diffusion loss")
     schedule = schedule or VPLinear()
     net = eps_network(cfg)
 
@@ -200,9 +260,47 @@ def diffusion_loss_fn(cfg: ModelConfig, schedule=None) -> Callable:
     return loss
 
 
+def ar_loss(cfg: ModelConfig) -> Callable:
+    """The autoregressive objective: not yet ported (the token families'
+    training, ROADMAP item 12); `transformer.lm_loss` holds its forward
+    value."""
+    raise NotImplementedError(
+        "the autoregressive objective (ar_loss) is not yet ported to "
+        "repro_torch (ROADMAP item 12); objective='diffusion' is, for the "
+        "dit family")
+
+
 def train_loss(cfg: ModelConfig, objective: str = "ar") -> Callable:
-    if objective == "ar":
-        raise NotImplementedError(
-            "the autoregressive objective (ar_loss) is not yet ported to "
-            "repro_torch (ROADMAP item 12); objective='diffusion' is")
-    return diffusion_loss_fn(cfg)
+    return ar_loss(cfg) if objective == "ar" else diffusion_loss_fn(cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving (token families)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
+    _require(cfg, TOKEN_FAMILIES, "the KV cache")
+    return transformer.init_cache(cfg, batch, max_len, device)
+
+
+def prefill_fn(cfg: ModelConfig) -> Callable:
+    """(params, batch, max_len) -> (last-position logits, cache)."""
+    _require(cfg, TOKEN_FAMILIES, "prefill")
+
+    def f(params, batch, max_len):
+        return transformer.prefill(params["backbone"], cfg, batch["tokens"],
+                                   max_len)
+
+    return f
+
+
+def decode_fn(cfg: ModelConfig) -> Callable:
+    """(params, cache, token (B, 1), pos) -> (logits, cache), the cache
+    updated in place."""
+    _require(cfg, TOKEN_FAMILIES, "decode")
+
+    def f(params, cache, token, pos):
+        return transformer.decode_step(params["backbone"], cfg, cache, token,
+                                       pos)
+
+    return f

@@ -17,6 +17,8 @@ import torch.nn.functional as F
 
 from ..kernels.adaln_modulate import ops as adaln_ops
 from .layers import attention_apply, attention_init, dense_apply, dense_init
+from .layers import layer_views as _layers
+from .layers import stack_trees as _stack
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period=10000.0):
@@ -41,12 +43,6 @@ def _dit_block_init(gen, cfg, device):
         "ada": torch.zeros((d, 6 * d), dtype=dt, device=device),
         "ada_b": torch.zeros((6 * d,), dtype=dt, device=device),
     }
-
-
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def init_dit(cfg, gen: torch.Generator, device, num_classes: int = 0) -> dict:
@@ -100,7 +96,8 @@ def _block(h, bp, cfg, c, tap=None):
     mod = dense_apply(c, bp["ada"], cfg) + bp["ada_b"].to(h.dtype)
     sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
     hn = adaln_ops.modulate(h, sh1, sc1, backend=adaln)
-    a = attention_apply(bp["attn"], hn, cfg, causal=False, tap=tap)
+    a = attention_apply(bp["attn"], hn, cfg, causal=False, rope=False,
+                        tap=tap)
     h = adaln_ops.gate_residual(h, g1, a, backend=adaln)
     hn = adaln_ops.modulate(h, sh2, sc2, backend=adaln)
     if tap is not None:
@@ -122,17 +119,6 @@ def _head(params, cfg, x, c, tap=None):
     sh, sc = torch.chunk(mod, 2, dim=-1)
     x = adaln_ops.modulate(x, sh, sc, backend=cfg.adaln_backend)
     return torch.matmul(x, params["out_proj"].to(x.dtype))
-
-
-def _layers(tree, L: int) -> list:
-    """Every block's params (quant records included) as views of the
-    stacked (L, ...) leaves, unbound once: under autograd the blocks'
-    gradients are then stacked in one op, where indexing each block apart
-    gives each one a zero-filled (L, ...) gradient and sums the L of
-    them."""
-    cols = {k: _layers(v, L) if isinstance(v, dict) else torch.unbind(v)
-            for k, v in tree.items()}
-    return [{k: c[i] for k, c in cols.items()} for i in range(L)]
 
 
 def dit_apply(params, cfg, x_t, t, class_ids=None):

@@ -1,0 +1,249 @@
+"""Decoder-only transformer LM, dense or MoE blocks (the port of
+`repro.models.transformer`).
+
+Serves qwen2-0.5b / qwen2.5-3b / olmo-1b / deepseek-67b (dense) and, with
+`cfg.num_experts > 0`, mixtral-8x7b / granite-moe (MoE). Three entry points:
+
+  forward(params, cfg, tokens)                -> (hidden (B, S, d), aux)
+  prefill(params, cfg, tokens, max_len)       -> (logits_last, cache)
+  decode_step(params, cfg, cache, tok, pos)   -> (logits, cache)
+
+Params mirror the reference pytree: `layers` holds each layer parameter
+stacked over layers as (L, ...), looped over as the reference scans them.
+KV caches are (L, B, W, Hkv, D) stacked over layers, where W is `max_len`
+(full cache) or `cfg.sliding_window` (rolling cache). Keys are stored
+rope'd at their true positions. `decode_step` writes the new token's K/V
+into the cache in place, at slot `pos % W` computed on the device from a
+0-d device `pos`, and builds the rolling-window mask there too, so a CUDA
+graph can capture the step (the reference's `jax.jit(decode)`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .layers import (NORMS, apply_rope, attention_apply, attention_init,
+                     dense_init, layer_views, mlp_apply, mlp_init,
+                     stack_trees)
+from .moe import moe_apply, moe_decode_apply, moe_init
+
+
+def layer_init(gen: torch.Generator, cfg, device) -> dict:
+    ninit, _ = NORMS[cfg.norm]
+    p = {
+        "ln1": ninit(cfg.d_model, cfg.weight_dtype, device),
+        "attn": attention_init(gen, cfg, device),
+        "ln2": ninit(cfg.d_model, cfg.weight_dtype, device),
+    }
+    if cfg.num_experts:
+        p["moe"] = moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, device)
+    return p
+
+
+def init_lm(cfg, gen: torch.Generator, device) -> dict:
+    """Random LM params from the seeded generator `gen` (its own numbers,
+    not the reference's jax.random ones)."""
+    ninit, _ = NORMS[cfg.norm]
+    layers = [layer_init(gen, cfg, device) for _ in range(cfg.num_layers)]
+    p = {
+        "embed": dense_init(gen, cfg.vocab_size, cfg.d_model,
+                            cfg.weight_dtype, device, scale=0.02),
+        "layers": stack_trees(layers),
+        "final_ln": ninit(cfg.d_model, cfg.weight_dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                  cfg.weight_dtype, device)
+    return p
+
+
+def _embed(params, cfg, tokens):
+    return params["embed"].to(cfg.activation_dtype)[tokens]
+
+
+def _block(lp, x, cfg, *, sliding_window, causal=True):
+    _, napply = NORMS[cfg.norm]
+    h = attention_apply(lp["attn"], napply(lp["ln1"], x), cfg,
+                        causal=causal, sliding_window=sliding_window)
+    x = x + h
+    y = napply(lp["ln2"], x)
+    if cfg.num_experts:
+        # no mesh on one card: the reference takes moe_apply then too,
+        # whatever cfg.moe_shard_map says
+        y, aux = moe_apply(lp["moe"], y, cfg)
+    else:
+        y = mlp_apply(lp["mlp"], y, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
+
+
+def forward(params, cfg, tokens, *, causal: bool = True,
+            inputs_embeds: Optional[torch.Tensor] = None) -> tuple:
+    """Full-sequence forward; returns (hidden, aux_loss)."""
+    x = inputs_embeds if inputs_embeds is not None else _embed(params, cfg,
+                                                               tokens)
+    auxs = []
+    for lp in layer_views(params["layers"], cfg.num_layers):
+        x, aux = _block(lp, x, cfg, sliding_window=cfg.sliding_window,
+                        causal=causal)
+        auxs.append(aux)
+    _, napply = NORMS[cfg.norm]
+    return napply(params["final_ln"], x), torch.sum(torch.stack(auxs))
+
+
+def logits_from_hidden(params, cfg, hidden) -> torch.Tensor:
+    w = (params["embed"].T if cfg.tie_embeddings or "lm_head" not in params
+         else params["lm_head"])
+    return torch.matmul(hidden, w.to(hidden.dtype))
+
+
+def lm_loss(params, cfg, tokens, targets) -> torch.Tensor:
+    """Next-token NLL plus the router's aux loss (its forward value; the
+    token families' training is not yet ported)."""
+    hidden, aux = forward(params, cfg, tokens)
+    logits = logits_from_hidden(params, cfg, hidden).to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long()).mean()
+    return nll + cfg.router_aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + single-token decode with stacked KV caches
+# ---------------------------------------------------------------------------
+
+def cache_window(cfg, max_len: int) -> int:
+    return min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+
+
+def init_cache(cfg, batch: int, max_len: int, device="cpu") -> dict:
+    W = cache_window(cfg, max_len)
+    shape = (cfg.num_layers, batch, W, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=device)}
+
+
+def device_pos(pos, device) -> torch.Tensor:
+    """`pos` as a 0-d int64 tensor on `device`: a tensor as it is (moved if
+    it must be), a host int by a device fill, not a host-to-device copy,
+    so a CUDA graph can capture it (ROADMAP C6)."""
+    if torch.is_tensor(pos):
+        return pos.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), int(pos), dtype=torch.int64, device=device)
+
+
+def _attn_with_cache(lp, x_tok, k_cache, v_cache, pos, cfg, W):
+    """x_tok: (B, 1, d); cache slices (B, W, Hkv, D), written in place at
+    slot pos % W; pos: a 0-d int64 device tensor."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B = x_tok.shape[0]
+    a = lp["attn"]
+    q = torch.matmul(x_tok, a["wq"].to(x_tok.dtype))
+    k = torch.matmul(x_tok, a["wk"].to(x_tok.dtype))
+    v = torch.matmul(x_tok, a["wv"].to(x_tok.dtype))
+    if "bq" in a:
+        q = q + a["bq"].to(x_tok.dtype)
+        k = k + a["bk"].to(x_tok.dtype)
+        v = v + a["bv"].to(x_tok.dtype)
+    q = q.reshape(B, 1, hq, hd)
+    k = k.reshape(B, 1, hkv, hd)
+    v = v.reshape(B, 1, hkv, hd)
+    posb = pos.reshape(1, 1).expand(B, 1)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k = apply_rope(k, posb, cfg.rope_theta)
+    slot = torch.remainder(pos, W).reshape(1)
+    k_cache.index_copy_(1, slot, k)
+    v_cache.index_copy_(1, slot, v)
+    # slot j holds position pos - ((pos - j) mod W); valid if <= pos (always,
+    # once written) and > pos - W (rolling window): unwritten slots masked
+    j = torch.arange(W, device=x_tok.device)
+    key_pos = pos - torch.remainder(pos - j, W)
+    valid = key_pos >= torch.clamp(pos - W + 1, min=0)
+    if cfg.sliding_window:
+        valid = valid & (key_pos > pos - cfg.sliding_window)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk",
+                          q.reshape(B, 1, hkv, hq // hkv, hd),
+                          k_cache).to(torch.float32)
+    logits = logits / math.sqrt(hd)
+    logits = logits.masked_fill(~valid, -1e30)
+    # the softmax goes back to q's dtype before the product with v, as the
+    # reference writes it (the flash kernel keeps fp32 p.v instead)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v_cache).reshape(B, 1, hq * hd)
+    return torch.matmul(out, a["wo"].to(x_tok.dtype))
+
+
+def decode_step(params, cfg, cache, token, pos) -> tuple:
+    """token: (B, 1) integers; pos: an int or a 0-d integer tensor. Returns
+    (logits (B, 1, V), cache), the cache updated in place."""
+    _, napply = NORMS[cfg.norm]
+    x = _embed(params, cfg, token)
+    pos = device_pos(pos, x.device)
+    W = cache["k"].shape[2]
+    layers = layer_views(params["layers"], cfg.num_layers)
+    for lp, kc, vc in zip(layers, cache["k"], cache["v"]):
+        x = x + _attn_with_cache(lp, napply(lp["ln1"], x), kc, vc, pos, cfg, W)
+        y = napply(lp["ln2"], x)
+        if cfg.num_experts:
+            y = moe_decode_apply(lp["moe"], y, cfg)
+        else:
+            y = mlp_apply(lp["mlp"], y, cfg)
+        x = x + y
+    hidden = napply(params["final_ln"], x)
+    return logits_from_hidden(params, cfg, hidden), cache
+
+
+def prefill(params, cfg, tokens, max_len: int) -> tuple:
+    """Process a full prompt, build the cache, return last-position logits.
+
+    The cache is built by re-projecting K/V from each layer's normed input
+    (equivalent to the decode path's incremental writes), as the reference
+    writes it; attention itself goes through the flash_attention kernel op
+    (causal, GQA, the config's window)."""
+    _, napply = NORMS[cfg.norm]
+    B, S = tokens.shape
+    W = cache_window(cfg, max_len)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    x = _embed(params, cfg, tokens)
+    pos = torch.arange(S, device=x.device).expand(B, S)
+    ks, vs = [], []
+    for lp in layer_views(params["layers"], cfg.num_layers):
+        xn = napply(lp["ln1"], x)
+        a = attention_apply(lp["attn"], xn, cfg, causal=True,
+                            sliding_window=cfg.sliding_window)
+        h2 = x + a
+        y = napply(lp["ln2"], h2)
+        if cfg.num_experts:
+            y, _ = moe_apply(lp["moe"], y, cfg)
+        else:
+            y = mlp_apply(lp["mlp"], y, cfg)
+        # rebuild this layer's K/V for the cache (last W positions)
+        at = lp["attn"]
+        k = torch.matmul(xn, at["wk"].to(x.dtype))
+        v = torch.matmul(xn, at["wv"].to(x.dtype))
+        if "bk" in at:
+            k = k + at["bk"].to(x.dtype)
+            v = v + at["bv"].to(x.dtype)
+        k = apply_rope(k.reshape(B, S, hkv, hd), pos, cfg.rope_theta)
+        v = v.reshape(B, S, hkv, hd)
+        if S >= W:
+            # keep positions S-W..S-1, placed at slot = position mod W
+            slots = torch.remainder(torch.arange(S - W, S, device=x.device), W)
+            kc = torch.zeros((B, W, hkv, hd), dtype=k.dtype,
+                             device=x.device).index_copy(1, slots, k[:, S - W:])
+            vc = torch.zeros((B, W, hkv, hd), dtype=v.dtype,
+                             device=x.device).index_copy(1, slots, v[:, S - W:])
+        else:
+            pad = (0, 0, 0, 0, 0, W - S)
+            kc = torch.nn.functional.pad(k, pad)
+            vc = torch.nn.functional.pad(v, pad)
+        ks.append(kc)
+        vs.append(vc)
+        x = h2 + y
+    hidden = napply(params["final_ln"], x[:, -1:])
+    return (logits_from_hidden(params, cfg, hidden),
+            {"k": torch.stack(ks), "v": torch.stack(vs)})
