@@ -159,14 +159,40 @@ Phases (any failure exits non-zero):
      4, prompt 256, 16 tokens: prefill ms and decode ms a token, a decode
      replay's profile, prefill held as in (b), fp32 decode vs forward over
      4 layers with no token dropped (<= 1e-4).
+ 12. training the token family at full width: (a) flash_attention_bwd at
+     the token training shapes (qwen2-0.5b's AR step (8, 14, 512, 64)
+     causal GQA 14/2 and its diffusion LM's bidirectional step at S 512
+     and 128, granite's (4, 24, 256, 64) causal 24/8, a window of 64 at S
+     300 with GQA 7) and the DiT's (8, 16, 256, 72), fp32 (<= 1e-5
+     relative L-inf) and bf16 (<= 1e-2 relative L2) against the plain
+     version, each twice bit-equal, labelled with its plan, the DiT case's
+     output bit-equal to that of the unmasked kernel before masks and
+     groups were added (sha256); the bf16 cases timed
+     in a CUDA graph beside the bound, the plain version and SDPA forward
+     + backward with enable_gqa. (b) qwen2-0.5b (bf16 over fp32 params)
+     through `launch.train.train` for 20 steps at batch 8 x 512, AR then
+     diffusion: every loss finite, exactly 24 flash_attention and 24
+     flash_attention_bwd launches a step, step walls, tokens/s, peak
+     memory, the forward / backward / optimizer split and one step under
+     torch.profiler. (c) one AR step's loss and every gradient leaf on
+     perturbed params, bf16 kernels and bf16 plain-pinned each against the
+     fp32 plain-pinned step (kernels within the plain run's own distance +
+     1e-2); fp32 kernels vs plain-pinned over 4 layers for both objectives
+     (<= 1e-4); the full step twice, bit-equal. (d)
+     granite-moe-3b-a800m at full width and 8 of its 32 layers, batch 4 x
+     256, 10 AR steps, counted and timed; the reduced dit-cifar (4 q / 2
+     kv heads) trained on the card for 5 steps. (e) (b)'s trained
+     diffusion LM through a checkpoint and `launch.sample --ckpt`
+     (UniPC-3, NFE 10, batch 8): bit-equal to sampling the in-memory
+     params, no backward launch.
 The last three lines are the kernels JSON (each kernel's launches on the
 main path, and since phase 8 its launches per serving tick and in the
 serving run, since phase 9 in each of its four runs, since phase 10 in the
 training run, since phase 11 in the token prefill, a decode step (0), a
 diffusion-LM replay and granite's prefill, with the token attention cases'
-and row ops' times; the backward kernels' launches are the training
-run's), the card's name and
-power limit as `nvidia-smi
+and row ops' times, since phase 12 in the token training runs, with the
+token backward cases' times; the backward kernels' launches are phase
+10's training run's), the card's name and power limit as `nvidia-smi
 --query-gpu=name,power.limit` prints them, and {"ok": true, "device":
 {...}}.
 """
@@ -4011,6 +4037,480 @@ def training_phase(dev, counts_out: dict, random_search: dict) -> dict:
     return out
 
 # --------------------------------------------------------------------------
+# phase 12: training the decoder-only token family
+# --------------------------------------------------------------------------
+
+TOKEN_TRAIN = dict(steps=20, batch=8, seq=512)
+TRAIN_PARTS = ("ar", "diffusion", "moe", "dit_cifar")   # phase 12's runs
+MOE_TRAIN = dict(steps=10, batch=4, seq=256, layers=8)
+CIFAR_TRAIN = dict(steps=5, batch=8)
+TOKEN_CKPT_SAMPLE = dict(nfe=10, order=3, batch=8)
+# label, B, Hq, Hkv, S, D, causal, window: the token training paths'
+# attention (qwen2's AR step, its diffusion LM's bidirectional step at the
+# training length and at 128, granite's AR step), a window with a group of
+# 7, and the DiT's training shape, whose output must be bit-equal to that
+# of the unmasked kernel before masks and groups were added (DIT_BWD_SHA256)
+TOKEN_BWD = [
+    ("qwen2-0.5b AR, causal GQA 14/2", 8, 14, 2, 512, 64, True, None),
+    ("qwen2-0.5b diffusion LM, GQA 14/2", 8, 14, 2, 512, 64, False, None),
+    ("diffusion LM at S 128, GQA 14/2", 8, 14, 2, 128, 64, False, None),
+    ("granite AR, causal GQA 24/8", 4, 24, 8, 256, 64, True, None),
+    ("window 64, GQA 14/2, S=300", 8, 14, 2, 300, 64, True, 64),
+    ("dit-i256 training, MHA", 8, 16, 16, 256, 72, False, None),
+]
+# sha256 of (o, lse, dq, dk, dv) at the DiT's training shape from
+# `dit_bwd_inputs`, measured on an H100 80GB HBM3 (torch 2.11.0+cu128) with
+# the non-causal, Hq == Hkv backward that preceded masks and groups: the
+# extended backward must reproduce them bit for bit
+DIT_BWD_SHA256 = {
+    torch.bfloat16:
+        "f0b0d87eada6824197959155f2495372516262c9274b4a7ce9bbbc766f3ad915",
+    torch.float32:
+        "2397ded79cc686b1c47ccd5ee05add098b7111767a1bc6a6b1701eeb3fd2d05b"}
+PARAM_PERTURB = 0.02      # added to the constant-initialised leaves in (c)
+
+
+def dit_bwd_inputs(dev, dtype):
+    """The DiT case's q, k, v, do: head-major views of (8, 256, 16, 72)
+    projections from a CPU generator (the same on every card), the first
+    four draws at bf16, the next four at fp32."""
+    g = torch.Generator().manual_seed(2024)
+    draws = [torch.randn(8, 256, 16, 72, generator=g) for _ in range(8)]
+    first = 0 if dtype == torch.bfloat16 else 4
+    return [t.to(dtype).to(dev).transpose(1, 2)
+            for t in draws[first:first + 4]]
+
+
+def tensors_sha256(ts) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def token_backward_cases(dev) -> dict:
+    """(a) flash_attention_bwd at the token training shapes, each mask and
+    group size, fp32 (<= 1e-5 relative L-inf) and bf16 (<= 1e-2 relative
+    L2) against the plain version, each twice (bit-equal) and labelled with
+    its plan; the bf16 cases timed as phase 3 times (100 calls in a CUDA
+    graph) beside the bound, the plain version and SDPA forward + backward
+    with enable_gqa (queued behind a spin kernel, as it runs through
+    autograd); the DiT case bit-equal to the earlier unmasked kernel's
+    output (DIT_BWD_SHA256)."""
+    F = torch.nn.functional
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for label, B, Hq, Hkv, S, D, causal, window in TOKEN_BWD:
+        row = dict(shape=[B, Hq, Hkv, S, D], causal=causal, window=window)
+        kw = dict(causal=causal, window=window)
+        dit = label.startswith("dit")
+        for dt in (torch.float32, torch.bfloat16):
+            name = "bf16" if dt == torch.bfloat16 else "fp32"
+            if dit:
+                q, k, v, do = dit_bwd_inputs(dev, dt)
+            else:
+                q, do = (torch.randn(B, S, Hq, D, generator=g, device=dev)
+                         .to(dt).transpose(1, 2) for _ in range(2))
+                k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev)
+                        .to(dt).transpose(1, 2) for _ in range(2))
+            o, lse = fk.flash_attention(q, k, v, lse=True, **kw)
+            got = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            again = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            want = fr.attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            p = fk.plan_bwd(q, k, v, do)
+            body = (f"{p['body']}, D in {8 * p['chunks']}, "
+                    f"{'16' if p['vec_in'] else '2'}-byte loads, grids "
+                    f"{p['blocks']}" if p["body"] == "mma"
+                    else f"{p['body']}, grids {p['blocks']}")
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            linf = max(rel_err(a, b) for a, b in zip(got, want))
+            l2 = max(rel_l2(a, b) for a, b in zip(got, want))
+            err = linf if dt == torch.float32 else l2
+            finite = all(torch.isfinite(a.float()).all() for a in got)
+            strides = all(a.stride() == t.stride()
+                          for a, t in zip(got, (q, k, v)))
+            print(f"  flash_attention_bwd [{label} ({B}, {Hq}/{Hkv}, {S}, "
+                  f"{D}) {name}] [{body}] rel L-inf {linf:.3e} rel L2 "
+                  f"{l2:.3e} (tol {BWD_TOL[dt]:g} "
+                  f"{'L-inf' if dt == torch.float32 else 'L2'}); twice "
+                  f"bit-equal {same}")
+            if not (finite and strides and same and err <= BWD_TOL[dt]):
+                fail(f"flash_attention_bwd [{label} {name}]: finite {finite}"
+                     f", strides {strides}, repeat {same}, err {err:.3e}")
+            row[f"rel_err_{name}"] = err
+            row[f"abs_err_{name}"] = max(
+                float((a.double() - b.double()).abs().max())
+                for a, b in zip(got, want))
+            row[f"body_{name}"] = body
+            if dit:
+                sha = tensors_sha256((o, lse) + tuple(got))
+                ok = sha == DIT_BWD_SHA256[dt]
+                print(f"  the DiT case {name}: output sha256 {sha[:16]}...; "
+                      f"bit-equal to the earlier unmasked kernel: {ok}")
+                if not ok:
+                    fail(f"flash_attention_bwd at the DiT's shape ({name}) "
+                         f"differs from the earlier unmasked kernel: {sha}")
+                row[f"pr22_bit_equal_{name}"] = ok
+        # q, k, v, do, o, lse are the bf16 ones now: time the path's dtype
+        pairs = attention_pairs(S, causal, window)
+        moved = nbytes(q, k, v, o, do, lse) + nbytes(q, k, v) \
+            + 2 * lse.numel() * 4          # dq, dk, dv out; Delta out, in
+        bms, by = bound(moved, 5 * 2 * B * Hq * pairs * D, torch.bfloat16)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        if window:
+            qi = torch.arange(S, device=dev)[:, None]
+            ki = torch.arange(S, device=dev)[None, :]
+            mask = (ki <= qi) & (ki > qi - window)
+            sdpa = dict(attn_mask=mask)
+        else:
+            sdpa = dict(is_causal=causal)
+
+        def lib(leaves=leaves, sdpa=sdpa, do=do):
+            out_ = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
+                                                  **sdpa)
+            return torch.autograd.grad(out_, leaves, do)
+
+        def ours(q=q, k=k, v=v, do=do, kw=kw):
+            o_, l_ = fk.flash_attention(q, k, v, lse=True, **kw)
+            return fk.flash_attention_bwd(q, k, v, o_, l_, do, **kw)
+
+        row.update(
+            ms=device_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        **kw)),
+            plain_ms=device_ms(lambda: fr.attention_bwd(q, k, v, o, lse, do,
+                                                        **kw), iters=20),
+            library_ms=queued_device_ms(lib),
+            fwd_bwd_queued_ms=queued_device_ms(ours), bound_ms=bms,
+            bound_by=by, pairs=pairs)
+        print(f"  flash_attention_bwd [{label}] bf16: {row['ms']:.6f} ms in "
+              f"the graph (bound {bms:.6f} by {by}, {bms / row['ms']:.0%}); "
+              f"plain {row['plain_ms']:.6f}; forward + backward queued "
+              f"{row['fwd_bwd_queued_ms']:.6f} against SDPA's "
+              f"{row['library_ms']:.6f} (enable_gqa)")
+        out[label] = row
+    return out
+
+
+def perturbed_token_params(cfg, dev, seed=0):
+    """init_params with PARAM_PERTURB N(0, 1) added to each leaf that
+    starts constant (the qkv biases, the norms, the diffusion head's
+    zero out_proj): their gradients would otherwise be those of a
+    special point, and out_proj's zero makes the diffusion loss's
+    backbone gradients exactly zero."""
+    from repro_torch.models import api
+
+    params = api.init_params(cfg, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def walk(tree):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif leaf.numel() > 1 and bool((leaf == leaf.flatten()[0]).all()):
+                tree[key] = leaf + PARAM_PERTURB * torch.randn(
+                    leaf.shape, generator=g, device=dev, dtype=leaf.dtype)
+    walk(params)
+    return params
+
+
+def token_loss_and_grads(cfg, objective, params, batch, rng) -> tuple:
+    """The loss and every gradient leaf (sorted key order; zeros where the
+    loss reads no leaf, as make_train_step gives them)."""
+    from repro_torch.models import api
+    from repro_torch.optim import tree_leaves, tree_map
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = api.train_loss(cfg, objective)(leaves, batch, rng)
+    flat = tree_leaves(leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if gr is None else gr
+                           for p, gr in zip(flat, grads)]
+
+
+def token_train_run(dev, arch, objective, counts_out, *, steps, batch, seq,
+                    reduced=False, profile_at=None, layers=None) -> dict:
+    """launch.train.train: every loss finite, launches counted, step walls,
+    tokens/s, peak memory, the forward / backward / optimizer split (CUDA
+    events) and one step's profile. `layers` cuts the config's depth."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import train as train_mod
+
+    get_config = train_mod.get_config
+    if layers:
+        train_mod.get_config = lambda a: dataclasses.replace(
+            get_config(a), num_layers=layers)
+    free_graphs()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with step_recorder(train_mod, profile_at=profile_at) as rec:
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            params, hist = train_mod.train(
+                arch, reduced=reduced, objective=objective, steps=steps,
+                batch=batch, seq=seq, log_every=steps, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts_out.update(LAUNCHES)
+    finally:
+        train_mod.get_config = get_config
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = check_losses(f"train({arch}, {objective})", rec, steps)
+    walls = rec["walls"][1:]
+    med = float(np.median(walls))
+    phases = {k: float(np.median([p[k] for p in rec["phases"][1:]]))
+              for k in rec["phases"][0]}
+    tokens = batch * seq
+    print(f"  train({arch}, {objective}): {steps} steps at batch {batch} x "
+          f"{seq} in {wall:.3f} s; launches {dict(sorted(counts_out.items()))}"
+          f"; losses {[round(x, 4) for x in losses]}; step wall: first "
+          f"{rec['walls'][0]:.4f} s, median after it {med:.4f} s "
+          f"({min(walls):.4f}-{max(walls):.4f}); {tokens / med:.1f} tokens/s; "
+          f"peak memory {peak / 2**30:.2f} GiB; device-timeline medians "
+          f"(CUDA events) forward {phases['forward']:.3f} ms, backward "
+          f"{phases['backward']:.3f} ms, optimizer {phases['optimizer']:.3f}"
+          f" ms, step {phases['step']:.3f} ms")
+    return dict(params=params, out=dict(
+        arch=arch, objective=objective, steps=steps, batch=batch, seq=seq,
+        wall_s=wall, losses=losses, first_step_s=rec["walls"][0],
+        median_step_s=med, step_walls_s=rec["walls"],
+        tokens_per_s=tokens / med, peak_memory_gib=peak / 2**30,
+        phase_ms=phases, launches=dict(counts_out), profile=rec["profile"]))
+
+
+def token_training_part(dev, counts_out: dict) -> dict:
+    """(b) qwen2-0.5b at full width through launch.train, AR then
+    diffusion: exactly one flash_attention and one flash_attention_bwd a
+    layer a step."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TOKEN_ARCH)
+    L, steps = cfg.num_layers, TOKEN_TRAIN["steps"]
+    want = {"flash_attention": L * steps, "flash_attention_bwd": L * steps}
+    out = {}
+    for objective in ("ar", "diffusion"):
+        counts = counts_out.setdefault(objective, {})
+        run = token_train_run(dev, TOKEN_ARCH, objective, counts,
+                              profile_at=TRAIN_PROFILE_STEP, **TOKEN_TRAIN)
+        if counts != want:
+            fail(f"train({TOKEN_ARCH}, {objective}) launched {counts} != "
+                 f"{want}")
+        out[objective] = run["out"]
+        if objective == "diffusion":
+            out["_params"] = run["params"]
+        del run
+    return out
+
+
+def token_step_parity_part(dev) -> dict:
+    """(c) one step's loss and every gradient leaf on perturbed params:
+    qwen2-0.5b at full width, AR, bf16 kernels and bf16 plain-pinned each
+    against the fp32 plain-pinned run (the kernels within the plain run's
+    own distance + TOKEN_TOL, loss and each leaf, relative L2); fp32
+    kernels against fp32 plain-pinned over STEP_FP32_DEPTH layers, both
+    objectives (<= STEP_FP32_TOL); the full bf16 step twice, bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.diffusion.process import draw_t_noise
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.train import build_batch_fn, make_train_step
+    from repro_torch.optim import AdamW, tree_leaves, warmup_cosine
+
+    cfg = get_config(TOKEN_ARCH)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = perturbed_token_params(cfg, dev)
+    names = _leaf_names(params)
+    batch = build_batch_fn(cfg, TOKEN_TRAIN["batch"], TOKEN_TRAIN["seq"],
+                           seed=0, device=dev)(0)
+    out = {}
+    free_graphs()
+    LAUNCHES.clear()
+    loss_k, grads_k = token_loss_and_grads(cfg, "ar", params, batch, None)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    L = cfg.num_layers
+    if counts != {"flash_attention": L, "flash_attention_bwd": L}:
+        fail(f"one AR step launched {counts}")
+    loss_p, grads_p = token_loss_and_grads(plain_pinned(cfg), "ar", params,
+                                           batch, None)
+    loss_t, grads_t = token_loss_and_grads(plain_pinned(c32), "ar", params,
+                                           batch, None)
+    rows = {}
+    for n, k, p, t in zip(["loss"] + names, [loss_k] + list(grads_k),
+                          [loss_p] + list(grads_p), [loss_t] + list(grads_t)):
+        if not t.abs().max() > 0:
+            continue                     # a leaf the AR loss does not read
+        rows[n] = dict(kernel_vs_plain=rel_l2(k, p), kernel_vs_fp32=rel_l2(
+            k, t), plain_vs_fp32=rel_l2(p, t))
+    bad = [n for n, r in rows.items()
+           if not r["kernel_vs_fp32"] <= r["plain_vs_fp32"] + TOKEN_TOL]
+    worst = max(rows, key=lambda n: rows[n]["kernel_vs_fp32"])
+    worst_kp = max(rows, key=lambda n: rows[n]["kernel_vs_plain"])
+    print(f"  one AR step (bf16, full width), loss and {len(rows) - 1} "
+          f"gradient leaves against the fp32 plain-pinned step (rel L2): "
+          f"farthest {worst}: kernels {rows[worst]['kernel_vs_fp32']:.3e}, "
+          f"plain-pinned {rows[worst]['plain_vs_fp32']:.3e}; loss: kernels "
+          f"{rows['loss']['kernel_vs_fp32']:.3e}, plain "
+          f"{rows['loss']['plain_vs_fp32']:.3e}; kernels vs plain-pinned at "
+          f"most {rows[worst_kp]['kernel_vs_plain']:.3e} ({worst_kp}) (gate: "
+          f"kernels <= plain + {TOKEN_TOL:g})")
+    if bad:
+        fail(f"one AR step: kernels farther from fp32 than plain + "
+             f"{TOKEN_TOL:g} at {bad}")
+    out["bf16_full_width"] = dict(leaves=rows, worst=worst)
+    del grads_k, grads_p, grads_t
+
+    # the whole bf16 step twice, as phase 10 (d) runs the DiT's
+    opt = AdamW(lr=warmup_cosine(1e-3, 3, 20))
+    step = make_train_step(cfg, "ar", opt)
+    state = opt.init(params)
+    runs = [step(params, state, batch, None) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        [runs[0][2], *tree_leaves(runs[0][0]), *tree_leaves(runs[0][1].m),
+         *tree_leaves(runs[0][1].v)],
+        [runs[1][2], *tree_leaves(runs[1][0]), *tree_leaves(runs[1][1].m),
+         *tree_leaves(runs[1][1].v)]))
+    print(f"  the full-width AR step (loss, gradients, AdamW) twice from the "
+          f"same inputs: loss, params and moments bit-equal: {same}")
+    if not same:
+        fail("two runs of the same token training step differ")
+    out["repeat_bit_equal"] = same
+    del runs, state, params
+    free_graphs()
+
+    c4 = dataclasses.replace(c32, num_layers=STEP_FP32_DEPTH)
+    p4 = perturbed_token_params(c4, dev, seed=3)
+    fp32 = {}
+    for objective in ("ar", "diffusion"):
+        rng = (draw_t_noise(VPLinear(), p4["token_latents"][batch["tokens"]],
+                            torch.Generator(device=dev).manual_seed(5))
+               if objective == "diffusion" else None)
+        lk, gk = token_loss_and_grads(c4, objective, p4, batch, rng)
+        lp, gp = token_loss_and_grads(plain_pinned(c4), objective, p4, batch,
+                                      rng)
+        errs = {n: rel_l2(a, b) for n, a, b in zip(names, gk, gp)
+                if b.abs().max() > 0}
+        errs["loss"] = rel_l2(lk, lp)
+        w = max(errs, key=errs.get)
+        print(f"  one {objective} step at fp32, {STEP_FP32_DEPTH} layers: "
+              f"kernels vs plain-pinned, loss {errs['loss']:.3e}, gradient "
+              f"leaves at most {errs[w]:.3e} ({w}) (tol {STEP_FP32_TOL:g})")
+        if not errs[w] <= STEP_FP32_TOL:
+            fail(f"fp32 {objective} step: kernels vs plain {errs[w]:.3e}")
+        fp32[objective] = dict(loss=float(lk), max_rel_l2=errs[w], worst=w)
+    out["fp32_4_layers"] = fp32
+    del p4
+    return out
+
+
+def token_more_training_part(dev, counts_out: dict) -> dict:
+    """(d) granite-moe-3b-a800m at full width and MOE_TRAIN["layers"] of
+    its layers, AR; the reduced dit-cifar (4 q / 2 kv heads) on the card."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    counts = counts_out.setdefault("moe", {})
+    n, L = MOE_TRAIN["steps"], MOE_TRAIN["layers"]
+    run = token_train_run(dev, MOE_ARCH, "ar", counts, steps=n,
+                          batch=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq"],
+                          layers=L)
+    if counts != {"flash_attention": L * n, "flash_attention_bwd": L * n}:
+        fail(f"granite training launched {counts}")
+    out["moe"] = run["out"]
+    del run
+    cifar = get_config("dit-cifar").reduced()
+    counts = counts_out.setdefault("dit_cifar", {})
+    run = token_train_run(dev, "dit-cifar", "diffusion", counts,
+                          steps=CIFAR_TRAIN["steps"],
+                          batch=CIFAR_TRAIN["batch"], seq=32, reduced=True)
+    want = train_launches(cifar, CIFAR_TRAIN["steps"])
+    print(f"  dit-cifar (reduced, {cifar.num_heads} q / {cifar.num_kv_heads} "
+          f"kv heads) trained on the card: launches {counts} (expected "
+          f"{want})")
+    if counts != want:
+        fail(f"dit-cifar training launched {counts} != {want}")
+    out["dit_cifar"] = run["out"]
+    return out
+
+
+def token_checkpoint_part(dev, params) -> dict:
+    """(e) the diffusion LM trained in (b) through its checkpoint and
+    `launch.sample --ckpt`: bit-equal to sampling the in-memory params,
+    sampling's launches (a warm-up row and a replay), no backward."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import sample as sample_mod
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config(TOKEN_ARCH)
+    nfe, order, batch = (TOKEN_CKPT_SAMPLE[k] for k in ("nfe", "order",
+                                                        "batch"))
+    rows, L = nfe + 1, cfg.num_layers
+    want = {"flash_attention": L * (rows + 1), "unipc_update": 2 * (rows + 1)}
+    free_graphs()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(d, {"params": params}, step=TOKEN_TRAIN["steps"])
+        save_s = time.perf_counter() - t0
+        tree, step = ckpt.restore(d)
+        nbytes_ = sum(a.nbytes for a in tree_leaves(tree["params"]))
+        same = step == TOKEN_TRAIN["steps"] and all(
+            np.array_equal(a, b.cpu().numpy()) for a, b in zip(
+                tree_leaves(tree["params"]), tree_leaves(params)))
+        del tree
+        free_graphs()
+        LAUNCHES.clear()
+        x_ckpt = sample_mod.main([
+            "--arch", TOKEN_ARCH, "--full", "--ckpt", d, "--nfe", str(nfe),
+            "--order", str(order), "--batch", str(batch)])
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+    free_graphs()
+    x_mem = sample_mod.sample(TOKEN_ARCH, reduced=False, params=params,
+                              nfe=nfe, order=order, batch=batch, device=dev)
+    bit = np.array_equal(x_ckpt, x_mem)
+    print(f"  checkpoint of the trained diffusion LM: {nbytes_ / 2**30:.2f} "
+          f"GiB saved in {save_s:.2f} s, restored bit-equal: {same}; sample "
+          f"--ckpt (UniPC-{order}, NFE {nfe}, batch {batch}): launches "
+          f"{counts} (expected a warm-up row and the replay {want}); "
+          f"latents bit-equal to sample(params=): {bit}; finite "
+          f"{np.isfinite(x_ckpt).all()}, shape {x_ckpt.shape}, std "
+          f"{x_ckpt.std():.4f}")
+    if not (same and bit and counts == want and np.isfinite(x_ckpt).all()):
+        fail("the trained diffusion LM's checkpoint does not sample as its "
+             "in-memory params")
+    return dict(checkpoint_gib=nbytes_ / 2**30, save_s=save_s,
+                sample_launches=counts, sample_bit_equal=bit,
+                latents_std=float(x_ckpt.std()))
+
+
+def token_training_phase(dev, counts_out: dict) -> dict:
+    out = {"backward": token_backward_cases(dev)}
+    free_graphs()
+    trained = token_training_part(dev, counts_out)
+    params = trained.pop("_params")
+    out["train"] = trained
+    out["step_parity"] = token_step_parity_part(dev)
+    free_graphs()
+    out["more"] = token_more_training_part(dev, counts_out)
+    free_graphs()
+    out["checkpoint"] = token_checkpoint_part(dev, params)
+    del params
+    free_graphs()
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
@@ -4124,6 +4624,16 @@ def main():
     kcounts: dict = {}
     tokens = token_phase(dev, kcounts)
 
+    print(f"== phase 12: training the token family at full width "
+          f"({TOKEN_ARCH} through launch.train: {TOKEN_TRAIN['steps']} steps "
+          f"at batch {TOKEN_TRAIN['batch']} x {TOKEN_TRAIN['seq']}, AR and "
+          f"diffusion; the attention backward at every mask and group size; "
+          f"kernels vs plain-pinned step; {MOE_ARCH} at "
+          f"{MOE_TRAIN['layers']} layers; dit-cifar; sample --ckpt) on "
+          f"{smi[0]}")
+    gcounts: dict = {}
+    token_trained = token_training_phase(dev, gcounts)
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -4165,6 +4675,10 @@ def main():
         entry["token_launches_sample_replay"] = kcounts["sample"].get(kname,
                                                                      0)
         entry["token_launches_moe_prefill"] = kcounts["moe"].get(kname, 0)
+        # phase 12: the token family's training runs (qwen2-0.5b AR and
+        # diffusion, granite), and the reduced dit-cifar's
+        entry["token_training_launches"] = {
+            part: gcounts[part].get(kname, 0) for part in TRAIN_PARTS}
         if kname == "flash_attention":
             entry["token_cases"] = {
                 label: {k: v for k, v in row.items()
@@ -4186,7 +4700,7 @@ def main():
         entries.append(entry)
     for kname, src, replaces in BWD_KERNELS:
         st = trained["backward_kernels"][kname]
-        entries.append(dict(
+        entry = dict(
             name=kname, route="cuda", source=src, replaces=replaces,
             launches=tcounts.get(kname, 0),
             launches_per_step=tcounts.get(kname, 0) // TRAIN_STEPS,
@@ -4195,12 +4709,21 @@ def main():
             host_call_ms=st["host_call_ms"], plain_ms=st["plain_ms"],
             bound_ms=st["bound_ms"], bound_by=st["bound_by"],
             library_ms=st["library_ms"], library=st["library"],
+            token_training_launches={part: gcounts[part].get(kname, 0)
+                                     for part in TRAIN_PARTS},
             **{k: st[k] for k in ("fwd_bwd_queued_ms",
-                                  "lse_output_bit_equal") if k in st}))
+                                  "lse_output_bit_equal") if k in st})
+        if kname == "flash_attention_bwd":
+            rows = token_trained["backward"]
+            entry["token_cases"] = rows
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+                row[f"abs_err_{n}"] for row in rows.values()
+                for n in ("fp32", "bf16")])
+        entries.append(entry)
     summary = dict(main_path=main_stats, serving=serve_stats,
                    quant_main_path=quant_stats, quant_serving=quant_serve,
                    serving_at_width=served, obs_and_tuner=obs,
-                   training=trained,
+                   training=trained, token_training=token_trained,
                    tokens={k: v for k, v in tokens.items() if k != "kernels"},
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][

@@ -581,32 +581,42 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 #undef FA_MMA
 }
 
-// ---- backward: non-causal, Hq == Hkv (the training path) --------------------
+// ---- backward: causal, sliding window, GQA (the training path) --------------
 //
 // The reference defines no backward of its own: jax.value_and_grad
 // differentiates the TPU kernel's forward through XLA. Here the forward is a
 // hand-written kernel, so its gradient is one too: FlashAttention-2's
 // backward in two passes, neither with atomics, so a step repeats bit for bit.
-// * dq pass — a block per (b, h, 64-query tile). Delta = rowsum(do * o) of
-//   its rows (fp32, written for the second pass), then over every 64-key
-//   tile: P = exp(scale q k^T - lse) from the forward's saved log-sum-exp,
-//   dP = do v^T, dS = P (dP - Delta), dq += dS k; dq * scale at the end.
-// * dk/dv pass — a block per (b, h, 64-key tile), launched after the dq
-//   pass on the same stream. Over every 64-query tile the same P^T and
-//   dS^T with the queries as columns: dv += P^T do, dk += dS^T q.
-// Bound on the H100 at the training shape (batch 8, 16 heads, S = 256,
-// head dim 72, bf16): the algorithm's five products (S, dP, dq, dk, dv) of
-// 2 B H S^2 D flops each are 6.04 GFLOP, 6.1 us at 989 TFLOP/s, against q,
-// k, v, o, do read and dq, dk, dv written (37.9 MB with the log-sum-exp,
-// 11.3 us at 3.35 TB/s): the bytes bound it. This design computes S and dP
-// in both passes (7 products) and reads K/V (dq pass) and Q/dO (dk/dv
-// pass) once per tile of the other side.
+// * dq pass — a block per (b, q head, 64-query tile). Delta = rowsum(do * o)
+//   of its rows (fp32, written per q head for the second pass), then over the
+//   key tiles of kv head h / (Hq / Hkv) that its queries can see (the
+//   forward's tile skipping): P = exp(scale q k^T - lse) from the forward's
+//   saved log-sum-exp, 0 where masked, dP = do v^T, dS = P (dP - Delta),
+//   dq += dS k; dq * scale at the end.
+// * dk/dv pass — a block per (b, kv head, 64-key tile), launched after the dq
+//   pass on the same stream. Over the q heads of the kv head's group in
+//   order, and for each over the query tiles that can see this key tile
+//   (causal skips those before it, the window those past its last key +
+//   window), the same P^T and dS^T with the queries as columns: dv += P^T do,
+//   dk += dS^T q. The group's sums stay in registers and are stored once.
+// Masks are the forward's: key <= query (causal), key > query - window. A
+// query whose every key is masked (a window with Sq > Skv + window - 1) took
+// the mean of V in the forward (the reference's softmax of equal scores): its
+// dq and its share of dk are 0, and dv of every key gains its do / Skv, added
+// after the loop from the column sums of those rows' do.
+// Bound on the H100 at qwen2-0.5b's training shape (batch 8, 14 q / 2 kv
+// heads, S = 512, head dim 64, causal, bf16): the five products (S, dP, dq,
+// dk, dv) over a head's 131328 unmasked pairs are 9.41 GFLOP, 9.5 us at 989
+// TFLOP/s, against q, o, do read and dq written (4 x 7.34 MB), k, v read and
+// dk, dv written (4 x 1.05 MB) and the statistics, about 34 MB, 10.1 us at
+// 3.35 TB/s: the bytes bound it, barely. This design computes S and dP in
+// both passes (7 products), and the dq pass reads a kv head's K/V tiles once
+// for each q head of its group.
 // bf16 runs on mma.sync m16n8k16 as the forward does: each warp owns 16 rows
 // of its block's tile; S/dP accumulate in registers and become the bf16 A
 // fragments of the next products without leaving them; the streamed tiles
 // arrive by cp.async into a ring of two stages. fp32 runs on CUDA cores
-// with the forward's layout (4 threads a row). Causal, window and GQA
-// backward are not written; the wrapper refuses them.
+// with the forward's layout (4 threads a row).
 
 constexpr int BW_WARPS = 4;
 constexpr int BW_THREADS = BW_WARPS * 32;
@@ -724,13 +734,32 @@ struct BwStrides {
   Strides q, k, v, o, dout, dq, dk, dv;
 };
 
-template <int ND>
+// The mask of the forward for (key, query), given that the key is < Skv and
+// the query < Sq. The backward kernels take MASK = causal || window as a
+// template flag: without a mask they compile to the non-causal bodies as
+// they were before masks were added (the same registers and occupancy),
+// with the group loop kept.
+__device__ __forceinline__ bool visible(int key, int qi, int causal, int window) {
+  bool ok = true;
+  if (causal) ok = ok && key <= qi;
+  if (window > 0) ok = ok && key > qi - window;
+  return ok;
+}
+
+// The first query whose every key is masked: Skv + window - 1 under a
+// window, none (Sq) otherwise; causal alone always leaves key 0.
+__device__ __forceinline__ int first_dead_query(int Sq, int Skv, int window) {
+  return window > 0 ? min(Sq, Skv + window - 1) : Sq;
+}
+
+template <int ND, bool MASK>
 __global__ void __launch_bounds__(BW_THREADS)
 attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ o,
                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                   float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq, int Skv,
-                   int D, BwStrides st, float scale, int vec_in) {
+                   float* __restrict__ delta, bf16* __restrict__ dq, int Hq, int Hkv, int Sq,
+                   int Skv, int D, BwStrides st, float scale, int causal, int window,
+                   int vec_in) {
   using T = BwTile<ND>;
   constexpr int PITCH = T::PITCH;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -740,21 +769,31 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int nq = (Sq + BW_ROWS - 1) / BW_ROWS;
   const int bh = blockIdx.x / nq, q0 = (blockIdx.x - bh * nq) * BW_ROWS;
-  const int b = bh / H, h = bh - b * H;
+  const int b = bh / Hq, h = bh - b * Hq;
+  const int hk = h / (Hq / Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const bf16* qb = q + b * st.q.b + h * st.q.h;
-  const bf16* kb = k + b * st.k.b + h * st.k.h;
-  const bf16* vb = v + b * st.v.b + h * st.v.h;
+  const bf16* kb = k + b * st.k.b + hk * st.k.h;
+  const bf16* vb = v + b * st.v.b + hk * st.v.h;
   const bf16* ob = o + b * st.o.b + h * st.o.h;
   const bf16* db = dout + b * st.dout.b + h * st.dout.h;
-  const int n_tiles = (Skv + BW_TILE - 1) / BW_TILE;
 
-  auto issue = [&](int i) {  // key tile i into stage i & 1
+  // the key tiles any query of the block sees: from the first query's
+  // window start to the last query's causal end (a query whose every key
+  // is masked adds nothing to dq, so no tile is visited for it)
+  const int q_last = min(q0 + BW_ROWS, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Skv + BW_TILE - 1) / BW_TILE;
+  if (MASK && causal) kt_hi = min(q_last, Skv - 1) / BW_TILE + 1;
+  if (MASK && window > 0) kt_lo = max(0, q0 - window + 1) / BW_TILE;
+  const int n_tiles = max(0, kt_hi - kt_lo);
+
+  auto issue = [&](int i) {  // key tile kt_lo + i into stage i & 1
     if (i < n_tiles) {
       unsigned char* buf = kv_s + (i & 1) * 2 * T::TILE;
-      fill_rows<ND, BW_THREADS>(buf, kb, st.k.s, i * BW_TILE, Skv, BW_TILE, D, vec_in);
-      fill_rows<ND, BW_THREADS>(buf + T::TILE, vb, st.v.s, i * BW_TILE, Skv, BW_TILE, D, vec_in);
+      const int key0 = (kt_lo + i) * BW_TILE;
+      fill_rows<ND, BW_THREADS>(buf, kb, st.k.s, key0, Skv, BW_TILE, D, vec_in);
+      fill_rows<ND, BW_THREADS>(buf + T::TILE, vb, st.v.s, key0, Skv, BW_TILE, D, vec_in);
     }
     cp_async_commit();
   };
@@ -798,13 +837,15 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_a<ND>(do_u + arow, f, f8);
       mma_abt<ND>(dp, f, f8, v_u);
     }
-    const int key0 = i * BW_TILE;
+    const int key0 = (kt_lo + i) * BW_TILE;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + n * 8 + 2 * t4 + (e & 1);
-        const float pv = key < Skv ? exp2f(sc[n][e] * scale_log2 - lse2[e >> 1]) : 0.f;
+        const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
+        const bool ok = key < Skv && (!MASK || visible(key, qi, causal, window));
+        const float pv = ok ? exp2f(sc[n][e] * scale_log2 - lse2[e >> 1]) : 0.f;
         sc[n][e] = pv * (dp[n][e] - dlt[e >> 1]);  // dS
       }
     mma_pb<ND>(dqacc, sc, k_u);
@@ -814,13 +855,14 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  scale);
 }
 
-template <int ND>
+template <int ND, bool MASK>
 __global__ void __launch_bounds__(BW_THREADS)
 attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv,
-                     int D, BwStrides st, float scale, int vec_in) {
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq, int Hkv, int Sq,
+                     int Skv, int D, BwStrides st, float scale, int causal, int window,
+                     int vec_in) {
   using T = BwTile<ND>;
   constexpr int PITCH = T::PITCH;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -831,28 +873,37 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int nk = (Skv + BW_ROWS - 1) / BW_ROWS;
   const int bh = blockIdx.x / nk, k0 = (blockIdx.x - bh * nk) * BW_ROWS;
-  const int b = bh / H, h = bh - b * H;
+  const int b = bh / Hkv, hk = bh - b * Hkv;
+  const int group = Hq / Hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t4 = lane & 3;
-  const bf16* qb = q + b * st.q.b + h * st.q.h;
-  const bf16* kb = k + b * st.k.b + h * st.k.h;
-  const bf16* vb = v + b * st.v.b + h * st.v.h;
-  const bf16* db = dout + b * st.dout.b + h * st.dout.h;
-  const float* lse_bh = lse + (long long)bh * Sq;
-  const float* dlt_bh = delta + (long long)bh * Sq;
-  const int n_tiles = (Sq + BW_TILE - 1) / BW_TILE;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* kb = k + b * st.k.b + hk * st.k.h;
+  const bf16* vb = v + b * st.v.b + hk * st.v.h;
 
-  auto issue = [&](int i) {  // query tile i into stage i & 1
+  // the query tiles that see any key of the block: causal from the tile of
+  // its first key, the window up to its last key + window - 1
+  const int k_last = min(k0 + BW_ROWS, Skv) - 1;
+  int qt_lo = 0, qt_hi = (Sq + BW_TILE - 1) / BW_TILE;
+  if (MASK && causal) qt_lo = min(k0 / BW_TILE, qt_hi);
+  if (MASK && window > 0) qt_hi = min(qt_hi, min(Sq - 1, k_last + window - 1) / BW_TILE + 1);
+  const int n_qt = max(0, qt_hi - qt_lo);
+  const int n_tiles = group * n_qt;  // the group's q heads in order, each over its tiles
+
+  auto issue = [&](int i) {  // (q head hk * group + i / n_qt, query tile) into stage i & 1
     if (i < n_tiles) {
+      const int h = hk * group + i / n_qt;
+      const int qbase = (qt_lo + i % n_qt) * BW_TILE;
       unsigned char* buf = qd_s + (i & 1) * 2 * T::TILE;
-      fill_rows<ND, BW_THREADS>(buf, qb, st.q.s, i * BW_TILE, Sq, BW_TILE, D, vec_in);
-      fill_rows<ND, BW_THREADS>(buf + T::TILE, db, st.dout.s, i * BW_TILE, Sq, BW_TILE, D,
-                                vec_in);
+      fill_rows<ND, BW_THREADS>(buf, q + b * st.q.b + h * st.q.h, st.q.s, qbase, Sq, BW_TILE,
+                                D, vec_in);
+      fill_rows<ND, BW_THREADS>(buf + T::TILE, dout + b * st.dout.b + h * st.dout.h,
+                                st.dout.s, qbase, Sq, BW_TILE, D, vec_in);
+      const long long row0 = ((long long)b * Hq + h) * Sq;
       float* sst = stats + (i & 1) * 2 * BW_TILE;
       for (int e = threadIdx.x; e < BW_TILE; e += BW_THREADS) {
-        const int qi = i * BW_TILE + e;
-        sst[e] = qi < Sq ? lse_bh[qi] * LOG2E : 0.f;
-        sst[BW_TILE + e] = qi < Sq ? dlt_bh[qi] : 0.f;
+        const int qi = qbase + e;
+        sst[e] = qi < Sq ? lse[row0 + qi] * LOG2E : 0.f;
+        sst[BW_TILE + e] = qi < Sq ? delta[row0 + qi] : 0.f;
       }
     }
     cp_async_commit();
@@ -883,13 +934,16 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_a<ND>(v_u + arow, f, f8);
       mma_abt<ND>(dst, f, f8, do_u);  // dP^T
     }
-    const int qbase = i * BW_TILE;
+    const int qbase = (qt_lo + i % n_qt) * BW_TILE;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n * 8 + 2 * t4 + (e & 1);
-        const float pv = qbase + col < Sq ? exp2f(pt[n][e] * scale_log2 - sst[col]) : 0.f;
+        const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+        const bool ok =
+            qbase + col < Sq && (!MASK || visible(key, qbase + col, causal, window));
+        const float pv = ok ? exp2f(pt[n][e] * scale_log2 - sst[col]) : 0.f;
         pt[n][e] = pv;
         dst[n][e] = pv * (dst[n][e] - sst[BW_TILE + col]);  // dS^T
       }
@@ -897,25 +951,46 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_pb<ND>(dkacc, dst, q_u);
   }
   cp_async_wait<0>();
-  store_rows<ND>(dk + b * st.dk.b + h * st.dk.h, st.dk.s, k0 + warp * 16, Skv, D, dkacc,
+  const int dead0 = first_dead_query(Sq, Skv, window);
+  if (MASK && dead0 < Sq) {  // the queries with every key masked: do / Skv into each dv
+    __syncthreads();  // every warp is done with the last tile's statistics
+    for (int d = threadIdx.x; d < D; d += BW_THREADS) {
+      float acc = 0.f;
+      for (int j = 0; j < group; ++j) {
+        const bf16* dj = dout + b * st.dout.b + (hk * group + j) * st.dout.h;
+        for (int qi = dead0; qi < Sq; ++qi) acc += to_f32(dj[(long long)qi * st.dout.s + d]);
+      }
+      stats[d] = acc / Skv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = n * 8 + 2 * t4 + (e & 1);
+        if (d < D) dvacc[n][e] += stats[d];
+      }
+  }
+  store_rows<ND>(dk + b * st.dk.b + hk * st.dk.h, st.dk.s, k0 + warp * 16, Skv, D, dkacc,
                  scale);
-  store_rows<ND>(dv + b * st.dv.b + h * st.dv.h, st.dv.s, k0 + warp * 16, Skv, D, dvacc,
+  store_rows<ND>(dv + b * st.dv.b + hk * st.dv.h, st.dv.s, k0 + warp * 16, Skv, D, dvacc,
                  1.f);
 }
 
 // fp32 on CUDA cores: the forward's layout, GROUP threads a row, each owning
 // every GROUP-th column; the streamed tiles (BK rows) in static shared memory.
-template <int DPT>
+template <int DPT, bool MASK>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ o,
                 const float* __restrict__ dout, const float* __restrict__ lse,
-                float* __restrict__ delta, float* __restrict__ dq, int H, int Sq, int Skv,
-                int D, BwStrides st, float scale) {
+                float* __restrict__ delta, float* __restrict__ dq, int Hq, int Hkv, int Sq,
+                int Skv, int D, BwStrides st, float scale, int causal, int window) {
   __shared__ float k_tile[BK * MAX_D];
   __shared__ float v_tile[BK * MAX_D];
   const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
+  const int b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
   const int sub = threadIdx.x % GROUP;
   const int qi = blockIdx.y * BQ + threadIdx.x / GROUP;
   const bool q_ok = qi < Sq;
@@ -938,19 +1013,23 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   dl += __shfl_xor_sync(0xffffffffu, dl, 2);
   if (q_ok && sub == 0) delta[(long long)bh * Sq + qi] = dl;
   const float ls = q_ok ? lse[(long long)bh * Sq + qi] : 0.f;
-  const float* kb = k + b * st.k.b + h * st.k.h;
-  const float* vb = v + b * st.v.b + h * st.v.h;
+  const float* kb = k + b * st.k.b + hk * st.k.h;
+  const float* vb = v + b * st.v.b + hk * st.v.h;
 
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
+  // the keys any query of the block sees (as the bf16 pass's tiles)
+  const int q0 = blockIdx.y * BQ, q_last = min(q0 + BQ, Sq) - 1;
+  const int k_lo = MASK && window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = MASK && causal ? min(q_last + 1, Skv) : Skv;
+  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();
     for (int e = threadIdx.x; e < BK * D; e += THREADS) {
       const int r = e / D, d = e - r * D;
-      const bool ok = k0 + r < Skv;
+      const bool ok = k0 + r < k_hi;
       k_tile[e] = ok ? kb[(long long)(k0 + r) * st.k.s + d] : 0.f;
       v_tile[e] = ok ? vb[(long long)(k0 + r) * st.v.s + d] : 0.f;
     }
     __syncthreads();
-    const int n = min(BK, Skv - k0);
+    const int n = min(BK, k_hi - k0);
     for (int r = 0; r < n; ++r) {
       float ps = 0.f, pd = 0.f;
 #pragma unroll
@@ -965,7 +1044,9 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       ps += __shfl_xor_sync(0xffffffffu, ps, 2);
       pd += __shfl_xor_sync(0xffffffffu, pd, 1);
       pd += __shfl_xor_sync(0xffffffffu, pd, 2);
-      const float ds = expf(ps * scale - ls) * (pd - dl);
+      const float ds = !MASK || visible(k0 + r, qi, causal, window)
+                           ? expf(ps * scale - ls) * (pd - dl)
+                           : 0.f;
 #pragma unroll
       for (int j = 0; j < DPT; ++j) {
         const int d = sub + GROUP * j;
@@ -983,24 +1064,25 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DPT>
+template <int DPT, bool MASK>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Skv,
-                  int D, BwStrides st, float scale) {
+                  float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hkv, int Sq,
+                  int Skv, int D, BwStrides st, float scale, int causal, int window) {
   __shared__ float q_tile[BK * MAX_D];
   __shared__ float d_tile[BK * MAX_D];
   __shared__ float ls_t[BK], dl_t[BK];
   const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int group = Hq / Hkv;
   const int sub = threadIdx.x % GROUP;
   const int ki = blockIdx.y * BQ + threadIdx.x / GROUP;
   const bool k_ok = ki < Skv;
   const long long row = k_ok ? ki : 0;
-  const float* kp = k + b * st.k.b + h * st.k.h + row * st.k.s;
-  const float* vp = v + b * st.v.b + h * st.v.h + row * st.v.s;
+  const float* kp = k + b * st.k.b + hk * st.k.h + row * st.k.s;
+  const float* vp = v + b * st.v.b + hk * st.v.h + row * st.v.s;
   float kv[DPT], vv[DPT], dka[DPT], dva[DPT];
 #pragma unroll
   for (int j = 0; j < DPT; ++j) {
@@ -1010,127 +1092,163 @@ attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     vv[j] = ok ? vp[d] : 0.f;
     dka[j] = dva[j] = 0.f;
   }
-  const float* qb = q + b * st.q.b + h * st.q.h;
-  const float* db = dout + b * st.dout.b + h * st.dout.h;
+  // the queries that see any key of the block (as the bf16 pass's tiles)
+  const int k0 = blockIdx.y * BQ, k_last = min(k0 + BQ, Skv) - 1;
+  const int q_lo = MASK && causal ? min(k0, Sq) : 0;
+  const int q_hi = MASK && window > 0 ? min(Sq, k_last + window) : Sq;
 
-  for (int q0 = 0; q0 < Sq; q0 += BK) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-      const int r = e / D, d = e - r * D;
-      const bool ok = q0 + r < Sq;
-      q_tile[e] = ok ? qb[(long long)(q0 + r) * st.q.s + d] : 0.f;
-      d_tile[e] = ok ? db[(long long)(q0 + r) * st.dout.s + d] : 0.f;
-    }
-    for (int e = threadIdx.x; e < BK; e += THREADS) {
-      const bool ok = q0 + e < Sq;
-      ls_t[e] = ok ? lse[(long long)bh * Sq + q0 + e] : 0.f;
-      dl_t[e] = ok ? delta[(long long)bh * Sq + q0 + e] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(BK, Sq - q0);
-    for (int r = 0; r < n; ++r) {
-      float ps = 0.f, pd = 0.f;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int d = sub + GROUP * j;
-        if (d < D) {
-          ps += kv[j] * q_tile[r * D + d];
-          pd += vv[j] * d_tile[r * D + d];
-        }
+  for (int hg = 0; hg < group; ++hg) {  // the group's q heads in order
+    const int h = hk * group + hg;
+    const float* qb = q + b * st.q.b + h * st.q.h;
+    const float* db = dout + b * st.dout.b + h * st.dout.h;
+    const long long row0 = ((long long)b * Hq + h) * Sq;
+    for (int q0 = q_lo; q0 < q_hi; q0 += BK) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < BK * D; e += THREADS) {
+        const int r = e / D, d = e - r * D;
+        const bool ok = q0 + r < q_hi;
+        q_tile[e] = ok ? qb[(long long)(q0 + r) * st.q.s + d] : 0.f;
+        d_tile[e] = ok ? db[(long long)(q0 + r) * st.dout.s + d] : 0.f;
       }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      pd += __shfl_xor_sync(0xffffffffu, pd, 1);
-      pd += __shfl_xor_sync(0xffffffffu, pd, 2);
-      const float p = expf(ps * scale - ls_t[r]);
-      const float ds = p * (pd - dl_t[r]);
+      for (int e = threadIdx.x; e < BK; e += THREADS) {
+        const bool ok = q0 + e < q_hi;
+        ls_t[e] = ok ? lse[row0 + q0 + e] : 0.f;
+        dl_t[e] = ok ? delta[row0 + q0 + e] : 0.f;
+      }
+      __syncthreads();
+      const int n = min(BK, q_hi - q0);
+      for (int r = 0; r < n; ++r) {
+        float ps = 0.f, pd = 0.f;
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int d = sub + GROUP * j;
-        if (d < D) {
-          dva[j] += p * d_tile[r * D + d];
-          dka[j] += ds * q_tile[r * D + d];
+        for (int j = 0; j < DPT; ++j) {
+          const int d = sub + GROUP * j;
+          if (d < D) {
+            ps += kv[j] * q_tile[r * D + d];
+            pd += vv[j] * d_tile[r * D + d];
+          }
+        }
+        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        pd += __shfl_xor_sync(0xffffffffu, pd, 1);
+        pd += __shfl_xor_sync(0xffffffffu, pd, 2);
+        const float p =
+            !MASK || visible(ki, q0 + r, causal, window) ? expf(ps * scale - ls_t[r]) : 0.f;
+        const float ds = p * (pd - dl_t[r]);
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) {
+          const int d = sub + GROUP * j;
+          if (d < D) {
+            dva[j] += p * d_tile[r * D + d];
+            dka[j] += ds * q_tile[r * D + d];
+          }
         }
       }
     }
   }
-  if (k_ok) {
-    float* ko = dk + b * st.dk.b + h * st.dk.h + (long long)ki * st.dk.s;
-    float* vo = dv + b * st.dv.b + h * st.dv.h + (long long)ki * st.dv.s;
+  if (!k_ok) return;
+  const int dead0 = first_dead_query(Sq, Skv, window);
+  if (MASK && dead0 < Sq) {  // the queries with every key masked: do / Skv into each dv
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int d = sub + GROUP * j;
-      if (d < D) {
-        ko[d] = dka[j] * scale;
-        vo[d] = dva[j];
+      if (d >= D) continue;
+      float acc = 0.f;
+      for (int hg = 0; hg < group; ++hg) {
+        const float* db = dout + b * st.dout.b + (hk * group + hg) * st.dout.h;
+        for (int qi = dead0; qi < Sq; ++qi) acc += db[(long long)qi * st.dout.s + d];
       }
+      dva[j] += acc / Skv;
+    }
+  }
+  float* ko = dk + b * st.dk.b + hk * st.dk.h + (long long)ki * st.dk.s;
+  float* vo = dv + b * st.dv.b + hk * st.dv.h + (long long)ki * st.dv.s;
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) {
+    const int d = sub + GROUP * j;
+    if (d < D) {
+      ko[d] = dka[j] * scale;
+      vo[d] = dva[j];
     }
   }
 }
 
-template <int ND>
+struct BwShape {
+  int B, Hq, Hkv, Sq, Skv, D, causal, window;
+};
+
+template <int ND, bool MASK>
 static int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                           const bf16* dout, const float* lse, float* delta, bf16* dq,
-                          bf16* dk, bf16* dv, int B, int H, int Sq, int Skv, int D,
-                          const BwStrides& st, float scale, int vec_in, cudaStream_t s) {
+                          bf16* dk, bf16* dv, const BwShape& sh, const BwStrides& st,
+                          float scale, int vec_in, cudaStream_t s) {
   static bool sized = false;  // once per instantiation
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
-        attn_bwd_dq_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize, BwTile<ND>::SMEM);
+        attn_bwd_dq_kernel<ND, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        BwTile<ND>::SMEM);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<ND>,
+      err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<ND, MASK>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  BwTile<ND>::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  const long long bq = (long long)B * H * ((Sq + BW_ROWS - 1) / BW_ROWS);
-  const long long bk = (long long)B * H * ((Skv + BW_ROWS - 1) / BW_ROWS);
+  const long long bq = (long long)sh.B * sh.Hq * ((sh.Sq + BW_ROWS - 1) / BW_ROWS);
+  const long long bk = (long long)sh.B * sh.Hkv * ((sh.Skv + BW_ROWS - 1) / BW_ROWS);
   if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_dq_kernel<ND><<<static_cast<unsigned>(bq), BW_THREADS, BwTile<ND>::SMEM, s>>>(
-      q, k, v, o, dout, lse, delta, dq, H, Sq, Skv, D, st, scale, vec_in);
+  attn_bwd_dq_kernel<ND, MASK><<<static_cast<unsigned>(bq), BW_THREADS, BwTile<ND>::SMEM, s>>>(
+      q, k, v, o, dout, lse, delta, dq, sh.Hq, sh.Hkv, sh.Sq, sh.Skv, sh.D, st, scale,
+      sh.causal, sh.window, vec_in);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<ND><<<static_cast<unsigned>(bk), BW_THREADS, BwTile<ND>::SMEM, s>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, Sq, Skv, D, st, scale, vec_in);
+  attn_bwd_dkdv_kernel<ND, MASK><<<static_cast<unsigned>(bk), BW_THREADS, BwTile<ND>::SMEM,
+                                 s>>>(
+      q, k, v, dout, lse, delta, dk, dv, sh.Hq, sh.Hkv, sh.Sq, sh.Skv, sh.D, st, scale,
+      sh.causal, sh.window, vec_in);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DPT>
+template <int DPT, bool MASK>
 static int launch_bwd_f32(const float* q, const float* k, const float* v, const float* o,
                           const float* dout, const float* lse, float* delta, float* dq,
-                          float* dk, float* dv, int B, int H, int Sq, int Skv, int D,
-                          const BwStrides& st, float scale, cudaStream_t s) {
-  attn_bwd_dq_f32<DPT><<<dim3(B * H, (Sq + BQ - 1) / BQ), THREADS, 0, s>>>(
-      q, k, v, o, dout, lse, delta, dq, H, Sq, Skv, D, st, scale);
+                          float* dk, float* dv, const BwShape& sh, const BwStrides& st,
+                          float scale, cudaStream_t s) {
+  attn_bwd_dq_f32<DPT, MASK><<<dim3(sh.B * sh.Hq, (sh.Sq + BQ - 1) / BQ), THREADS, 0, s>>>(
+      q, k, v, o, dout, lse, delta, dq, sh.Hq, sh.Hkv, sh.Sq, sh.Skv, sh.D, st, scale,
+      sh.causal, sh.window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_f32<DPT><<<dim3(B * H, (Skv + BQ - 1) / BQ), THREADS, 0, s>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, Sq, Skv, D, st, scale);
+  attn_bwd_dkdv_f32<DPT, MASK><<<dim3(sh.B * sh.Hkv, (sh.Skv + BQ - 1) / BQ), THREADS, 0,
+                                  s>>>(
+      q, k, v, dout, lse, delta, dk, dv, sh.Hq, sh.Hkv, sh.Sq, sh.Skv, sh.D, st, scale,
+      sh.causal, sh.window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward of a non-causal forward with Hq == Hkv == H. strides: 24
-// values, (b, h, s) strides of q, k, v, o, dout, dq, dk, dv in elements
-// (unit column stride); lse: the forward's (B, H, Sq) log-sum-exp; delta:
-// a (B, H, Sq) fp32 workspace. bf16 runs the mma bodies compiled for nd
-// 8-column chunks (4, 8, 9 or 16; nd * 8 >= D), vec_in loading q, k, v and
-// dout rows as 16-byte chunks (D % 8 == 0 and 16-byte aligned rows, checked
-// here too); fp32 runs on CUDA cores.
+// The backward of flash_attention(q, k, v, causal, window): q, o, dout, dq
+// (B, Hq, Sq, D); k, v, dk, dv (B, Hkv, Skv, D), Hq % Hkv == 0; window 0 for
+// none. strides: 24 values, (b, h, s) strides of q, k, v, o, dout, dq, dk,
+// dv in elements (unit column stride); lse: the forward's (B, Hq, Sq)
+// log-sum-exp; delta: a (B, Hq, Sq) fp32 workspace. bf16 runs the mma
+// bodies compiled for nd 8-column chunks (4, 8, 9 or 16; nd * 8 >= D),
+// vec_in loading q, k, v and dout rows as 16-byte chunks (D % 8 == 0 and
+// 16-byte aligned rows, checked here too); fp32 runs on CUDA cores.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
-                                   void* delta, void* dq, void* dk, void* dv, int B, int H,
-                                   int Sq, int Skv, int D, const long long* strides,
-                                   float scale, int dtype, int nd, int vec_in,
-                                   void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || D < 1 || D > MAX_D ||
-      (Sq + BQ - 1) / BQ > 65535 || (Skv + BQ - 1) / BQ > 65535 ||
-      (long long)B * H > 0x7fffffffLL)
+                                   void* delta, void* dq, void* dk, void* dv, int B, int Hq,
+                                   int Hkv, int Sq, int Skv, int D, const long long* strides,
+                                   int causal, int window, float scale, int dtype, int nd,
+                                   int vec_in, void* stream) {
+  if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Skv < 1 || D < 1 || D > MAX_D ||
+      window < 0 || (Sq + BQ - 1) / BQ > 65535 || (Skv + BQ - 1) / BQ > 65535 ||
+      (long long)B * Hq > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* x = strides;
   const BwStrides st{{x[0], x[1], x[2]},    {x[3], x[4], x[5]},    {x[6], x[7], x[8]},
                      {x[9], x[10], x[11]},  {x[12], x[13], x[14]}, {x[15], x[16], x[17]},
                      {x[18], x[19], x[20]}, {x[21], x[22], x[23]}};
+  const BwShape sh{B, Hq, Hkv, Sq, Skv, D, causal ? 1 : 0, window};
+  const bool mask = causal || window > 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -1140,14 +1258,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                 *dp = static_cast<const float*>(dout);
     float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk),
           *gv = static_cast<float*>(dv);
-    if (D <= 32)
-      return launch_bwd_f32<8>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, B, H, Sq, Skv, D, st,
-                               scale, s);
-    if (D <= 72)
-      return launch_bwd_f32<18>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, B, H, Sq, Skv, D,
-                                st, scale, s);
-    return launch_bwd_f32<32>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, B, H, Sq, Skv, D, st,
-                              scale, s);
+#define FA_BWD_F32(DPT)                                                                  \
+  (mask ? launch_bwd_f32<DPT, true>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, sh, st, scale, s) \
+        : launch_bwd_f32<DPT, false>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, sh, st, scale, s))
+    if (D <= 32) return FA_BWD_F32(8);
+    if (D <= 72) return FA_BWD_F32(18);
+    return FA_BWD_F32(32);
+#undef FA_BWD_F32
   }
   if (dtype != DTYPE_BF16 || nd * 8 < D) return static_cast<int>(cudaErrorInvalidValue);
   if (vec_in) {
@@ -1163,9 +1280,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
              *vp = static_cast<const bf16*>(v), *op = static_cast<const bf16*>(o),
              *dp = static_cast<const bf16*>(dout);
   bf16 *gq = static_cast<bf16*>(dq), *gk = static_cast<bf16*>(dk), *gv = static_cast<bf16*>(dv);
-#define FA_BWD(ND)                                                                          \
-  launch_bwd_mma<ND>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, B, H, Sq, Skv, D, st, scale, \
-                     vec_in, s)
+#define FA_BWD(ND)                                                                        \
+  (mask ? launch_bwd_mma<ND, true>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, sh, st, scale,  \
+                                   vec_in, s)                                            \
+        : launch_bwd_mma<ND, false>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, sh, st, scale, \
+                                    vec_in, s))
   switch (nd) {
     case 4: return FA_BWD(4);
     case 8: return FA_BWD(8);

@@ -1,7 +1,8 @@
 """Binding of `csrc/flash_attention.cu`, the Hopper kernel that replaces
 `repro/kernels/flash_attention/kernel.py:flash_attention`, and of its
-backward (`flash_attention_bwd`, the training path: non-causal, Hq == Hkv),
-which replaces the gradient XLA derives from that forward."""
+backward (`flash_attention_bwd`, the training path: every mask and group
+size the forward takes), which replaces the gradient XLA derives from that
+forward."""
 
 from __future__ import annotations
 
@@ -36,9 +37,9 @@ def _launcher():
 @functools.cache
 def _bwd_launcher():
     fn = build.library("flash_attention").flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -117,11 +118,12 @@ def plan_bwd(q, k, v, do) -> dict:
     """The backward's body: fp32 -> "cuda_cores"; bf16 -> "mma" with the
     forward's head-dim chunks, q, k, v and do rows loaded as 16-byte chunks
     where D % 8 == 0 and every row is 16-byte aligned (`vec_in`). `blocks`
-    is the grid of each of its two passes: one block per (b, h) and
-    64-query tile (dq), and per (b, h) and 64-key tile (dk, dv)."""
-    B, H, Sq, D = q.shape
-    Skv = k.shape[2]
-    grids = (B * H * -(-Sq // BLOCK_Q), B * H * -(-Skv // BLOCK_Q))
+    is the grid of each of its two passes: one block per (b, q head) and
+    64-query tile (dq), and per (b, kv head) and 64-key tile (dk, dv, each
+    summed over the kv head's group of q heads)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    grids = (B * Hq * -(-Sq // BLOCK_Q), B * Hkv * -(-Skv // BLOCK_Q))
     if q.dtype == torch.float32:
         return dict(body="cuda_cores", chunks=0, vec_in=False, blocks=grids)
     return dict(body="mma", chunks=next(c for c in MMA_CHUNKS if 8 * c >= D),
@@ -130,39 +132,42 @@ def plan_bwd(q, k, v, do) -> dict:
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor) -> tuple:
-    """(dq, dk, dv) of a non-causal `flash_attention(q, k, v)` with Hq ==
-    Hkv, from its output `o`, its log-sum-exp `lse` (B, H, Sq, fp32) and
-    the output's gradient `do`. Any (b, h, s) strides with unit column
-    stride; each gradient is laid out like its input. Causal, window and
-    GQA backward are not written yet (ROADMAP item 12)."""
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = False,
+                        window: Optional[int] = None) -> tuple:
+    """(dq, dk, dv) of `flash_attention(q, k, v, causal=causal,
+    window=window)` from its output `o`, its log-sum-exp `lse` (B, Hq, Sq,
+    fp32) and the output's gradient `do`: q, o, do (B, Hq, Sq, D); k, v
+    (B, Hkv, Skv, D), Hq % Hkv == 0 (dk and dv of a kv head sum its group
+    of q heads). Any (b, h, s) strides with unit column stride; each
+    gradient is laid out like its input. Note the default: non-causal."""
     require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
-    B, H, Sq, D = q.shape
+    B, Hq, Sq, D = q.shape
     if (q.ndim != 4 or k.ndim != 4 or v.shape != k.shape
-            or k.shape[0] != B or k.shape[1] != H or k.shape[3] != D
+            or k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1]
             or o.shape != q.shape or do.shape != q.shape):
-        raise ValueError(f"flash_attention_bwd: q/o/do (B, H, Sq, D), k/v "
-                         f"(B, H, Skv, D) with Hq == Hkv; got q "
+        raise ValueError(f"flash_attention_bwd: q/o/do (B, Hq, Sq, D), k/v "
+                         f"(B, Hkv, Skv, D) with Hq % Hkv == 0; got q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} v "
                          f"{tuple(v.shape)} o {tuple(o.shape)} do "
                          f"{tuple(do.shape)}")
+    Hkv, Skv = k.shape[1], k.shape[2]
     if D > MAX_D or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise ValueError(f"flash_attention_bwd: D <= {MAX_D} and one dtype; "
                          f"got D {D}, {[t.dtype for t in (q, k, v, o, do)]}")
-    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+    if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
-                         f"fp32 ({B}, {H}, {Sq}); got {tuple(lse.shape)} "
+                         f"fp32 ({B}, {Hq}, {Sq}); got {tuple(lse.shape)} "
                          f"{lse.dtype}")
     if do.stride(3) != 1:
         do = do.contiguous()
     if any(t.stride(3) != 1 for t in (q, k, v, o)):
         raise ValueError("flash_attention_bwd: the head dim must have "
                          "stride 1")
-    if -(-max(Sq, k.shape[2]) // BLOCK_Q) > 65535:
+    if -(-max(Sq, Skv) // BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention_bwd: Sq, Skv <= {65535 * BLOCK_Q}")
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 24)(*[
         t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in (0, 1, 2)])
@@ -170,9 +175,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, Sq, k.shape[2], D, ctypes.addressof(strides),
-        1.0 / math.sqrt(D), build.dtype_code(q.dtype), p["chunks"],
-        int(p["vec_in"]), build.stream_of(q))
+        dv.data_ptr(), B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides),
+        int(causal), int(window or 0), 1.0 / math.sqrt(D),
+        build.dtype_code(q.dtype), p["chunks"], int(p["vec_in"]),
+        build.stream_of(q))
     build.check(rc, "flash_attention_bwd", "flash_attention")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -13,19 +13,24 @@ from ..dispatch import needs_grad, use_kernel
 
 
 class _Attention(torch.autograd.Function):
-    """Non-causal attention with Hq == Hkv on the card, differentiable: the
-    forward kernel (which also saves its log-sum-exp) and the backward
-    kernel (`kernel.flash_attention_bwd`)."""
+    """Attention on the card, differentiable: the forward kernel (which also
+    saves its log-sum-exp) and the backward kernel
+    (`kernel.flash_attention_bwd`), with the same mask and group size."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = kernel.flash_attention(q, k, v, causal=False, lse=True)
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = kernel.flash_attention(q, k, v, causal=causal,
+                                          window=window, lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        return kernel.flash_attention_bwd(*ctx.saved_tensors, do)
+        causal, window = ctx.mask
+        dq, dk, dv = kernel.flash_attention_bwd(*ctx.saved_tensors, do,
+                                                causal=causal, window=window)
+        return dq, dk, dv, None, None
 
 
 def attention(q, k, v, *, causal=True, window=None,
@@ -33,17 +38,10 @@ def attention(q, k, v, *, causal=True, window=None,
     """(B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D). `backend="plain"`
     pins the plain version (kernels/dispatch.py). On the card, with grad mode
     on and an input that requires grad, the call is differentiable through
-    the backward kernel; that kernel covers the non-causal Hq == Hkv case
-    only, and anything else raises rather than train on a detached
-    output."""
+    the backward kernel, for every mask and group size the forward
+    takes."""
     if not use_kernel(backend, q):
         return ref.attention(q, k, v, causal=causal, window=window)
     if needs_grad(q, k, v):
-        if causal or window is not None or q.shape[1] != k.shape[1]:
-            raise NotImplementedError(
-                f"flash_attention backward: causal, window and GQA (Hq != "
-                f"Hkv) are not yet ported to repro_torch (ROADMAP item 12); "
-                f"got causal={causal}, window={window}, Hq={q.shape[1]}, "
-                f"Hkv={k.shape[1]}")
-        return _Attention.apply(q, k, v)
+        return _Attention.apply(q, k, v, causal, window)
     return kernel.flash_attention(q, k, v, causal=causal, window=window)

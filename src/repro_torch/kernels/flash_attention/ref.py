@@ -5,6 +5,18 @@ import math
 import torch
 
 
+def _visible(Sq: int, Skv: int, causal: bool, window, device) -> torch.Tensor:
+    """(Sq, Skv) bool: key <= query (causal), key > query - window."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return ok
+
+
 def attention(q, k, v, *, causal=True, window=None):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). fp32 softmax, scale 1/sqrt(D)."""
     B, Hq, Sq, D = q.shape
@@ -13,13 +25,7 @@ def attention(q, k, v, *, causal=True, window=None):
     qg = q.reshape(B, Hkv, group, Sq, D)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
                      k.to(torch.float32)) / math.sqrt(D)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window is not None:
-        ok &= kpos > qpos - window
+    ok = _visible(Sq, Skv, causal, window, q.device)
     s = torch.where(ok, s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", w, v.to(torch.float32))
@@ -33,36 +39,45 @@ def attention_lse(q, k, *, causal=True, window=None):
     Hkv, Skv = k.shape[1], k.shape[2]
     qg = q.reshape(B, Hkv, Hq // Hkv, Sq, D).to(torch.float32)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) / math.sqrt(D)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window is not None:
-        ok &= kpos > qpos - window
+    ok = _visible(Sq, Skv, causal, window, q.device)
     s = torch.where(ok, s, torch.full_like(s, -1e30))
     return torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq)
 
 
-def attention_bwd(q, k, v, o, lse, do):
-    """The gradient of non-causal `attention` with Hq == Hkv written out
-    (FlashAttention-2's backward, not autograd): (dq, dk, dv) from the
-    output o, the forward's log-sum-exp `lse` (B, H, Sq, fp32) and the
-    output's gradient do. fp32 statistics:
+def attention_bwd(q, k, v, o, lse, do, *, causal=False, window=None):
+    """The gradient of `attention(q, k, v, causal=causal, window=window)`
+    written out (FlashAttention-2's backward, not autograd): (dq, dk, dv)
+    from the output o, the forward's log-sum-exp `lse` (B, Hq, Sq, fp32)
+    and the output's gradient do. Note the default: non-causal. fp32
+    statistics:
 
-        P  = exp(scale * q k^T - lse),   Delta = rowsum(do * o)
-        dS = P * (do v^T - Delta)
+        P  = exp(scale * q k^T - lse), 0 where masked,  Delta = rowsum(do * o)
+        dS = P * (do v^T - Delta), 0 where masked
         dq = scale * dS k,   dk = scale * dS^T q,   dv = P^T do
 
-    each cast to the dtype of its input."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
-    dof = do.to(torch.float32)
-    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-                  - lse[..., None])
-    delta = (dof * o.to(torch.float32)).sum(dim=-1, keepdim=True)
-    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    A query whose every key is masked (a window with Sq > Skv + window - 1)
+    has the mean of V as its output, the softmax of equal scores: P = 1 /
+    Skv on each key and dS = 0, as autograd through `attention` gives. dk
+    and dv of a kv head sum its group's q heads. Each gradient is cast to
+    the dtype of its input."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf = q.to(torch.float32).reshape(B, Hkv, G, Sq, D)
+    dof = do.to(torch.float32).reshape(B, Hkv, G, Sq, D)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    ok = _visible(Sq, Skv, causal, window, q.device)
+    dead = ~ok.any(dim=-1, keepdim=True)
+    p = torch.exp(torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+                  - lse.reshape(B, Hkv, G, Sq, 1))
+    p = torch.where(ok, p, dead.to(torch.float32) / Skv)
+    delta = (dof * o.to(torch.float32).reshape(B, Hkv, G, Sq, D)).sum(
+        dim=-1, keepdim=True)
+    ds = torch.where(ok, p * (torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+                              - delta), torch.zeros_like(p))
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

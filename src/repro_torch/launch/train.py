@@ -1,17 +1,22 @@
 """Training launcher (the port of `repro.launch.train`): the DiT's diffusion
-objective, on the card unless `device="cpu"` / `--device cpu` is given.
+objective and the dense and MoE token families' AR and diffusion-LM
+objectives, on the card unless `device="cpu"` / `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dit-cifar \\
         --objective diffusion --steps 20 --batch 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+        --objective ar --steps 20 --batch 8 --seq 128 --device cpu
 
-On the card the forward runs through the adaLN, gate_residual and
-attention kernels and their backward kernels (each op's autograd Function);
-the dense products, GELU, SiLU and the loss are plain torch under autograd,
-as the reference leaves them to XLA. Params stay fp32 masters: the DiT
-casts each weight to the activation dtype at use, so gradients reach the
+On the card the forward runs through the port's kernels and their
+backward kernels (each op's autograd Function): the DiT through adaLN,
+gate_residual and attention, the token families through attention
+(causal for the AR loss, bidirectional for the diffusion LM, GQA and
+sliding windows as configured); the dense products, norms, activations,
+the MoE dispatch and the losses are plain torch under autograd, as the
+reference leaves them to XLA. Params stay fp32 masters: the models cast
+each weight to the activation dtype at use, so gradients reach the
 masters through the cast. The step runs eagerly (one CUDA graph of the
-whole step is a later option, ROADMAP §A). Only the diffusion objective of
-the dit family is ported; `objective="ar"` raises (ROADMAP item 12).
+whole step is a later option, ROADMAP §A).
 """
 
 from __future__ import annotations
@@ -25,8 +30,9 @@ import torch
 
 from ..checkpoint import ckpt
 from ..configs.registry import get_config
-from ..data.synthetic import class_ids, latent_images
+from ..data.synthetic import TokenStream, class_ids, latent_images
 from ..engine.engine import resolve_device
+from ..engine.specs import not_yet_ported
 from ..models import api
 from ..optim import AdamW, tree_leaves, tree_map, warmup_cosine
 
@@ -35,14 +41,19 @@ def make_train_step(cfg, objective, opt):
     """step(params, opt_state, batch, rng) -> (params, opt_state, loss): the
     loss and its gradient by autograd, then `opt.update`. `params` are
     plain tensors; the step differentiates through leaf copies that share
-    their storage and hands back new params that require no grad."""
+    their storage and hands back new params that require no grad. A leaf
+    the loss does not read (the diffusion head under the AR loss) gets a
+    zero gradient, as jax.grad gives it."""
     loss_fn = api.train_loss(cfg, objective)
 
     def step(params, opt_state, batch, rng):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss = loss_fn(leaves, batch, rng)
         flat = tree_leaves(leaves)
-        grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = dict(zip(map(id, flat), (
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat, grads))))
         grads = tree_map(lambda p: grads[id(p)], leaves)
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss.detach()
@@ -51,19 +62,26 @@ def make_train_step(cfg, objective, opt):
 
 
 def build_batch_fn(cfg, batch_size, seq_len, seed=0, device="cpu"):
-    """i -> the i-th batch on `device`: the reference's synthetic latents
-    and class ids (numpy, bit-equal), as fp32 and int64 tensors."""
-    if cfg.family != "dit":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's token batches are not yet ported "
-            f"to repro_torch (ROADMAP item 12)")
+    """i -> the i-th batch on `device`, the reference's synthetic data
+    (numpy, bit-equal): the DiT's latents and class ids as fp32 and int64
+    tensors; the token families' `TokenStream` block (tokens, targets) as
+    int64 tensors."""
+    if cfg.family == "dit":
+        def fn(i):
+            return {"latents": torch.from_numpy(latent_images(
+                        batch_size, cfg.patch_tokens, cfg.latent_dim,
+                        seed + i)).to(device),
+                    "class_ids": torch.from_numpy(class_ids(
+                        batch_size, seed=seed + i)).long().to(device)}
+        return fn
+    if cfg.family not in api.TOKEN_FAMILIES:
+        raise not_yet_ported(f"the {cfg.family!r} family's batches "
+                             f"(ROADMAP item 12)")
+    stream = TokenStream(cfg.vocab_size, seq_len, batch_size, seed)
 
     def fn(i):
-        return {"latents": torch.from_numpy(latent_images(
-                    batch_size, cfg.patch_tokens, cfg.latent_dim,
-                    seed + i)).to(device),
-                "class_ids": torch.from_numpy(class_ids(
-                    batch_size, seed=seed + i)).long().to(device)}
+        return {k: torch.from_numpy(v).long().to(device)
+                for k, v in stream.block(i).items()}
 
     return fn
 
@@ -73,10 +91,11 @@ def train(arch: str, *, reduced=True, objective="ar", steps=100, batch=8,
           seed=0, log_file=None, device="cuda"):
     """Train from `api.init_params(cfg, seed)`; returns (params, history).
 
-    The reference's arguments and defaults. Each step draws t and the noise
-    from one torch.Generator seeded with `seed` on `device` (not the
-    reference's jax.random numbers: parity runs monkeypatch
-    `api.init_params` and the per-step `step_rng`). `history` holds
+    The reference's arguments and defaults. Each diffusion step draws t and
+    the noise from one torch.Generator seeded with `seed` on `device` (not
+    the reference's jax.random numbers: parity runs monkeypatch
+    `api.init_params` and the per-step `step_rng`); the AR loss draws
+    nothing, and `step_rng` is called all the same. `history` holds
     {"step", "loss", "elapsed_s"} every `log_every` steps and at the last;
     a logged step reads its loss back. The params come back as plain
     tensors that require no grad, ready for `sample(params=...)`."""

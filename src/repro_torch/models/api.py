@@ -2,15 +2,18 @@
 family and the decoder-only token family (dense and MoE transformers).
 
     init_params(cfg, seed, device)              -> params
+    train_loss(cfg, objective)(params, batch, rng) -> scalar loss
+                                                   ('ar' | 'diffusion')
     eps_network(cfg)(params, x_t, t, batch)     -> eps-hat (UniPC's model)
     init_cache(cfg, batch, max_len, device)     -> cache
     prefill_fn(cfg)(params, batch, max_len)     -> (logits, cache)
     decode_fn(cfg)(params, cache, tok, pos)     -> (logits, cache)
 
 The token families' eps-net is the diffusion-LM head over the backbone run
-bidirectionally (`models/diffusion_lm.py`, DESIGN.md §7.1). Not yet ported,
-and refused: the ssm, hybrid, vlm and audio families; the token families'
-training (`ar_loss`, the diffusion-LM loss).
+bidirectionally (`models/diffusion_lm.py`, DESIGN.md §7.1); their diffusion
+objective is embedding-space diffusion over the learned token latents, the
+eps loss plus an alpha^2-weighted rounding cross-entropy. Not yet ported,
+and refused: the ssm, hybrid, vlm and audio families.
 """
 
 from __future__ import annotations
@@ -239,35 +242,65 @@ def eps_network_cached(cfg: ModelConfig, cache_block: int) -> Callable:
 
 
 def diffusion_loss_fn(cfg: ModelConfig, schedule=None) -> Callable:
-    """(params, batch, rng) -> the DiT's diffusion loss, a 0-d fp32 tensor:
-    mean((eps_hat - noise)^2) over x_t = q_sample(latents, t, noise). `rng`
-    is a torch.Generator or the (t, noise) pair (`draw_t_noise`). Only the
-    dit family is ported; the diffusion-LM rounding loss of the token
-    families waits for their training (ROADMAP item 12)."""
-    _require(cfg, ("dit",), "the diffusion loss")
+    """(params, batch, rng) -> the diffusion loss, a 0-d fp32 tensor:
+    mean((eps_hat - noise)^2) over x_t = q_sample(x0, t, noise), x0 the
+    DiT's `latents` or, for the token families, the token latents of
+    `batch["tokens"]` (in the activation dtype, the noise cast to it). The
+    token families add the rounding loss (Diffusion-LM): the fp32
+    cross-entropy of x0_hat = (x_t - sigma eps_hat) / alpha against the
+    token latents, weighted by alpha^2 and normalised by its mean. `rng` is
+    a torch.Generator or the (t, noise) pair (`draw_t_noise`)."""
+    _require(cfg, what="the diffusion loss")
     schedule = schedule or VPLinear()
     net = eps_network(cfg)
 
     def loss(params, batch, rng):
-        x0 = batch["latents"]
+        if cfg.family == "dit":
+            x0 = batch["latents"]
+        else:
+            x0 = params["token_latents"].to(cfg.activation_dtype)[
+                batch["tokens"]]
         t, noise = draw_t_noise(schedule, x0, rng)
         x_t = q_sample(schedule, x0, t, noise)
         eps_hat = net(params, x_t, t, batch)
         # both widened first: a bf16 eps_hat would keep the difference bf16
-        return torch.mean((eps_hat.to(torch.float32)
-                           - noise.to(torch.float32)) ** 2)
+        mse = torch.mean((eps_hat.to(torch.float32)
+                          - noise.to(torch.float32)) ** 2)
+        if cfg.family == "dit":
+            return mse
+        # the rounding loss anchors the latent space, weighted by alpha_t^2:
+        # at high noise x0_hat amplifies the residual by 1 / alpha and the
+        # unweighted cross-entropy is pure variance
+        a, s = schedule.alpha_sigma_torch(t)
+        bshape = (-1,) + (1,) * (x0.ndim - 1)
+        x0_hat = (x_t - s.reshape(bshape) * eps_hat) / a.reshape(bshape)
+        logits = torch.einsum("bsl,vl->bsv", x0_hat.to(torch.float32),
+                              params["token_latents"].to(torch.float32))
+        logp = torch.log_softmax(logits, dim=-1)
+        ce = -torch.gather(logp, -1, batch["tokens"][..., None].long())
+        w = (a * a).reshape(bshape)
+        return mse + torch.mean(w * ce) / torch.mean(w)
 
     return loss
 
 
 def ar_loss(cfg: ModelConfig) -> Callable:
-    """The autoregressive objective: not yet ported (the token families'
-    training, ROADMAP item 12); `transformer.lm_loss` holds its forward
-    value."""
-    raise NotImplementedError(
-        "the autoregressive objective (ar_loss) is not yet ported to "
-        "repro_torch (ROADMAP item 12); objective='diffusion' is, for the "
-        "dit family")
+    """(params, batch, rng) -> the autoregressive objective of the dense and
+    MoE token families, `transformer.lm_loss` on batch["tokens"] and
+    batch["targets"] (`rng` is taken and not used). The dit family has no
+    such objective (ValueError, as the reference's); the ssm, hybrid, vlm
+    and audio families are not yet ported."""
+    if cfg.family == "dit":
+        raise ValueError(f"the dit family has no autoregressive objective; "
+                         f"arch {cfg.arch_id!r} trains with "
+                         f"objective='diffusion'")
+    _require(cfg, TOKEN_FAMILIES, "the autoregressive objective")
+
+    def loss(params, batch, rng):
+        return transformer.lm_loss(params["backbone"], cfg, batch["tokens"],
+                                   batch["targets"])
+
+    return loss
 
 
 def train_loss(cfg: ModelConfig, objective: str = "ar") -> Callable:

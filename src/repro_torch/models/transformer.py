@@ -5,6 +5,7 @@ Serves qwen2-0.5b / qwen2.5-3b / olmo-1b / deepseek-67b (dense) and, with
 `cfg.num_experts > 0`, mixtral-8x7b / granite-moe (MoE). Three entry points:
 
   forward(params, cfg, tokens)                -> (hidden (B, S, d), aux)
+  lm_loss(params, cfg, tokens, targets)       -> the AR training loss
   prefill(params, cfg, tokens, max_len)       -> (logits_last, cache)
   decode_step(params, cfg, cache, tok, pos)   -> (logits, cache)
 
@@ -20,10 +21,12 @@ graph can capture the step (the reference's `jax.jit(decode)`).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (NORMS, apply_rope, attention_apply, attention_init,
                      dense_init, layer_views, mlp_apply, mlp_init,
@@ -84,13 +87,20 @@ def _block(lp, x, cfg, *, sliding_window, causal=True):
 
 def forward(params, cfg, tokens, *, causal: bool = True,
             inputs_embeds: Optional[torch.Tensor] = None) -> tuple:
-    """Full-sequence forward; returns (hidden, aux_loss)."""
+    """Full-sequence forward; returns (hidden, aux_loss). With `cfg.remat`
+    and grad mode on, each block runs under activation checkpointing
+    (`torch.utils.checkpoint`, the reference's per-block `jax.checkpoint`):
+    the same values, the block's activations recomputed in the backward."""
     x = inputs_embeds if inputs_embeds is not None else _embed(params, cfg,
                                                                tokens)
+    block = functools.partial(_block, cfg=cfg,
+                              sliding_window=cfg.sliding_window,
+                              causal=causal)
+    remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
     for lp in layer_views(params["layers"], cfg.num_layers):
-        x, aux = _block(lp, x, cfg, sliding_window=cfg.sliding_window,
-                        causal=causal)
+        x, aux = (checkpoint(block, lp, x, use_reentrant=False) if remat
+                  else block(lp, x))
         auxs.append(aux)
     _, napply = NORMS[cfg.norm]
     return napply(params["final_ln"], x), torch.sum(torch.stack(auxs))
@@ -103,8 +113,9 @@ def logits_from_hidden(params, cfg, hidden) -> torch.Tensor:
 
 
 def lm_loss(params, cfg, tokens, targets) -> torch.Tensor:
-    """Next-token NLL plus the router's aux loss (its forward value; the
-    token families' training is not yet ported)."""
+    """The AR training loss, a 0-d fp32 tensor: the next-token NLL (fp32
+    log-softmax of the logits) plus `cfg.router_aux_weight` times the
+    router's aux loss, differentiable through both, as the reference's."""
     hidden, aux = forward(params, cfg, tokens)
     logits = logits_from_hidden(params, cfg, hidden).to(torch.float32)
     logp = torch.log_softmax(logits, dim=-1)

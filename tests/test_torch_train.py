@@ -264,13 +264,17 @@ def test_diffusion_loss_and_grads_match_reference(arch, scale, overrides):
 
 
 def test_train_loss_refuses_what_is_not_ported():
+    """The families still to port are refused (the loss and the batches);
+    the dit family has no AR objective, as in the reference."""
     from repro_torch.configs import get_config
 
+    ssm = get_config("dit-cifar").reduced(family="ssm")
     with pytest.raises(NotImplementedError, match="item 12"):
+        t_api.train_loss(ssm, "ar")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        t_train.build_batch_fn(ssm, 2, 8)
+    with pytest.raises(ValueError, match="no autoregressive objective"):
         t_api.train_loss(get_config("dit-cifar").reduced(), "ar")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_train.build_batch_fn(
-            get_config("dit-cifar").reduced(family="dense"), 2, 8)
 
 
 # ---------------------------------------------------------------------------
