@@ -185,14 +185,45 @@ Phases (any failure exits non-zero):
      diffusion LM through a checkpoint and `launch.sample --ckpt`
      (UniPC-3, NFE 10, batch 8): bit-equal to sampling the in-memory
      params, no backward launch.
+ 13. the SSM and hybrid token families at full width: (a) flash_attention
+     at zamba2's head dim 112 (the ND 16 body), (8, 32, 512, 112) causal MHA
+     (its prefill) and (8, 32, 64, 112) (its diffusion LM), and
+     flash_attention_bwd at (8, 32, 512, 112) causal (its training step),
+     held, timed and labelled as in 11 (a) / 12 (a), each twice bit-equal.
+     (b) mamba2-780m (48 Mamba2 layers, d_model 1536, 48 SSD heads of 64,
+     state 128) and (c) zamba2-7b (81 layers, d_model 3584, 112 SSD heads of
+     64, state 64, one shared attention block of 32 heads of 112 after
+     every 6 layers) served through `launch.serve.serve` at batch 8, prompt
+     512, 64 greedy tokens as in 11 (b): no flash_attention launch for
+     mamba2, exactly 13 a zamba2 prefill and none in a decode step; the
+     decode loop again on the graph from a fresh prefill's state under
+     set_sync_debug_mode("error"), bit-equal to eager; prefill, decode
+     (replay and eager) and tokens/s beside `ssm_bounds`; the bf16 parity
+     as 11 (b) (zamba2's at 13 layers, two groups of six and a tail, its
+     full depth's readings printed: BF16_CUT), the fp32 kernels vs
+     plain-pinned at every layer; fp32 prefill + decode vs the forward
+     over 4 layers (mamba2) and two groups of two and a tail (zamba2). (d)
+     both diffusion LMs through `launch.sample.sample` as 11 (c): a replay
+     counted (22 row ops; 143 flash_attention for zamba2, none for
+     mamba2), bit-equal to the eager loop, no host sync, within 1e-2 of
+     the plain-pinned run (zamba2: at 13 layers). (e)
+     `launch.train.train`, AR then diffusion, 10 steps at batch 8 x 512:
+     mamba2-780m at full depth, zamba2-7b at 13 of its 81 layers (two groups
+     of six and a tail: all 81 with AdamW's moments need about 106 GB),
+     launches exact (2 + 2 a zamba2 step, none for mamba2), walls,
+     tokens/s, peak memory, the split and one profiled step; one zamba2 AR
+     step's gradients as 12 (c) (fp32 over two groups of two and a tail),
+     each arch's step twice bit-equal. (f) mamba2's trained diffusion LM
+     through a checkpoint and `sample --ckpt`: bit-equal, no backward.
 The last three lines are the kernels JSON (each kernel's launches on the
 main path, and since phase 8 its launches per serving tick and in the
 serving run, since phase 9 in each of its four runs, since phase 10 in the
 training run, since phase 11 in the token prefill, a decode step (0), a
 diffusion-LM replay and granite's prefill, with the token attention cases'
 and row ops' times, since phase 12 in the token training runs, with the
-token backward cases' times; the backward kernels' launches are phase
-10's training run's), the card's name and power limit as `nvidia-smi
+token backward cases' times, since phase 13 in the SSM and hybrid runs,
+with the D 112 cases; the backward kernels' launches are phase 10's
+training run's), the card's name and power limit as `nvidia-smi
 --query-gpu=name,power.limit` prints them, and {"ok": true, "device":
 {...}}.
 """
@@ -2959,14 +2990,16 @@ def attention_pairs(S: int, causal: bool, window) -> int:
     return n
 
 
-def token_kernel_cases(dev) -> dict:
-    """(a) flash_attention at the token paths' shapes: q/k/v as the models
-    hand them over (head-major views of (B, S, H, D) projections), bf16
-    against the plain version (<= 1e-2) and the same shapes at fp32 (<=
-    1e-5), each labelled with the body plan() chose; the bf16 case timed as
-    phase 3 times (100 calls in a CUDA graph) beside its bound, its plain
-    version and SDPA with enable_gqa (a yardstick only). unipc_update's
-    row ops at the diffusion LM's (8, 64, 64) state, bit-equal at fp32."""
+def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
+                       row_ops: bool = True) -> dict:
+    """(a) flash_attention at the token paths' shapes (`cases`): q/k/v as
+    the models hand them over (head-major views of (B, S, H, D)
+    projections), bf16 against the plain version (<= 1e-2) and the same
+    shapes at fp32 (<= 1e-5), each twice (bit-equal) and labelled with the
+    body plan() chose; the bf16 case timed as phase 3 times (100 calls in a
+    CUDA graph) beside its bound, its plain version and SDPA with
+    enable_gqa (a yardstick only). With `row_ops`, unipc_update's row ops
+    at the diffusion LM's (8, 64, 64) state, bit-equal at fp32."""
     from repro_torch.core.coeffs import augment_step_rows
     from repro_torch.core.unipc import rows_on
     from repro_torch.diffusion import VPLinear
@@ -2978,7 +3011,7 @@ def token_kernel_cases(dev) -> dict:
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(11)
     out = {}
-    for label, B, Hq, Hkv, S, D, causal, window in TOKEN_ATTENTION:
+    for label, B, Hq, Hkv, S, D, causal, window in cases:
         row = {}
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dt)
@@ -2986,6 +3019,7 @@ def token_kernel_cases(dev) -> dict:
                     for _ in range(2))
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
             got = fa_ops.attention(q, k, v, causal=causal, window=window)
+            again = fa_ops.attention(q, k, v, causal=causal, window=window)
             want = fa_ops.attention(q, k, v, causal=causal, window=window,
                                     backend="plain")
             torch.cuda.synchronize()
@@ -2995,11 +3029,15 @@ def token_kernel_cases(dev) -> dict:
                     if p["body"] == "mma" else p["body"])
             err = rel_err(got, want)
             name = "bf16" if dt == torch.bfloat16 else "fp32"
+            same = torch.equal(got, again)
             print(f"  flash_attention [{label} ({B}, {Hq}, {S}, {D}) {name}] "
-                  f"[{body}] rel L-inf {err:.3e} (tol {TOL[dt]:g})")
-            if not (torch.isfinite(got.float()).all() and err <= TOL[dt]):
+                  f"[{body}] rel L-inf {err:.3e} (tol {TOL[dt]:g}); twice "
+                  f"bit-equal {same}")
+            if not (torch.isfinite(got.float()).all() and err <= TOL[dt]
+                    and same):
                 fail(f"flash_attention [{label} {name}] disagrees with its "
-                     f"plain version: rel {err:.3e}")
+                     f"plain version (rel {err:.3e}) or with itself "
+                     f"({same})")
             row[f"rel_err_{name}"] = err
             row[f"abs_err_{name}"] = float(
                 (got.double() - want.double()).abs().max())
@@ -3031,6 +3069,8 @@ def token_kernel_cases(dev) -> dict:
               f"enable_gqa {row['library_ms']:.6f}; plain "
               f"{row['plain_ms']:.6f})")
         out[label] = row
+    if not row_ops:
+        return out
 
     # the diffusion LM's sampler rows: unguided NFE 10, order 3 table
     tab = SamplerEngine(VPLinear(), eps=None, device=dev).compile(
@@ -3102,6 +3142,46 @@ def token_bounds(cfg, batch: int, prompt_len: int, gen: int) -> dict:
                 decode_bytes=2 * n_w + cache)
 
 
+def ssm_bounds(cfg, batch: int, prompt_len: int, gen: int) -> dict:
+    """token_bounds for the Mamba2 stack and the hybrid: the prefill's bf16
+    matmul operations (every Mamba2 projection; per invocation of the
+    shared block its projections, the K/V re-projection, its MLP and causal
+    attention; the LM head at the last position) at the bf16 peak, plus
+    the SSD scan's fp32 operations (the causal half of each chunk's
+    quadratic form, the chunk states, the state-to-output term) at the
+    fp32 peak; a decode step's bf16 weights read once, the SSM states and
+    conv windows read and written, and the shared block's KV caches read,
+    over HBM."""
+    d, di, L, V = cfg.d_model, cfg.ssm_d_inner, cfg.num_layers, cfg.vocab_size
+    G, N, H, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    K, S, n_tok = cfg.ssm_conv, prompt_len, batch * prompt_len
+    conv_dim = di + 2 * G * N
+    w_mm = d * (2 * di + 2 * G * N + H) + di * d        # in_proj, out_proj
+    w_small = (K + 1) * conv_dim + 3 * H + di + d       # conv, A, D, dt, norms
+    n_calls = attention_launches(cfg)
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    w_shared = (d * (2 * hq * hd + 2 * hkv * hd) + 3 * d * cfg.d_ff + 2 * d
+                if n_calls else 0)
+    q = cfg.ssm_chunk
+    chunks, tri = -(-S // q), q * (q + 1) // 2
+    ssd = L * batch * chunks * (2 * G * tri * N + 2 * H * tri * P
+                                + 4 * H * q * P * N)
+    mm = 2 * n_tok * L * w_mm + 2 * batch * d * V + n_calls * (
+        2 * n_tok * (w_shared - 2 * d + 2 * d * hkv * hd)
+        + 4 * batch * hq * hd * attention_pairs(S, True, None))
+    n_w = L * (w_mm + w_small) + w_shared + V * d + d
+    state = 2 * 2 * L * batch * (H * P * N + (K - 1) * conv_dim)
+    cache = 2 * 2 * n_calls * batch * (S + gen) * hkv * hd
+    return dict(prefill_bound_ms=(mm / PEAK_FLOPS[torch.bfloat16]
+                                  + ssd / PEAK_FLOPS[torch.float32]) * 1e3,
+                prefill_flops=mm + ssd, prefill_ssd_fp32_flops=ssd,
+                decode_bound_ms=(2 * n_w + state + cache) / HBM_BYTES_PER_S
+                * 1e3,
+                decode_bytes=2 * n_w + state + cache,
+                decode_weight_bytes=2 * n_w, decode_state_bytes=state,
+                decode_kv_bytes=cache)
+
+
 def bf16_parity(label: str, k, p, t) -> dict:
     """Kernel (k) and plain-pinned (p) bf16 results against the fp32
     plain-pinned one (t), relative L-inf; fails unless the kernel run is
@@ -3124,7 +3204,7 @@ def prefill_parity(cfg, params, kept, prompts, max_len: int) -> tuple:
     """Prefill's last-position logits four ways at full depth: bf16 with the
     kernels and plain-pinned (over the weights kept once), fp32
     plain-pinned (the truth) and fp32 with the kernels (<= DECODE_TOL of
-    it). Returns the errors and the three bf16/bf16/fp32 caches."""
+    it). Returns the errors and the four caches in that order."""
     from repro_torch.models import api
 
     c32 = dataclasses.replace(cfg, dtype="float32")
@@ -3132,7 +3212,7 @@ def prefill_parity(cfg, params, kept, prompts, max_len: int) -> tuple:
     lk, kc = api.prefill_fn(cfg)(kept, batch, max_len)
     lp, pc = api.prefill_fn(plain_pinned(cfg))(kept, batch, max_len)
     lt, tc = api.prefill_fn(plain_pinned(c32))(params, batch, max_len)
-    lk32, _ = api.prefill_fn(c32)(params, batch, max_len)
+    lk32, kc32 = api.prefill_fn(c32)(params, batch, max_len)
     errs = bf16_parity(f"{cfg.arch_id} prefill's last logits", lk, lp, lt)
     errs["fp32_kernel_vs_plain"] = rel_err(lk32, lt)
     print(f"  {cfg.arch_id} prefill at fp32, all {cfg.num_layers} layers: "
@@ -3141,18 +3221,23 @@ def prefill_parity(cfg, params, kept, prompts, max_len: int) -> tuple:
     if not errs["fp32_kernel_vs_plain"] <= DECODE_TOL:
         fail(f"{cfg.arch_id} fp32 prefill: kernels vs plain-pinned "
              f"{errs['fp32_kernel_vs_plain']:.3e}")
-    return errs, (kc, pc, tc)
+    return errs, (kc, pc, tc, kc32)
 
 
-def teacher_forced_parity(cfg, params, kept, caches, tokens, start: int):
+def teacher_forced_parity(cfg, params, kept, caches, tokens, start: int,
+                          gated: bool = True):
     """The kernel run's tokens fed through eager decode steps (which launch
-    no port kernel) over prefill_parity's three caches: each step's logits
-    held as bf16_parity holds prefill's. Returns the worst step's errors."""
+    no port kernel) over prefill_parity's caches, each step's logits held
+    as bf16_parity holds prefill's (unless not `gated`: zamba2's 81
+    random-weight layers, whose readings are printed and whose gate is held
+    at BF16_CUT); the fp32 kernel cache's logits are held to the fp32
+    plain-pinned cache's within DECODE_TOL at each step. Returns the worst
+    step's errors and the means."""
     from repro_torch.models import api
 
     c32 = dataclasses.replace(cfg, dtype="float32")
-    kc, pc, tc = caches
-    worst: dict = {}
+    kc, pc, tc, kc32 = caches
+    steps = []
     for i in range(tokens.shape[1]):
         tok, pos = tokens[:, i:i + 1], start + i
         lk, _ = api.decode_fn(cfg)(kept, kc, tok, pos)
@@ -3161,65 +3246,184 @@ def teacher_forced_parity(cfg, params, kept, caches, tokens, start: int):
         step = dict(kernel_vs_plain=rel_err(lk, lp),
                     kernel_vs_fp32=rel_err(lk, lt),
                     plain_vs_fp32=rel_err(lp, lt))
-        if step["kernel_vs_fp32"] > step["plain_vs_fp32"] + TOKEN_TOL:
+        l32, _ = api.decode_fn(c32)(params, kc32, tok, pos)
+        step["fp32_kernel_vs_plain"] = rel_err(l32, lt)
+        if step["fp32_kernel_vs_plain"] > DECODE_TOL:
+            fail(f"teacher-forced decode step {i} at fp32: the kernel "
+                 f"cache's logits are {step['fp32_kernel_vs_plain']:.3e} "
+                 f"from the plain-pinned cache's")
+        if gated and step["kernel_vs_fp32"] > (step["plain_vs_fp32"]
+                                               + TOKEN_TOL):
             fail(f"teacher-forced decode step {i}: the kernel cache's logits "
                  f"are {step['kernel_vs_fp32']:.3e} from the fp32 run's, the "
                  f"plain-pinned cache's {step['plain_vs_fp32']:.3e}")
-        worst = {k: max(v, worst.get(k, 0.0)) for k, v in step.items()}
+        steps.append(step)
+    worst = {k: max(st[k] for st in steps) for k in steps[0]}
+    mean = {k: float(np.mean([st[k] for st in steps])) for k in steps[0]}
+    over = sum(st["kernel_vs_fp32"] > st["plain_vs_fp32"] + TOKEN_TOL
+               for st in steps)
     print(f"  the run's {tokens.shape[1]} tokens teacher-forced through "
           f"decode steps, worst step: kernel cache vs plain-pinned cache "
           f"{worst['kernel_vs_plain']:.3e}; vs the fp32 cache: kernels "
           f"{worst['kernel_vs_fp32']:.3e}, plain-pinned "
-          f"{worst['plain_vs_fp32']:.3e} (gate per step: kernels <= plain "
-          f"+ {TOKEN_TOL:g})")
-    return worst
+          f"{worst['plain_vs_fp32']:.3e}; mean over the steps: kernels "
+          f"{mean['kernel_vs_fp32']:.3e}, plain-pinned "
+          f"{mean['plain_vs_fp32']:.3e}; {over} step(s) with kernels > plain "
+          f"+ {TOKEN_TOL:g}; fp32 kernel cache vs plain-pinned at most "
+          f"{worst['fp32_kernel_vs_plain']:.3e} (tol {DECODE_TOL:g} a step) "
+          f"(bf16 gate: "
+          f"{'kernels <= plain + %g a step' % TOKEN_TOL if gated else 'none at this depth'})")
+    return dict(worst, mean=mean, steps_over=over)
 
 
-def fp32_decode_vs_forward(cfg, params, dev, S: int = 256, **over) -> float:
-    """The reference's test_decode_matches_forward at full width: the first
-    DECODE_DEPTH layers at fp32, prefill of t[:S] then decode of t[S]
-    against the full forward's logits at S (kernels on both sides)."""
-    from repro_torch.models import transformer
+def depth_cut(cfg, **over):
+    """The fp32 checks' config at full width: DECODE_DEPTH layers, or for
+    the hybrid two groups of two and a one-layer tail."""
+    if cfg.family == "hybrid":
+        over = dict(attn_every=2, **over)
+    return dataclasses.replace(
+        cfg, num_layers=5 if cfg.family == "hybrid" else DECODE_DEPTH,
+        dtype="float32", **over)
 
-    cfg4 = dataclasses.replace(cfg, num_layers=DECODE_DEPTH, dtype="float32",
-                               **over)
-    bk = params["backbone"]
-    p4 = {**bk, "layers": {k: (v[:DECODE_DEPTH] if torch.is_tensor(v) else
-                               {kk: vv[:DECODE_DEPTH] for kk, vv in v.items()})
-                           for k, v in bk["layers"].items()}}
+
+def fp32_decode_vs_forward(cfg, params, dev, S: int = 256) -> float:
+    """The reference's test_decode_matches_forward at full width over a
+    depth cut (`cfg` from depth_cut, `params` initialised at it): prefill
+    of t[:S] then decode of t[S] against the full forward's logits at S
+    (kernels on both sides)."""
+    from repro_torch.models import api, hybrid, transformer
+
+    forward = {"ssm": hybrid.mamba_forward,
+               "hybrid": hybrid.zamba_forward}.get(cfg.family,
+                                                   transformer.forward)
     t = torch.as_tensor(token_inputs(cfg, 2, S + 1, seed=5)).long().to(dev)
-    hidden, _ = transformer.forward(p4, cfg4, t)
-    want = transformer.logits_from_hidden(p4, cfg4, hidden)[:, S]
-    _, cache = transformer.prefill(p4, cfg4, t[:, :S], S + 4)
-    got, _ = transformer.decode_step(p4, cfg4, cache, t[:, S:S + 1], S)
+    hidden, _ = forward(params["backbone"], cfg, t)
+    want = transformer.logits_from_hidden(params["backbone"], cfg,
+                                          hidden)[:, S]
+    _, cache = api.prefill_fn(cfg)(params, {"tokens": t[:, :S]}, S + 4)
+    got, _ = api.decode_fn(cfg)(params, cache, t[:, S:S + 1], S)
     return rel_err(got[:, 0], want)
 
 
-def token_serving_part(dev, counts_out: dict) -> dict:
-    """(b) qwen2-0.5b at full width through launch.serve.serve."""
+def diffusion_lm_inputs(cfg, params, batch: int, dev) -> torch.Tensor:
+    """Perturbs the diffusion head's out_proj in place (zero-init: eps = 0
+    and every parity vacuous otherwise) and draws x_T."""
+    from repro_torch.launch.sample import latent_shape
+
+    head = params["diffusion_head"]
+    head["out_proj"] = OUT_PROJ_SCALE * torch.randn(
+        head["out_proj"].shape, generator=torch.Generator(
+            device=dev).manual_seed(2), device=dev)
+    return torch.randn(latent_shape(cfg, batch), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+
+
+def bf16_cut_parity(arch, dev, prompts, tokens, max_len: int) -> dict:
+    """Phase 11's bf16 gates for an arch in BF16_CUT, at its cut: fresh
+    params, prefill_parity and every teacher-forced step gated (the run's
+    tokens), and the diffusion LM's latents within MAIN_TOL of
+    plain-pinned (eager UniPC, kernels against plain-pinned)."""
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.launch.sample import build_engine
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=BF16_CUT[arch])
+    print(f"  bf16 gates at {cut_depth_note(cfg)}:")
+    params = api.init_params(cfg, 0, dev)
+    kept = api.cast_weights_once(cfg, params)
+    pre, caches = prefill_parity(cfg, params, kept, prompts, max_len)
+    tf = teacher_forced_parity(cfg, params, kept, caches, tokens,
+                               prompts.shape[1])
+    del caches
+    x_T = diffusion_lm_inputs(cfg, params, TOKEN_SAMPLE["batch"], dev)
+    spec = EngineSpec(nfe=TOKEN_SAMPLE["nfe"], order=TOKEN_SAMPLE["order"])
+    x_k = build_engine(cfg, params, VPLinear(), x_T.shape[0],
+                       device=dev).build(spec, jit=False)(x_T)
+    x_p = build_engine(plain_pinned(cfg), params, VPLinear(), x_T.shape[0],
+                       device=dev).build(dataclasses.replace(
+                           spec, fused_update=False), jit=False)(x_T)
+    err = rel_err(x_k, x_p)
+    print(f"  diffusion-LM latents, eager: kernels vs plain-pinned rel L-inf "
+          f"{err:.3e} (tol {MAIN_TOL:g})")
+    if not err <= MAIN_TOL:
+        fail(f"{arch} at {cfg.num_layers} layers: diffusion-LM latents "
+             f"disagree with plain-pinned: {err:.3e}")
+    return dict(layers=cfg.num_layers, prefill_parity=pre,
+                teacher_forced_parity=tf, latents_vs_plain=err)
+
+
+def cut_depth_note(cfg) -> str:
+    return (f"{cfg.num_layers} layers (groups of {cfg.attn_every} and a "
+            f"tail)" if cfg.family == "hybrid" else
+            f"{cfg.num_layers} layers")
+
+
+def attention_launches(cfg) -> int:
+    """flash_attention launches of one forward (a prefill, an eval, a
+    training step's forward): one a layer for the transformers, one an
+    invocation of zamba2's shared block, none for the Mamba2 stack."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def describe(cfg) -> str:
+    if cfg.family in ("ssm", "hybrid"):
+        shared = (f"; one shared attention block every {cfg.attn_every} "
+                  f"layers ({cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                  f"{cfg.head_dim})" if cfg.family == "hybrid" else "")
+        return (f"{cfg.num_layers} Mamba2 layers, d_model {cfg.d_model}, "
+                f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
+                f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}{shared}, vocab "
+                f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype} params")
+    return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+            f"vocab {cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype} "
+            f"params")
+
+
+def copy_tree(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_tree(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
+def token_serving_part(dev, counts_out: dict, arch: str = TOKEN_ARCH,
+                       shape: dict = TOKEN_SERVE) -> dict:
+    """(b) a token arch (qwen2-0.5b in phase 11; mamba2-780m and zamba2-7b
+    in phase 13) at full width through launch.serve.serve."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import decode_tokens, serve
     from repro_torch.models import api
 
-    cfg = get_config(TOKEN_ARCH)
-    print(f"  {TOKEN_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype} params")
-    B, S, G = (TOKEN_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    cfg = get_config(arch)
+    print(f"  {arch}: {describe(cfg)}")
+    B, S, G = (shape[k] for k in ("batch", "prompt_len", "gen"))
     params = api.init_params(cfg, 0, dev)
+    n_params = sum(t.numel() for t in tensor_leaves(params["backbone"]))
     prompts = token_inputs(cfg, B, S, seed=3)
     kw = dict(reduced=False, batch=B, prompt_len=S, gen=G, device=dev,
               params=params, prompts=prompts)
     free_graphs()
     torch.cuda.reset_peak_memory_stats(dev)
     LAUNCHES.clear()
-    run = serve(TOKEN_ARCH, return_run=True, **kw)
+    run = serve(arch, return_run=True, **kw)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     counts_out.update(counts)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"flash_attention": cfg.num_layers}
+    want = nonzero({"flash_attention": attention_launches(cfg)})
     print(f"  serve(): launches {counts} (prefill {want}, decode 0 a step); "
           f"prefill {run.prefill_s * 1e3:.3f} ms, decode {G} steps "
           f"{run.decode_s * 1e3:.3f} ms (the capture inside); peak memory "
@@ -3235,9 +3439,14 @@ def token_serving_part(dev, counts_out: dict) -> dict:
     if sum(LAUNCHES.values()):
         fail(f"a decode step launched port kernels: {dict(LAUNCHES)}")
 
-    # the steady decode loop again on the captured graph (from prefill's
-    # logits, the same cache slots rewritten in order): bit-equal tokens,
-    # no host sync, its wall
+    # the steady decode loop again on the captured graph, from prefill's
+    # logits and its cache (prefill again, bit-equal, copied into the
+    # graph's: an SSM state has moved on with every step): bit-equal
+    # tokens, no host sync, its wall
+    _, fresh = api.prefill_fn(cfg)(dec.params, {"tokens": run.prompts},
+                                   S + G)
+    copy_tree(dec.cache, fresh)
+    del fresh
     first = torch.argmax(run.prefill_logits[:, -1], dim=-1)
     gen_rng = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
@@ -3258,7 +3467,7 @@ def token_serving_part(dev, counts_out: dict) -> dict:
 
     # the eager step: the same tokens bit for bit
     free_graphs()
-    eager = serve(TOKEN_ARCH, jit=False, return_run=True, **kw)
+    eager = serve(arch, jit=False, return_run=True, **kw)
     if not np.array_equal(eager.tokens, run.tokens):
         fail("graph decode tokens differ from the eager decode's")
     print(f"  eager decode (jit=False): tokens bit-equal to the graph's; "
@@ -3269,7 +3478,8 @@ def token_serving_part(dev, counts_out: dict) -> dict:
     kept = dec.params
     prefill_walls = median_walls({"prefill": lambda: api.prefill_fn(cfg)(
         kept, {"tokens": run.prompts}, S + G)}, reps=3)["prefill"]
-    bounds = token_bounds(cfg, B, S, G)
+    bounds = (ssm_bounds if cfg.family in ("ssm", "hybrid") else
+              token_bounds)(cfg, B, S, G)
     print(f"  decode step: graph replay {replay_ms:.4f} ms, eager step "
           f"{eager_ms:.4f} ms (CUDA events, back to back; bound "
           f"{bounds['decode_bound_ms']:.4f} ms: "
@@ -3284,7 +3494,8 @@ def token_serving_part(dev, counts_out: dict) -> dict:
     # the kernel run's tokens teacher-forced through decode steps
     tokens = torch.as_tensor(run.tokens).long().to(dev)
     pre, caches = prefill_parity(cfg, params, kept, run.prompts, S + G)
-    tf = teacher_forced_parity(cfg, params, kept, caches, tokens, S)
+    tf = teacher_forced_parity(cfg, params, kept, caches, tokens, S,
+                               gated=arch not in BF16_CUT)
     del caches
     print("  profile of the prefill:")
     prof_prefill = profile_split(lambda: api.prefill_fn(cfg)(
@@ -3292,15 +3503,23 @@ def token_serving_part(dev, counts_out: dict) -> dict:
     print("  profile of a decode step's replay:")
     prof_decode = profile_split(dec.graph.replay)
     run_prefill_ms = run.prefill_s * 1e3
-    del dec, run, kept
+    prompt_t = run.prompts
+    del dec, run, kept, params
     free_graphs()
-    dec_err = fp32_decode_vs_forward(cfg, params, dev)
-    print(f"  fp32, {DECODE_DEPTH} layers at full width: prefill t[:256] + "
-          f"decode t[256] vs the forward's logits at 256: rel L-inf "
-          f"{dec_err:.3e} (tol {DECODE_TOL:g})")
+    cut = {}
+    if arch in BF16_CUT:
+        cut = bf16_cut_parity(arch, dev, prompt_t, tokens, S + G)
+        free_graphs()
+    c4 = depth_cut(cfg)
+    dec_err = fp32_decode_vs_forward(c4, api.init_params(c4, 5, dev), dev)
+    print(f"  fp32, {cut_depth_note(c4)} at full width: prefill t[:256] + "
+          f"decode t[256] "
+          f"vs the forward's logits at 256: rel L-inf {dec_err:.3e} (tol "
+          f"{DECODE_TOL:g})")
     if not dec_err <= DECODE_TOL:
         fail(f"decode disagrees with the forward: {dec_err:.3e}")
-    return dict(launches=counts, peak_memory_gib=peak / 2**30,
+    return dict(launches=counts, params_b=n_params / 1e9,
+                peak_memory_gib=peak / 2**30,
                 prefill_first_ms=run_prefill_ms,
                 prefill_ms=prefill_walls["median_s"] * 1e3,
                 prefill_reps_ms=[w * 1e3 for w in prefill_walls["reps_s"]],
@@ -3308,39 +3527,34 @@ def token_serving_part(dev, counts_out: dict) -> dict:
                 decode_loop_ms_per_token=loop_s / G * 1e3,
                 tokens_per_s=B * G / loop_s, **bounds,
                 prefill_parity=pre, teacher_forced_parity=tf,
-                fp32_decode_rel_err=dec_err, profile_prefill=prof_prefill,
+                bf16_cut_parity=cut, fp32_decode_rel_err=dec_err, profile_prefill=prof_prefill,
                 profile_decode_replay=prof_decode)
 
 
-def token_sample_part(dev, counts_out: dict) -> dict:
-    """(c) UniPC sampling of qwen2-0.5b's diffusion LM at full width through
+def token_sample_part(dev, counts_out: dict, arch: str = TOKEN_ARCH) -> dict:
+    """(c) UniPC sampling of a token arch's diffusion LM (qwen2-0.5b in
+    phase 11; mamba2-780m and zamba2-7b in phase 13) at full width through
     launch.sample.sample and one engine's graph."""
     from repro_torch.configs import get_config
     from repro_torch.diffusion import VPLinear
     from repro_torch.engine import EngineSpec
     from repro_torch.kernels.dispatch import LAUNCHES
-    from repro_torch.launch.sample import build_engine, latent_shape, sample
+    from repro_torch.launch.sample import build_engine, sample
     from repro_torch.models import api
 
     B, nfe, order = (TOKEN_SAMPLE[k] for k in ("batch", "nfe", "order"))
     rows = nfe + 1
-    cfg = get_config(TOKEN_ARCH)
+    cfg = get_config(arch)
     params = api.init_params(cfg, 1, dev)
-    # out_proj is zero-init: eps = 0 and every parity vacuous otherwise
-    head = params["diffusion_head"]
-    head["out_proj"] = OUT_PROJ_SCALE * torch.randn(
-        head["out_proj"].shape, generator=torch.Generator(
-            device=dev).manual_seed(2), device=dev)
-    x_T = torch.randn(latent_shape(cfg, B), generator=torch.Generator(
-        device=dev).manual_seed(7), device=dev)
+    x_T = diffusion_lm_inputs(cfg, params, B, dev)
     spec = EngineSpec(nfe=nfe, order=order)
-    L = cfg.num_layers
-    expected = {"flash_attention": L * rows, "unipc_update": 2 * rows}
-    warm = {"flash_attention": L, "unipc_update": 2}
+    L = attention_launches(cfg)
+    expected = nonzero({"flash_attention": L * rows, "unipc_update": 2 * rows})
+    warm = nonzero({"flash_attention": L, "unipc_update": 2})
     free_graphs()
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    x0 = sample(TOKEN_ARCH, reduced=False, nfe=nfe, order=order, batch=B,
+    x0 = sample(arch, reduced=False, nfe=nfe, order=order, batch=B,
                 params=params, x_T=x_T, device=dev)
     wall = time.perf_counter() - t0
     counts = dict(LAUNCHES)
@@ -3385,14 +3599,35 @@ def token_sample_part(dev, counts_out: dict) -> dict:
         fail(f"the plain-pinned diffusion-LM run launched kernels: "
              f"{dict(LAUNCHES)}")
     err = rel_err(torch.as_tensor(x0), x_plain.cpu())
-    print(f"  kernel vs plain-pinned latents: rel L-inf {err:.3e} (tol "
-          f"{MAIN_TOL:g})")
-    if not err <= MAIN_TOL:
-        fail(f"diffusion-LM latents disagree with plain-pinned: {err:.3e}")
     del plain
-    return dict(sample_wall_s=wall, sample_launches=counts,
-                replay_launches=dict(counts_out), walls=walls,
-                rel_err_vs_plain=err)
+    out = dict(sample_wall_s=wall, sample_launches=counts,
+               replay_launches=dict(counts_out), walls=walls,
+               rel_err_vs_plain=err)
+    gated = arch not in BF16_CUT
+    print(f"  kernel vs plain-pinned latents: rel L-inf {err:.3e} ("
+          + (f"tol {MAIN_TOL:g})" if gated else
+             f"held at {BF16_CUT.get(arch)} layers in the serving part)"))
+    if gated and not err <= MAIN_TOL:
+        fail(f"diffusion-LM latents disagree with plain-pinned: {err:.3e}")
+    if cfg.family not in ("ssm", "hybrid"):
+        return out
+    # phase 13: both bf16 runs against the fp32 run as bf16_parity holds
+    # logits, and the kernels at fp32 to DECODE_TOL, all layers
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    truth = build_engine(plain_pinned(c32), params, VPLinear(), B,
+                         device=dev).build(
+        dataclasses.replace(spec, fused_update=False), jit=False)(x_T)
+    x32 = build_engine(c32, params, VPLinear(), B, device=dev).build(
+        spec, jit=False)(x_T)
+    errs = bf16_parity(f"{arch}'s diffusion-LM latents",
+                       torch.as_tensor(x0).to(dev), x_plain, truth)
+    errs["fp32_kernel_vs_plain"] = rel_err(x32, truth)
+    print(f"  at fp32, all {cfg.num_layers} layers: kernel vs plain-pinned "
+          f"latents {errs['fp32_kernel_vs_plain']:.3e} (tol {DECODE_TOL:g})")
+    if not errs["fp32_kernel_vs_plain"] <= DECODE_TOL:
+        fail(f"{arch}'s fp32 diffusion-LM latents: kernels vs plain-pinned "
+             f"{errs['fp32_kernel_vs_plain']:.3e}")
+    return dict(out, parity=errs)
 
 
 def moe_serving_part(dev, counts_out: dict) -> dict:
@@ -3433,10 +3668,10 @@ def moe_serving_part(dev, counts_out: dict) -> dict:
     print("  profile of a decode step's replay:")
     prof_decode = profile_split(dec.graph.replay)
     pre, caches = prefill_parity(cfg, params, kept, run.prompts, S + G)
-    del dec, run, kept, caches
+    del dec, run, kept, caches, params
     free_graphs()
-    dec_err = fp32_decode_vs_forward(cfg, params, dev,
-                                     capacity_factor=MOE_CAPACITY)
+    c4 = depth_cut(cfg, capacity_factor=MOE_CAPACITY)
+    dec_err = fp32_decode_vs_forward(c4, api.init_params(c4, 5, dev), dev)
     print(f"  fp32, {DECODE_DEPTH} layers at full width, capacity "
           f"{MOE_CAPACITY:g} (no drops): decode vs forward rel L-inf "
           f"{dec_err:.3e} (tol {DECODE_TOL:g})")
@@ -4091,7 +4326,7 @@ def tensors_sha256(ts) -> str:
     return h.hexdigest()
 
 
-def token_backward_cases(dev) -> dict:
+def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
     """(a) flash_attention_bwd at the token training shapes, each mask and
     group size, fp32 (<= 1e-5 relative L-inf) and bf16 (<= 1e-2 relative
     L2) against the plain version, each twice (bit-equal) and labelled with
@@ -4106,7 +4341,7 @@ def token_backward_cases(dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(12)
     out = {}
-    for label, B, Hq, Hkv, S, D, causal, window in TOKEN_BWD:
+    for label, B, Hq, Hkv, S, D, causal, window in cases:
         row = dict(shape=[B, Hq, Hkv, S, D], causal=causal, window=window)
         kw = dict(causal=causal, window=window)
         dit = label.startswith("dit")
@@ -4308,34 +4543,37 @@ def token_training_part(dev, counts_out: dict) -> dict:
     return out
 
 
-def token_step_parity_part(dev) -> dict:
-    """(c) one step's loss and every gradient leaf on perturbed params:
-    qwen2-0.5b at full width, AR, bf16 kernels and bf16 plain-pinned each
-    against the fp32 plain-pinned run (the kernels within the plain run's
-    own distance + TOKEN_TOL, loss and each leaf, relative L2); fp32
-    kernels against fp32 plain-pinned over STEP_FP32_DEPTH layers, both
-    objectives (<= STEP_FP32_TOL); the full bf16 step twice, bit-equal."""
+def token_step_parity_part(dev, arch: str = TOKEN_ARCH, layers=None,
+                           shape: dict = TOKEN_TRAIN) -> dict:
+    """(c) one step's loss and every gradient leaf on perturbed params: a
+    token arch (qwen2-0.5b in phase 12, zamba2-7b at `layers` in phase 13)
+    at full width, AR, bf16 kernels and bf16 plain-pinned each against the
+    fp32 plain-pinned run (the kernels within the plain run's own distance
+    + TOKEN_TOL, loss and each leaf, relative L2); fp32 kernels against
+    fp32 plain-pinned over depth_cut, both objectives (<= STEP_FP32_TOL);
+    the full bf16 step twice, bit-equal."""
     from repro_torch.configs import get_config
     from repro_torch.diffusion import VPLinear
     from repro_torch.diffusion.process import draw_t_noise
     from repro_torch.kernels.dispatch import LAUNCHES
-    from repro_torch.launch.train import build_batch_fn, make_train_step
-    from repro_torch.optim import AdamW, tree_leaves, warmup_cosine
+    from repro_torch.launch.train import build_batch_fn
 
-    cfg = get_config(TOKEN_ARCH)
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     c32 = dataclasses.replace(cfg, dtype="float32")
     params = perturbed_token_params(cfg, dev)
     names = _leaf_names(params)
-    batch = build_batch_fn(cfg, TOKEN_TRAIN["batch"], TOKEN_TRAIN["seq"],
-                           seed=0, device=dev)(0)
+    batch = build_batch_fn(cfg, shape["batch"], shape["seq"], seed=0,
+                           device=dev)(0)
     out = {}
     free_graphs()
     LAUNCHES.clear()
     loss_k, grads_k = token_loss_and_grads(cfg, "ar", params, batch, None)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
-    L = cfg.num_layers
-    if counts != {"flash_attention": L, "flash_attention_bwd": L}:
+    L = attention_launches(cfg)
+    if counts != nonzero({"flash_attention": L, "flash_attention_bwd": L}):
         fail(f"one AR step launched {counts}")
     loss_p, grads_p = token_loss_and_grads(plain_pinned(cfg), "ar", params,
                                            batch, None)
@@ -4365,27 +4603,12 @@ def token_step_parity_part(dev) -> dict:
              f"{TOKEN_TOL:g} at {bad}")
     out["bf16_full_width"] = dict(leaves=rows, worst=worst)
     del grads_k, grads_p, grads_t
-
-    # the whole bf16 step twice, as phase 10 (d) runs the DiT's
-    opt = AdamW(lr=warmup_cosine(1e-3, 3, 20))
-    step = make_train_step(cfg, "ar", opt)
-    state = opt.init(params)
-    runs = [step(params, state, batch, None) for _ in range(2)]
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(
-        [runs[0][2], *tree_leaves(runs[0][0]), *tree_leaves(runs[0][1].m),
-         *tree_leaves(runs[0][1].v)],
-        [runs[1][2], *tree_leaves(runs[1][0]), *tree_leaves(runs[1][1].m),
-         *tree_leaves(runs[1][1].v)]))
-    print(f"  the full-width AR step (loss, gradients, AdamW) twice from the "
-          f"same inputs: loss, params and moments bit-equal: {same}")
-    if not same:
-        fail("two runs of the same token training step differ")
-    out["repeat_bit_equal"] = same
-    del runs, state, params
+    free_graphs()
+    out["repeat_bit_equal"] = step_twice(cfg, params, batch)
+    del params
     free_graphs()
 
-    c4 = dataclasses.replace(c32, num_layers=STEP_FP32_DEPTH)
+    c4 = depth_cut(cfg)
     p4 = perturbed_token_params(c4, dev, seed=3)
     fp32 = {}
     for objective in ("ar", "diffusion"):
@@ -4399,15 +4622,40 @@ def token_step_parity_part(dev) -> dict:
                 if b.abs().max() > 0}
         errs["loss"] = rel_l2(lk, lp)
         w = max(errs, key=errs.get)
-        print(f"  one {objective} step at fp32, {STEP_FP32_DEPTH} layers: "
+        print(f"  one {objective} step at fp32, {c4.num_layers} layers: "
               f"kernels vs plain-pinned, loss {errs['loss']:.3e}, gradient "
               f"leaves at most {errs[w]:.3e} ({w}) (tol {STEP_FP32_TOL:g})")
         if not errs[w] <= STEP_FP32_TOL:
             fail(f"fp32 {objective} step: kernels vs plain {errs[w]:.3e}")
         fp32[objective] = dict(loss=float(lk), max_rel_l2=errs[w], worst=w)
-    out["fp32_4_layers"] = fp32
+    out["fp32_depth_cut"] = fp32
     del p4
     return out
+
+
+def step_twice(cfg, params, batch) -> bool:
+    """The whole bf16 AR step (loss, gradients, AdamW) twice from the same
+    inputs, as phase 10 (d) runs the DiT's: fails unless the loss, params
+    and moments are bit-equal."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import AdamW, tree_leaves, warmup_cosine
+
+    opt = AdamW(lr=warmup_cosine(1e-3, 3, 20))
+    step = make_train_step(cfg, "ar", opt)
+    state = opt.init(params)
+    runs = [step(params, state, batch, None) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        [runs[0][2], *tree_leaves(runs[0][0]), *tree_leaves(runs[0][1].m),
+         *tree_leaves(runs[0][1].v)],
+        [runs[1][2], *tree_leaves(runs[1][0]), *tree_leaves(runs[1][1].m),
+         *tree_leaves(runs[1][1].v)]))
+    print(f"  {cfg.arch_id} at {cfg.num_layers} layers: the full-width AR "
+          f"step (loss, gradients, AdamW) twice from the same inputs: loss, "
+          f"params and moments bit-equal: {same}")
+    if not same:
+        fail(f"two runs of the same {cfg.arch_id} training step differ")
+    return same
 
 
 def token_more_training_part(dev, counts_out: dict) -> dict:
@@ -4440,10 +4688,12 @@ def token_more_training_part(dev, counts_out: dict) -> dict:
     return out
 
 
-def token_checkpoint_part(dev, params) -> dict:
-    """(e) the diffusion LM trained in (b) through its checkpoint and
-    `launch.sample --ckpt`: bit-equal to sampling the in-memory params,
-    sampling's launches (a warm-up row and a replay), no backward."""
+def token_checkpoint_part(dev, params, arch: str = TOKEN_ARCH,
+                          steps: int = TOKEN_TRAIN["steps"]) -> dict:
+    """(e) the diffusion LM trained in (b) (phase 13: mamba2-780m's) through
+    its checkpoint and `launch.sample --ckpt`: bit-equal to sampling the
+    in-memory params, sampling's launches (a warm-up row and a replay), no
+    backward."""
     import tempfile
 
     from repro_torch.checkpoint import ckpt
@@ -4452,31 +4702,32 @@ def token_checkpoint_part(dev, params) -> dict:
     from repro_torch.launch import sample as sample_mod
     from repro_torch.optim import tree_leaves
 
-    cfg = get_config(TOKEN_ARCH)
+    cfg = get_config(arch)
     nfe, order, batch = (TOKEN_CKPT_SAMPLE[k] for k in ("nfe", "order",
                                                         "batch"))
-    rows, L = nfe + 1, cfg.num_layers
-    want = {"flash_attention": L * (rows + 1), "unipc_update": 2 * (rows + 1)}
+    rows, L = nfe + 1, attention_launches(cfg)
+    want = nonzero({"flash_attention": L * (rows + 1),
+                    "unipc_update": 2 * (rows + 1)})
     free_graphs()
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        ckpt.save(d, {"params": params}, step=TOKEN_TRAIN["steps"])
+        ckpt.save(d, {"params": params}, step=steps)
         save_s = time.perf_counter() - t0
         tree, step = ckpt.restore(d)
         nbytes_ = sum(a.nbytes for a in tree_leaves(tree["params"]))
-        same = step == TOKEN_TRAIN["steps"] and all(
+        same = step == steps and all(
             np.array_equal(a, b.cpu().numpy()) for a, b in zip(
                 tree_leaves(tree["params"]), tree_leaves(params)))
         del tree
         free_graphs()
         LAUNCHES.clear()
         x_ckpt = sample_mod.main([
-            "--arch", TOKEN_ARCH, "--full", "--ckpt", d, "--nfe", str(nfe),
+            "--arch", arch, "--full", "--ckpt", d, "--nfe", str(nfe),
             "--order", str(order), "--batch", str(batch)])
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
     free_graphs()
-    x_mem = sample_mod.sample(TOKEN_ARCH, reduced=False, params=params,
+    x_mem = sample_mod.sample(arch, reduced=False, params=params,
                               nfe=nfe, order=order, batch=batch, device=dev)
     bit = np.array_equal(x_ckpt, x_mem)
     print(f"  checkpoint of the trained diffusion LM: {nbytes_ / 2**30:.2f} "
@@ -4492,6 +4743,121 @@ def token_checkpoint_part(dev, params) -> dict:
     return dict(checkpoint_gib=nbytes_ / 2**30, save_s=save_s,
                 sample_launches=counts, sample_bit_equal=bit,
                 latents_std=float(x_ckpt.std()))
+
+
+# --------------------------------------------------------------------------
+# phase 13: the SSM and hybrid token families
+# --------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "zamba2-7b"
+SSM_ARCHS = (SSM_ARCH, HYBRID_ARCH)
+SSM_SERVE = dict(batch=8, prompt_len=512, gen=64)
+SSM_TRAIN = dict(steps=10, batch=8, seq=512)
+SSM_PROFILE_STEP = 5
+# zamba2-7b trains at 13 of its 81 layers: two groups of six and a
+# one-layer tail (about 1.35B params; all 81 with AdamW's fp32 moments
+# would need about 106 GB); mamba2-780m at full depth
+TRAIN_LAYERS = {SSM_ARCH: None, HYBRID_ARCH: 13}
+# where phase 11's bf16 gates (each teacher-forced step within the plain
+# run's distance from fp32 + TOKEN_TOL, latents within MAIN_TOL of
+# plain-pinned) are held: zamba2's 81 random-weight layers amplify bf16
+# rounding past them (PERF.md §6), so they hold at its training cut and
+# its full depth's readings are printed
+BF16_CUT = {HYBRID_ARCH: TRAIN_LAYERS[HYBRID_ARCH]}
+# zamba2's shared block: 32 heads of 112 (3584 / 32), causal MHA, at its
+# prefill and training length and at its diffusion LM's 64 tokens
+SSM_ATTENTION = [
+    ("zamba2-7b prefill, causal MHA D=112", 8, 32, 32, 512, 112, True,
+     None),
+    ("zamba2-7b diffusion LM, causal MHA D=112", 8, 32, 32, 64, 112, True,
+     None),
+]
+SSM_BWD = [
+    ("zamba2-7b training, causal MHA D=112", 8, 32, 32, 512, 112, True,
+     None),
+]
+
+
+def ssm_training_part(dev, counts_out: dict) -> dict:
+    """(e) mamba2-780m at full depth and zamba2-7b at TRAIN_LAYERS through
+    launch.train, AR then diffusion: every loss finite, exactly one
+    flash_attention and one flash_attention_bwd an invocation of the
+    shared block a step (2 + 2 for zamba2 at 13 layers), none for
+    mamba2."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    steps = SSM_TRAIN["steps"]
+    for arch in SSM_ARCHS:
+        layers = TRAIN_LAYERS[arch]
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        n = attention_launches(cfg) * steps
+        want = nonzero({"flash_attention": n, "flash_attention_bwd": n})
+        for objective in ("ar", "diffusion"):
+            counts = counts_out.setdefault(f"{arch} {objective}", {})
+            run = token_train_run(dev, arch, objective, counts,
+                                  profile_at=SSM_PROFILE_STEP, layers=layers,
+                                  **SSM_TRAIN)
+            if counts != want:
+                fail(f"train({arch}, {objective}) launched {counts} != "
+                     f"{want}")
+            out[f"{arch} {objective}"] = dict(run["out"], layers=cfg.num_layers)
+            if arch == SSM_ARCH and objective == "diffusion":
+                out["_params"] = run["params"]
+            del run
+            free_graphs()
+    return out
+
+
+def ssm_phase(dev, counts_out: dict) -> dict:
+    """Phase 13: (a) the attention kernels at zamba2's head dim; (b), (c)
+    both archs served; (d) both diffusion LMs sampled; (e) trained; (f)
+    mamba2's trained diffusion LM through a checkpoint and sample
+    --ckpt."""
+    out = {"kernels": token_kernel_cases(dev, SSM_ATTENTION, row_ops=False),
+           "backward": token_backward_cases(dev, SSM_BWD)}
+    free_graphs()
+    for arch in SSM_ARCHS:
+        print(f"  -- {arch} served")
+        counts = counts_out.setdefault(f"{arch} serve", {})
+        out[f"{arch} serve"] = token_serving_part(dev, counts, arch,
+                                                  SSM_SERVE)
+        free_graphs()
+        print(f"  -- {arch}'s diffusion LM sampled")
+        counts = counts_out.setdefault(f"{arch} sample", {})
+        out[f"{arch} sample"] = token_sample_part(dev, counts, arch)
+        free_graphs()
+    out.update(ssm_training_phase(dev, counts_out))
+    return out
+
+
+def ssm_training_phase(dev, counts_out: dict) -> dict:
+    """Phase 13 (e) and (f)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_batch_fn
+
+    print("  -- training")
+    trained = ssm_training_part(dev, counts_out)
+    params = trained.pop("_params")
+    out = {"train": trained}
+    out[f"{HYBRID_ARCH} step"] = token_step_parity_part(
+        dev, HYBRID_ARCH, TRAIN_LAYERS[HYBRID_ARCH], SSM_TRAIN)
+    free_graphs()
+    # mamba2's step launches no port kernel: held twice, bit-equal
+    cfg = get_config(SSM_ARCH)
+    batch = build_batch_fn(cfg, SSM_TRAIN["batch"], SSM_TRAIN["seq"], seed=0,
+                           device=dev)(0)
+    out[f"{SSM_ARCH} step"] = dict(repeat_bit_equal=step_twice(
+        cfg, perturbed_token_params(cfg, dev), batch))
+    free_graphs()
+    out["checkpoint"] = token_checkpoint_part(dev, params, SSM_ARCH,
+                                              SSM_TRAIN["steps"])
+    del params
+    free_graphs()
+    return out
 
 
 def token_training_phase(dev, counts_out: dict) -> dict:
@@ -4634,6 +5000,17 @@ def main():
     gcounts: dict = {}
     token_trained = token_training_phase(dev, gcounts)
 
+    print(f"== phase 13: the SSM and hybrid token families at full width "
+          f"({SSM_ARCH} and {HYBRID_ARCH} served through launch.serve: batch "
+          f"{SSM_SERVE['batch']}, prompt {SSM_SERVE['prompt_len']}, "
+          f"{SSM_SERVE['gen']} greedy tokens; their diffusion LMs sampled; "
+          f"trained through launch.train, {SSM_TRAIN['steps']} steps at "
+          f"batch {SSM_TRAIN['batch']} x {SSM_TRAIN['seq']}, AR and "
+          f"diffusion, {HYBRID_ARCH} at {TRAIN_LAYERS[HYBRID_ARCH]} of its "
+          f"layers; sample --ckpt) on {smi[0]}")
+    scounts13: dict = {}
+    ssm = ssm_phase(dev, scounts13)
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -4689,6 +5066,17 @@ def main():
                 if label != "unipc_row_ops"}
         if kname == "unipc_update":
             entry["token_row_ops"] = tokens["kernels"]["unipc_row_ops"]
+        # phase 13: the SSM and hybrid archs' prefills, sampling replays
+        # and training runs (a decode step launches no port kernel)
+        entry["ssm_launches"] = {part: c.get(kname, 0)
+                                 for part, c in scounts13.items()}
+        if kname == "flash_attention":
+            entry["ssm_cases"] = {
+                label: {k: v for k, v in row.items()
+                        if k in ("shape", "ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by", "rel_err_bf16",
+                                 "rel_err_fp32", "body_bf16")}
+                for label, row in ssm["kernels"].items()}
         if kname in served["cache"]["launches"].get("shallow", {}):
             entry["serving_launches_per_shallow_tick"] = (
                 served["cache"]["launches"]["shallow"][kname])
@@ -4716,14 +5104,19 @@ def main():
         if kname == "flash_attention_bwd":
             rows = token_trained["backward"]
             entry["token_cases"] = rows
+            entry["ssm_cases"] = ssm["backward"]
+            entry["ssm_launches"] = {part: c.get(kname, 0)
+                                     for part, c in scounts13.items()}
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [
-                row[f"abs_err_{n}"] for row in rows.values()
-                for n in ("fp32", "bf16")])
+                row[f"abs_err_{n}"] for rows_ in (rows, ssm["backward"])
+                for row in rows_.values() for n in ("fp32", "bf16")])
         entries.append(entry)
     summary = dict(main_path=main_stats, serving=serve_stats,
                    quant_main_path=quant_stats, quant_serving=quant_serve,
                    serving_at_width=served, obs_and_tuner=obs,
                    training=trained, token_training=token_trained,
+                   ssm_and_hybrid={k: v for k, v in ssm.items()
+                                   if k not in ("kernels", "backward")},
                    tokens={k: v for k, v in tokens.items() if k != "kernels"},
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][

@@ -39,7 +39,7 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
 
-    # SSM (Mamba2 / SSD); not yet ported, kept so the dataclass is whole
+    # SSM (Mamba2 / SSD): the ssm family and the hybrid's Mamba2 layers
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2

@@ -1,6 +1,6 @@
 """Architecture registry: --arch lookup over the ported configs (the
-decoder-only token family and the two DiTs). Each config file cites its
-source."""
+decoder-only token family, the SSM and hybrid token families and the two
+DiTs). Each config file cites its source."""
 
 from __future__ import annotations
 
@@ -9,16 +9,17 @@ import importlib
 from .base import ModelConfig
 
 ARCH_IDS = [
-    # decoder-only token family: dense and MoE transformers
+    # decoder-only token families: dense and MoE transformers
     "qwen2-0.5b", "qwen2.5-3b", "olmo-1b", "deepseek-67b",
     "granite-moe-3b-a800m", "mixtral-8x7b",
+    # SSM (Mamba2 / SSD) and hybrid (Mamba2 + shared attention) token families
+    "mamba2-780m", "zamba2-7b",
     # paper-native diffusion backbones
     "dit-i256", "dit-cifar",
 ]
 
 # the reference's other families, each waiting for its model code
 NOT_YET_PORTED = {
-    "zamba2-7b": "hybrid", "mamba2-780m": "ssm",
     "llama-3.2-vision-90b": "vlm", "whisper-small": "audio",
 }
 

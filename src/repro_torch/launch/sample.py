@@ -1,6 +1,6 @@
 """Diffusion sampling launcher (the port of `repro.launch.sample`): build the
 eps-network for --arch (the DiT, or for a token arch the diffusion-LM head
-over its transformer backbone, unguided, over a 64-token latent window),
+over its backbone, unguided, over a 64-token latent window),
 then sample with any solver of the zoo through the engine, or with its
 python-loop reference (`--loop`), or a tuned `SolverPlan` (`--plan`, from
 `launch.tune`). Runs on the CUDA card unless `--device cpu` is given; there
@@ -11,7 +11,7 @@ the engine's run is one CUDA graph replay (`engine/graphs.py`).
         [--loop] [--quant w8a16] [--eval-dtype bfloat16] [--plan plan.json]
         [--ckpt ckpt_dir]
     PYTHONPATH=src python -m repro_torch.launch.sample --arch qwen2-0.5b \
-        --full --nfe 10 --batch 8
+        --full --nfe 10 --batch 8        # or mamba2-780m, zamba2-7b
 """
 
 from __future__ import annotations

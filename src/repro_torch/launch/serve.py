@@ -1,6 +1,7 @@
 """Batched serving (the port of `repro.launch.serve`). Token models
-(the decoder-only dense and MoE family): prefill a batch of prompts, then
-greedy or temperature decode with the stacked KV cache, each decode step a
+(the decoder-only dense and MoE transformers, the Mamba2 SSM stack and the
+zamba2 hybrid): prefill a batch of prompts, then greedy or temperature
+decode with the stacked cache (KV caches, SSM states), each decode step a
 CUDA graph replay on the card (`TokenDecoder`). Diffusion models (dit
 family): continuous batching, one request = one latent to generate. A
 request-level scheduler over `--batch` slots drives the engine's per-slot
@@ -21,6 +22,8 @@ back as a pipelined trailing stream.
         --full --batch 8 --prompt-len 512 --gen 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --batch 2 --prompt-len 12 --gen 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --full --batch 8 --prompt-len 512 --gen 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dit-i256 \
         --full --batch 8 --nfe 10 --cfg-scale 2.0 --arrival-rate 0.5 \
         --requests 24
@@ -29,9 +32,8 @@ back as a pipelined trailing stream.
         --trace-out trace.json --metrics-out metrics.json \
         --probe-fraction 0.25 --probe-ref-nfe 16
 
-Not yet ported, and refused when asked for: the ssm, hybrid, vlm and audio
-families; the mesh sharding of the slot batch (the port serves on one
-card).
+Not yet ported, and refused when asked for: the vlm and audio families;
+the mesh sharding of the slot batch (the port serves on one card).
 """
 
 from __future__ import annotations
@@ -54,13 +56,14 @@ from ..obs import metrics as obsm
 
 class TokenDecoder:
     """The decode loop's step on static buffers: `token` (B, 1) int64 and
-    `pos` a 0-d int64, both on the device, and the KV cache, which the step
-    updates in place at `pos % W`. `step()` runs one decode step on what
-    they hold and returns the (B, 1, V) logits. With `jit` on the card the
-    step is a CUDA graph (the reference's `jax.jit(decode)`), captured at
-    the first `step()` after one eager step on a side stream, which writes
-    the cache slot the replay then writes again with the same values; the
-    logits are the graph's static output, which the next step overwrites.
+    `pos` a 0-d int64, both on the device, and the cache, which the step
+    updates in place (KV slots at `pos % W`, SSM states). `step()` runs one
+    decode step on what they hold and returns the (B, 1, V) logits. With
+    `jit` on the card the step is a CUDA graph (the reference's
+    `jax.jit(decode)`), captured at the first `step()` after one eager
+    step on a side stream over a copy of the cache (an SSM state advances
+    at every step, so the warm-up must not touch the real one); the logits
+    are the graph's static output, which the next step overwrites.
     Otherwise the step runs eagerly."""
 
     def __init__(self, params, cfg, cache: dict, batch: int, device,
@@ -75,13 +78,23 @@ class TokenDecoder:
     def _step(self, token, pos):
         return self.decode(self.params, self.cache, token, pos)[0]
 
+    def _warmup(self, token, pos):
+        scratch = _clone_tree(self.cache)
+        self.decode(self.params, scratch, token, pos)
+
     def step(self) -> torch.Tensor:
         if not self.graphed:
             return self._step(self.token, self.pos)
         if self.graph is None:
             self.graph = graphs.Graph(self._step, (self.token, self.pos),
-                                      self._step)
+                                      self._warmup)
         return self.graph.replay()
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def choose_token(logits: torch.Tensor, temperature: float,

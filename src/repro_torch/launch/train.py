@@ -1,18 +1,23 @@
 """Training launcher (the port of `repro.launch.train`): the DiT's diffusion
-objective and the dense and MoE token families' AR and diffusion-LM
-objectives, on the card unless `device="cpu"` / `--device cpu` is given.
+objective and the token families' (dense, MoE, SSM, hybrid) AR and
+diffusion-LM objectives, on the card unless `device="cpu"` / `--device
+cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dit-cifar \\
         --objective diffusion --steps 20 --batch 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --objective ar --steps 20 --batch 8 --seq 128 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
+        --objective diffusion --steps 20 --batch 8 --seq 128 --device cpu
 
 On the card the forward runs through the port's kernels and their
 backward kernels (each op's autograd Function): the DiT through adaLN,
 gate_residual and attention, the token families through attention
 (causal for the AR loss, bidirectional for the diffusion LM, GQA and
-sliding windows as configured); the dense products, norms, activations,
-the MoE dispatch and the losses are plain torch under autograd, as the
+sliding windows as configured), zamba2's shared block through causal
+attention for both; the dense products, norms, activations, the MoE
+dispatch, the Mamba2 blocks' SSD scan and the losses are plain torch under
+autograd, as the
 reference leaves them to XLA. Params stay fp32 masters: the models cast
 each weight to the activation dtype at use, so gradients reach the
 masters through the cast. The step runs eagerly (one CUDA graph of the

@@ -1,5 +1,7 @@
 """Per-family model API (the port's slice of `repro.models.api`): the dit
-family and the decoder-only token family (dense and MoE transformers).
+family and the token families: the decoder-only dense and MoE
+transformers, the SSM stack (Mamba2 / SSD) and the hybrid (Mamba2 with
+zamba2's shared attention block).
 
     init_params(cfg, seed, device)              -> params
     train_loss(cfg, objective)(params, batch, rng) -> scalar loss
@@ -9,17 +11,19 @@ family and the decoder-only token family (dense and MoE transformers).
     prefill_fn(cfg)(params, batch, max_len)     -> (logits, cache)
     decode_fn(cfg)(params, cache, tok, pos)     -> (logits, cache)
 
-The token families' eps-net is the diffusion-LM head over the backbone run
-bidirectionally (`models/diffusion_lm.py`, DESIGN.md §7.1); their diffusion
-objective is embedding-space diffusion over the learned token latents, the
-eps loss plus an alpha^2-weighted rounding cross-entropy. Not yet ported,
-and refused: the ssm, hybrid, vlm and audio families.
+The token families' eps-net is the diffusion-LM head over the backbone
+from its input embeddings (`models/diffusion_lm.py`, DESIGN.md §7.1): the
+transformers run bidirectionally, the SSM and hybrid backbones stay causal
+as the reference's do. Their diffusion objective is embedding-space
+diffusion over the learned token latents, the eps loss plus an
+alpha^2-weighted rounding cross-entropy. Not yet ported, and refused: the
+vlm and audio families.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -28,14 +32,37 @@ from ..configs.base import ModelConfig
 from ..diffusion.process import draw_t_noise, q_sample
 from ..diffusion.schedules import VPLinear
 from ..engine.specs import not_yet_ported
-from . import transformer
+from . import hybrid, transformer
 from .diffusion_lm import diffusion_lm_apply, init_diffusion_head
 from .dit import dit_apply, dit_apply_cached, init_dit
 from .layers import dense_init
 
 NUM_CLASSES = 1000  # init_params allocates NUM_CLASSES + 1 embeddings; the
                     # extra row is the CFG null class
-TOKEN_FAMILIES = ("dense", "moe")
+
+
+class _TokenLM(NamedTuple):
+    """The module functions of one token family's LM."""
+    init: Callable
+    lm_loss: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
+
+
+_TRANSFORMER = _TokenLM(transformer.init_lm, transformer.lm_loss,
+                        transformer.init_cache, transformer.prefill,
+                        transformer.decode_step)
+_TOKEN_LMS = {
+    "dense": _TRANSFORMER, "moe": _TRANSFORMER,
+    "ssm": _TokenLM(hybrid.init_mamba_lm, hybrid.mamba_lm_loss,
+                    hybrid.init_mamba_cache, hybrid.mamba_prefill,
+                    hybrid.mamba_decode_step),
+    "hybrid": _TokenLM(hybrid.init_zamba_lm, hybrid.zamba_lm_loss,
+                       hybrid.init_zamba_cache, hybrid.zamba_prefill,
+                       hybrid.zamba_decode_step),
+}
+TOKEN_FAMILIES = tuple(_TOKEN_LMS)
 
 
 def _require(cfg: ModelConfig, families=("dit",) + TOKEN_FAMILIES,
@@ -54,7 +81,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     if cfg.family == "dit":
         return {"backbone": init_dit(cfg, gen, device,
                                      num_classes=NUM_CLASSES)}
-    p = {"backbone": transformer.init_lm(cfg, gen, device)}
+    p = {"backbone": _TOKEN_LMS[cfg.family].init(cfg, gen, device)}
     if cfg.latent_dim:
         p["diffusion_head"] = init_diffusion_head(cfg, gen, device)
         p["token_latents"] = dense_init(gen, cfg.vocab_size, cfg.latent_dim,
@@ -75,22 +102,44 @@ def _record_leaf(a: np.ndarray, device) -> torch.Tensor:
                                             dtype=torch.float32)
 
 
+def _stacked_depth(tree: dict, cfg: ModelConfig) -> tuple:
+    """(what the backbone stacks, how many layers it holds) of a reference
+    tree: the dit's (L, ...) `blocks`, the transformers' and the SSM
+    stack's (L, ...) `layers`, the hybrid's (n_groups, attn_every, ...)
+    `groups` and (tail, ...) `tail`."""
+    bk = tree["backbone"]
+    if cfg.family == "dit":
+        probe = bk["blocks"]["w1"]
+        return "blocks", np.shape(probe["qw"] if isinstance(probe, dict)
+                                  else probe)[0]
+    if cfg.family == "ssm":
+        return "layers", np.shape(bk["layers"]["mamba"]["in_proj"])[0]
+    if cfg.family == "hybrid":
+        g, e = np.shape(bk["groups"]["mamba"]["in_proj"])[:2]
+        if e != cfg.attn_every:
+            raise ValueError(f"groups are stacked {e} layers a group, cfg "
+                             f"has attn_every={cfg.attn_every}")
+        tail = (np.shape(bk["tail"]["mamba"]["in_proj"])[0] if "tail" in bk
+                else 0)
+        return "groups and tail", g * e + tail
+    return "layers", np.shape(bk["layers"]["attn"]["wq"])[0]
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     """The port's params from the reference's `init_params` pytree given as
     nested dicts of numpy arrays. Same layout, same values: for the dit
     family stacked (L, ...) `blocks`, (K, N) dense layout, class_embed
-    (NUM_CLASSES + 1, d); for the token families stacked (L, ...) `layers`
-    of ln1 / attn / ln2 / mlp|moe, `embed`, `final_ln`, an optional
-    `lm_head`, and the diffusion leaves (`diffusion_head`,
-    `token_latents`). A tree the reference has quantized
-    (`models.quant.quantize_params`, dit only) carries its records
-    {"qw", "ws"[, "sa"]} over at their stored dtypes; every other leaf is
-    cast to the config's weight dtype."""
+    (NUM_CLASSES + 1, d); for the transformer families stacked (L, ...)
+    `layers` of ln1 / attn / ln2 / mlp|moe, `embed`, `final_ln`, an
+    optional `lm_head`; for the ssm family stacked (L, ...) `layers` of ln
+    / mamba; for the hybrid family `groups` of them stacked (n_groups,
+    attn_every, ...), an optional `tail` (tail, ...) and `shared_attn`;
+    and the diffusion leaves (`diffusion_head`, `token_latents`). A tree
+    the reference has quantized (`models.quant.quantize_params`, dit only)
+    carries its records {"qw", "ws"[, "sa"]} over at their stored dtypes;
+    every other leaf is cast to the config's weight dtype."""
     _require(cfg)
-    stack = "blocks" if cfg.family == "dit" else "layers"
-    probe = (tree["backbone"]["blocks"]["w1"] if cfg.family == "dit"
-             else tree["backbone"]["layers"]["attn"]["wq"])
-    depth = np.shape(probe["qw"] if isinstance(probe, dict) else probe)[0]
+    stack, depth = _stacked_depth(tree, cfg)
     if depth != cfg.num_layers:
         raise ValueError(f"{stack} are stacked over {depth} layers, cfg has "
                          f"num_layers={cfg.num_layers}")
@@ -138,10 +187,15 @@ def cast_params_for_eval(params, eval_dtype: str):
 # the leaves each family casts to the activation dtype at each use
 # (`layers.dense_apply`'s `w.to(x.dtype)` and the casts of the model code);
 # None selects a whole subtree. The DiT reads t_mlp1, t_mlp2 and
-# class_embed in fp32; the token backbone casts every leaf (the embedding
-# table, tied or not, the norms, the router and the experts included); the
-# diffusion head reads t_mlp1 and t_mlp2 in fp32, and the token latents
-# are the training loss's
+# class_embed in fp32; the transformer backbone casts every leaf (the
+# embedding table, tied or not, the norms, the router and the experts
+# included); a Mamba2 layer reads A_log and dt_bias in fp32 and casts the
+# rest; the diffusion head reads t_mlp1 and t_mlp2 in fp32, and the token
+# latents are the training loss's
+_MAMBA_LAYER = {"ln": None, "mamba": {
+    "in_proj": None, "conv_w": None, "conv_b": None, "D": None,
+    "out_norm": None, "out_proj": None}}
+_HEAD = {"in_proj": None, "out_proj": None}
 _CAST_AT_USE = {
     "dit": {"backbone": {
         "in_proj": None, "final_ada": None, "final_ada_b": None,
@@ -149,8 +203,14 @@ _CAST_AT_USE = {
         "blocks": {"w1": None, "w2": None, "ada": None, "ada_b": None,
                    "attn": {"wq": None, "wk": None, "wv": None,
                             "wo": None}}}},
-    "token": {"backbone": None,
-              "diffusion_head": {"in_proj": None, "out_proj": None}},
+    "token": {"backbone": None, "diffusion_head": _HEAD},
+    "ssm": {"backbone": {"embed": None, "final_ln": None,
+                         "layers": _MAMBA_LAYER},
+            "diffusion_head": _HEAD},
+    "hybrid": {"backbone": {"embed": None, "final_ln": None,
+                            "groups": _MAMBA_LAYER, "tail": _MAMBA_LAYER,
+                            "shared_attn": None},
+               "diffusion_head": _HEAD},
 }
 
 
@@ -172,7 +232,7 @@ def cast_weights_once(cfg: ModelConfig, params) -> dict:
         return {k: conv(v, sel[k]) if k in sel else v
                 for k, v in node.items()}
 
-    sel = _CAST_AT_USE["dit" if cfg.family == "dit" else "token"]
+    sel = _CAST_AT_USE.get(cfg.family, _CAST_AT_USE["token"])
     return conv(params, sel)
 
 
@@ -198,21 +258,34 @@ def calibrate_and_quantize(cfg: ModelConfig, params, quant, *, schedule=None,
     return cfg, qparams, {"spec": spec, "act_stats": stats}
 
 
+def _backbone_forward(cfg: ModelConfig) -> Callable:
+    """(backbone params, inputs_embeds) -> (hidden, aux), the diffusion
+    LM's backbone eval: the transformers bidirectional, the SSM stack and
+    the hybrid causal by construction (the reference's)."""
+    if cfg.family == "ssm":
+        return lambda bk, e: hybrid.mamba_forward(bk, cfg, None,
+                                                  inputs_embeds=e)
+    if cfg.family == "hybrid":
+        return lambda bk, e: hybrid.zamba_forward(bk, cfg, None,
+                                                  inputs_embeds=e)
+    return lambda bk, e: transformer.forward(bk, cfg, None, causal=False,
+                                             inputs_embeds=e)
+
+
 def eps_network(cfg: ModelConfig) -> Callable:
     """(params, x_t (B, S, L), t, batch) -> eps-hat — what UniPC samples from.
     The dit family's DiT; the token families' diffusion-LM head over the
-    backbone run bidirectionally (`inputs_embeds`, no causal mask)."""
+    backbone from `inputs_embeds` (`_backbone_forward`)."""
     _require(cfg)
     if cfg.family == "dit":
         return lambda p, x_t, t, batch: dit_apply(
             p["backbone"], cfg, x_t, t, batch.get("class_ids"))
+    fwd = _backbone_forward(cfg)
 
     def f(params, x_t, t, batch):
-        return diffusion_lm_apply(
-            params["diffusion_head"],
-            lambda e: transformer.forward(params["backbone"], cfg, None,
-                                          causal=False, inputs_embeds=e),
-            cfg, x_t, t)
+        return diffusion_lm_apply(params["diffusion_head"],
+                                  lambda e: fwd(params["backbone"], e), cfg,
+                                  x_t, t)
 
     return f
 
@@ -285,20 +358,22 @@ def diffusion_loss_fn(cfg: ModelConfig, schedule=None) -> Callable:
 
 
 def ar_loss(cfg: ModelConfig) -> Callable:
-    """(params, batch, rng) -> the autoregressive objective of the dense and
-    MoE token families, `transformer.lm_loss` on batch["tokens"] and
-    batch["targets"] (`rng` is taken and not used). The dit family has no
-    such objective (ValueError, as the reference's); the ssm, hybrid, vlm
-    and audio families are not yet ported."""
+    """(params, batch, rng) -> the autoregressive objective of the token
+    families on batch["tokens"] and batch["targets"] (`rng` is taken and
+    not used): `transformer.lm_loss`, `hybrid.mamba_lm_loss` or
+    `hybrid.zamba_lm_loss`. The dit family has no such objective
+    (ValueError, as the reference's); the vlm and audio families are not
+    yet ported."""
     if cfg.family == "dit":
         raise ValueError(f"the dit family has no autoregressive objective; "
                          f"arch {cfg.arch_id!r} trains with "
                          f"objective='diffusion'")
     _require(cfg, TOKEN_FAMILIES, "the autoregressive objective")
+    lm_loss = _TOKEN_LMS[cfg.family].lm_loss
 
     def loss(params, batch, rng):
-        return transformer.lm_loss(params["backbone"], cfg, batch["tokens"],
-                                   batch["targets"])
+        return lm_loss(params["backbone"], cfg, batch["tokens"],
+                       batch["targets"])
 
     return loss
 
@@ -312,17 +387,20 @@ def train_loss(cfg: ModelConfig, objective: str = "ar") -> Callable:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
-    _require(cfg, TOKEN_FAMILIES, "the KV cache")
-    return transformer.init_cache(cfg, batch, max_len, device)
+    """The decode cache: the transformers' stacked KV caches, the SSM
+    stack's per-layer states, the hybrid's states and one KV cache per
+    invocation of its shared block (`models/hybrid.py`)."""
+    _require(cfg, TOKEN_FAMILIES, "the decode cache")
+    return _TOKEN_LMS[cfg.family].init_cache(cfg, batch, max_len, device)
 
 
 def prefill_fn(cfg: ModelConfig) -> Callable:
     """(params, batch, max_len) -> (last-position logits, cache)."""
     _require(cfg, TOKEN_FAMILIES, "prefill")
+    prefill = _TOKEN_LMS[cfg.family].prefill
 
     def f(params, batch, max_len):
-        return transformer.prefill(params["backbone"], cfg, batch["tokens"],
-                                   max_len)
+        return prefill(params["backbone"], cfg, batch["tokens"], max_len)
 
     return f
 
@@ -331,9 +409,9 @@ def decode_fn(cfg: ModelConfig) -> Callable:
     """(params, cache, token (B, 1), pos) -> (logits, cache), the cache
     updated in place."""
     _require(cfg, TOKEN_FAMILIES, "decode")
+    step = _TOKEN_LMS[cfg.family].decode_step
 
     def f(params, cache, token, pos):
-        return transformer.decode_step(params["backbone"], cfg, cache, token,
-                                       pos)
+        return step(params["backbone"], cfg, cache, token, pos)
 
     return f

@@ -3,8 +3,9 @@ backbone into the eps-network of a continuous diffusion process over a
 latent sequence (B, S, latent_dim), the vehicle for UniPC on every
 architecture family (DESIGN.md §7.1).
 
-The transformer backbone runs without a causal mask (it denoises
-bidirectionally). Conditioning: sinusoidal timestep features through a
+A transformer backbone runs without a causal mask (it denoises
+bidirectionally); the SSM and hybrid backbones stay causal by construction,
+as the reference's do. Conditioning: sinusoidal timestep features through a
 two-layer MLP, added to the input projection.
 """
 

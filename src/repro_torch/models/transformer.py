@@ -208,6 +208,31 @@ def decode_step(params, cfg, cache, token, pos) -> tuple:
     return logits_from_hidden(params, cfg, hidden), cache
 
 
+def prefill_kv_cache(at, xn, pos, cfg, W: int) -> tuple:
+    """One attention layer's KV cache (B, W, Hkv, D) rebuilt from its normed
+    input xn (B, S, d) at positions `pos` (B, S): the keys rope'd, the last
+    W positions kept at slot position mod W (zero slots past a shorter
+    prompt), as the decode path's incremental writes would leave it."""
+    B, S = xn.shape[:2]
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = torch.matmul(xn, at["wk"].to(xn.dtype))
+    v = torch.matmul(xn, at["wv"].to(xn.dtype))
+    if "bk" in at:
+        k = k + at["bk"].to(xn.dtype)
+        v = v + at["bv"].to(xn.dtype)
+    k = apply_rope(k.reshape(B, S, hkv, hd), pos, cfg.rope_theta)
+    v = v.reshape(B, S, hkv, hd)
+    if S < W:
+        pad = (0, 0, 0, 0, 0, W - S)
+        return (torch.nn.functional.pad(k, pad),
+                torch.nn.functional.pad(v, pad))
+    # keep positions S-W..S-1, placed at slot = position mod W
+    slots = torch.remainder(torch.arange(S - W, S, device=xn.device), W)
+    zeros = torch.zeros((B, W, hkv, hd), dtype=k.dtype, device=xn.device)
+    return (zeros.index_copy(1, slots, k[:, S - W:]),
+            zeros.index_copy(1, slots, v[:, S - W:]))
+
+
 def prefill(params, cfg, tokens, max_len: int) -> tuple:
     """Process a full prompt, build the cache, return last-position logits.
 
@@ -218,7 +243,6 @@ def prefill(params, cfg, tokens, max_len: int) -> tuple:
     _, napply = NORMS[cfg.norm]
     B, S = tokens.shape
     W = cache_window(cfg, max_len)
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
     x = _embed(params, cfg, tokens)
     pos = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
@@ -232,26 +256,7 @@ def prefill(params, cfg, tokens, max_len: int) -> tuple:
             y, _ = moe_apply(lp["moe"], y, cfg)
         else:
             y = mlp_apply(lp["mlp"], y, cfg)
-        # rebuild this layer's K/V for the cache (last W positions)
-        at = lp["attn"]
-        k = torch.matmul(xn, at["wk"].to(x.dtype))
-        v = torch.matmul(xn, at["wv"].to(x.dtype))
-        if "bk" in at:
-            k = k + at["bk"].to(x.dtype)
-            v = v + at["bv"].to(x.dtype)
-        k = apply_rope(k.reshape(B, S, hkv, hd), pos, cfg.rope_theta)
-        v = v.reshape(B, S, hkv, hd)
-        if S >= W:
-            # keep positions S-W..S-1, placed at slot = position mod W
-            slots = torch.remainder(torch.arange(S - W, S, device=x.device), W)
-            kc = torch.zeros((B, W, hkv, hd), dtype=k.dtype,
-                             device=x.device).index_copy(1, slots, k[:, S - W:])
-            vc = torch.zeros((B, W, hkv, hd), dtype=v.dtype,
-                             device=x.device).index_copy(1, slots, v[:, S - W:])
-        else:
-            pad = (0, 0, 0, 0, 0, W - S)
-            kc = torch.nn.functional.pad(k, pad)
-            vc = torch.nn.functional.pad(v, pad)
+        kc, vc = prefill_kv_cache(lp["attn"], xn, pos, cfg, W)
         ks.append(kc)
         vs.append(vc)
         x = h2 + y

@@ -90,7 +90,8 @@ def test_registry_ports_the_token_family_and_refuses_the_rest():
     from repro.configs.registry import INPUT_SHAPES as J_SHAPES
     from repro_torch.configs import INPUT_SHAPES
 
-    assert sorted(ARCH_IDS) == sorted(TOKEN_ARCHS + ["dit-i256", "dit-cifar"])
+    assert sorted(ARCH_IDS) == sorted(TOKEN_ARCHS + [
+        "mamba2-780m", "zamba2-7b", "dit-i256", "dit-cifar"])
     for arch in sorted(set(J_ARCH_IDS) - set(ARCH_IDS)):
         with pytest.raises(NotImplementedError, match="item 12"):
             t_get_config(arch)
@@ -436,12 +437,13 @@ def test_weights_kept_once_are_bit_equal_to_per_use_casts():
 
 
 def test_token_training_is_refused_as_not_yet_ported():
-    """The dense and MoE families train (tests/test_torch_token_train.py);
-    the token families still to port are refused, for both objectives."""
-    ssm = dataclasses.replace(t_get_config("qwen2-0.5b").reduced(),
-                              family="ssm")
+    """The dense, MoE, SSM and hybrid families train
+    (tests/test_torch_token_train.py, tests/test_torch_ssm_models.py); the
+    token families still to port are refused, for both objectives."""
+    audio = dataclasses.replace(t_get_config("qwen2-0.5b").reduced(),
+                                family="audio")
     for objective in ("ar", "diffusion"):
         with pytest.raises(NotImplementedError, match="item 12"):
-            t_api.train_loss(ssm, objective)
+            t_api.train_loss(audio, objective)
     with pytest.raises(NotImplementedError, match="item 12"):
-        t_api.init_params(ssm)
+        t_api.init_params(audio)

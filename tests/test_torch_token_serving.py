@@ -202,7 +202,7 @@ def test_sample_refuses_what_a_token_arch_has_not(capsys):
         with pytest.raises(SystemExit):
             t_sample.main(["--arch", "olmo-1b", "--device", "cpu"] + flags)
     with pytest.raises(SystemExit):
-        t_sample.main(["--arch", "mamba2-780m", "--device", "cpu"])
+        t_sample.main(["--arch", "whisper-small", "--device", "cpu"])
     assert "item 12" in capsys.readouterr().err
     out = t_sample.main(["--arch", "qwen2-0.5b", "--device", "cpu",
                          "--nfe", "3", "--batch", "2"])

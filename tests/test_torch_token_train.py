@@ -242,7 +242,7 @@ def test_ar_loss_refusals():
         t_api.ar_loss(t_get_config("dit-cifar").reduced())
     with pytest.raises(NotImplementedError, match="item 12"):
         t_api.ar_loss(dataclasses.replace(
-            t_get_config("qwen2-0.5b").reduced(), family="hybrid"))
+            t_get_config("qwen2-0.5b").reduced(), family="vlm"))
 
 
 # ---------------------------------------------------------------------------

@@ -268,11 +268,11 @@ def test_train_loss_refuses_what_is_not_ported():
     the dit family has no AR objective, as in the reference."""
     from repro_torch.configs import get_config
 
-    ssm = get_config("dit-cifar").reduced(family="ssm")
+    vlm = get_config("dit-cifar").reduced(family="vlm")
     with pytest.raises(NotImplementedError, match="item 12"):
-        t_api.train_loss(ssm, "ar")
+        t_api.train_loss(vlm, "ar")
     with pytest.raises(NotImplementedError, match="item 12"):
-        t_train.build_batch_fn(ssm, 2, 8)
+        t_train.build_batch_fn(vlm, 2, 8)
     with pytest.raises(ValueError, match="no autoregressive objective"):
         t_api.train_loss(get_config("dit-cifar").reduced(), "ar")
 
