@@ -166,8 +166,10 @@ Phases (any failure exits non-zero):
      300 with GQA 7) and the DiT's (8, 16, 256, 72), fp32 (<= 1e-5
      relative L-inf) and bf16 (<= 1e-2 relative L2) against the plain
      version, each twice bit-equal, labelled with its plan, the DiT case's
-     output bit-equal to that of the unmasked kernel before masks and
-     groups were added (sha256); the bf16 cases timed
+     output bit-equal to its pinned sha256 (fp32: the unmasked kernel's
+     before masks and groups; bf16: re-pinned when the bf16 backward came
+     to split P and dS and to read Delta from the fp32 output); the bf16
+     cases timed
      in a CUDA graph beside the bound, the plain version and SDPA forward
      + backward with enable_gqa. (b) qwen2-0.5b (bf16 over fp32 params)
      through `launch.train.train` for 20 steps at batch 8 x 512, AR then
@@ -199,14 +201,18 @@ Phases (any failure exits non-zero):
      decode loop again on the graph from a fresh prefill's state under
      set_sync_debug_mode("error"), bit-equal to eager; prefill, decode
      (replay and eager) and tokens/s beside `ssm_bounds`; the bf16 parity
-     as 11 (b) (zamba2's at 13 layers, two groups of six and a tail, its
-     full depth's readings printed: BF16_CUT), the fp32 kernels vs
-     plain-pinned at every layer; fp32 prefill + decode vs the forward
-     over 4 layers (mamba2) and two groups of two and a tail (zamba2). (d)
-     both diffusion LMs through `launch.sample.sample` as 11 (c): a replay
-     counted (22 row ops; 143 flash_attention for zamba2, none for
-     mamba2), bit-equal to the eager loop, no host sync, within 1e-2 of
-     the plain-pinned run (zamba2: at 13 layers). (e)
+     as 11 (b), zamba2's step by step at 13 layers (BF16_STEP_LAYERS:
+     every teacher-forced step within plain + 1e-2 of the fp32 run, the
+     latents within 1e-2 of plain-pinned) and, beside that, at all 81
+     layers and two param seeds (0, and SECOND_SEED with its latents) as a
+     run (DEEP_BF16: prefill and latents within plain + 1e-2 of the fp32
+     run, the teacher-forced steps' worst and mean), the rounded-P plain
+     run's readings printed beside the plain run's; the fp32 kernels vs plain-pinned at every layer; fp32 prefill + decode vs
+     the forward over 4 layers (mamba2) and two groups of two and a tail
+     (zamba2). (d) both diffusion LMs through `launch.sample.sample` as
+     11 (c): a replay counted (22 row ops; 143 flash_attention for
+     zamba2, none for mamba2), bit-equal to the eager loop, no host sync,
+     the latents as (b)'s gates hold them. (e)
      `launch.train.train`, AR then diffusion, 10 steps at batch 8 x 512:
      mamba2-780m at full depth, zamba2-7b at 13 of its 81 layers (two groups
      of six and a tail: all 81 with AdamW's moments need about 106 GB),
@@ -215,6 +221,33 @@ Phases (any failure exits non-zero):
      step's gradients as 12 (c) (fp32 over two groups of two and a tail),
      each arch's step twice bit-equal. (f) mamba2's trained diffusion LM
      through a checkpoint and `sample --ckpt`: bit-equal, no backward.
+ 14. the vlm and audio token families at full width: (a) flash_attention
+     and flash_attention_bwd at whisper's encoder (8, 12, 1500, 64)
+     non-causal (a ragged last tile) and its cross-attention 384 over 1500
+     frames, llama-3.2-vision's causal GQA 64/8 (8, 64, 512, 128) and its
+     cross-attention 512 over 1600 image tokens, and both diffusion LMs'
+     64 queries over the frames / the image, held, timed and labelled as
+     11 (a) / 12 (a), each twice bit-equal, with the bf16 outputs' share
+     bit-equal to plain's. (b) whisper-small (12 + 12 layers, d_model 768,
+     12 heads of 64, vocab 51865, 1500 stub frames) and (c)
+     llama-3.2-vision-90b at 10 of its 100 layers (d_model 8192, 64/8 heads
+     of 128, d_ff 28672, vocab 128256, 1600 stub image tokens, its
+     cross-attention gates drawn from U(0.3, 0.9)) served through
+     `launch.serve.serve` at batch 8 (prompts 384 / 512, 64 greedy tokens)
+     as 11 (b): exactly 36 / 10 flash_attention launches a prefill and
+     none in a decode step, the graph's decode loop under the sync check,
+     eager tokens bit-equal, the walls beside `cond_bounds`, the bf16
+     gates step by step at full depth, fp32 kernels vs plain-pinned, fp32
+     prefill + decode vs the forward over a depth cut. (d) both diffusion
+     LMs through engine.build with the stub embeddings in the eps-net's
+     batch (launch.sample refuses these families, as the reference's
+     fails there): a replay counted (22 row ops; 396 / 110
+     flash_attention), bit-equal to eager, no host sync, the walls, the
+     latents within 1e-2 of plain-pinned and held against the fp32 run.
+     (e) whisper-small trained through `launch.train.train`, AR then
+     diffusion, 10 steps at batch 8 x 384: 36 + 36 attention launches a
+     step, walls, tokens/s, peak memory, the split, a profiled step; one
+     step's gradients as 12 (c), the step twice bit-equal.
 The last three lines are the kernels JSON (each kernel's launches on the
 main path, and since phase 8 its launches per serving tick and in the
 serving run, since phase 9 in each of its four runs, since phase 10 in the
@@ -222,7 +255,8 @@ training run, since phase 11 in the token prefill, a decode step (0), a
 diffusion-LM replay and granite's prefill, with the token attention cases'
 and row ops' times, since phase 12 in the token training runs, with the
 token backward cases' times, since phase 13 in the SSM and hybrid runs,
-with the D 112 cases; the backward kernels' launches are phase 10's
+with the D 112 cases, since phase 14 in the vlm and audio runs, with the
+cross-attention cases; the backward kernels' launches are phase 10's
 training run's), the card's name and power limit as `nvidia-smi
 --query-gpu=name,power.limit` prints them, and {"ok": true, "device":
 {...}}.
@@ -2979,9 +3013,13 @@ TOKEN_ATTENTION = [  # label, B, Hq, Hkv, S, D, causal, window
 ]
 
 
-def attention_pairs(S: int, causal: bool, window) -> int:
+def attention_pairs(S: int, causal: bool, window, Skv=None) -> int:
     """The (query, key) pairs attention must score for these masks: what
-    this run's data needs, not S * S."""
+    this run's data needs, not S * S (S * Skv for cross-attention, which is
+    unmasked)."""
+    if Skv is not None and Skv != S:
+        assert not causal and not window
+        return S * Skv
     n = 0
     for qi in range(S):
         hi = qi if causal else S - 1
@@ -2998,8 +3036,10 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
     shapes at fp32 (<= 1e-5), each twice (bit-equal) and labelled with the
     body plan() chose; the bf16 case timed as phase 3 times (100 calls in a
     CUDA graph) beside its bound, its plain version and SDPA with
-    enable_gqa (a yardstick only). With `row_ops`, unipc_update's row ops
-    at the diffusion LM's (8, 64, 64) state, bit-equal at fp32."""
+    enable_gqa (a yardstick only). A case with a ninth entry Skv is
+    cross-attention: Sq = S queries over Skv keys, non-causal. With
+    `row_ops`, unipc_update's row ops at the diffusion LM's (8, 64, 64)
+    state, bit-equal at fp32."""
     from repro_torch.core.coeffs import augment_step_rows
     from repro_torch.core.unipc import rows_on
     from repro_torch.diffusion import VPLinear
@@ -3011,12 +3051,13 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(11)
     out = {}
-    for label, B, Hq, Hkv, S, D, causal, window in cases:
+    for label, B, Hq, Hkv, S, D, causal, window, *cross in cases:
+        Skv = cross[0] if cross else S
         row = {}
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dt)
-            k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dt)
-                    for _ in range(2))
+            k, v = (torch.randn(B, Skv, Hkv, D, generator=g,
+                                device=dev).to(dt) for _ in range(2))
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
             got = fa_ops.attention(q, k, v, causal=causal, window=window)
             again = fa_ops.attention(q, k, v, causal=causal, window=window)
@@ -3030,7 +3071,8 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
             err = rel_err(got, want)
             name = "bf16" if dt == torch.bfloat16 else "fp32"
             same = torch.equal(got, again)
-            print(f"  flash_attention [{label} ({B}, {Hq}, {S}, {D}) {name}] "
+            print(f"  flash_attention [{label} ({B}, {Hq}/{Hkv}, {S}"
+                  f"{'' if Skv == S else f' over {Skv}'}, {D}) {name}] "
                   f"[{body}] rel L-inf {err:.3e} (tol {TOL[dt]:g}); twice "
                   f"bit-equal {same}")
             if not (torch.isfinite(got.float()).all() and err <= TOL[dt]
@@ -3042,6 +3084,19 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
             row[f"abs_err_{name}"] = float(
                 (got.double() - want.double()).abs().max())
             row[f"body_{name}"] = body
+        # the bf16 outputs' share bit-equal to plain's (fp32 P) and to the
+        # rounded-P variant's (one bf16 P, as the kernel's P V takes it)
+        with plain_rounding_p():
+            rounded = fa_ops.attention(q, k, v, causal=causal, window=window,
+                                       backend="plain")
+        row.update(bit_equal_share_plain=float((got == want).float().mean()),
+                   bit_equal_share_rounded_p=float(
+                       (got == rounded).float().mean()))
+        print(f"  flash_attention [{label}] bf16: "
+              f"{row['bit_equal_share_plain']:.2%} of the outputs bit-equal "
+              f"to plain's, {row['bit_equal_share_rounded_p']:.2%} to the "
+              f"rounded-P variant's")
+        del rounded
         # q, k, v are the bf16 ones now: time the path's dtype
         if window:
             qi = torch.arange(S, device=dev)[:, None]
@@ -3052,11 +3107,11 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
         else:
             lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
                 q, k, v, is_causal=causal, enable_gqa=True)
-        pairs = attention_pairs(S, causal, window)
+        pairs = attention_pairs(S, causal, window, Skv)
         bms, by = bound(2 * nbytes(q) + nbytes(k, v), 4 * B * Hq * pairs * D,
                         torch.bfloat16)
         row.update(
-            shape=[B, Hq, Hkv, S, D], causal=causal, window=window,
+            shape=[B, Hq, Hkv, S, D], skv=Skv, causal=causal, window=window,
             ms=device_ms(lambda: fa_ops.attention(q, k, v, causal=causal,
                                                   window=window)),
             plain_ms=device_ms(lambda: fa_ops.attention(
@@ -3182,16 +3237,90 @@ def ssm_bounds(cfg, batch: int, prompt_len: int, gen: int) -> dict:
                 decode_kv_bytes=cache)
 
 
-def bf16_parity(label: str, k, p, t) -> dict:
+@contextlib.contextmanager
+def plain_rounding_p():
+    """Inside the block, the plain attention (what `backend="plain"` runs)
+    is its round_p=True variant: P rounded to bf16 before P.V, the row sum
+    from the fp32 P, as the bf16 kernel's `mma` body does it (the port's
+    plain version and the reference's Pallas kernel keep P in fp32). A
+    yardstick for the kernel runs only; no path of the port reaches it."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    plain = fa_ref.attention
+    fa_ref.attention = functools.partial(plain, round_p=True)
+    try:
+        yield
+    finally:
+        fa_ref.attention = plain
+
+
+def cond_bounds(cfg, batch: int, prompt_len: int, gen: int) -> dict:
+    """token_bounds for the vlm and the audio model: the prefill's bf16
+    matmul operations at the bf16 peak, written as the models run them
+    (every projection, the K/V re-projections of the self-attention caches
+    and of the cross K/V, the MLPs, the image projection or the encoder
+    over its frames, the LM head at the last position) plus attention (the
+    causal self-attention's pairs, the cross-attention's S x T, the
+    encoder's T x T); a decode step's bf16 weights read once (the decoder
+    and the tied embedding; not the encoder nor the image projection), its
+    KV caches and the fixed cross K/V, over HBM."""
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    V, S, B, N = cfg.vocab_size, prompt_len, batch, batch * prompt_len
+    mlp = (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
+    qo, kv = 2 * d * hq * hd, 2 * d * hkv * hd
+    self_pairs = attention_pairs(S, True, None)
+    if cfg.family == "vlm":
+        T = cfg.image_tokens
+        n_cross = cfg.num_layers // cfg.cross_attn_every
+        n_self = cfg.num_layers - n_cross
+        flops = (2 * N * n_self * (qo + 2 * kv + mlp)
+                 + 4 * B * n_self * hq * hd * self_pairs
+                 + 2 * B * T * d * d
+                 + n_cross * (2 * N * (qo + mlp) + 2 * B * T * 2 * kv
+                              + 4 * B * hq * hd * S * T))
+        # a decode step's cross-attention reads wq and wo; its K/V are cached
+        n_w = n_self * (qo + kv + mlp) + n_cross * (qo + mlp) + V * d
+        cross = 2 * n_cross * B * T * hkv * hd * 2
+        L_self = n_self
+    else:
+        T, E, L = cfg.audio_frames, cfg.encoder_layers, cfg.num_layers
+        flops = (E * (2 * B * T * (qo + kv + mlp)
+                      + 4 * B * hq * hd * T * T)
+                 + L * (2 * N * (qo + 2 * kv + qo + mlp)
+                        + 2 * B * T * 2 * kv
+                        + 4 * B * hq * hd * (self_pairs + S * T)))
+        n_w = L * (2 * qo + kv + mlp) + V * d
+        cross = 2 * L * B * T * hkv * hd * 2
+        L_self = L
+    flops += 2 * B * d * V
+    cache = 2 * L_self * B * (S + gen) * hkv * hd * 2
+    return dict(prefill_bound_ms=flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+                prefill_flops=flops,
+                decode_bound_ms=(2 * n_w + cache + cross) / HBM_BYTES_PER_S
+                * 1e3,
+                decode_bytes=2 * n_w + cache + cross)
+
+
+def bf16_parity(label: str, k, p, t, r=None) -> dict:
     """Kernel (k) and plain-pinned (p) bf16 results against the fp32
     plain-pinned one (t), relative L-inf; fails unless the kernel run is
-    within TOKEN_TOL of the plain run's own distance from t."""
+    within TOKEN_TOL of the plain run's own distance from t. With `r`, the
+    bf16 run pinned to plain_rounding_p's variant (a second correct plain
+    run, one rounding apart, as DEEP_BF16 carries it), its distances are
+    printed beside them."""
     errs = dict(kernel_vs_plain=rel_err(k, p), kernel_vs_fp32=rel_err(k, t),
                 plain_vs_fp32=rel_err(p, t))
+    null = ""
+    if r is not None:
+        errs.update(rounded_vs_fp32=rel_err(r, t),
+                    rounded_vs_plain=rel_err(r, p))
+        null = (f"; the rounded-P plain run: {errs['rounded_vs_fp32']:.3e} "
+                f"from the fp32 run, {errs['rounded_vs_plain']:.3e} from "
+                f"plain-pinned")
     print(f"  {label}: bf16 kernels vs plain-pinned "
           f"{errs['kernel_vs_plain']:.3e}; vs the fp32 run: kernels "
           f"{errs['kernel_vs_fp32']:.3e}, plain-pinned "
-          f"{errs['plain_vs_fp32']:.3e} (gate: kernels <= plain + "
+          f"{errs['plain_vs_fp32']:.3e}{null} (gate: kernels <= plain + "
           f"{TOKEN_TOL:g})")
     if not errs["kernel_vs_fp32"] <= errs["plain_vs_fp32"] + TOKEN_TOL:
         fail(f"{label}: the kernel run is {errs['kernel_vs_fp32']:.3e} from "
@@ -3200,20 +3329,28 @@ def bf16_parity(label: str, k, p, t) -> dict:
     return errs
 
 
-def prefill_parity(cfg, params, kept, prompts, max_len: int) -> tuple:
+def prefill_parity(cfg, params, kept, batch: dict, max_len: int,
+                   rounded: bool = False) -> tuple:
     """Prefill's last-position logits four ways at full depth: bf16 with the
     kernels and plain-pinned (over the weights kept once), fp32
     plain-pinned (the truth) and fp32 with the kernels (<= DECODE_TOL of
-    it). Returns the errors and the four caches in that order."""
+    it); with `rounded` a fifth, bf16 pinned to plain_rounding_p's
+    variant (DEEP_BF16's second plain run). `batch` holds the prompts (and a vlm's or
+    an audio model's embeddings). Returns the errors and the caches in
+    that order (None for the fifth unless `rounded`)."""
     from repro_torch.models import api
 
     c32 = dataclasses.replace(cfg, dtype="float32")
-    batch = {"tokens": prompts}
     lk, kc = api.prefill_fn(cfg)(kept, batch, max_len)
     lp, pc = api.prefill_fn(plain_pinned(cfg))(kept, batch, max_len)
     lt, tc = api.prefill_fn(plain_pinned(c32))(params, batch, max_len)
     lk32, kc32 = api.prefill_fn(c32)(params, batch, max_len)
-    errs = bf16_parity(f"{cfg.arch_id} prefill's last logits", lk, lp, lt)
+    lr, rc = None, None
+    if rounded:
+        with plain_rounding_p():
+            lr, rc = api.prefill_fn(plain_pinned(cfg))(kept, batch, max_len)
+    errs = bf16_parity(f"{cfg.arch_id} prefill's last logits", lk, lp, lt,
+                       lr)
     errs["fp32_kernel_vs_plain"] = rel_err(lk32, lt)
     print(f"  {cfg.arch_id} prefill at fp32, all {cfg.num_layers} layers: "
           f"kernels vs plain-pinned {errs['fp32_kernel_vs_plain']:.3e} (tol "
@@ -3221,22 +3358,25 @@ def prefill_parity(cfg, params, kept, prompts, max_len: int) -> tuple:
     if not errs["fp32_kernel_vs_plain"] <= DECODE_TOL:
         fail(f"{cfg.arch_id} fp32 prefill: kernels vs plain-pinned "
              f"{errs['fp32_kernel_vs_plain']:.3e}")
-    return errs, (kc, pc, tc, kc32)
+    return errs, (kc, pc, tc, kc32, rc)
 
 
-def teacher_forced_parity(cfg, params, kept, caches, tokens, start: int,
-                          gated: bool = True):
+def teacher_forced_parity(cfg, params, kept, caches, tokens, start: int):
     """The kernel run's tokens fed through eager decode steps (which launch
     no port kernel) over prefill_parity's caches, each step's logits held
-    as bf16_parity holds prefill's (unless not `gated`: zamba2's 81
-    random-weight layers, whose readings are printed and whose gate is held
-    at BF16_CUT); the fp32 kernel cache's logits are held to the fp32
-    plain-pinned cache's within DECODE_TOL at each step. Returns the worst
-    step's errors and the means."""
+    as bf16_parity holds prefill's: within TOKEN_TOL of the plain run's
+    distance from the fp32 run at every step; where prefill_parity made
+    the rounded-P cache (an arch in DEEP_BF16), over the run instead: the
+    worst step and the mean over the steps each within TOKEN_TOL of the
+    plain run's, with the steps past plain + TOKEN_TOL counted for the
+    kernel run and for the rounded-P run. The fp32 kernel cache's logits
+    are held to the fp32 plain-pinned cache's within DECODE_TOL at each
+    step. Returns the worst step's errors, the means and the counts."""
     from repro_torch.models import api
 
     c32 = dataclasses.replace(cfg, dtype="float32")
-    kc, pc, tc, kc32 = caches
+    kc, pc, tc, kc32, rc = caches
+    deep = rc is not None
     steps = []
     for i in range(tokens.shape[1]):
         tok, pos = tokens[:, i:i + 1], start + i
@@ -3246,14 +3386,18 @@ def teacher_forced_parity(cfg, params, kept, caches, tokens, start: int,
         step = dict(kernel_vs_plain=rel_err(lk, lp),
                     kernel_vs_fp32=rel_err(lk, lt),
                     plain_vs_fp32=rel_err(lp, lt))
+        if deep:
+            lr, _ = api.decode_fn(cfg)(kept, rc, tok, pos)
+            step.update(rounded_vs_plain=rel_err(lr, lp),
+                        rounded_vs_fp32=rel_err(lr, lt))
         l32, _ = api.decode_fn(c32)(params, kc32, tok, pos)
         step["fp32_kernel_vs_plain"] = rel_err(l32, lt)
         if step["fp32_kernel_vs_plain"] > DECODE_TOL:
             fail(f"teacher-forced decode step {i} at fp32: the kernel "
                  f"cache's logits are {step['fp32_kernel_vs_plain']:.3e} "
                  f"from the plain-pinned cache's")
-        if gated and step["kernel_vs_fp32"] > (step["plain_vs_fp32"]
-                                               + TOKEN_TOL):
+        if not deep and step["kernel_vs_fp32"] > (step["plain_vs_fp32"]
+                                                  + TOKEN_TOL):
             fail(f"teacher-forced decode step {i}: the kernel cache's logits "
                  f"are {step['kernel_vs_fp32']:.3e} from the fp32 run's, the "
                  f"plain-pinned cache's {step['plain_vs_fp32']:.3e}")
@@ -3262,6 +3406,20 @@ def teacher_forced_parity(cfg, params, kept, caches, tokens, start: int,
     mean = {k: float(np.mean([st[k] for st in steps])) for k in steps[0]}
     over = sum(st["kernel_vs_fp32"] > st["plain_vs_fp32"] + TOKEN_TOL
                for st in steps)
+    over_rounded = over_farther = None
+    if deep:
+        over_rounded = sum(st["rounded_vs_fp32"] > st["plain_vs_fp32"]
+                           + TOKEN_TOL for st in steps)
+        over_farther = sum(st["kernel_vs_fp32"] > max(
+            st["plain_vs_fp32"], st["rounded_vs_fp32"]) + TOKEN_TOL
+            for st in steps)
+    rounded = ("" if not deep else
+               f"; the rounded-P plain cache: vs plain-pinned at most "
+               f"{worst['rounded_vs_plain']:.3e}, vs fp32 worst "
+               f"{worst['rounded_vs_fp32']:.3e} mean "
+               f"{mean['rounded_vs_fp32']:.3e}, {over_rounded} step(s) past "
+               f"plain + {TOKEN_TOL:g}; {over_farther} step(s) with kernels > "
+               f"the farther of the two + {TOKEN_TOL:g}")
     print(f"  the run's {tokens.shape[1]} tokens teacher-forced through "
           f"decode steps, worst step: kernel cache vs plain-pinned cache "
           f"{worst['kernel_vs_plain']:.3e}; vs the fp32 cache: kernels "
@@ -3269,18 +3427,35 @@ def teacher_forced_parity(cfg, params, kept, caches, tokens, start: int,
           f"{worst['plain_vs_fp32']:.3e}; mean over the steps: kernels "
           f"{mean['kernel_vs_fp32']:.3e}, plain-pinned "
           f"{mean['plain_vs_fp32']:.3e}; {over} step(s) with kernels > plain "
-          f"+ {TOKEN_TOL:g}; fp32 kernel cache vs plain-pinned at most "
+          f"+ {TOKEN_TOL:g}{rounded}; fp32 kernel cache vs plain-pinned at most "
           f"{worst['fp32_kernel_vs_plain']:.3e} (tol {DECODE_TOL:g} a step) "
-          f"(bf16 gate: "
-          f"{'kernels <= plain + %g a step' % TOKEN_TOL if gated else 'none at this depth'})")
-    return dict(worst, mean=mean, steps_over=over)
+          f"(bf16 gate: kernels <= plain + {TOKEN_TOL:g} "
+          f"{'on the worst step and the mean' if deep else 'a step'})")
+    if deep:
+        for name, got, yard in (
+                ("worst step", worst["kernel_vs_fp32"],
+                 worst["plain_vs_fp32"]),
+                ("mean", mean["kernel_vs_fp32"], mean["plain_vs_fp32"])):
+            if not got <= yard + TOKEN_TOL:
+                fail(f"teacher-forced decode, {name}: the kernel cache's "
+                     f"logits are {got:.3e} from the fp32 run's, the "
+                     f"plain-pinned cache's {yard:.3e}")
+    return dict(worst, mean=mean, steps_over=over,
+                rounded_steps_over=over_rounded,
+                steps_over_farther=over_farther)
 
 
 def depth_cut(cfg, **over):
-    """The fp32 checks' config at full width: DECODE_DEPTH layers, or for
-    the hybrid two groups of two and a one-layer tail."""
+    """The fp32 checks' config at full width: DECODE_DEPTH layers; for the
+    hybrid two groups of two and a one-layer tail; for the vlm two groups
+    of a self-attention and a cross-attention layer; for the audio model
+    DECODE_DEPTH encoder and decoder layers."""
     if cfg.family == "hybrid":
         over = dict(attn_every=2, **over)
+    if cfg.family == "vlm":
+        over = dict(cross_attn_every=2, **over)
+    if cfg.family == "audio":
+        over = dict(encoder_layers=DECODE_DEPTH, **over)
     return dataclasses.replace(
         cfg, num_layers=5 if cfg.family == "hybrid" else DECODE_DEPTH,
         dtype="float32", **over)
@@ -3291,16 +3466,21 @@ def fp32_decode_vs_forward(cfg, params, dev, S: int = 256) -> float:
     depth cut (`cfg` from depth_cut, `params` initialised at it): prefill
     of t[:S] then decode of t[S] against the full forward's logits at S
     (kernels on both sides)."""
-    from repro_torch.models import api, hybrid, transformer
+    from repro_torch.data.synthetic import frontend_embeds
+    from repro_torch.models import api, encdec, hybrid, transformer, vlm
 
-    forward = {"ssm": hybrid.mamba_forward,
-               "hybrid": hybrid.zamba_forward}.get(cfg.family,
+    forward = {"ssm": hybrid.mamba_forward, "hybrid": hybrid.zamba_forward,
+               "vlm": vlm.vlm_forward,
+               "audio": encdec.encdec_forward}.get(cfg.family,
                                                    transformer.forward)
     t = torch.as_tensor(token_inputs(cfg, 2, S + 1, seed=5)).long().to(dev)
-    hidden, _ = forward(params["backbone"], cfg, t)
+    cond = {k: torch.from_numpy(v).to(dev)
+            for k, v in frontend_embeds(cfg, 2, 5).items()}
+    hidden, _ = forward(params["backbone"], cfg, t, *cond.values())
     want = transformer.logits_from_hidden(params["backbone"], cfg,
                                           hidden)[:, S]
-    _, cache = api.prefill_fn(cfg)(params, {"tokens": t[:, :S]}, S + 4)
+    _, cache = api.prefill_fn(cfg)(params, dict(tokens=t[:, :S], **cond),
+                                   S + 4)
     got, _ = api.decode_fn(cfg)(params, cache, t[:, S:S + 1], S)
     return rel_err(got[:, 0], want)
 
@@ -3318,33 +3498,90 @@ def diffusion_lm_inputs(cfg, params, batch: int, dev) -> torch.Tensor:
         device=dev).manual_seed(7), device=dev)
 
 
-def bf16_cut_parity(arch, dev, prompts, tokens, max_len: int) -> dict:
-    """Phase 11's bf16 gates for an arch in BF16_CUT, at its cut: fresh
-    params, prefill_parity and every teacher-forced step gated (the run's
-    tokens), and the diffusion LM's latents within MAIN_TOL of
-    plain-pinned (eager UniPC, kernels against plain-pinned)."""
-    from repro_torch.configs import get_config
+def lm_engine(cfg, params, batch: int, dev, cond=None):
+    """The diffusion LM's engine: launch.sample.build_engine's, or with
+    `cond` (a vlm's or an audio model's frontend embeddings, which
+    launch.sample does not feed, as the reference's does not) the same
+    wiring with `cond` as the eps-net's batch (the reference's api takes
+    them so, `src/repro/models/api.py:46-63`)."""
     from repro_torch.diffusion import VPLinear
-    from repro_torch.engine import EngineSpec
+    from repro_torch.engine import SamplerEngine
     from repro_torch.launch.sample import build_engine
     from repro_torch.models import api
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=BF16_CUT[arch])
-    print(f"  bf16 gates at {cut_depth_note(cfg)}:")
-    params = api.init_params(cfg, 0, dev)
+    if not cond:
+        return build_engine(cfg, params, VPLinear(), batch, device=dev)
     kept = api.cast_weights_once(cfg, params)
-    pre, caches = prefill_parity(cfg, params, kept, prompts, max_len)
+    net = api.eps_network(cfg)
+    return SamplerEngine(VPLinear(), eps=lambda x, t: net(kept, x, t, cond),
+                         device=dev)
+
+
+def eager_latents(cfg, params, x_T, dev, rounded: bool = False, cond=None):
+    """The diffusion LM's latents from one eager UniPC run (build, jit off)
+    of `cfg`'s eps-net over `params` (and `cond`, as lm_engine takes it):
+    kernels and the row-op kernel, or for a plain-pinned `cfg` the plain
+    row ops too, with `rounded` inside plain_rounding_p."""
+    from repro_torch.engine import EngineSpec
+
+    spec = EngineSpec(nfe=TOKEN_SAMPLE["nfe"], order=TOKEN_SAMPLE["order"],
+                      fused_update=cfg.attention_backend != "plain")
+    with plain_rounding_p() if rounded else contextlib.nullcontext():
+        return lm_engine(cfg, params, x_T.shape[0], dev, cond).build(
+            spec, jit=False)(x_T)
+
+
+def bf16_second_seed(arch, dev, batch: dict, tokens, max_len: int,
+                     seed: int) -> dict:
+    """An arch in DEEP_BF16 again at full depth on params from another
+    seed (the served model is seed 0, the sampled one seed 1):
+    prefill_parity and the teacher-forced run (the served run's tokens)
+    with the rounded-P plain run, and the diffusion LM's latents (eager UniPC)
+    as latents_parity holds them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config(arch)
+    print(f"  bf16 gates again at all {cfg.num_layers} layers, params of "
+          f"seed {seed}:")
+    params = api.init_params(cfg, seed, dev)
+    kept = api.cast_weights_once(cfg, params)
+    pre, caches = prefill_parity(cfg, params, kept, batch, max_len,
+                                 rounded=True)
     tf = teacher_forced_parity(cfg, params, kept, caches, tokens,
-                               prompts.shape[1])
-    del caches
+                               batch["tokens"].shape[1])
+    del caches, kept
+    free_graphs()
     x_T = diffusion_lm_inputs(cfg, params, TOKEN_SAMPLE["batch"], dev)
-    spec = EngineSpec(nfe=TOKEN_SAMPLE["nfe"], order=TOKEN_SAMPLE["order"])
-    x_k = build_engine(cfg, params, VPLinear(), x_T.shape[0],
-                       device=dev).build(spec, jit=False)(x_T)
-    x_p = build_engine(plain_pinned(cfg), params, VPLinear(), x_T.shape[0],
-                       device=dev).build(dataclasses.replace(
-                           spec, fused_update=False), jit=False)(x_T)
-    err = rel_err(x_k, x_p)
+    x_k = eager_latents(cfg, params, x_T, dev)
+    x_p = eager_latents(plain_pinned(cfg), params, x_T, dev)
+    lat = latents_parity(cfg, params, x_T, x_k, x_p, dev)
+    return dict(seed=seed, prefill_parity=pre, teacher_forced_parity=tf,
+                latents=lat)
+
+
+def bf16_step_parity(arch, dev, batch: dict, tokens, max_len: int) -> dict:
+    """Phase 11's bf16 gates for an arch in DEEP_BF16 at BF16_STEP_LAYERS,
+    beside its full-depth ones: fresh params, prefill_parity, every
+    teacher-forced step (the served run's tokens) within the plain run's
+    distance from the fp32 run + TOKEN_TOL, and the diffusion LM's latents
+    (eager UniPC) within MAIN_TOL of plain-pinned."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=BF16_STEP_LAYERS[arch])
+    print(f"  bf16 gates step by step at {cut_depth_note(cfg)}:")
+    params = init_model(cfg, 0, dev)
+    kept = api.cast_weights_once(cfg, params)
+    pre, caches = prefill_parity(cfg, params, kept, batch, max_len)
+    tf = teacher_forced_parity(cfg, params, kept, caches, tokens,
+                               batch["tokens"].shape[1])
+    del caches, kept
+    free_graphs()
+    x_T = diffusion_lm_inputs(cfg, params, TOKEN_SAMPLE["batch"], dev)
+    err = rel_err(eager_latents(cfg, params, x_T, dev),
+                  eager_latents(plain_pinned(cfg), params, x_T, dev))
     print(f"  diffusion-LM latents, eager: kernels vs plain-pinned rel L-inf "
           f"{err:.3e} (tol {MAIN_TOL:g})")
     if not err <= MAIN_TOL:
@@ -3355,19 +3592,29 @@ def bf16_cut_parity(arch, dev, prompts, tokens, max_len: int) -> dict:
 
 
 def cut_depth_note(cfg) -> str:
-    return (f"{cfg.num_layers} layers (groups of {cfg.attn_every} and a "
-            f"tail)" if cfg.family == "hybrid" else
-            f"{cfg.num_layers} layers")
+    if cfg.family == "hybrid":
+        return f"{cfg.num_layers} layers (groups of {cfg.attn_every} and a tail)"
+    if cfg.family == "vlm":
+        return (f"{cfg.num_layers} layers (groups of {cfg.cross_attn_every}: "
+                f"self-attention layers and a cross-attention layer)")
+    if cfg.family == "audio":
+        return f"{cfg.encoder_layers} + {cfg.num_layers} layers"
+    return f"{cfg.num_layers} layers"
 
 
 def attention_launches(cfg) -> int:
     """flash_attention launches of one forward (a prefill, an eval, a
-    training step's forward): one a layer for the transformers, one an
-    invocation of zamba2's shared block, none for the Mamba2 stack."""
+    training step's forward): one a layer for the transformers and the vlm
+    (its self- and cross-attention layers alike), one an invocation of
+    zamba2's shared block, none for the Mamba2 stack, and for the audio
+    model one an encoder layer and two a decoder layer (self- and
+    cross-attention)."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
     return cfg.num_layers
 
 
@@ -3384,6 +3631,13 @@ def describe(cfg) -> str:
                 f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
                 f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}{shared}, vocab "
                 f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype} params")
+    if cfg.family in ("vlm", "audio"):
+        over = (f"{cfg.image_tokens} image tokens" if cfg.family == "vlm"
+                else f"{cfg.audio_frames} frames")
+        return (f"{cut_depth_note(cfg)} over {over}, d_model {cfg.d_model}, "
+                f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim},"
+                f" d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype} over "
+                f"{cfg.param_dtype} params")
     return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
             f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
             f"vocab {cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype} "
@@ -3398,23 +3652,65 @@ def copy_tree(dst, src) -> None:
         dst.copy_(src)
 
 
+def init_model(cfg, seed: int, dev) -> dict:
+    """api.init_params, with a vlm's zero-init cross-attention gates drawn
+    from U(0.3, 0.9) (a fresh vlm's cross-attention adds exactly nothing,
+    and every image-path parity would be vacuous)."""
+    from repro_torch.models import api
+
+    params = api.init_params(cfg, seed, dev)
+    if cfg.family == "vlm":
+        g = torch.Generator(device=dev).manual_seed(seed + 100)
+        xl = params["backbone"]["xattn_layers"]
+        for gate in ("gate_attn", "gate_mlp"):
+            xl[gate] = 0.3 + 0.6 * torch.rand(
+                xl[gate].shape, generator=g, device=dev, dtype=xl[gate].dtype)
+    return params
+
+
+@contextlib.contextmanager
+def depth_of(module, layers):
+    """`module.get_config` returning the arch's config cut to `layers`
+    layers at full width (unchanged with None): how a depth cut reaches an
+    entry point that looks the arch up itself."""
+    get_config = module.get_config
+    if layers:
+        module.get_config = lambda a: dataclasses.replace(
+            get_config(a), num_layers=layers)
+    try:
+        yield
+    finally:
+        module.get_config = get_config
+
+
 def token_serving_part(dev, counts_out: dict, arch: str = TOKEN_ARCH,
-                       shape: dict = TOKEN_SERVE) -> dict:
+                       shape: dict = TOKEN_SERVE, layers=None) -> dict:
     """(b) a token arch (qwen2-0.5b in phase 11; mamba2-780m and zamba2-7b
-    in phase 13) at full width through launch.serve.serve."""
-    from repro_torch.configs import get_config
+    in phase 13; whisper-small and llama-3.2-vision-90b at `layers` in
+    phase 14) at full width through launch.serve.serve."""
+    from repro_torch.launch import serve as serve_mod
+
+    with depth_of(serve_mod, layers):
+        return _token_serving_part(dev, counts_out, arch, shape,
+                                   serve_mod.get_config(arch))
+
+
+def _token_serving_part(dev, counts_out: dict, arch: str, shape: dict,
+                        cfg) -> dict:
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.serve import decode_tokens, serve
     from repro_torch.models import api
 
-    cfg = get_config(arch)
     print(f"  {arch}: {describe(cfg)}")
     B, S, G = (shape[k] for k in ("batch", "prompt_len", "gen"))
-    params = api.init_params(cfg, 0, dev)
+    params = init_model(cfg, 0, dev)
     n_params = sum(t.numel() for t in tensor_leaves(params["backbone"]))
     prompts = token_inputs(cfg, B, S, seed=3)
+    # the weights kept once, as serve() keeps them: made here, so both
+    # serve() calls below share one bf16 copy (llama-vision's 10 layers
+    # hold 43 GB of fp32 params and 21 GB of bf16 weights)
     kw = dict(reduced=False, batch=B, prompt_len=S, gen=G, device=dev,
-              params=params, prompts=prompts)
+              params=api.cast_weights_once(cfg, params), prompts=prompts)
     free_graphs()
     torch.cuda.reset_peak_memory_stats(dev)
     LAUNCHES.clear()
@@ -3443,7 +3739,7 @@ def token_serving_part(dev, counts_out: dict, arch: str = TOKEN_ARCH,
     # logits and its cache (prefill again, bit-equal, copied into the
     # graph's: an SSM state has moved on with every step): bit-equal
     # tokens, no host sync, its wall
-    _, fresh = api.prefill_fn(cfg)(dec.params, {"tokens": run.prompts},
+    _, fresh = api.prefill_fn(cfg)(dec.params, run.inputs,
                                    S + G)
     copy_tree(dec.cache, fresh)
     del fresh
@@ -3477,8 +3773,9 @@ def token_serving_part(dev, counts_out: dict, arch: str = TOKEN_ARCH,
     eager_ms = host_call_ms(eager.decoder.step, iters=20, warmup=2)
     kept = dec.params
     prefill_walls = median_walls({"prefill": lambda: api.prefill_fn(cfg)(
-        kept, {"tokens": run.prompts}, S + G)}, reps=3)["prefill"]
+        kept, run.inputs, S + G)}, reps=3)["prefill"]
     bounds = (ssm_bounds if cfg.family in ("ssm", "hybrid") else
+              cond_bounds if cfg.family in ("vlm", "audio") else
               token_bounds)(cfg, B, S, G)
     print(f"  decode step: graph replay {replay_ms:.4f} ms, eager step "
           f"{eager_ms:.4f} ms (CUDA events, back to back; bound "
@@ -3493,25 +3790,29 @@ def token_serving_part(dev, counts_out: dict, arch: str = TOKEN_ARCH,
     # kernels against plain-pinned and fp32: prefill's last logits, then
     # the kernel run's tokens teacher-forced through decode steps
     tokens = torch.as_tensor(run.tokens).long().to(dev)
-    pre, caches = prefill_parity(cfg, params, kept, run.prompts, S + G)
-    tf = teacher_forced_parity(cfg, params, kept, caches, tokens, S,
-                               gated=arch not in BF16_CUT)
+    rounded = arch in DEEP_BF16
+    pre, caches = prefill_parity(cfg, params, kept, run.inputs, S + G,
+                                 rounded=rounded)
+    tf = teacher_forced_parity(cfg, params, kept, caches, tokens, S)
     del caches
     print("  profile of the prefill:")
     prof_prefill = profile_split(lambda: api.prefill_fn(cfg)(
-        kept, {"tokens": run.prompts}, S + G))
+        kept, run.inputs, S + G))
     print("  profile of a decode step's replay:")
     prof_decode = profile_split(dec.graph.replay)
     run_prefill_ms = run.prefill_s * 1e3
-    prompt_t = run.prompts
-    del dec, run, kept, params
+    inputs = run.inputs
+    del dec, run, kept, params, kw
     free_graphs()
-    cut = {}
-    if arch in BF16_CUT:
-        cut = bf16_cut_parity(arch, dev, prompt_t, tokens, S + G)
+    second = stepwise = {}
+    if rounded:
+        second = bf16_second_seed(arch, dev, inputs, tokens, S + G,
+                                  SECOND_SEED)
+        free_graphs()
+        stepwise = bf16_step_parity(arch, dev, inputs, tokens, S + G)
         free_graphs()
     c4 = depth_cut(cfg)
-    dec_err = fp32_decode_vs_forward(c4, api.init_params(c4, 5, dev), dev)
+    dec_err = fp32_decode_vs_forward(c4, init_model(c4, 5, dev), dev)
     print(f"  fp32, {cut_depth_note(c4)} at full width: prefill t[:256] + "
           f"decode t[256] "
           f"vs the forward's logits at 256: rel L-inf {dec_err:.3e} (tol "
@@ -3527,7 +3828,9 @@ def token_serving_part(dev, counts_out: dict, arch: str = TOKEN_ARCH,
                 decode_loop_ms_per_token=loop_s / G * 1e3,
                 tokens_per_s=B * G / loop_s, **bounds,
                 prefill_parity=pre, teacher_forced_parity=tf,
-                bf16_cut_parity=cut, fp32_decode_rel_err=dec_err, profile_prefill=prof_prefill,
+                second_seed_parity=second, step_parity=stepwise,
+                fp32_decode_rel_err=dec_err,
+                profile_prefill=prof_prefill,
                 profile_decode_replay=prof_decode)
 
 
@@ -3598,29 +3901,47 @@ def token_sample_part(dev, counts_out: dict, arch: str = TOKEN_ARCH) -> dict:
     if sum(LAUNCHES.values()):
         fail(f"the plain-pinned diffusion-LM run launched kernels: "
              f"{dict(LAUNCHES)}")
-    err = rel_err(torch.as_tensor(x0), x_plain.cpu())
     del plain
+    x0 = torch.as_tensor(x0).to(dev)
     out = dict(sample_wall_s=wall, sample_launches=counts,
-               replay_launches=dict(counts_out), walls=walls,
-               rel_err_vs_plain=err)
-    gated = arch not in BF16_CUT
-    print(f"  kernel vs plain-pinned latents: rel L-inf {err:.3e} ("
-          + (f"tol {MAIN_TOL:g})" if gated else
-             f"held at {BF16_CUT.get(arch)} layers in the serving part)"))
-    if gated and not err <= MAIN_TOL:
-        fail(f"diffusion-LM latents disagree with plain-pinned: {err:.3e}")
-    if cfg.family not in ("ssm", "hybrid"):
+               replay_launches=dict(counts_out), walls=walls)
+    return dict(out, **latents_parity(cfg, params, x_T, x0, x_plain, dev))
+
+
+def latents_parity(cfg, params, x_T, x0, x_plain, dev, cond=None) -> dict:
+    """The sampled latents `x0` (kernels) within MAIN_TOL of the eager
+    plain-pinned run `x_plain`; for an arch in DEEP_BF16 that gate holds at
+    BF16_STEP_LAYERS (bf16_step_parity), and here the eager rounded-P
+    plain-pinned run's distance from `x_plain` is printed beside the
+    kernels' and the fp32-anchored gate below holds. Beyond the decoder-only family (phases 13, 14), both bf16
+    runs against the fp32 run as bf16_parity holds logits, and the
+    kernels at fp32 to DECODE_TOL, all layers."""
+    arch = cfg.arch_id
+    err = rel_err(x0, x_plain)
+    out = dict(rel_err_vs_plain=err)
+    x_round = None
+    if arch in DEEP_BF16:
+        x_round = eager_latents(plain_pinned(cfg), params, x_T, dev,
+                                rounded=True, cond=cond)
+        out["rounded_rel_err_vs_plain"] = rel_err(x_round, x_plain)
+        print(f"  kernel vs plain-pinned latents: rel L-inf {err:.3e}; the "
+              f"rounded-P plain run vs plain-pinned "
+              f"{out['rounded_rel_err_vs_plain']:.3e} (tol {MAIN_TOL:g} held at "
+              f"{BF16_STEP_LAYERS[arch]} layers; at this depth against the "
+              f"fp32 run below)")
+    else:
+        print(f"  kernel vs plain-pinned latents: rel L-inf {err:.3e} (tol "
+              f"{MAIN_TOL:g})")
+        if not err <= MAIN_TOL:
+            fail(f"{arch}: diffusion-LM latents disagree with plain-pinned: "
+                 f"{err:.3e}")
+    if cfg.family in ("dense", "moe"):
         return out
-    # phase 13: both bf16 runs against the fp32 run as bf16_parity holds
-    # logits, and the kernels at fp32 to DECODE_TOL, all layers
     c32 = dataclasses.replace(cfg, dtype="float32")
-    truth = build_engine(plain_pinned(c32), params, VPLinear(), B,
-                         device=dev).build(
-        dataclasses.replace(spec, fused_update=False), jit=False)(x_T)
-    x32 = build_engine(c32, params, VPLinear(), B, device=dev).build(
-        spec, jit=False)(x_T)
-    errs = bf16_parity(f"{arch}'s diffusion-LM latents",
-                       torch.as_tensor(x0).to(dev), x_plain, truth)
+    truth = eager_latents(plain_pinned(c32), params, x_T, dev, cond=cond)
+    x32 = eager_latents(c32, params, x_T, dev, cond=cond)
+    errs = bf16_parity(f"{arch}'s diffusion-LM latents", x0, x_plain, truth,
+                       x_round)
     errs["fp32_kernel_vs_plain"] = rel_err(x32, truth)
     print(f"  at fp32, all {cfg.num_layers} layers: kernel vs plain-pinned "
           f"latents {errs['fp32_kernel_vs_plain']:.3e} (tol {DECODE_TOL:g})")
@@ -3657,7 +3978,7 @@ def moe_serving_part(dev, counts_out: dict) -> dict:
     replay_ms = host_call_ms(dec.graph.replay, iters=10, warmup=2)
     kept = dec.params
     prefill_walls = median_walls({"prefill": lambda: api.prefill_fn(cfg)(
-        kept, {"tokens": run.prompts}, S + G)}, reps=3)["prefill"]
+        kept, run.inputs, S + G)}, reps=3)["prefill"]
     bounds = token_bounds(cfg, B, S, G)
     print(f"  {n_params / 1e9:.3f}B backbone params; serve(): launches "
           f"{counts}; prefill median {prefill_walls['median_s'] * 1e3:.3f} ms "
@@ -3667,7 +3988,7 @@ def moe_serving_part(dev, counts_out: dict) -> dict:
           f"memory {peak / 2**30:.2f} GiB")
     print("  profile of a decode step's replay:")
     prof_decode = profile_split(dec.graph.replay)
-    pre, caches = prefill_parity(cfg, params, kept, run.prompts, S + G)
+    pre, caches = prefill_parity(cfg, params, kept, run.inputs, S + G)
     del dec, run, kept, caches, params
     free_graphs()
     c4 = depth_cut(cfg, capacity_factor=MOE_CAPACITY)
@@ -3861,28 +4182,31 @@ def backward_kernel_cases(dev) -> dict:
                 for _ in range(2))
         do = randn(b_, sq, h_, d_, dtype=dt).transpose(1, 2)
         o_plain = fk.flash_attention(q, k, v, causal=False)
-        o, lse = fk.flash_attention(q, k, v, causal=False, lse=True)
+        o, lse, o32 = fk.flash_attention(q, k, v, causal=False, lse=True)
         torch.cuda.synchronize()
-        same = torch.equal(o, o_plain)
+        # the output with lse and o32 is the output without them, and o32
+        # rounds to it bit for bit
+        same = torch.equal(o, o_plain) and torch.equal(o32.to(dt), o)
         lse_err = rel_err(lse, fr.attention_lse(q, k, causal=False))
         lse_same = lse_same and same
         p = fk.plan_bwd(q, k, v, do)
         tag = (f"{label} ({b_}, {h_}, {sq}, {skv}, {d_}) {str(dt)[6:]}, "
                f"{p['body']} chunks {p['chunks']} vec_in {p['vec_in']}")
-        print(f"  flash_attention with lse [{label}]: output bit-equal to "
-              f"the forward without lse: {same}; lse rel L-inf {lse_err:.3e}")
+        print(f"  flash_attention with lse and o32 [{label}]: output "
+              f"bit-equal to the forward without them, o32 rounding to it: "
+              f"{same}; lse rel L-inf {lse_err:.3e}")
         if not same or not lse_err <= 1e-5:
             fail(f"flash_attention with lse [{label}]: output equal {same}, "
                  f"lse {lse_err:.3e}")
-        got = fk.flash_attention_bwd(q, k, v, o, lse, do)
-        want = fr.attention_bwd(q, k, v, o, lse, do)
+        got = fk.flash_attention_bwd(q, k, v, o32, lse, do)
+        want = fr.attention_bwd(q, k, v, o32, lse, do)
         for a, src in zip(got, (q, k, v)):
             if a.stride() != src.stride():
                 fail(f"flash_attention_bwd [{label}]: gradient strides "
                      f"{a.stride()} != the input's {src.stride()}")
         check("flash_attention_bwd", tag, got, want, dt)
         if not apath:
-            apath = dict(q=q, k=k, v=v, do=do, o=o, lse=lse)
+            apath = dict(q=q, k=k, v=v, do=do, o=o32, lse=lse)
     q, k, v, do, o, lse = (apath[n] for n in ("q", "k", "v", "do", "o",
                                               "lse"))
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -3892,7 +4216,7 @@ def backward_kernel_cases(dev) -> dict:
         return torch.autograd.grad(out_, leaves, do)
 
     def ours_fwd_bwd():
-        o_, l_ = fk.flash_attention(q, k, v, causal=False, lse=True)
+        _, l_, o_ = fk.flash_attention(q, k, v, causal=False, lse=True)
         return fk.flash_attention_bwd(q, k, v, o_, l_, do)
 
     Bq, H, S, Dh = q.shape
@@ -4283,8 +4607,8 @@ TOKEN_CKPT_SAMPLE = dict(nfe=10, order=3, batch=8)
 # label, B, Hq, Hkv, S, D, causal, window: the token training paths'
 # attention (qwen2's AR step, its diffusion LM's bidirectional step at the
 # training length and at 128, granite's AR step), a window with a group of
-# 7, and the DiT's training shape, whose output must be bit-equal to that
-# of the unmasked kernel before masks and groups were added (DIT_BWD_SHA256)
+# 7, and the DiT's training shape, whose output is pinned bit for bit
+# (DIT_BWD_SHA256)
 TOKEN_BWD = [
     ("qwen2-0.5b AR, causal GQA 14/2", 8, 14, 2, 512, 64, True, None),
     ("qwen2-0.5b diffusion LM, GQA 14/2", 8, 14, 2, 512, 64, False, None),
@@ -4294,12 +4618,15 @@ TOKEN_BWD = [
     ("dit-i256 training, MHA", 8, 16, 16, 256, 72, False, None),
 ]
 # sha256 of (o, lse, dq, dk, dv) at the DiT's training shape from
-# `dit_bwd_inputs`, measured on an H100 80GB HBM3 (torch 2.11.0+cu128) with
-# the non-causal, Hq == Hkv backward that preceded masks and groups: the
-# extended backward must reproduce them bit for bit
+# `dit_bwd_inputs`, measured on an H100 80GB HBM3 (torch 2.11.0+cu128): fp32
+# with the non-causal, Hq == Hkv backward that preceded masks and groups,
+# which the extended backward reproduces; bf16 re-measured when the bf16
+# backward came to split P and dS into hi and lo halves and to read Delta
+# from the forward's fp32 output, which change those bits on purpose.
+# The kernels must reproduce them bit for bit.
 DIT_BWD_SHA256 = {
     torch.bfloat16:
-        "f0b0d87eada6824197959155f2495372516262c9274b4a7ce9bbbc766f3ad915",
+        "9e264de9b06524e3667099e3050134a91f09a22b90a0eef572f9f62ea0c58a82",
     torch.float32:
         "2397ded79cc686b1c47ccd5ee05add098b7111767a1bc6a6b1701eeb3fd2d05b"}
 PARAM_PERTURB = 0.02      # added to the constant-initialised leaves in (c)
@@ -4333,16 +4660,19 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
     its plan; the bf16 cases timed as phase 3 times (100 calls in a CUDA
     graph) beside the bound, the plain version and SDPA forward + backward
     with enable_gqa (queued behind a spin kernel, as it runs through
-    autograd); the DiT case bit-equal to the earlier unmasked kernel's
-    output (DIT_BWD_SHA256)."""
+    autograd); the DiT case bit-equal to its pinned output
+    (DIT_BWD_SHA256). The backward reads Delta from the forward's fp32
+    output (o32), as the autograd Function runs it."""
     F = torch.nn.functional
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref as fr
 
     g = torch.Generator(device=dev).manual_seed(12)
     out = {}
-    for label, B, Hq, Hkv, S, D, causal, window in cases:
-        row = dict(shape=[B, Hq, Hkv, S, D], causal=causal, window=window)
+    for label, B, Hq, Hkv, S, D, causal, window, *cross in cases:
+        Skv = cross[0] if cross else S
+        row = dict(shape=[B, Hq, Hkv, S, D], skv=Skv, causal=causal,
+                   window=window)
         kw = dict(causal=causal, window=window)
         dit = label.startswith("dit")
         for dt in (torch.float32, torch.bfloat16):
@@ -4352,12 +4682,12 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
             else:
                 q, do = (torch.randn(B, S, Hq, D, generator=g, device=dev)
                          .to(dt).transpose(1, 2) for _ in range(2))
-                k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev)
+                k, v = (torch.randn(B, Skv, Hkv, D, generator=g, device=dev)
                         .to(dt).transpose(1, 2) for _ in range(2))
-            o, lse = fk.flash_attention(q, k, v, lse=True, **kw)
-            got = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-            again = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-            want = fr.attention_bwd(q, k, v, o, lse, do, **kw)
+            o, lse, o32 = fk.flash_attention(q, k, v, lse=True, **kw)
+            got = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+            again = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+            want = fr.attention_bwd(q, k, v, o32, lse, do, **kw)
             torch.cuda.synchronize()
             p = fk.plan_bwd(q, k, v, do)
             body = (f"{p['body']}, D in {8 * p['chunks']}, "
@@ -4371,8 +4701,9 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
             finite = all(torch.isfinite(a.float()).all() for a in got)
             strides = all(a.stride() == t.stride()
                           for a, t in zip(got, (q, k, v)))
-            print(f"  flash_attention_bwd [{label} ({B}, {Hq}/{Hkv}, {S}, "
-                  f"{D}) {name}] [{body}] rel L-inf {linf:.3e} rel L2 "
+            print(f"  flash_attention_bwd [{label} ({B}, {Hq}/{Hkv}, {S}"
+                  f"{'' if Skv == S else f' over {Skv}'}, {D}) {name}] "
+                  f"[{body}] rel L-inf {linf:.3e} rel L2 "
                   f"{l2:.3e} (tol {BWD_TOL[dt]:g} "
                   f"{'L-inf' if dt == torch.float32 else 'L2'}); twice "
                   f"bit-equal {same}")
@@ -4388,14 +4719,14 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
                 sha = tensors_sha256((o, lse) + tuple(got))
                 ok = sha == DIT_BWD_SHA256[dt]
                 print(f"  the DiT case {name}: output sha256 {sha[:16]}...; "
-                      f"bit-equal to the earlier unmasked kernel: {ok}")
+                      f"bit-equal to the pinned kernel output: {ok}")
                 if not ok:
                     fail(f"flash_attention_bwd at the DiT's shape ({name}) "
-                         f"differs from the earlier unmasked kernel: {sha}")
-                row[f"pr22_bit_equal_{name}"] = ok
-        # q, k, v, do, o, lse are the bf16 ones now: time the path's dtype
-        pairs = attention_pairs(S, causal, window)
-        moved = nbytes(q, k, v, o, do, lse) + nbytes(q, k, v) \
+                         f"differs from the pinned kernel output: {sha}")
+                row[f"pinned_bits_equal_{name}"] = ok
+        # q, k, v, do, o32, lse are the bf16 ones now: time the path's dtype
+        pairs = attention_pairs(S, causal, window, Skv)
+        moved = nbytes(q, k, v, o32, do, lse) + nbytes(q, k, v) \
             + 2 * lse.numel() * 4          # dq, dk, dv out; Delta out, in
         bms, by = bound(moved, 5 * 2 * B * Hq * pairs * D, torch.bfloat16)
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -4413,14 +4744,14 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
             return torch.autograd.grad(out_, leaves, do)
 
         def ours(q=q, k=k, v=v, do=do, kw=kw):
-            o_, l_ = fk.flash_attention(q, k, v, lse=True, **kw)
+            _, l_, o_ = fk.flash_attention(q, k, v, lse=True, **kw)
             return fk.flash_attention_bwd(q, k, v, o_, l_, do, **kw)
 
         row.update(
-            ms=device_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do,
+            ms=device_ms(lambda: fk.flash_attention_bwd(q, k, v, o32, lse, do,
                                                         **kw)),
-            plain_ms=device_ms(lambda: fr.attention_bwd(q, k, v, o, lse, do,
-                                                        **kw), iters=20),
+            plain_ms=device_ms(lambda: fr.attention_bwd(q, k, v, o32, lse,
+                                                        do, **kw), iters=20),
             library_ms=queued_device_ms(lib),
             fwd_bwd_queued_ms=queued_device_ms(ours), bound_ms=bms,
             bound_by=by, pairs=pairs)
@@ -4477,24 +4808,18 @@ def token_train_run(dev, arch, objective, counts_out, *, steps, batch, seq,
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch import train as train_mod
 
-    get_config = train_mod.get_config
-    if layers:
-        train_mod.get_config = lambda a: dataclasses.replace(
-            get_config(a), num_layers=layers)
     free_graphs()
     torch.cuda.reset_peak_memory_stats(dev)
-    try:
-        with step_recorder(train_mod, profile_at=profile_at) as rec:
-            LAUNCHES.clear()
-            t0 = time.perf_counter()
-            params, hist = train_mod.train(
-                arch, reduced=reduced, objective=objective, steps=steps,
-                batch=batch, seq=seq, log_every=steps, device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts_out.update(LAUNCHES)
-    finally:
-        train_mod.get_config = get_config
+    with depth_of(train_mod, layers), \
+            step_recorder(train_mod, profile_at=profile_at) as rec:
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        params, hist = train_mod.train(
+            arch, reduced=reduced, objective=objective, steps=steps,
+            batch=batch, seq=seq, log_every=steps, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_out.update(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     losses = check_losses(f"train({arch}, {objective})", rec, steps)
     walls = rec["walls"][1:]
@@ -4759,12 +5084,23 @@ SSM_PROFILE_STEP = 5
 # one-layer tail (about 1.35B params; all 81 with AdamW's fp32 moments
 # would need about 106 GB); mamba2-780m at full depth
 TRAIN_LAYERS = {SSM_ARCH: None, HYBRID_ARCH: 13}
-# where phase 11's bf16 gates (each teacher-forced step within the plain
-# run's distance from fp32 + TOKEN_TOL, latents within MAIN_TOL of
-# plain-pinned) are held: zamba2's 81 random-weight layers amplify bf16
-# rounding past them (PERF.md §6), so they hold at its training cut and
-# its full depth's readings are printed
-BF16_CUT = {HYBRID_ARCH: TRAIN_LAYERS[HYBRID_ARCH]}
+# the archs whose bf16 gates are held step by step at BF16_STEP_LAYERS and,
+# beside them, as a run at full depth. Over zamba2's 81 random-weight
+# layers two bf16 runs that differ in one rounding anywhere part as far as
+# either is from the fp32 run (PERF.md §6, ROADMAP C8): the plain run and
+# the rounded-P plain run (plain_rounding_p) sit 4e-2 apart in the logits
+# and 1.5e-2 in the latents, and 1-3 of 64 teacher-forced steps land past
+# plain + TOKEN_TOL for the rounded-P run, 1-4 past the farther of the two
+# for the kernel run, whatever P V's precision. So at BF16_STEP_LAYERS,
+# where one rounding has not saturated, phase 11's gates hold: every step
+# within the plain run's distance from fp32 + TOKEN_TOL, the latents within
+# MAIN_TOL of plain-pinned; and at all layers and two param seeds, against
+# the fp32 run: prefill and latents within the plain run's distance +
+# TOKEN_TOL, the teacher-forced steps on their worst step and their mean,
+# the rounded-P run's distances and excursions printed beside them
+DEEP_BF16 = (HYBRID_ARCH,)
+SECOND_SEED = 2
+BF16_STEP_LAYERS = {HYBRID_ARCH: TRAIN_LAYERS[HYBRID_ARCH]}
 # zamba2's shared block: 32 heads of 112 (3584 / 32), causal MHA, at its
 # prefill and training length and at its diffusion LM's 64 tokens
 SSM_ATTENTION = [
@@ -4873,6 +5209,162 @@ def token_training_phase(dev, counts_out: dict) -> dict:
     out["checkpoint"] = token_checkpoint_part(dev, params)
     del params
     free_graphs()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 14: the vlm and audio token families
+# --------------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper-small"
+VLM_ARCH = "llama-3.2-vision-90b"
+COND_ARCHS = (AUDIO_ARCH, VLM_ARCH)
+# whisper: a prompt of 384 and 64 new tokens fill the 448 decoder positions
+# of the whisper paper's models; llama-vision as the token paths run
+COND_SERVE = {AUDIO_ARCH: dict(batch=8, prompt_len=384, gen=64),
+              VLM_ARCH: dict(batch=8, prompt_len=512, gen=64)}
+# llama-vision at 10 of its 100 layers, full width: two groups of four
+# self-attention layers and a cross-attention layer (about 9.7B params:
+# 38.7 GB in fp32 and 19.4 GB of bf16 weights kept once; all 100 layers are
+# about 173 GB in bf16). whisper-small at full depth.
+COND_LAYERS = {AUDIO_ARCH: None, VLM_ARCH: 10}
+AUDIO_TRAIN = dict(steps=10, batch=8, seq=384)
+# label, B, Hq, Hkv, S, D, causal, window[, Skv]: whisper's encoder (S
+# 1500: 23 tiles of 64 and a ragged 28) and its decoder's cross-attention
+# over the frames, llama-vision's causal GQA 64/8 self-attention at D 128
+# and its cross-attention over 1600 image tokens, and both diffusion LMs'
+# 64 queries over the frames / the image; forward and backward alike
+COND_ATTENTION = [
+    ("whisper encoder, non-causal MHA D=64", 8, 12, 12, 1500, 64, False,
+     None),
+    ("whisper cross-attention, 384 over 1500 frames", 8, 12, 12, 384, 64,
+     False, None, 1500),
+    ("llama-vision prefill, causal GQA 64/8 D=128", 8, 64, 8, 512, 128,
+     True, None),
+    ("llama-vision cross-attention, 512 over 1600, GQA 64/8", 8, 64, 8, 512,
+     128, False, None, 1600),
+    ("whisper diffusion LM cross-attention, 64 over 1500", 8, 12, 12, 64, 64,
+     False, None, 1500),
+    ("llama-vision diffusion LM cross-attention, 64 over 1600", 8, 64, 8, 64,
+     128, False, None, 1600),
+]
+
+
+def cond_sample_part(dev, counts_out: dict, arch: str, layers=None) -> dict:
+    """(d) UniPC sampling of a vlm's or an audio model's diffusion LM at
+    full width through engine.build, the stub frontend's embeddings in the
+    eps-net's batch (launch.sample feeds none and refuses these families,
+    as the reference's fails there): a replay counted, bit-equal to the
+    eager loop, no host sync, the replay and eager walls; the latents as
+    latents_parity holds them. The audio model encodes its frames again at
+    every eval, as the reference's does."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import frontend_embeds
+    from repro_torch.engine import EngineSpec
+    from repro_torch.kernels.dispatch import LAUNCHES
+
+    B, nfe, order = (TOKEN_SAMPLE[k] for k in ("batch", "nfe", "order"))
+    rows = nfe + 1
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = init_model(cfg, 1, dev)
+    x_T = diffusion_lm_inputs(cfg, params, B, dev)
+    cond = {k: torch.from_numpy(v).to(dev)
+            for k, v in frontend_embeds(cfg, B, 1).items()}
+    spec = EngineSpec(nfe=nfe, order=order)
+    expected = {"flash_attention": attention_launches(cfg) * rows,
+                "unipc_update": 2 * rows}
+    free_graphs()
+    engine = lm_engine(cfg, params, B, dev, cond)
+    g = graph_checks(f"{arch} diffusion LM", engine, spec, x_T, expected,
+                     counts_out)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x_eager = g["eager"](x_T)
+        x_replay = g["run"](x_T)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (torch.equal(x_eager, g["x_eager"])
+            and torch.equal(x_replay, g["x_graph"])):
+        fail("the sync-checked diffusion-LM runs differ from the counted ones")
+    print(f"  eager row loop and one replay under set_sync_debug_mode"
+          f"('error'): {rows} rows, no host sync, bit-equal")
+    walls = median_walls({"replay": lambda: g["run"](x_T),
+                          "eager": lambda: g["eager"](x_T)})
+    for name, w in walls.items():
+        print(f"  wall {name}: median {w['median_s']:.4f} s of "
+              f"{[round(v, 4) for v in w['reps_s']]} ({B} sequences of 64)")
+    x0 = g["x_graph"].clone()
+    if x0.shape != (B, 64, cfg.latent_dim) or not torch.isfinite(x0).all():
+        fail(f"diffusion-LM output shape {tuple(x0.shape)} / finite "
+             f"{bool(torch.isfinite(x0).all())}")
+    del g, engine
+    free_graphs()
+    LAUNCHES.clear()
+    x_plain = eager_latents(plain_pinned(cfg), params, x_T, dev, cond=cond)
+    torch.cuda.synchronize()
+    if sum(LAUNCHES.values()):
+        fail(f"the plain-pinned diffusion-LM run launched kernels: "
+             f"{dict(LAUNCHES)}")
+    out = dict(layers=cfg.num_layers, replay_launches=dict(counts_out),
+               walls=walls)
+    out.update(latents_parity(cfg, params, x_T, x0, x_plain, dev, cond))
+    del params
+    return out
+
+
+def cond_training_part(dev, counts_out: dict) -> dict:
+    """(e) whisper-small at full width and depth through launch.train, AR
+    then diffusion: every loss finite, exactly one flash_attention and one
+    flash_attention_bwd an encoder layer and two a decoder layer a step;
+    one step's gradients as 12 (c), the step twice bit-equal. (llama-vision
+    is not trained on the card: one group of 5 layers at 16 bytes a param,
+    fp32 params, gradients and AdamW's two moments, is about 86 GB; the CPU
+    tests train it at the reduced config.)"""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(AUDIO_ARCH)
+    n = attention_launches(cfg) * AUDIO_TRAIN["steps"]
+    want = {"flash_attention": n, "flash_attention_bwd": n}
+    out = {}
+    for objective in ("ar", "diffusion"):
+        counts = counts_out.setdefault(f"{AUDIO_ARCH} {objective}", {})
+        run = token_train_run(dev, AUDIO_ARCH, objective, counts,
+                              profile_at=SSM_PROFILE_STEP, **AUDIO_TRAIN)
+        if counts != want:
+            fail(f"train({AUDIO_ARCH}, {objective}) launched {counts} != "
+                 f"{want}")
+        out[objective] = run["out"]
+        del run
+        free_graphs()
+    out["step"] = token_step_parity_part(dev, AUDIO_ARCH, None, AUDIO_TRAIN)
+    free_graphs()
+    return out
+
+
+def cond_phase(dev, counts_out: dict) -> dict:
+    """Phase 14: (a) the attention kernels at the new shapes, forward and
+    backward; (b), (c) both archs served; (d) both diffusion LMs sampled;
+    (e) whisper trained; (f) the bf16 gates at full depth inside (b) and
+    (d)."""
+    out = {"kernels": token_kernel_cases(dev, COND_ATTENTION, row_ops=False),
+           "backward": token_backward_cases(dev, COND_ATTENTION)}
+    free_graphs()
+    for arch in COND_ARCHS:
+        print(f"  -- {arch} served")
+        counts = counts_out.setdefault(f"{arch} serve", {})
+        out[f"{arch} serve"] = token_serving_part(
+            dev, counts, arch, COND_SERVE[arch], COND_LAYERS[arch])
+        free_graphs()
+        print(f"  -- {arch}'s diffusion LM sampled")
+        counts = counts_out.setdefault(f"{arch} sample", {})
+        out[f"{arch} sample"] = cond_sample_part(dev, counts, arch,
+                                                 COND_LAYERS[arch])
+        free_graphs()
+    print("  -- training")
+    out["train"] = cond_training_part(dev, counts_out)
     return out
 
 
@@ -5011,6 +5503,20 @@ def main():
     scounts13: dict = {}
     ssm = ssm_phase(dev, scounts13)
 
+    print(f"== phase 14: the vlm and audio token families at full width "
+          f"({AUDIO_ARCH} at all {12 + 12} layers and {VLM_ARCH} at "
+          f"{COND_LAYERS[VLM_ARCH]} of its 100, served through launch.serve "
+          f"at batch 8 over the stub frontend's embeddings: prompts "
+          f"{COND_SERVE[AUDIO_ARCH]['prompt_len']} / "
+          f"{COND_SERVE[VLM_ARCH]['prompt_len']}, 64 greedy tokens; their "
+          f"diffusion LMs sampled through engine.build; {AUDIO_ARCH} trained "
+          f"through launch.train, {AUDIO_TRAIN['steps']} steps at batch "
+          f"{AUDIO_TRAIN['batch']} x {AUDIO_TRAIN['seq']}, AR and diffusion; "
+          f"the attention kernels at the cross-attention shapes) on "
+          f"{smi[0]}")
+    ccounts14: dict = {}
+    cond = cond_phase(dev, ccounts14)
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -5077,6 +5583,22 @@ def main():
                                  "bound_ms", "bound_by", "rel_err_bf16",
                                  "rel_err_fp32", "body_bf16")}
                 for label, row in ssm["kernels"].items()}
+        # phase 14: the vlm and audio archs' prefills, sampling replays and
+        # whisper's training runs (a decode step launches no port kernel)
+        entry["cond_launches"] = {part: c.get(kname, 0)
+                                  for part, c in ccounts14.items()}
+        if kname == "flash_attention":
+            entry["cond_cases"] = {
+                label: {k: v for k, v in row.items()
+                        if k in ("shape", "skv", "ms", "plain_ms",
+                                 "library_ms", "bound_ms", "bound_by",
+                                 "rel_err_bf16", "rel_err_fp32",
+                                 "body_bf16", "bit_equal_share_plain",
+                                 "bit_equal_share_rounded_p")}
+                for label, row in cond["kernels"].items()}
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+                row[f"abs_err_{n}"] for row in cond["kernels"].values()
+                for n in ("fp32", "bf16")])
         if kname in served["cache"]["launches"].get("shallow", {}):
             entry["serving_launches_per_shallow_tick"] = (
                 served["cache"]["launches"]["shallow"][kname])
@@ -5107,8 +5629,12 @@ def main():
             entry["ssm_cases"] = ssm["backward"]
             entry["ssm_launches"] = {part: c.get(kname, 0)
                                      for part, c in scounts13.items()}
+            entry["cond_cases"] = cond["backward"]
+            entry["cond_launches"] = {part: c.get(kname, 0)
+                                      for part, c in ccounts14.items()}
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [
-                row[f"abs_err_{n}"] for rows_ in (rows, ssm["backward"])
+                row[f"abs_err_{n}"]
+                for rows_ in (rows, ssm["backward"], cond["backward"])
                 for row in rows_.values() for n in ("fp32", "bf16")])
         entries.append(entry)
     summary = dict(main_path=main_stats, serving=serve_stats,
@@ -5117,6 +5643,8 @@ def main():
                    training=trained, token_training=token_trained,
                    ssm_and_hybrid={k: v for k, v in ssm.items()
                                    if k not in ("kernels", "backward")},
+                   vlm_and_audio={k: v for k, v in cond.items()
+                                  if k not in ("kernels", "backward")},
                    tokens={k: v for k, v in tokens.items() if k != "kernels"},
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][

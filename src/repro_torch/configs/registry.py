@@ -1,6 +1,6 @@
-"""Architecture registry: --arch lookup over the ported configs (the
-decoder-only token family, the SSM and hybrid token families and the two
-DiTs). Each config file cites its source."""
+"""Architecture registry: --arch lookup over the ported configs (every
+family of the reference: the decoder-only, SSM, hybrid, vlm and audio token
+families and the two DiTs). Each config file cites its source."""
 
 from __future__ import annotations
 
@@ -14,24 +14,16 @@ ARCH_IDS = [
     "granite-moe-3b-a800m", "mixtral-8x7b",
     # SSM (Mamba2 / SSD) and hybrid (Mamba2 + shared attention) token families
     "mamba2-780m", "zamba2-7b",
+    # vlm (gated cross-attention) and audio (encoder-decoder) token families
+    "llama-3.2-vision-90b", "whisper-small",
     # paper-native diffusion backbones
     "dit-i256", "dit-cifar",
 ]
-
-# the reference's other families, each waiting for its model code
-NOT_YET_PORTED = {
-    "llama-3.2-vision-90b": "vlm", "whisper-small": "audio",
-}
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} (family {NOT_YET_PORTED[arch_id]!r}) is not "
-            f"yet ported to repro_torch (ROADMAP item 12); ported: "
-            f"{sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; ported: "
                        f"{sorted(_MODULES)}")

@@ -67,6 +67,20 @@ def stub_embeds(batch: int, tokens: int, d_model: int, seed: int = 0):
     return (0.02 * rng.normal(size=(batch, tokens, d_model))).astype(np.float32)
 
 
+def frontend_embeds(cfg, batch: int, seed: int = 0) -> dict:
+    """The stub inputs a family's frontend would give, as the reference's
+    serve and train draw them: a vlm's `image_embeds` (batch, image_tokens,
+    d_model), an audio model's `audio_embeds` (batch, audio_frames,
+    d_model), from `stub_embeds(..., seed)`; {} for the other families."""
+    if cfg.family == "vlm":
+        return {"image_embeds": stub_embeds(batch, cfg.image_tokens,
+                                            cfg.d_model, seed)}
+    if cfg.family == "audio":
+        return {"audio_embeds": stub_embeds(batch, cfg.audio_frames,
+                                            cfg.d_model, seed)}
+    return {}
+
+
 def class_ids(batch: int, num_classes: int = 1000, seed: int = 0):
     return np.random.default_rng(seed).integers(
         0, num_classes, size=(batch,)).astype(np.int32)

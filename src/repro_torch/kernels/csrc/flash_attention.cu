@@ -18,9 +18,12 @@
 //   head's K and V once: 2 reads of each K/V byte in all. What the design
 //   does about the bytes bound:
 //   - S, P and O never leave registers. The fp32 accumulator fragment of
-//     S = Q K^T, rounded to bf16, is the A fragment of P V; row max and sum
-//     take two quad shuffles; exp2f with scale * log2(e) folded into the
-//     scores; O is rescaled in registers and divided by l once at the end.
+//     S = Q K^T, P = exp2(S - m) rounded to bf16, is the A fragment of P V
+//     (the TPU kernel widens q, k, v and keeps P fp32: a hi + lo split of P
+//     into two products would restore that, for about 15% more time); row
+//     max and sum take two quad shuffles, the sum over the unrounded P;
+//     exp2f with scale * log2(e) folded into the scores; O is rescaled in
+//     registers and divided by l once at the end.
 //   - K/V tiles of 64 keys arrive by 16-byte cp.async into a ring of 3
 //     stages, two tiles ahead of the products, one barrier per tile.
 //   - Shared-memory rows hold an odd number of 16-byte chunks (D = 72:
@@ -243,6 +246,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// what pack_bf16(lo, hi) = `packed` left out, rounded to bf16 in turn: the
+// differences are exact in fp32, so packed + residual carries 16 bits (the
+// backward's split operands)
+__device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi,
+                                                       uint32_t packed) {
+  const float2 r = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&packed));
+  return pack_bf16(lo - r.x, hi - r.y);
+}
+
 // Issue the fill of `rows` tile rows (rows r0.. of one head, row stride ld
 // elements) into shared memory at `dst` (row pitch PITCH bytes, ND chunks
 // a row): zeros past `limit` rows and past D columns. vec: 16-byte
@@ -275,7 +288,8 @@ template <int ND>
 __global__ void __launch_bounds__(MMA_THREADS, FaTile<ND>::MIN_BLOCKS)
 attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int D,
+                float* __restrict__ lse, float* __restrict__ o32, int Hq, int Hkv,
+                int Sq, int Skv, int D,
                 Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
                 float scale_log2, int vec_in, int vec_out) {
   using T = FaTile<ND>;
@@ -459,6 +473,16 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (qr < Sq) lse[(long long)bh * Sq + qr] = (m_r[r] + log2f(l_r[r])) * LN2;
     }
   }
+  if (o32 != nullptr) {  // O / l before its rounding: the backward's Delta
+    float* ob32 = o32 + (long long)bh * Sq * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = row0 + (e >> 1) * 8, c = n * 8 + 2 * t4 + (e & 1);
+        if (qr < Sq && c < D) ob32[(long long)qr * D + c] = oacc[n][e] / denom[e >> 1];
+      }
+  }
   unsigned char* stage = q_s + warp * 16 * PITCH;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -486,7 +510,8 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int ND>
 static int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                      int B, int Hq, int Hkv, int Sq, int Skv, int D, const long long* st,
+                      float* o32, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                      const long long* st,
                       int causal, int window, float scale, int vec_in, int vec_out,
                       cudaStream_t s) {
   static bool sized = false;  // once per instantiation
@@ -500,7 +525,7 @@ static int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, floa
   const long long blocks = (long long)B * Hq * ((Sq + MMA_BQ - 1) / MMA_BQ);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   attn_mma_kernel<ND><<<static_cast<unsigned>(blocks), MMA_THREADS, FaTile<ND>::SMEM, s>>>(
-      q, k, v, o, lse, Hq, Hkv, Sq, Skv, D, Strides{st[0], st[1], st[2]},
+      q, k, v, o, lse, o32, Hq, Hkv, Sq, Skv, D, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]}, causal, window, scale * LOG2E, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
@@ -536,13 +561,16 @@ static int launch_cuda_cores(const void* q, const void* k, const void* v,
 
 // strides: 12 values, (b, h, s) strides of q, k, v, o in elements. lse_out:
 // nullptr, or the fp32 (B, Hq, Sq) log-sum-exp of each query's scaled
-// scores, written beside o for the backward (nothing else changes). fp32
+// scores, written beside o for the backward (nothing else changes). o32_out
+// (bf16 only): nullptr, or a contiguous fp32 (B, Hq, Sq, D) copy of the
+// output before its rounding to bf16, which the backward's Delta reads. fp32
 // runs on CUDA cores. bf16 runs the mma body compiled for nd 8-column
 // chunks (4, 8, 9 or 16; nd * 8 >= D); vec_in: q/k/v rows load as 16-byte
 // chunks, vec_out: o rows store so (both need D % 8 == 0 and 16-byte
 // aligned rows, which is checked here too).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, void* lse_out, int B, int Hq, int Hkv, int Sq, int Skv,
+                               void* o, void* lse_out, void* o32_out, int B, int Hq, int Hkv,
+                               int Sq, int Skv,
                                int D, const long long* strides, int causal,
                                int window, float scale, int dtype, int nd,
                                int vec_in, int vec_out, void* stream) {
@@ -569,7 +597,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
 #define FA_MMA(ND)                                                                \
-  launch_mma<ND>(qp, kp, vp, op, lse, B, Hq, Hkv, Sq, Skv, D, st, causal, window, scale, \
+  launch_mma<ND>(qp, kp, vp, op, lse, static_cast<float*>(o32_out), B, Hq, Hkv, Sq, Skv, D, \
+                 st, causal, window, scale,                                              \
                  vec_in, vec_out, s)
   switch (nd) {
     case 4: return FA_MMA(4);
@@ -588,7 +617,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 // hand-written kernel, so its gradient is one too: FlashAttention-2's
 // backward in two passes, neither with atomics, so a step repeats bit for bit.
 // * dq pass — a block per (b, q head, 64-query tile). Delta = rowsum(do * o)
-//   of its rows (fp32, written per q head for the second pass), then over the
+//   of its rows (fp32, written per q head for the second pass; o is the
+//   forward's output before its rounding to bf16, o32: from the rounded
+//   output, Delta carries its 2^-8 error into every dS = P (dP - Delta), and
+//   where dS nearly cancels, a cross-attention over 1500 frames, dq and dk
+//   came out 4x farther from the fp32 gradients than plain's), then over the
 //   key tiles of kv head h / (Hq / Hkv) that its queries can see (the
 //   forward's tile skipping): P = exp(scale q k^T - lse) from the forward's
 //   saved log-sum-exp, 0 where masked, dP = do v^T, dS = P (dP - Delta),
@@ -613,8 +646,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 // both passes (7 products), and the dq pass reads a kv head's K/V tiles once
 // for each q head of its group.
 // bf16 runs on mma.sync m16n8k16 as the forward does: each warp owns 16 rows
-// of its block's tile; S/dP accumulate in registers and become the bf16 A
-// fragments of the next products without leaving them; the streamed tiles
+// of its block's tile; S/dP accumulate in registers and P, dS become the
+// split (hi + lo) bf16 A fragments of the next products without leaving
+// them, so dq, dk and dv cost two products each (10 in all); the streamed tiles
 // arrive by cp.async into a ring of two stages. fp32 runs on CUDA cores
 // with the forward's layout (4 threads a row).
 
@@ -678,9 +712,13 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4],
   }
 }
 
-// acc (16 x D, fp32) += P (16 x 64, fp32 in the accumulator layout, rounded
-// to bf16 here) B, B the 64-row tile at b_u (contraction over its rows, as
-// the forward's P V).
+// acc (16 x D, fp32) += P (16 x 64, fp32 in the accumulator layout) B, B
+// the 64-row tile at b_u (contraction over its rows, as the forward's P V).
+// P (here P, P^T or dS, dS^T) is split into bf16 halves, hi = bf16(P) and
+// lo = bf16(P - hi), two products into the same accumulators: 16 bits of
+// it, so the gradients are the fp32 products of the bf16 inputs before
+// their one rounding (with one bf16 dS, a gradient that nearly cancels in
+// its sum over keys, rope's key bias, strayed past plain's).
 template <int ND>
 __device__ __forceinline__ void mma_pb(float (&acc)[ND][4], const float (&p)[8][4],
                                        unsigned b_u) {
@@ -688,23 +726,28 @@ __device__ __forceinline__ void mma_pb(float (&acc)[ND][4], const float (&p)[8][
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < BW_TILE / 16; ++kk) {
-    uint32_t pf[4];
-    pf[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pf[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pf[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pf[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    uint32_t pf[4], pl[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* pr = p[2 * kk + (j >> 1)] + 2 * (j & 1);
+      pf[j] = pack_bf16(pr[0], pr[1]);
+      pl[j] = pack_bf16_residual(pr[0], pr[1], pf[j]);
+    }
     const unsigned row = b_u + (kk * 16 + (lane & 15)) * PITCH;
 #pragma unroll
     for (int n = 0; n + 1 < ND; n += 2) {
       uint32_t b0, b1, b2, b3;
       ldsm_x4_t(row + (n + (lane >> 4)) * 16, b0, b1, b2, b3);
       mma_k16(acc[n], pf, b0, b1);
+      mma_k16(acc[n], pl, b0, b1);
       mma_k16(acc[n + 1], pf, b2, b3);
+      mma_k16(acc[n + 1], pl, b2, b3);
     }
     if (ND & 1) {
       uint32_t b0, b1;
       ldsm_x2_t(row + (ND - 1) * 16, b0, b1);
       mma_k16(acc[ND - 1], pf, b0, b1);
+      mma_k16(acc[ND - 1], pl, b0, b1);
     }
   }
 }
@@ -755,7 +798,7 @@ __device__ __forceinline__ int first_dead_query(int Sq, int Skv, int window) {
 template <int ND, bool MASK>
 __global__ void __launch_bounds__(BW_THREADS)
 attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ o,
+                   const bf16* __restrict__ v, const float* __restrict__ o,
                    const bf16* __restrict__ dout, const float* __restrict__ lse,
                    float* __restrict__ delta, bf16* __restrict__ dq, int Hq, int Hkv, int Sq,
                    int Skv, int D, BwStrides st, float scale, int causal, int window,
@@ -776,7 +819,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * st.q.b + h * st.q.h;
   const bf16* kb = k + b * st.k.b + hk * st.k.h;
   const bf16* vb = v + b * st.v.b + hk * st.v.h;
-  const bf16* ob = o + b * st.o.b + h * st.o.h;
+  const float* ob = o + b * st.o.b + h * st.o.h;
   const bf16* db = dout + b * st.dout.b + h * st.dout.h;
 
   // the key tiles any query of the block sees: from the first query's
@@ -1177,7 +1220,7 @@ struct BwShape {
 };
 
 template <int ND, bool MASK>
-static int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+static int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const float* o,
                           const bf16* dout, const float* lse, float* delta, bf16* dq,
                           bf16* dk, bf16* dv, const BwShape& sh, const BwStrides& st,
                           float scale, int vec_in, cudaStream_t s) {
@@ -1226,7 +1269,8 @@ static int launch_bwd_f32(const float* q, const float* k, const float* v, const 
 }
 
 // The backward of flash_attention(q, k, v, causal, window): q, o, dout, dq
-// (B, Hq, Sq, D); k, v, dk, dv (B, Hkv, Skv, D), Hq % Hkv == 0; window 0 for
+// (B, Hq, Sq, D), o in fp32 for bf16 q too (the forward's o32_out); k, v,
+// dk, dv (B, Hkv, Skv, D), Hq % Hkv == 0; window 0 for
 // none. strides: 24 values, (b, h, s) strides of q, k, v, o, dout, dq, dk,
 // dv in elements (unit column stride); lse: the forward's (B, Hq, Sq)
 // log-sum-exp; delta: a (B, Hq, Sq) fp32 workspace. bf16 runs the mma
@@ -1277,8 +1321,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     }
   }
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v), *op = static_cast<const bf16*>(o),
-             *dp = static_cast<const bf16*>(dout);
+             *vp = static_cast<const bf16*>(v), *dp = static_cast<const bf16*>(dout);
+  const float* op = static_cast<const float*>(o);  // the forward's o32
   bf16 *gq = static_cast<bf16*>(dq), *gk = static_cast<bf16*>(dk), *gv = static_cast<bf16*>(dv);
 #define FA_BWD(ND)                                                                        \
   (mask ? launch_bwd_mma<ND, true>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, sh, st, scale,  \

@@ -27,7 +27,7 @@ MMA_BLOCK_Q = 128
 @functools.cache
 def _launcher():
     fn = build.library("flash_attention").flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -77,8 +77,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fp32 or bf16, any (b, h, s) strides with unit column stride. Returns
     (B, Hq, Sq, D) laid out like q (so a head-major view of a (B, S, H, D)
     projection comes back as one, ready to reshape). With `lse=True` also
-    the (B, Hq, Sq) fp32 log-sum-exp of each query's scaled scores, which
-    the backward needs: (out, lse). The output is the same either way."""
+    what the backward reads: the (B, Hq, Sq) fp32 log-sum-exp of each
+    query's scaled scores and the output in fp32 before its rounding to q's
+    dtype, (B, Hq, Sq, D) contiguous (fp32 q: `out` itself), for Delta:
+    (out, lse, o32). The output is the same either way."""
     require_cuda("flash_attention", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q (B, Hq, Sq, D), k/v (B, Hkv, "
@@ -98,20 +100,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if -(-Sq // BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention: Sq <= {65535 * BLOCK_Q}, got {Sq}")
     out = torch.empty_like(q)   # keeps q's layout; dense, so stride(3) == 1
-    lse_out = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-               if lse else None)
+    lse_out = o32_out = None
+    if lse:
+        lse_out = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                              device=q.device)
+        o32_out = (out if q.dtype == torch.float32 else torch.empty(
+            (B, Hq, Sq, D), dtype=torch.float32, device=q.device))
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)])
     p = plan(q, k, v, out)
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      0 if lse_out is None else lse_out.data_ptr(),
+                     0 if o32_out is None or o32_out is out
+                     else o32_out.data_ptr(),
                      B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides),
                      int(causal), int(window or 0), 1.0 / math.sqrt(D),
                      build.dtype_code(q.dtype), p["chunks"], int(p["vec_in"]),
                      int(p["vec_out"]), build.stream_of(q))
     build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out if lse_out is None else (out, lse_out)
+    return (out, lse_out, o32_out) if lse else out
 
 
 def plan_bwd(q, k, v, do) -> dict:
@@ -140,7 +148,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32) and the output's gradient `do`: q, o, do (B, Hq, Sq, D); k, v
     (B, Hkv, Skv, D), Hq % Hkv == 0 (dk and dv of a kv head sum its group
     of q heads). Any (b, h, s) strides with unit column stride; each
-    gradient is laid out like its input. Note the default: non-causal."""
+    gradient is laid out like its input. Note the default: non-causal.
+    Delta = rowsum(do * o) is read from the output before its rounding, so
+    `o` is fp32: for bf16 q the forward's o32 (the third of
+    `flash_attention(..., lse=True)`, what the autograd Function saves)."""
     require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     B, Hq, Sq, D = q.shape
     if (q.ndim != 4 or k.ndim != 4 or v.shape != k.shape
@@ -152,9 +163,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)} o {tuple(o.shape)} do "
                          f"{tuple(do.shape)}")
     Hkv, Skv = k.shape[1], k.shape[2]
-    if D > MAX_D or any(t.dtype != q.dtype for t in (k, v, o, do)):
-        raise ValueError(f"flash_attention_bwd: D <= {MAX_D} and one dtype; "
-                         f"got D {D}, {[t.dtype for t in (q, k, v, o, do)]}")
+    if (D > MAX_D or any(t.dtype != q.dtype for t in (k, v, do))
+            or o.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: D <= {MAX_D}, one dtype for "
+                         f"q, k, v, do and an fp32 o; got D {D}, "
+                         f"{[t.dtype for t in (q, k, v, o, do)]}")
     if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "

@@ -14,14 +14,15 @@ from ..dispatch import needs_grad, use_kernel
 
 class _Attention(torch.autograd.Function):
     """Attention on the card, differentiable: the forward kernel (which also
-    saves its log-sum-exp) and the backward kernel
+    saves its log-sum-exp and its output before the rounding to q's dtype,
+    for the backward's Delta) and the backward kernel
     (`kernel.flash_attention_bwd`), with the same mask and group size."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = kernel.flash_attention(q, k, v, causal=causal,
-                                          window=window, lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, o32 = kernel.flash_attention(q, k, v, causal=causal,
+                                               window=window, lse=True)
+        ctx.save_for_backward(q, k, v, o32, lse)
         ctx.mask = (causal, window)
         return out
 

@@ -17,8 +17,14 @@ def _visible(Sq: int, Skv: int, causal: bool, window, device) -> torch.Tensor:
     return ok
 
 
-def attention(q, k, v, *, causal=True, window=None):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). fp32 softmax, scale 1/sqrt(D)."""
+def attention(q, k, v, *, causal=True, window=None, round_p=False):
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). fp32 softmax, scale 1/sqrt(D).
+
+    `round_p=True` is a yardstick for the bf16 kernel, not a path of the
+    port: P = exp(s - rowmax) is rounded to bf16 before P.V, as the kernel's
+    `mma` body packs it, and the denominator sums the unrounded fp32 P, as
+    the kernel's row sum does. The default keeps P in fp32 (the reference's
+    Pallas kernel does too)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -27,8 +33,14 @@ def attention(q, k, v, *, causal=True, window=None):
                      k.to(torch.float32)) / math.sqrt(D)
     ok = _visible(Sq, Skv, causal, window, q.device)
     s = torch.where(ok, s, torch.full_like(s, -1e30))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", w, v.to(torch.float32))
+    vf = v.to(torch.float32)
+    if round_p:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.einsum("bhgqk,bhkd->bhgqd",
+                         p.to(torch.bfloat16).to(torch.float32), vf)
+        o = o / p.sum(dim=-1, keepdim=True)
+    else:
+        o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1), vf)
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
@@ -47,9 +59,10 @@ def attention_lse(q, k, *, causal=True, window=None):
 def attention_bwd(q, k, v, o, lse, do, *, causal=False, window=None):
     """The gradient of `attention(q, k, v, causal=causal, window=window)`
     written out (FlashAttention-2's backward, not autograd): (dq, dk, dv)
-    from the output o, the forward's log-sum-exp `lse` (B, Hq, Sq, fp32)
-    and the output's gradient do. Note the default: non-causal. fp32
-    statistics:
+    from the output o (for Delta; the fp32 output before its rounding, as
+    the kernel reads it, or the output itself), the forward's log-sum-exp
+    `lse` (B, Hq, Sq, fp32) and the output's gradient do. Note the default:
+    non-causal. fp32 statistics:
 
         P  = exp(scale * q k^T - lse), 0 where masked,  Delta = rowsum(do * o)
         dS = P * (do v^T - Delta), 0 where masked

@@ -12,6 +12,11 @@ the engine's run is one CUDA graph replay (`engine/graphs.py`).
         [--ckpt ckpt_dir]
     PYTHONPATH=src python -m repro_torch.launch.sample --arch qwen2-0.5b \
         --full --nfe 10 --batch 8        # or mamba2-780m, zamba2-7b
+
+The vlm and audio families are refused: their eps-net needs the frontend
+embeddings in its batch, which this entry point does not feed (the
+reference's fails there too); `api.eps_network` samples them with the
+embeddings in `batch`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,21 @@ from ..models.dit import dit_cache_shape
 from ..models.quant import quant_spec
 
 NULL_CLASS_ID = api.NUM_CLASSES
+
+
+def refuse_frontend_families(cfg) -> None:
+    """ValueError for a family whose eps-net reads frontend embeddings from
+    its batch: this entry point feeds none, as the reference's (its
+    `eps_with({})`, src/repro/launch/sample.py:129, fails with a KeyError
+    there)."""
+    key = api.frontend_key(cfg)
+    if key is not None:
+        raise ValueError(
+            f"launch.sample feeds the diffusion LM no frontend embeddings, "
+            f"and the {cfg.family!r} family's eps-net needs "
+            f"batch[{key!r}] (arch {cfg.arch_id!r}); the reference's "
+            f"launch.sample fails there too (KeyError: {key!r}). Sample it "
+            f"through api.eps_network(cfg) with {key!r} in the batch")
 
 
 def class_ids(batch: int, num_classes: int = 1000, seed: int = 0) -> np.ndarray:
@@ -86,6 +106,7 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
     if eval_dtype not in EVAL_DTYPES:
         raise ValueError(f"eval_dtype must be 'float32' or 'bfloat16', "
                          f"got {eval_dtype!r}")
+    refuse_frontend_families(cfg)
     if quant != "none" and cfg.family != "dit":
         raise ValueError(f"the quantized denoiser path needs the dit "
                          f"family; {cfg.arch_id!r} is family "
@@ -224,6 +245,7 @@ def sample(arch: str, *, reduced=True, solver="unipc", order=3, nfe=10,
                          "quantized tiers ride the engine paths")
     device = resolve_device(device)
     cfg = get_config(arch)
+    refuse_frontend_families(cfg)
     if cfg_scale and cfg.family != "dit":
         raise ValueError("classifier-free guidance needs the dit family "
                          "(class-conditional eps-net)")
@@ -334,9 +356,10 @@ def main(argv=None):
         ap.error("--quant rides the engine paths; the python-loop "
                  "reference is fp32-only")
     try:
-        family = get_config(args.arch).family
-    except NotImplementedError as err:
+        refuse_frontend_families(get_config(args.arch))
+    except ValueError as err:
         ap.error(str(err))
+    family = get_config(args.arch).family
     if args.cfg_scale and family != "dit":
         ap.error(f"--cfg-scale needs a class-conditional eps-net; --arch "
                  f"{args.arch} is family '{family}', not 'dit' (try "

@@ -1,8 +1,10 @@
 """Batched serving (the port of `repro.launch.serve`). Token models
-(the decoder-only dense and MoE transformers, the Mamba2 SSM stack and the
-zamba2 hybrid): prefill a batch of prompts, then greedy or temperature
-decode with the stacked cache (KV caches, SSM states), each decode step a
-CUDA graph replay on the card (`TokenDecoder`). Diffusion models (dit
+(the decoder-only dense and MoE transformers, the Mamba2 SSM stack, the
+zamba2 hybrid, the llama-vision vlm and the whisper encoder-decoder, whose
+frontends are stubs fed `stub_embeds` as in the reference): prefill a
+batch of prompts, then greedy or temperature decode with the stacked
+cache (KV caches, SSM states, the fixed cross-attention K/V), each decode
+step a CUDA graph replay on the card (`TokenDecoder`). Diffusion models (dit
 family): continuous batching, one request = one latent to generate. A
 request-level scheduler over `--batch` slots drives the engine's per-slot
 step program, so requests admit the moment a slot frees, carry their own
@@ -24,6 +26,11 @@ back as a pipelined trailing stream.
         --batch 2 --prompt-len 12 --gen 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --full --batch 8 --prompt-len 512 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --full --batch 8 --prompt-len 384 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-90b --batch 2 --prompt-len 12 --gen 4 \
+        --device cpu                     # --reduced, the default
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dit-i256 \
         --full --batch 8 --nfe 10 --cfg-scale 2.0 --arrival-rate 0.5 \
         --requests 24
@@ -32,8 +39,8 @@ back as a pipelined trailing stream.
         --trace-out trace.json --metrics-out metrics.json \
         --probe-fraction 0.25 --probe-ref-nfe 16
 
-Not yet ported, and refused when asked for: the vlm and audio families;
-the mesh sharding of the slot batch (the port serves on one card).
+Not yet ported, and refused when asked for: the mesh sharding of the slot
+batch (the port serves on one card).
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import numpy as np
 import torch
 
 from ..configs.registry import get_config
-from ..data.synthetic import TokenStream
+from ..data.synthetic import TokenStream, frontend_embeds
 from ..engine import graphs
 from ..engine.engine import resolve_device
 from ..engine.specs import EVAL_DTYPES
@@ -57,7 +64,9 @@ from ..obs import metrics as obsm
 class TokenDecoder:
     """The decode loop's step on static buffers: `token` (B, 1) int64 and
     `pos` a 0-d int64, both on the device, and the cache, which the step
-    updates in place (KV slots at `pos % W`, SSM states). `step()` runs one
+    updates in place (KV slots at `pos % W`, SSM states) or reads as it is
+    (the vlm's image K/V and the audio model's encoder K/V, fixed at
+    prefill, so the graph captures them as part of the cache). `step()` runs one
     decode step on what they hold and returns the (B, 1, V) logits. With
     `jit` on the card the step is a CUDA graph (the reference's
     `jax.jit(decode)`), captured at the first `step()` after one eager
@@ -134,13 +143,15 @@ def decode_tokens(decoder: TokenDecoder, first: torch.Tensor, start: int,
 class TokenRun:
     """What one `serve(..., return_run=True)` call served: the (batch, gen)
     tokens, the prefill and decode walls (host clock to a sync), the
-    prompts, the last-position prefill logits and the decoder (its params,
-    cache and graph)."""
+    prompts, prefill's inputs (the prompts as "tokens" and any frontend
+    embeddings, on the device), the last-position prefill logits and the
+    decoder (its params, cache and graph)."""
 
     tokens: np.ndarray
     prefill_s: float
     decode_s: float
     prompts: torch.Tensor
+    inputs: dict
     prefill_logits: torch.Tensor
     decoder: TokenDecoder
 
@@ -157,10 +168,13 @@ def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen=32,
     weights the model casts at each use are kept once in the activation
     dtype (`api.cast_weights_once`). `prompts` (batch, prompt_len) default
     to block 0 of a `TokenStream` seeded with `seed` (its block seed comes
-    from Python's string hash, so pass prompts to compare processes).
-    Prefill runs eagerly (the attention kernel's causal GQA path); each
-    decode step is a CUDA graph replay on the card with `jit` (the eager
-    step without)."""
+    from Python's string hash, so pass prompts to compare processes). A
+    vlm's image embeddings and an audio model's frames are the stub
+    frontend's, `stub_embeds(batch, ..., seed)`, as the reference feeds
+    them. Prefill runs eagerly (the attention kernel: causal GQA, and the
+    encoder's and the cross-attention's non-causal calls); each decode step
+    is a CUDA graph replay on the card with `jit` (the eager step
+    without)."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if cfg.family not in api.TOKEN_FAMILIES:
@@ -181,10 +195,13 @@ def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen=32,
         raise ValueError(f"prompts must be ({batch}, {prompt_len}), got "
                          f"{tuple(prompts.shape)}")
     generator = torch.Generator(device=device).manual_seed(seed)
+    inputs = {"tokens": prompts}
+    inputs.update({k: torch.from_numpy(v).to(device) for k, v in
+                   frontend_embeds(cfg, batch, seed).items()})
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
-    logits, cache = api.prefill_fn(cfg)(params, {"tokens": prompts}, max_len)
+    logits, cache = api.prefill_fn(cfg)(params, inputs, max_len)
     sync()
     prefill_s = time.perf_counter() - t0
     decoder = TokenDecoder(params, cfg, cache, batch, device, jit=jit)
@@ -199,7 +216,7 @@ def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen=32,
           f"({decode_s/gen*1e3:.2f} ms/tok, batch={batch})")
     if return_run:
         return TokenRun(tokens=tokens, prefill_s=prefill_s,
-                        decode_s=decode_s, prompts=prompts,
+                        decode_s=decode_s, prompts=prompts, inputs=inputs,
                         prefill_logits=logits, decoder=decoder)
     return tokens
 
@@ -592,10 +609,7 @@ def main(argv=None):
                        help="reduced CPU-scale config (the default)")
     scale.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
-    try:
-        family = get_config(args.arch).family
-    except NotImplementedError as err:
-        ap.error(str(err))
+    family = get_config(args.arch).family
     # the reference's refusals of the diffusion-only flags for token archs
     if family != "dit" and args.cfg_scale:
         ap.error(f"--cfg-scale needs a class-conditional eps-net; --arch "

@@ -1,7 +1,7 @@
 """Training launcher (the port of `repro.launch.train`): the DiT's diffusion
-objective and the token families' (dense, MoE, SSM, hybrid) AR and
-diffusion-LM objectives, on the card unless `device="cpu"` / `--device
-cpu` is given.
+objective and the token families' (dense, MoE, SSM, hybrid, vlm, audio) AR
+and diffusion-LM objectives, on the card unless `device="cpu"` /
+`--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dit-cifar \\
         --objective diffusion --steps 20 --batch 8 --device cpu
@@ -9,13 +9,16 @@ cpu` is given.
         --objective ar --steps 20 --batch 8 --seq 128 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
         --objective diffusion --steps 20 --batch 8 --seq 128 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+        --full --objective ar --steps 20 --batch 8 --seq 384
 
 On the card the forward runs through the port's kernels and their
 backward kernels (each op's autograd Function): the DiT through adaLN,
 gate_residual and attention, the token families through attention
 (causal for the AR loss, bidirectional for the diffusion LM, GQA and
 sliding windows as configured), zamba2's shared block through causal
-attention for both; the dense products, norms, activations, the MoE
+attention for both, the vlm's cross-attention and the audio model's
+encoder and cross-attention non-causal; the dense products, norms, activations, the MoE
 dispatch, the Mamba2 blocks' SSD scan and the losses are plain torch under
 autograd, as the
 reference leaves them to XLA. Params stay fp32 masters: the models cast
@@ -35,9 +38,9 @@ import torch
 
 from ..checkpoint import ckpt
 from ..configs.registry import get_config
-from ..data.synthetic import TokenStream, class_ids, latent_images
+from ..data.synthetic import (TokenStream, class_ids, frontend_embeds,
+                              latent_images)
 from ..engine.engine import resolve_device
-from ..engine.specs import not_yet_ported
 from ..models import api
 from ..optim import AdamW, tree_leaves, tree_map, warmup_cosine
 
@@ -70,7 +73,8 @@ def build_batch_fn(cfg, batch_size, seq_len, seed=0, device="cpu"):
     """i -> the i-th batch on `device`, the reference's synthetic data
     (numpy, bit-equal): the DiT's latents and class ids as fp32 and int64
     tensors; the token families' `TokenStream` block (tokens, targets) as
-    int64 tensors."""
+    int64 tensors, with a vlm's or an audio model's stub embeddings of
+    seed + i as fp32 tensors."""
     if cfg.family == "dit":
         def fn(i):
             return {"latents": torch.from_numpy(latent_images(
@@ -79,14 +83,14 @@ def build_batch_fn(cfg, batch_size, seq_len, seed=0, device="cpu"):
                     "class_ids": torch.from_numpy(class_ids(
                         batch_size, seed=seed + i)).long().to(device)}
         return fn
-    if cfg.family not in api.TOKEN_FAMILIES:
-        raise not_yet_ported(f"the {cfg.family!r} family's batches "
-                             f"(ROADMAP item 12)")
     stream = TokenStream(cfg.vocab_size, seq_len, batch_size, seed)
 
     def fn(i):
-        return {k: torch.from_numpy(v).long().to(device)
-                for k, v in stream.block(i).items()}
+        b = {k: torch.from_numpy(v).long().to(device)
+             for k, v in stream.block(i).items()}
+        b.update({k: torch.from_numpy(v).to(device) for k, v in
+                  frontend_embeds(cfg, batch_size, seed + i).items()})
+        return b
 
     return fn
 

@@ -1,7 +1,8 @@
-"""Per-family model API (the port's slice of `repro.models.api`): the dit
-family and the token families: the decoder-only dense and MoE
-transformers, the SSM stack (Mamba2 / SSD) and the hybrid (Mamba2 with
-zamba2's shared attention block).
+"""Per-family model API (the port of `repro.models.api`): the dit family
+and the token families: the decoder-only dense and MoE transformers, the
+SSM stack (Mamba2 / SSD), the hybrid (Mamba2 with zamba2's shared
+attention block), the vlm (llama-vision's gated cross-attention over
+image embeddings) and the audio encoder-decoder (whisper).
 
     init_params(cfg, seed, device)              -> params
     train_loss(cfg, objective)(params, batch, rng) -> scalar loss
@@ -11,19 +12,23 @@ zamba2's shared attention block).
     prefill_fn(cfg)(params, batch, max_len)     -> (logits, cache)
     decode_fn(cfg)(params, cache, tok, pos)     -> (logits, cache)
 
-The token families' eps-net is the diffusion-LM head over the backbone
-from its input embeddings (`models/diffusion_lm.py`, DESIGN.md §7.1): the
-transformers run bidirectionally, the SSM and hybrid backbones stay causal
-as the reference's do. Their diffusion objective is embedding-space
-diffusion over the learned token latents, the eps loss plus an
-alpha^2-weighted rounding cross-entropy. Not yet ported, and refused: the
-vlm and audio families.
+`batch` is a dict: tokens / targets always; `image_embeds` (vlm) and
+`audio_embeds` (audio), the stub frontends' outputs; latents and class ids
+(dit). The token families' eps-net is the diffusion-LM head over the
+backbone from its input embeddings (`models/diffusion_lm.py`, DESIGN.md
+§7.1): the transformers, the vlm and the audio decoder run
+bidirectionally (the vlm's and the audio model's conditioned on
+`batch`'s embeddings), the SSM and hybrid backbones stay causal as the
+reference's do. Their diffusion objective is embedding-space diffusion
+over the learned token latents, the eps loss plus an alpha^2-weighted
+rounding cross-entropy. The audio family has no `init_cache`: its cache
+comes from prefill, as the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,8 +36,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..diffusion.process import draw_t_noise, q_sample
 from ..diffusion.schedules import VPLinear
-from ..engine.specs import not_yet_ported
-from . import hybrid, transformer
+from . import encdec, hybrid, transformer, vlm
 from .diffusion_lm import diffusion_lm_apply, init_diffusion_head
 from .dit import dit_apply, dit_apply_cached, init_dit
 from .layers import dense_init
@@ -42,12 +46,19 @@ NUM_CLASSES = 1000  # init_params allocates NUM_CLASSES + 1 embeddings; the
 
 
 class _TokenLM(NamedTuple):
-    """The module functions of one token family's LM."""
+    """The module functions of one token family's LM, and the batch key of
+    the frontend embeddings its loss, prefill and diffusion-LM eval take
+    after the tokens (None: none)."""
     init: Callable
     lm_loss: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
+    cond: Optional[str] = None
+
+
+def _audio_cache(cfg, batch, max_len, device="cpu"):
+    raise ValueError("audio cache comes from encdec_prefill")
 
 
 _TRANSFORMER = _TokenLM(transformer.init_lm, transformer.lm_loss,
@@ -61,15 +72,35 @@ _TOKEN_LMS = {
     "hybrid": _TokenLM(hybrid.init_zamba_lm, hybrid.zamba_lm_loss,
                        hybrid.init_zamba_cache, hybrid.zamba_prefill,
                        hybrid.zamba_decode_step),
+    "vlm": _TokenLM(vlm.init_vlm, vlm.vlm_loss, vlm.init_vlm_cache,
+                    vlm.vlm_prefill, vlm.vlm_decode_step, "image_embeds"),
+    "audio": _TokenLM(encdec.init_encdec, encdec.encdec_loss, _audio_cache,
+                      encdec.encdec_prefill, encdec.encdec_decode_step,
+                      "audio_embeds"),
 }
 TOKEN_FAMILIES = tuple(_TOKEN_LMS)
+
+
+def frontend_key(cfg: ModelConfig) -> Optional[str]:
+    """The batch key of the frontend embeddings a token family's LM reads
+    ("image_embeds" for the vlm, "audio_embeds" for the audio family), or
+    None."""
+    lm = _TOKEN_LMS.get(cfg.family)
+    return None if lm is None else lm.cond
+
+
+def _cond(cfg: ModelConfig, batch: dict) -> tuple:
+    """The frontend embeddings the family's functions take after the
+    tokens: (batch[key],) or ()."""
+    key = frontend_key(cfg)
+    return () if key is None else (batch[key],)
 
 
 def _require(cfg: ModelConfig, families=("dit",) + TOKEN_FAMILIES,
              what: str = "the family"):
     if cfg.family not in families:
-        raise not_yet_ported(f"{what} of family {cfg.family!r} (ported: "
-                             f"{', '.join(families)}; ROADMAP item 12)")
+        raise ValueError(f"{what} of family {cfg.family!r}: no such family "
+                         f"here ({', '.join(families)})")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
@@ -106,7 +137,9 @@ def _stacked_depth(tree: dict, cfg: ModelConfig) -> tuple:
     """(what the backbone stacks, how many layers it holds) of a reference
     tree: the dit's (L, ...) `blocks`, the transformers' and the SSM
     stack's (L, ...) `layers`, the hybrid's (n_groups, attn_every, ...)
-    `groups` and (tail, ...) `tail`."""
+    `groups` and (tail, ...) `tail`, the vlm's (G, cross_attn_every - 1,
+    ...) `self_groups` and (G, ...) `xattn_layers`, the audio model's
+    (num_layers, ...) `dec_layers` (its `enc_layers` checked here)."""
     bk = tree["backbone"]
     if cfg.family == "dit":
         probe = bk["blocks"]["w1"]
@@ -122,6 +155,20 @@ def _stacked_depth(tree: dict, cfg: ModelConfig) -> tuple:
         tail = (np.shape(bk["tail"]["mamba"]["in_proj"])[0] if "tail" in bk
                 else 0)
         return "groups and tail", g * e + tail
+    if cfg.family == "vlm":
+        g, n = np.shape(bk["self_groups"]["attn"]["wq"])[:2]
+        x = np.shape(bk["xattn_layers"]["xattn"]["wq"])[0]
+        if n != cfg.cross_attn_every - 1 or x != g:
+            raise ValueError(f"self_groups are stacked ({g}, {n}) and "
+                             f"xattn_layers {x}; cfg has cross_attn_every="
+                             f"{cfg.cross_attn_every}")
+        return "self_groups and xattn_layers", g * cfg.cross_attn_every
+    if cfg.family == "audio":
+        e = np.shape(bk["enc_layers"]["attn"]["wq"])[0]
+        if e != cfg.encoder_layers:
+            raise ValueError(f"enc_layers are stacked over {e} layers, cfg "
+                             f"has encoder_layers={cfg.encoder_layers}")
+        return "dec_layers", np.shape(bk["dec_layers"]["attn"]["wq"])[0]
     return "layers", np.shape(bk["layers"]["attn"]["wq"])[0]
 
 
@@ -134,7 +181,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     optional `lm_head`; for the ssm family stacked (L, ...) `layers` of ln
     / mamba; for the hybrid family `groups` of them stacked (n_groups,
     attn_every, ...), an optional `tail` (tail, ...) and `shared_attn`;
-    and the diffusion leaves (`diffusion_head`, `token_latents`). A tree
+    for the vlm `self_groups` (G, cross_attn_every - 1, ...), `xattn_layers`
+    (G, ...) with their 0-d gates, `img_proj`; for the audio family
+    `enc_layers`, `dec_layers`, `enc_ln`; and the diffusion leaves (`diffusion_head`, `token_latents`). A tree
     the reference has quantized (`models.quant.quantize_params`, dit only)
     carries its records {"qw", "ws"[, "sa"]} over at their stored dtypes;
     every other leaf is cast to the config's weight dtype."""
@@ -191,7 +240,9 @@ def cast_params_for_eval(params, eval_dtype: str):
 # embedding table, tied or not, the norms, the router and the experts
 # included); a Mamba2 layer reads A_log and dt_bias in fp32 and casts the
 # rest; the diffusion head reads t_mlp1 and t_mlp2 in fp32, and the token
-# latents are the training loss's
+# latents are the training loss's; a vlm's cross-attention layer reads its
+# two 0-d gates in their own precision (tanh, then the cast) and casts the
+# rest, as every other vlm leaf; the audio model casts every backbone leaf
 _MAMBA_LAYER = {"ln": None, "mamba": {
     "in_proj": None, "conv_w": None, "conv_b": None, "D": None,
     "out_norm": None, "out_proj": None}}
@@ -211,6 +262,11 @@ _CAST_AT_USE = {
                             "groups": _MAMBA_LAYER, "tail": _MAMBA_LAYER,
                             "shared_attn": None},
                "diffusion_head": _HEAD},
+    "vlm": {"backbone": {"embed": None, "img_proj": None, "final_ln": None,
+                         "self_groups": None,
+                         "xattn_layers": {"ln1": None, "xattn": None,
+                                          "ln2": None, "mlp": None}},
+            "diffusion_head": _HEAD},
 }
 
 
@@ -259,23 +315,33 @@ def calibrate_and_quantize(cfg: ModelConfig, params, quant, *, schedule=None,
 
 
 def _backbone_forward(cfg: ModelConfig) -> Callable:
-    """(backbone params, inputs_embeds) -> (hidden, aux), the diffusion
-    LM's backbone eval: the transformers bidirectional, the SSM stack and
-    the hybrid causal by construction (the reference's)."""
+    """(backbone params, inputs_embeds, batch) -> (hidden, aux), the
+    diffusion LM's backbone eval: the transformers bidirectional, the SSM
+    stack and the hybrid causal by construction (the reference's), the vlm
+    and the audio decoder bidirectional over batch["image_embeds"] /
+    batch["audio_embeds"] (the audio model encodes them at every eval, as
+    the reference's does)."""
     if cfg.family == "ssm":
-        return lambda bk, e: hybrid.mamba_forward(bk, cfg, None,
-                                                  inputs_embeds=e)
+        return lambda bk, e, b: hybrid.mamba_forward(bk, cfg, None,
+                                                     inputs_embeds=e)
     if cfg.family == "hybrid":
-        return lambda bk, e: hybrid.zamba_forward(bk, cfg, None,
-                                                  inputs_embeds=e)
-    return lambda bk, e: transformer.forward(bk, cfg, None, causal=False,
-                                             inputs_embeds=e)
+        return lambda bk, e, b: hybrid.zamba_forward(bk, cfg, None,
+                                                     inputs_embeds=e)
+    if cfg.family == "vlm":
+        return lambda bk, e, b: vlm._forward_embeds(bk, cfg, e,
+                                                    b["image_embeds"])
+    if cfg.family == "audio":
+        return lambda bk, e, b: encdec._forward_embeds(bk, cfg, e,
+                                                       b["audio_embeds"])
+    return lambda bk, e, b: transformer.forward(bk, cfg, None, causal=False,
+                                                inputs_embeds=e)
 
 
 def eps_network(cfg: ModelConfig) -> Callable:
     """(params, x_t (B, S, L), t, batch) -> eps-hat — what UniPC samples from.
     The dit family's DiT; the token families' diffusion-LM head over the
-    backbone from `inputs_embeds` (`_backbone_forward`)."""
+    backbone from `inputs_embeds` (`_backbone_forward`, which reads a vlm's
+    or an audio model's embeddings from `batch`)."""
     _require(cfg)
     if cfg.family == "dit":
         return lambda p, x_t, t, batch: dit_apply(
@@ -284,8 +350,8 @@ def eps_network(cfg: ModelConfig) -> Callable:
 
     def f(params, x_t, t, batch):
         return diffusion_lm_apply(params["diffusion_head"],
-                                  lambda e: fwd(params["backbone"], e), cfg,
-                                  x_t, t)
+                                  lambda e: fwd(params["backbone"], e, batch),
+                                  cfg, x_t, t)
 
     return f
 
@@ -359,11 +425,11 @@ def diffusion_loss_fn(cfg: ModelConfig, schedule=None) -> Callable:
 
 def ar_loss(cfg: ModelConfig) -> Callable:
     """(params, batch, rng) -> the autoregressive objective of the token
-    families on batch["tokens"] and batch["targets"] (`rng` is taken and
-    not used): `transformer.lm_loss`, `hybrid.mamba_lm_loss` or
-    `hybrid.zamba_lm_loss`. The dit family has no such objective
-    (ValueError, as the reference's); the vlm and audio families are not
-    yet ported."""
+    families on batch["tokens"] and batch["targets"] (and a vlm's or an
+    audio model's embeddings; `rng` is taken and not used):
+    `transformer.lm_loss`, `hybrid.mamba_lm_loss`, `hybrid.zamba_lm_loss`,
+    `vlm.vlm_loss` or `encdec.encdec_loss`. The dit family has no such
+    objective (ValueError, as the reference's)."""
     if cfg.family == "dit":
         raise ValueError(f"the dit family has no autoregressive objective; "
                          f"arch {cfg.arch_id!r} trains with "
@@ -373,7 +439,7 @@ def ar_loss(cfg: ModelConfig) -> Callable:
 
     def loss(params, batch, rng):
         return lm_loss(params["backbone"], cfg, batch["tokens"],
-                       batch["targets"])
+                       batch["targets"], *_cond(cfg, batch))
 
     return loss
 
@@ -389,18 +455,23 @@ def train_loss(cfg: ModelConfig, objective: str = "ar") -> Callable:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
     """The decode cache: the transformers' stacked KV caches, the SSM
     stack's per-layer states, the hybrid's states and one KV cache per
-    invocation of its shared block (`models/hybrid.py`)."""
+    invocation of its shared block (`models/hybrid.py`), the vlm's KV
+    caches and image K/V (`models/vlm.py`). The audio family's comes from
+    prefill only (ValueError, as the reference's)."""
     _require(cfg, TOKEN_FAMILIES, "the decode cache")
     return _TOKEN_LMS[cfg.family].init_cache(cfg, batch, max_len, device)
 
 
 def prefill_fn(cfg: ModelConfig) -> Callable:
-    """(params, batch, max_len) -> (last-position logits, cache)."""
+    """(params, batch, max_len) -> (last-position logits, cache); `batch`
+    holds the prompts as "tokens" and a vlm's or an audio model's
+    embeddings."""
     _require(cfg, TOKEN_FAMILIES, "prefill")
     prefill = _TOKEN_LMS[cfg.family].prefill
 
     def f(params, batch, max_len):
-        return prefill(params["backbone"], cfg, batch["tokens"], max_len)
+        return prefill(params["backbone"], cfg, batch["tokens"],
+                       *_cond(cfg, batch), max_len)
 
     return f
 

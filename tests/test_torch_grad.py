@@ -261,16 +261,17 @@ def test_card_adaln_bwd_kernels_match_plain(cuda, B, T, D, dtype):
 def test_card_attention_bwd_matches_plain(cuda, B, H, Sq, Skv, D, dtype):
     q, k, v, do = (t.to(cuda) for t in _attn_inputs(B, H, Sq, Skv, D, dtype))
     out0 = fa_kernel.flash_attention(q, k, v, causal=False)
-    out, lse = fa_kernel.flash_attention(q, k, v, causal=False, lse=True)
-    assert torch.equal(out, out0)
+    out, lse, o32 = fa_kernel.flash_attention(q, k, v, causal=False,
+                                              lse=True)
+    assert torch.equal(out, out0) and torch.equal(o32.to(dtype), out)
     assert _linf(lse, fa_ref.attention_lse(q, k, causal=False)) <= 1e-5
-    got = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do)
-    want = fa_ref.attention_bwd(q, k, v, out, lse, do)
+    got = fa_kernel.flash_attention_bwd(q, k, v, o32, lse, do)
+    want = fa_ref.attention_bwd(q, k, v, o32, lse, do)
     for a, b, src in zip(got, want, (q, k, v)):
         assert a.stride() == src.stride()
         assert (_linf(a, b) if dtype == torch.float32
                 else _l2(a, b)) <= _card_tol(dtype)
-    again = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o32, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

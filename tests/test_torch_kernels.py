@@ -8,6 +8,8 @@ the same fp32 value can land on either side). The `gpu` tests hold each
 CUDA kernel against its plain version on the card and skip elsewhere.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,6 +152,36 @@ def test_attention_head_major_views_of_seq_major_projections():
     np.testing.assert_allclose(
         t_fa.attention(*views, causal=False).numpy(),
         t_fa.attention(*dense, causal=False).numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (64, 64, True, None), (40, 100, False, None), (90, 90, True, 16)])
+def test_plain_attention_rounding_p_as_the_bf16_kernel(Sq, Skv, causal,
+                                                       window):
+    """round_p=True rounds P = exp(s - rowmax) to bf16 before P.V and sums
+    the denominator from the fp32 P: at most bf16's half-ulp (2^-8
+    relative) of each P away from plain, so |o - plain| <= 2^-8 max|v|
+    (plus fp32 rounding); off by default, and then plain bit for bit."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    rng = _rng(5)
+    q = torch.as_tensor(rng.normal(size=(2, 4, Sq, 32)).astype(np.float32))
+    k, v = (torch.as_tensor(rng.normal(size=(2, 2, Skv, 32)).astype(
+        np.float32)) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    plain = fa_ref.attention(q, k, v, **kw)
+    assert torch.equal(fa_ref.attention(q, k, v, round_p=False, **kw), plain)
+    assert torch.equal(t_fa.attention(q, k, v, **kw), plain)
+    rounded = fa_ref.attention(q, k, v, round_p=True, **kw)
+    diff = (rounded - plain).abs().max().item()
+    assert 0 < diff <= 2.0 ** -8 * v.abs().max().item() + 1e-6
+    # by hand: the same rounding written out for one (b, h, query) row
+    s = (q[0, 1, 7] @ k[0, 0].T) / math.sqrt(32)
+    ok = fa_ref._visible(Sq, Skv, causal, window, "cpu")[7]
+    s = torch.where(ok, s, torch.tensor(-1e30))
+    p = torch.exp(s - s.max())
+    want = (p.to(torch.bfloat16).float() @ v[0, 0]) / p.sum()
+    torch.testing.assert_close(rounded[0, 1, 7], want, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -515,23 +515,25 @@ def test_card_attention_at_head_dim_112_matches_plain(cuda, B, H, S, dtype):
     g = torch.Generator(device=cuda).manual_seed(S)
     q, k, v, do = (torch.randn(B, S, H, 112, generator=g, device=cuda)
                    .to(dtype).transpose(1, 2) for _ in range(4))
-    out, lse = fa_kernel.flash_attention(q, k, v, causal=True, lse=True)
+    out, lse, o32 = fa_kernel.flash_attention(q, k, v, causal=True,
+                                              lse=True)
     want = fa_ref.attention(q, k, v, causal=True)
     err = (_rel(out.cpu().double(), want.cpu().double())
            if dtype == torch.float32 else _l2(out, want))
     assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
     again = fa_kernel.flash_attention(q, k, v, causal=True, lse=True)
-    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert all(torch.equal(a, b) for a, b in zip((out, lse, o32), again))
     if dtype == torch.bfloat16:
         assert fa_kernel.plan(q, k, v, out)["chunks"] == 16
-    grads = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-    plain = fa_ref.attention_bwd(q, k, v, out, lse, do, causal=True)
+    assert torch.equal(o32.to(dtype), out)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o32, lse, do, causal=True)
+    plain = fa_ref.attention_bwd(q, k, v, o32, lse, do, causal=True)
     for a, b, src in zip(grads, plain, (q, k, v)):
         assert a.stride() == src.stride() and a.dtype == dtype
         err = (_rel(a.cpu().double(), b.cpu().double())
                if dtype == torch.float32 else _l2(a, b))
         assert err <= (1e-5 if dtype == torch.float32 else 1e-2), err
-    again = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o32, lse, do, causal=True)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 

@@ -86,15 +86,18 @@ def test_configs_equal_the_reference_field_for_field(arch):
 
 
 def test_registry_ports_the_token_family_and_refuses_the_rest():
+    """Every reference arch is ported (the vlm and audio families last):
+    the registry refuses no arch of the reference, only an unknown one."""
     from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
     from repro.configs.registry import INPUT_SHAPES as J_SHAPES
     from repro_torch.configs import INPUT_SHAPES
 
     assert sorted(ARCH_IDS) == sorted(TOKEN_ARCHS + [
-        "mamba2-780m", "zamba2-7b", "dit-i256", "dit-cifar"])
-    for arch in sorted(set(J_ARCH_IDS) - set(ARCH_IDS)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            t_get_config(arch)
+        "mamba2-780m", "zamba2-7b", "llama-3.2-vision-90b", "whisper-small",
+        "dit-i256", "dit-cifar"])
+    assert sorted(ARCH_IDS) == sorted(J_ARCH_IDS)
+    for arch in J_ARCH_IDS:
+        assert t_get_config(arch).arch_id == arch
     with pytest.raises(KeyError):
         t_get_config("gpt-9")
     assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == {
@@ -437,13 +440,24 @@ def test_weights_kept_once_are_bit_equal_to_per_use_casts():
 
 
 def test_token_training_is_refused_as_not_yet_ported():
-    """The dense, MoE, SSM and hybrid families train
-    (tests/test_torch_token_train.py, tests/test_torch_ssm_models.py); the
-    token families still to port are refused, for both objectives."""
-    audio = dataclasses.replace(t_get_config("qwen2-0.5b").reduced(),
-                                family="audio")
+    """No token family is left to refuse: the audio family, the last with
+    the vlm, builds both objectives from its own params and batch (its
+    parity: tests/test_torch_encdec.py); a family the port does not know
+    is refused, for both objectives and for init_params."""
+    from repro_torch.data.synthetic import frontend_embeds
+
+    audio = t_get_config("whisper-small").reduced()
+    params = t_api.init_params(audio)
+    toks = torch.as_tensor(_tokens(audio, 2, 8)).long()
+    batch = {"tokens": toks, "targets": toks, **{
+        k: torch.from_numpy(v) for k, v in frontend_embeds(audio, 2).items()}}
     for objective in ("ar", "diffusion"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            t_api.train_loss(audio, objective)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_api.init_params(audio)
+        loss = t_api.train_loss(audio, objective)(
+            params, batch, torch.Generator().manual_seed(0))
+        assert loss.ndim == 0 and torch.isfinite(loss)
+    other = dataclasses.replace(audio, family="speech")
+    for objective in ("ar", "diffusion"):
+        with pytest.raises(ValueError, match="no such family"):
+            t_api.train_loss(other, objective)
+    with pytest.raises(ValueError, match="no such family"):
+        t_api.init_params(other)

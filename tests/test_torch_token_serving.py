@@ -203,7 +203,8 @@ def test_sample_refuses_what_a_token_arch_has_not(capsys):
             t_sample.main(["--arch", "olmo-1b", "--device", "cpu"] + flags)
     with pytest.raises(SystemExit):
         t_sample.main(["--arch", "whisper-small", "--device", "cpu"])
-    assert "item 12" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "audio_embeds" in err and "fails there too" in err
     out = t_sample.main(["--arch", "qwen2-0.5b", "--device", "cpu",
                          "--nfe", "3", "--batch", "2"])
     assert out.shape == (2, 64, 32) and np.isfinite(out).all()
@@ -226,8 +227,11 @@ def test_serve_cli_decodes_a_token_arch_on_the_cpu(capsys):
                         "cpu"])
     assert out.shape == (2, 4) and out.dtype == np.int32
     assert "token [cpu] qwen2-0.5b: prefill" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        t_serve.main(["--arch", "whisper-small", "--device", "cpu"])
+    out = t_serve.main(["--arch", "whisper-small", "--batch", "2",
+                        "--prompt-len", "6", "--gen", "3", "--device",
+                        "cpu"])
+    assert out.shape == (2, 3) and out.dtype == np.int32
+    assert "token [cpu] whisper-small: prefill" in capsys.readouterr().out
     with pytest.raises(ValueError, match="serve_diffusion"):
         t_serve.serve("dit-cifar", device="cpu")
     with pytest.raises(ValueError, match="serve\\(\\) decodes"):

@@ -264,15 +264,20 @@ def test_diffusion_loss_and_grads_match_reference(arch, scale, overrides):
 
 
 def test_train_loss_refuses_what_is_not_ported():
-    """The families still to port are refused (the loss and the batches);
-    the dit family has no AR objective, as in the reference."""
+    """No family is left unported: the vlm's loss and batches (its image
+    embeddings, the reference's stub of seed + i) are built; a family the
+    port does not know is refused; the dit family has no AR objective, as
+    in the reference."""
     from repro_torch.configs import get_config
 
-    vlm = get_config("dit-cifar").reduced(family="vlm")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_api.train_loss(vlm, "ar")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_train.build_batch_fn(vlm, 2, 8)
+    vlm = get_config("llama-3.2-vision-90b").reduced()
+    batch = t_train.build_batch_fn(vlm, 2, 8)(3)
+    assert batch["image_embeds"].shape == (2, vlm.image_tokens, vlm.d_model)
+    assert torch.isfinite(t_api.train_loss(vlm, "ar")(
+        t_api.init_params(vlm), batch, None))
+    with pytest.raises(ValueError, match="no such family"):
+        t_api.train_loss(get_config("dit-cifar").reduced(family="video"),
+                         "ar")
     with pytest.raises(ValueError, match="no autoregressive objective"):
         t_api.train_loss(get_config("dit-cifar").reduced(), "ar")
 
