@@ -315,6 +315,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernels.py needs a CUDA card")
     from repro_torch.kernels.adaln_modulate import kernel as adaln_kernel
+    from repro_torch.kernels.adaln_modulate import ops as adaln_ops
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.quant_matmul import kernel as qmm_kernel
     from repro_torch.kernels.quant_matmul import ref as qmm_ref
@@ -344,9 +345,7 @@ def main():
     mod = torch.randn(16, 6 * 1152, generator=g, device=dev).to(bf)
     msh, msc, mout = mod[:, :1152], mod[:, 1152:2304], torch.empty_like(xm)
     mod_plan = adaln_kernel.plan(xm, msh, msc, mout)
-    bound_ms, by = chip_smoke.bound(
-        2 * chip_smoke.nbytes(xm) + chip_smoke.nbytes(msh, msc),
-        8 * xm.numel(), torch.float32)
+    bound_ms, by = chip_smoke.bound(adaln_ops.cost_modulate(xm, msh, msc))
     print(f"adaln_modulate bound {bound_ms:.5f} ms ({by}); plan {mod_plan}")
     # gate_residual at the same shape, the gate read in place from the
     # modulation, in the graph and on six sets of operands (170 MB)
@@ -356,7 +355,8 @@ def main():
               torch.randn(16, 256, 1152, generator=g, device=dev).to(bf),
               torch.empty_like(xm)) for _ in range(6)]
     gate_plan = adaln_kernel.plan_gate(*gsets[0])
-    print(f"gate_residual bound 0.008462 ms (bytes); plan {gate_plan}")
+    bound_ms, by = chip_smoke.bound(adaln_ops.cost_gate(*gsets[0][:3]))
+    print(f"gate_residual bound {bound_ms:.6f} ms ({by}); plan {gate_plan}")
     # quant_matmul w8a16 at the two adaLN sites, and on weights rotated
     # over 100 MB
     skinny = {}

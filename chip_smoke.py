@@ -200,7 +200,7 @@ Phases (any failure exits non-zero):
      mamba2, exactly 13 a zamba2 prefill and none in a decode step; the
      decode loop again on the graph from a fresh prefill's state under
      set_sync_debug_mode("error"), bit-equal to eager; prefill, decode
-     (replay and eager) and tokens/s beside `ssm_bounds`; the bf16 parity
+     (replay and eager) and tokens/s beside their bounds; the bf16 parity
      as 11 (b), zamba2's step by step at 13 layers (BF16_STEP_LAYERS:
      every teacher-forced step within plain + 1e-2 of the fp32 run, the
      latents within 1e-2 of plain-pinned) and, beside that, at all 81
@@ -236,7 +236,7 @@ Phases (any failure exits non-zero):
      `launch.serve.serve` at batch 8 (prompts 384 / 512, 64 greedy tokens)
      as 11 (b): exactly 36 / 10 flash_attention launches a prefill and
      none in a decode step, the graph's decode loop under the sync check,
-     eager tokens bit-equal, the walls beside `cond_bounds`, the bf16
+     eager tokens bit-equal, the walls beside their bounds, the bf16
      gates step by step at full depth, fp32 kernels vs plain-pinned, fp32
      prefill + decode vs the forward over a depth cut. (d) both diffusion
      LMs through engine.build with the stub embeddings in the eps-net's
@@ -248,6 +248,25 @@ Phases (any failure exits non-zero):
      diffusion, 10 steps at batch 8 x 384: 36 + 36 attention launches a
      step, walls, tokens/s, peak memory, the split, a profiled step; one
      step's gradients as 12 (c), the step twice bit-equal.
+ 15. the analysis layer (`analysis/roofline.py`, `analysis/opcount.py`,
+     `launch/dryrun.py`): (a) one dit-i256 eval, one qwen2-0.5b prefill
+     (8 x 512) and one dit-i256 training step at batch 8, each counted on
+     the card (the count's kernels are those `LAUNCHES` shows launched)
+     and on the meta device: FLOPs by dtype, compulsory bytes and kernel
+     calls equal; (b) the main path's bound and share: phase 4's replay
+     wall against the roofline of the same engine spec run once eagerly
+     under the count, and its MFU (model FLOPs: evals x rows x 2 N_active
+     x tokens with the adaLN projections once a row, over the replay wall
+     at 989 TFLOP/s) beside the counted FLOPs' utilisation; (c) for the DiT
+     sampling run and step, qwen2's prefill and step, whisper's prefill
+     and step and llama-vision's prefill at 10 layers, the dry run's
+     predicted peak beside `max_memory_allocated` over the same run (the
+     ratio within [0.5, 2]), and the dry run's fits_80GB agreeing with the
+     script's cuts (zamba2 trained at 13 of 81 layers, llama-vision not
+     trained, deepseek-67b and mixtral-8x7b CPU-only).
+Every bound the script prints comes from `analysis/roofline.py`: a kernel
+case's from its op's `cost` (next to the wrapper), a path's from the
+operation count of one eager call (`path_bound`).
 The last three lines are the kernels JSON (each kernel's launches on the
 main path, and since phase 8 its launches per serving tick and in the
 serving run, since phase 9 in each of its four runs, since phase 10 in the
@@ -279,9 +298,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense, no TF32
-              torch.int8: 1979e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 MAIN_TOL = 1e-2     # bf16 eval bound (DESIGN.md §11.3)
 # Two bf16 implementations differ by single-ulp roundings (2^-8 relative)
@@ -385,10 +401,29 @@ def queued_device_ms(fn, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, flops: float, dtype) -> tuple:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(cost) -> tuple:
+    """(ms, "bytes" or "operations") of a kernel call's `cost` (the op's
+    `cost*` next to its wrapper) on this card's roofline."""
+    from repro_torch.analysis.roofline import kernel_bound
+
+    return kernel_bound(cost)
+
+
+def path_bound(fn, *args) -> dict:
+    """The least time of one eager call `fn(*args)` on this card: the H100
+    roofline of its operation count (`analysis/opcount.py`: the matmul
+    operations by dtype, the compulsory bytes; each kernel by its op's
+    cost), with what set it. The call runs once more for the count."""
+    from repro_torch.analysis.opcount import analyze
+    from repro_torch.analysis.roofline import Roofline
+
+    acct = analyze(fn, *args)
+    roof = Roofline(acct["flops_by_dtype"], acct["min_bytes"])
+    return dict(bound_ms=roof.step_time_s * 1e3,
+                bound_by="bytes" if roof.bottleneck == "memory"
+                else "operations",
+                flops=acct["flops"], flops_by_dtype=acct["flops_by_dtype"],
+                min_bytes=acct["min_bytes"], kernels=acct["kernels"])
 
 
 def nbytes(*ts) -> int:
@@ -416,7 +451,7 @@ def kernel_phase(dev) -> dict:
 
     def record(name, cases, timed):
         """cases: [(label, kernel_out, plain_out, dtype)]; timed: (kernel
-        fn, plain fn, library fn or None, bytes, flops, dtype)."""
+        fn, plain fn, library fn or None, the op's cost of the call)."""
         errs = []
         for label, k_out, p_out, dt in cases:
             torch.cuda.synchronize()
@@ -430,8 +465,8 @@ def kernel_phase(dev) -> dict:
                 fail(f"{name} [{label}] disagrees with its plain version: "
                      f"rel {err:.3e} > {TOL[dt]:g}")
             errs.append((label, err, abs_err))
-        k_fn, p_fn, lib_fn, b, fl, dt = timed
-        bms, by = bound(b, fl, dt)
+        k_fn, p_fn, lib_fn, cost = timed
+        bms, by = bound(cost)
         out[name] = dict(
             max_abs_err=max(a for _, _, a in errs),
             max_rel_err=max(e for _, e, _ in errs),
@@ -462,7 +497,7 @@ def kernel_phase(dev) -> dict:
         lambda: uni_ops.weighted_combine(t4, w4),
         lambda: uni_ops.weighted_combine(t4, w4, backend="plain"),
         lambda: torch.einsum("k,kbtl->btl", w4, t4),
-        nbytes(t4, w4) + nbytes(t4[0]), 2 * t4.numel(), torch.float32))
+        uni_ops.cost_combine(t4, w4)))
     out["unipc_update"] = unipc_row_cases(dev, randn, out["unipc_update"])
 
     # B2/B3 at the dit-i256 block shape: net batch 16 (8 requests x CFG),
@@ -522,7 +557,7 @@ def kernel_phase(dev) -> dict:
     record("adaln_modulate", cases, (
         lambda: adaln_ops.modulate(x, sh, sc),
         lambda: adaln_ops.modulate(x, sh, sc, backend="plain"),
-        None, 2 * nbytes(x) + nbytes(sh, sc), 8 * x.numel(), torch.float32))
+        None, adaln_ops.cost_modulate(x, sh, sc)))
     ln_ms = device_ms(lambda: F.layer_norm(x, (D,)))
     st = out["adaln_modulate"]
     st["body"] = mod_body(x, sh, sc, main_got)
@@ -549,8 +584,7 @@ def kernel_phase(dev) -> dict:
     x32 = x.float()      # phase 5's fp32 width, the same conditioning rows
     sh32, sc32 = mod.float()[:, :D], mod.float()[:, D:2 * D]
     st["fp32_ms"] = device_ms(lambda: adaln_ops.modulate(x32, sh32, sc32))
-    st["fp32_bound_ms"] = bound(2 * nbytes(x32) + nbytes(sh32, sc32),
-                                8 * x32.numel(), torch.float32)[0]
+    st["fp32_bound_ms"] = bound(adaln_ops.cost_modulate(x32, sh32, sc32))[0]
     print(f"  adaln_modulate fp32 (16, 256, 1152) "
           f"[{mod_body(x32, sh32, sc32, x32)}]: {st['fp32_ms']:.6f} ms "
           f"(bound {st['fp32_bound_ms']:.6f})")
@@ -605,7 +639,7 @@ def kernel_phase(dev) -> dict:
         lambda: adaln_ops.gate_residual(x, gt, y),
         lambda: adaln_ops.gate_residual(x, gt, y, backend="plain"),
         lambda: torch.addcmul(x, gt[:, None], y),
-        3 * nbytes(x) + nbytes(gt), 2 * x.numel(), torch.float32))
+        adaln_ops.cost_gate(x, gt, y)))
     st = out["gate_residual"]
     st["body"] = gate_body(x, gt, y, gate_got)
     # the same call on six sets of resid, y, out and modulation (170 MB):
@@ -683,7 +717,7 @@ def kernel_phase(dev) -> dict:
         lambda: fa_ops.attention(q, k, v, causal=False),
         lambda: fa_ops.attention(q, k, v, causal=False, backend="plain"),
         lambda: F.scaled_dot_product_attention(q, k, v),
-        4 * nbytes(q), 4 * B * H * S * S * Dh, torch.bfloat16))
+        fa_ops.cost(q, k, v, causal=False, window=None)))
     out["flash_attention"]["body"] = fa_kernel.plan(q, k, v, q)["body"]
     out["quant_matmul"] = quant_kernel_cases(dev, randn)
     return out
@@ -848,18 +882,16 @@ def unipc_row_cases(dev, randn, combine: dict) -> dict:
                                             backend="plain"),
                   name != "bf16")
 
-    row_bytes = rows.shape[1] * 4 + 8       # the weight row and the index
     timed = {}
     for kind, idx in (("uniform", uniform), ("per-slot", slots)):
-        n_idx = B if idx.ndim else 1
-        for op, fn, moved, flops in (
+        for op, fn, cost in (
                 ("predict", lambda b=None, i=idx: uni_ops.unipc_row_predict(
                     x, E, rows, i, sign, backend=b),
-                 nbytes(x, E, x), (3 * K + 3) * x.numel()),
+                 uni_ops.cost_predict(x, E, rows, idx)),
                 ("correct", lambda b=None, i=idx: uni_ops.unipc_row_correct(
                     x, E, e_new, x_pred, rows, i, sign, backend=b),
-                 nbytes(x, E, e_new, x_pred, x, E), (3 * K + 9) * x.numel())):
-            bms, by = bound(moved + n_idx * row_bytes, flops, torch.float32)
+                 uni_ops.cost_correct(x, E, e_new, x_pred, rows, idx))):
+            bms, by = bound(cost)
             st = timed[f"{op} {kind}"] = dict(
                 ms=device_ms(fn), plain_ms=device_ms(lambda f=fn: f("plain")),
                 host_call_ms=host_call_ms(fn), bound_ms=bms, bound_by=by,
@@ -1040,10 +1072,7 @@ def quant_kernel_cases(dev, randn) -> dict:
                            else torch.float32)
             x_lib = x.to(w_wide.dtype)
             lib, lib_fn = "torch.matmul", lambda: torch.matmul(x_lib, w_wide)
-        peak = (torch.int8 if x.dtype == torch.int8 else
-                torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32)
-        bms, by = bound(nbytes(x, qw, scale) + M * N * torch.empty(
-            (), dtype=out_dtype).element_size(), 2 * M * K * N, peak)
+        bms, by = bound(qmm_ops.cost(x, qw, scale, out_dtype))
         plan = qmm_kernel.plan(x, qw)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         res = dict(body=plan["body"], tile=plan["tile"],
@@ -1999,14 +2028,14 @@ def zoo_row_cases(dev, tab, label: str) -> dict:
                      f": not bit-equal to its plain version at fp32")
     body = torch.tensor(n_rows // 2, device=dev)
     timed = {}
-    for op, fn, moved, flops in (
+    for op, fn, cost in (
             ("predict", lambda: uni_ops.unipc_row_predict(
-                x, E, rows, body, sign), nbytes(x, E, x),
-             (3 * K + 3) * x.numel()),
+                x, E, rows, body, sign), uni_ops.cost_predict(x, E, rows,
+                                                              body)),
             ("correct", lambda: uni_ops.unipc_row_correct(
                 x, E, e_new, x_pred, rows, body, sign),
-             nbytes(x, E, e_new, x_pred, x, E), (3 * K + 9) * x.numel())):
-        bms, by = bound(moved + rows.shape[1] * 4 + 8, flops, torch.float32)
+             uni_ops.cost_correct(x, E, e_new, x_pred, rows, body))):
+        bms, by = bound(cost)
         timed[op] = dict(ms=device_ms(fn), bound_ms=bms, bound_by=by)
     print(f"  unipc_update on the {label} table (K = {K}, {n_rows} rows, "
           f"sign {sign:+g}): predict and correct at every row and per slot, "
@@ -3013,21 +3042,6 @@ TOKEN_ATTENTION = [  # label, B, Hq, Hkv, S, D, causal, window
 ]
 
 
-def attention_pairs(S: int, causal: bool, window, Skv=None) -> int:
-    """The (query, key) pairs attention must score for these masks: what
-    this run's data needs, not S * S (S * Skv for cross-attention, which is
-    unmasked)."""
-    if Skv is not None and Skv != S:
-        assert not causal and not window
-        return S * Skv
-    n = 0
-    for qi in range(S):
-        hi = qi if causal else S - 1
-        lo = max(0, qi - window + 1) if window else 0
-        n += hi - lo + 1
-    return n
-
-
 def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
                        row_ops: bool = True) -> dict:
     """(a) flash_attention at the token paths' shapes (`cases`): q/k/v as
@@ -3107,9 +3121,8 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
         else:
             lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
                 q, k, v, is_causal=causal, enable_gqa=True)
-        pairs = attention_pairs(S, causal, window, Skv)
-        bms, by = bound(2 * nbytes(q) + nbytes(k, v), 4 * B * Hq * pairs * D,
-                        torch.bfloat16)
+        pairs = fa_ops.attention_pairs(S, Skv, causal, window)
+        bms, by = bound(fa_ops.cost(q, k, v, causal=causal, window=window))
         row.update(
             shape=[B, Hq, Hkv, S, D], skv=Skv, causal=causal, window=window,
             ms=device_ms(lambda: fa_ops.attention(q, k, v, causal=causal,
@@ -3140,13 +3153,13 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
     for kind, idx in (("uniform row 5", torch.tensor(5, device=dev)),
                       ("per-slot", torch.tensor([0, 1, 2, 3, 5, 8, 10, 11],
                                                 device=dev))):
-        for op, fn, moved, flops in (
+        for op, fn, cost in (
                 ("predict", lambda b=None, i=idx: uni_ops.unipc_row_predict(
-                    x, E, rows, i, sign, backend=b), nbytes(x, E, x),
-                 (3 * K + 3) * x.numel()),
+                    x, E, rows, i, sign, backend=b),
+                 uni_ops.cost_predict(x, E, rows, idx)),
                 ("correct", lambda b=None, i=idx: uni_ops.unipc_row_correct(
                     x, E, e_new, x_pred, rows, i, sign, backend=b),
-                 nbytes(x, E, e_new, x_pred, x, E), (3 * K + 9) * x.numel())):
+                 uni_ops.cost_correct(x, E, e_new, x_pred, rows, idx))):
             got, want = fn(), fn("plain")
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
@@ -3154,7 +3167,7 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 fail(f"unipc_update {op} [{kind} (8, 64, 64) fp32] is not "
                      f"bit-equal to its plain version")
-            bms, by = bound(moved, flops, torch.float32)
+            bms, by = bound(cost)
             st = row_ops[f"{op} {kind}"] = dict(
                 ms=device_ms(fn), plain_ms=device_ms(lambda f=fn: f("plain")),
                 bound_ms=bms, bound_by=by)
@@ -3168,73 +3181,6 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
 def token_inputs(cfg, batch: int, length: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, length)).astype(np.int32)
-
-
-def token_bounds(cfg, batch: int, prompt_len: int, gen: int) -> dict:
-    """The least time of a prefill and of a decode step on this card: the
-    prefill's dense matmul operations (the K/V re-projection included, as
-    written; the LM head at the last position) and causal attention at
-    the bf16 peak; a decode step's bf16 weight bytes read once (every
-    expert, as moe_decode_apply reads them) and its KV cache, over HBM."""
-    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    L, V, S, N = cfg.num_layers, cfg.vocab_size, prompt_len, batch * prompt_len
-    f = cfg.moe_d_ff or cfg.d_ff
-    mlp = (cfg.experts_per_token if cfg.num_experts else 1) * (
-        3 if cfg.act == "swiglu" or cfg.num_experts else 2) * d * f
-    per_tok = d * (2 * hq * hd + 4 * hkv * hd) + mlp \
-        + (d * cfg.num_experts if cfg.num_experts else 0)
-    flops = 2 * N * L * per_tok + 2 * batch * d * V \
-        + 4 * batch * L * hq * hd * attention_pairs(S, True, None)
-    n_w = L * (d * (2 * hq * hd + 2 * hkv * hd)
-               + (cfg.num_experts or 1) * (3 if cfg.act == "swiglu"
-                                           or cfg.num_experts else 2) * d * f
-               + d * cfg.num_experts) + V * d * (1 if cfg.tie_embeddings
-                                                 else 2)
-    cache = 2 * L * batch * (S + gen) * hkv * hd * 2
-    return dict(prefill_bound_ms=flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
-                prefill_flops=flops,
-                decode_bound_ms=(2 * n_w + cache) / HBM_BYTES_PER_S * 1e3,
-                decode_bytes=2 * n_w + cache)
-
-
-def ssm_bounds(cfg, batch: int, prompt_len: int, gen: int) -> dict:
-    """token_bounds for the Mamba2 stack and the hybrid: the prefill's bf16
-    matmul operations (every Mamba2 projection; per invocation of the
-    shared block its projections, the K/V re-projection, its MLP and causal
-    attention; the LM head at the last position) at the bf16 peak, plus
-    the SSD scan's fp32 operations (the causal half of each chunk's
-    quadratic form, the chunk states, the state-to-output term) at the
-    fp32 peak; a decode step's bf16 weights read once, the SSM states and
-    conv windows read and written, and the shared block's KV caches read,
-    over HBM."""
-    d, di, L, V = cfg.d_model, cfg.ssm_d_inner, cfg.num_layers, cfg.vocab_size
-    G, N, H, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    K, S, n_tok = cfg.ssm_conv, prompt_len, batch * prompt_len
-    conv_dim = di + 2 * G * N
-    w_mm = d * (2 * di + 2 * G * N + H) + di * d        # in_proj, out_proj
-    w_small = (K + 1) * conv_dim + 3 * H + di + d       # conv, A, D, dt, norms
-    n_calls = attention_launches(cfg)
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    w_shared = (d * (2 * hq * hd + 2 * hkv * hd) + 3 * d * cfg.d_ff + 2 * d
-                if n_calls else 0)
-    q = cfg.ssm_chunk
-    chunks, tri = -(-S // q), q * (q + 1) // 2
-    ssd = L * batch * chunks * (2 * G * tri * N + 2 * H * tri * P
-                                + 4 * H * q * P * N)
-    mm = 2 * n_tok * L * w_mm + 2 * batch * d * V + n_calls * (
-        2 * n_tok * (w_shared - 2 * d + 2 * d * hkv * hd)
-        + 4 * batch * hq * hd * attention_pairs(S, True, None))
-    n_w = L * (w_mm + w_small) + w_shared + V * d + d
-    state = 2 * 2 * L * batch * (H * P * N + (K - 1) * conv_dim)
-    cache = 2 * 2 * n_calls * batch * (S + gen) * hkv * hd
-    return dict(prefill_bound_ms=(mm / PEAK_FLOPS[torch.bfloat16]
-                                  + ssd / PEAK_FLOPS[torch.float32]) * 1e3,
-                prefill_flops=mm + ssd, prefill_ssd_fp32_flops=ssd,
-                decode_bound_ms=(2 * n_w + state + cache) / HBM_BYTES_PER_S
-                * 1e3,
-                decode_bytes=2 * n_w + state + cache,
-                decode_weight_bytes=2 * n_w, decode_state_bytes=state,
-                decode_kv_bytes=cache)
 
 
 @contextlib.contextmanager
@@ -3254,51 +3200,21 @@ def plain_rounding_p():
         fa_ref.attention = plain
 
 
-def cond_bounds(cfg, batch: int, prompt_len: int, gen: int) -> dict:
-    """token_bounds for the vlm and the audio model: the prefill's bf16
-    matmul operations at the bf16 peak, written as the models run them
-    (every projection, the K/V re-projections of the self-attention caches
-    and of the cross K/V, the MLPs, the image projection or the encoder
-    over its frames, the LM head at the last position) plus attention (the
-    causal self-attention's pairs, the cross-attention's S x T, the
-    encoder's T x T); a decode step's bf16 weights read once (the decoder
-    and the tied embedding; not the encoder nor the image projection), its
-    KV caches and the fixed cross K/V, over HBM."""
-    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    V, S, B, N = cfg.vocab_size, prompt_len, batch, batch * prompt_len
-    mlp = (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
-    qo, kv = 2 * d * hq * hd, 2 * d * hkv * hd
-    self_pairs = attention_pairs(S, True, None)
-    if cfg.family == "vlm":
-        T = cfg.image_tokens
-        n_cross = cfg.num_layers // cfg.cross_attn_every
-        n_self = cfg.num_layers - n_cross
-        flops = (2 * N * n_self * (qo + 2 * kv + mlp)
-                 + 4 * B * n_self * hq * hd * self_pairs
-                 + 2 * B * T * d * d
-                 + n_cross * (2 * N * (qo + mlp) + 2 * B * T * 2 * kv
-                              + 4 * B * hq * hd * S * T))
-        # a decode step's cross-attention reads wq and wo; its K/V are cached
-        n_w = n_self * (qo + kv + mlp) + n_cross * (qo + mlp) + V * d
-        cross = 2 * n_cross * B * T * hkv * hd * 2
-        L_self = n_self
-    else:
-        T, E, L = cfg.audio_frames, cfg.encoder_layers, cfg.num_layers
-        flops = (E * (2 * B * T * (qo + kv + mlp)
-                      + 4 * B * hq * hd * T * T)
-                 + L * (2 * N * (qo + 2 * kv + qo + mlp)
-                        + 2 * B * T * 2 * kv
-                        + 4 * B * hq * hd * (self_pairs + S * T)))
-        n_w = L * (2 * qo + kv + mlp) + V * d
-        cross = 2 * L * B * T * hkv * hd * 2
-        L_self = L
-    flops += 2 * B * d * V
-    cache = 2 * L_self * B * (S + gen) * hkv * hd * 2
-    return dict(prefill_bound_ms=flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
-                prefill_flops=flops,
-                decode_bound_ms=(2 * n_w + cache + cross) / HBM_BYTES_PER_S
-                * 1e3,
-                decode_bytes=2 * n_w + cache + cross)
+def serving_bounds(cfg, kept, inputs, max_len: int, decoder) -> dict:
+    """The prefill's and a decode step's bounds on this card, each from the
+    operation count of one eager call (`path_bound`): the prefill of
+    `inputs` over the kept weights, and one step of `decoder`'s decode
+    function on a copy of its cache (the step writes the cache in place)."""
+    from repro_torch.models import api
+
+    with torch.no_grad():
+        pre = path_bound(api.prefill_fn(cfg), kept, inputs, max_len)
+        cache = clone_tree(decoder.cache)
+        dec = path_bound(api.decode_fn(cfg), kept, cache, decoder.token,
+                         decoder.pos)
+    del cache
+    return dict(prefill_bound_ms=pre["bound_ms"], decode_bound_ms=dec[
+        "bound_ms"], prefill=pre, decode=dec)
 
 
 def bf16_parity(label: str, k, p, t, r=None) -> dict:
@@ -3652,6 +3568,12 @@ def copy_tree(dst, src) -> None:
         dst.copy_(src)
 
 
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def init_model(cfg, seed: int, dev) -> dict:
     """api.init_params, with a vlm's zero-init cross-attention gates drawn
     from U(0.3, 0.9) (a fresh vlm's cross-attention adds exactly nothing,
@@ -3774,17 +3696,18 @@ def _token_serving_part(dev, counts_out: dict, arch: str, shape: dict,
     kept = dec.params
     prefill_walls = median_walls({"prefill": lambda: api.prefill_fn(cfg)(
         kept, run.inputs, S + G)}, reps=3)["prefill"]
-    bounds = (ssm_bounds if cfg.family in ("ssm", "hybrid") else
-              cond_bounds if cfg.family in ("vlm", "audio") else
-              token_bounds)(cfg, B, S, G)
+    bounds = serving_bounds(cfg, kept, run.inputs, S + G, eager.decoder)
     print(f"  decode step: graph replay {replay_ms:.4f} ms, eager step "
           f"{eager_ms:.4f} ms (CUDA events, back to back; bound "
-          f"{bounds['decode_bound_ms']:.4f} ms: "
-          f"{bounds['decode_bytes'] / 1e9:.3f} GB); prefill median "
+          f"{bounds['decode_bound_ms']:.4f} ms by "
+          f"{bounds['decode']['bound_by']}: "
+          f"{bounds['decode']['min_bytes'] / 1e9:.3f} GB); prefill median "
           f"{prefill_walls['median_s'] * 1e3:.3f} ms of "
           f"{[round(w * 1e3, 3) for w in prefill_walls['reps_s']]} (bound "
-          f"{bounds['prefill_bound_ms']:.4f} ms: "
-          f"{bounds['prefill_flops'] / 1e12:.3f} TFLOP)")
+          f"{bounds['prefill_bound_ms']:.4f} ms by "
+          f"{bounds['prefill']['bound_by']}: "
+          f"{bounds['prefill']['flops'] / 1e12:.3f} TFLOP, "
+          f"{bounds['prefill']['min_bytes'] / 1e9:.3f} GB)")
     del eager
 
     # kernels against plain-pinned and fp32: prefill's last logits, then
@@ -3979,12 +3902,13 @@ def moe_serving_part(dev, counts_out: dict) -> dict:
     kept = dec.params
     prefill_walls = median_walls({"prefill": lambda: api.prefill_fn(cfg)(
         kept, run.inputs, S + G)}, reps=3)["prefill"]
-    bounds = token_bounds(cfg, B, S, G)
+    bounds = serving_bounds(cfg, kept, run.inputs, S + G, dec)
     print(f"  {n_params / 1e9:.3f}B backbone params; serve(): launches "
           f"{counts}; prefill median {prefill_walls['median_s'] * 1e3:.3f} ms "
           f"(bound {bounds['prefill_bound_ms']:.4f}), decode replay "
           f"{replay_ms:.4f} ms a token (bound "
-          f"{bounds['decode_bound_ms']:.4f}: every expert read); peak "
+          f"{bounds['decode_bound_ms']:.4f}: "
+          f"{bounds['decode']['min_bytes'] / 1e9:.3f} GB); peak "
           f"memory {peak / 2**30:.2f} GiB")
     print("  profile of a decode step's replay:")
     prof_decode = profile_split(dec.graph.replay)
@@ -4073,8 +3997,10 @@ def backward_kernel_cases(dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.adaln_modulate import kernel as ak
+    from repro_torch.kernels.adaln_modulate import ops as adaln_ops
     from repro_torch.kernels.adaln_modulate import ref as ar
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fr
 
     g = torch.Generator(device=dev).manual_seed(4321)
@@ -4107,8 +4033,8 @@ def backward_kernel_cases(dev) -> dict:
         st["max_abs_err"] = max(st["max_abs_err"], abs_err)
         st["max_rel_err"] = max(st["max_rel_err"], err)
 
-    def timed(name, k_fn, p_fn, lib, b, fl, dt, **extra):
-        bms, by = bound(b, fl, dt)
+    def timed(name, k_fn, p_fn, lib, cost, **extra):
+        bms, by = bound(cost)
         lib_ms = queued_device_ms(lib) if lib is not None else None
         out[name].update(ms=device_ms(k_fn), host_call_ms=host_call_ms(k_fn),
                          plain_ms=device_ms(p_fn), library_ms=lib_ms,
@@ -4150,17 +4076,16 @@ def backward_kernel_cases(dev) -> dict:
     zeros = torch.zeros(D, device=dev, dtype=x.dtype)
     _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], ones, zeros,
                                                      1e-5)
-    row_bytes = nbytes(gr, x, x) + 3 * B * D * x.element_size()
     timed("adaln_modulate_bwd", lambda: ak.modulate_bwd(gr, x, scale),
           lambda: ar.modulate_bwd(gr, x, scale),
           lambda: torch.ops.aten.native_layer_norm_backward(
               gr, x, [D], mean, rstd, ones, zeros, [True, True, True]),
-          row_bytes, 15 * x.numel(), torch.float32,
+          adaln_ops.cost_modulate_bwd(gr, x, scale),
           library="aten.native_layer_norm_backward (dx, and the column "
                   "sums over all B*T rows)")
     timed("gate_residual_bwd", lambda: ak.gate_residual_bwd(gr, gate, y),
           lambda: ar.gate_residual_bwd(gr, gate, y), None,
-          row_bytes, 3 * x.numel(), torch.float32,
+          adaln_ops.cost_gate_bwd(gr, gate, y),
           library="none: no one PyTorch call computes dy and the per-b "
                   "sums")
 
@@ -4219,12 +4144,10 @@ def backward_kernel_cases(dev) -> dict:
         _, l_, o_ = fk.flash_attention(q, k, v, causal=False, lse=True)
         return fk.flash_attention_bwd(q, k, v, o_, l_, do)
 
-    Bq, H, S, Dh = q.shape
     timed("flash_attention_bwd",
           lambda: fk.flash_attention_bwd(q, k, v, o, lse, do),
           lambda: fr.attention_bwd(q, k, v, o, lse, do), sdpa_fwd_bwd,
-          nbytes(q, k, v, o, do, lse) + 3 * nbytes(q),
-          5 * 2 * Bq * H * S * S * Dh, torch.bfloat16,
+          fa_ops.cost_bwd(q, k, v, o, lse, do, causal=False, window=None),
           library="SDPA forward + backward through autograd",
           fwd_bwd_queued_ms=queued_device_ms(ours_fwd_bwd),
           lse_output_bit_equal=lse_same)
@@ -4665,6 +4588,7 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
     output (o32), as the autograd Function runs it."""
     F = torch.nn.functional
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fr
 
     g = torch.Generator(device=dev).manual_seed(12)
@@ -4725,10 +4649,9 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
                          f"differs from the pinned kernel output: {sha}")
                 row[f"pinned_bits_equal_{name}"] = ok
         # q, k, v, do, o32, lse are the bf16 ones now: time the path's dtype
-        pairs = attention_pairs(S, causal, window, Skv)
-        moved = nbytes(q, k, v, o32, do, lse) + nbytes(q, k, v) \
-            + 2 * lse.numel() * 4          # dq, dk, dv out; Delta out, in
-        bms, by = bound(moved, 5 * 2 * B * Hq * pairs * D, torch.bfloat16)
+        pairs = fa_ops.attention_pairs(S, Skv, causal, window)
+        bms, by = bound(fa_ops.cost_bwd(q, k, v, o32, lse, do, causal=causal,
+                                        window=window))
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         if window:
             qi = torch.arange(S, device=dev)[:, None]
@@ -5369,6 +5292,271 @@ def cond_phase(dev, counts_out: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 15: the analysis layer on the card
+# --------------------------------------------------------------------------
+
+ANALYSIS_BATCH = 8
+MAIN_SPEC = dict(nfe=10, order=3, cfg_scale=2.0)     # phase 4's run
+PEAK_RATIO = (0.5, 2.0)    # predicted / measured peak memory, inclusive
+
+
+def analysis_workloads() -> dict:
+    """{label: build(device) -> (fn, args)} of the runs phase 15 (a) counts
+    on the card and on meta: one dit-i256 eval, one qwen2-0.5b prefill and
+    one dit-i256 training step, at batch 8, each through the dry run's own
+    builders."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+
+    B = ANALYSIS_BATCH
+    dit, lm = get_config("dit-i256"), get_config(TOKEN_ARCH)
+
+    def dit_eval(device):
+        p = api.init_params(dit, 0, device)
+        x = torch.zeros(B, dit.patch_tokens, dit.latent_dim, device=device)
+        t = torch.full((B,), 0.5, device=device)
+        ids = torch.zeros(B, dtype=torch.int64, device=device)
+        return api.eps_network(dit), (p, x, t, {"class_ids": ids})
+
+    def workload(cfg, shape, objective="ar"):
+        def build(device):
+            w = dryrun.build_workload(cfg, shape, objective, device)
+            return w.fn, w.args
+        return build
+
+    return {
+        "dit-i256 eval": dit_eval,
+        f"{TOKEN_ARCH} prefill": workload(lm, InputShape(
+            "prefill", TOKEN_SERVE["prompt_len"], B, "prefill")),
+        "dit-i256 training step": workload(dit, InputShape(
+            "train", dit.patch_tokens, B, "train"), "diffusion"),
+    }
+
+
+def count_parity_part(dev) -> dict:
+    """(a) each run counted on the card, where its kernels launch
+    (`LAUNCHES` shows them), and on meta: FLOPs by dtype, the compulsory
+    bytes and the kernel calls equal exactly."""
+    from repro_torch.analysis.opcount import analyze
+    from repro_torch.kernels.dispatch import LAUNCHES
+
+    out = {}
+    for label, build in analysis_workloads().items():
+        fn, args = build(dev)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        card = analyze(fn, *args)
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        del fn, args
+        free_graphs()
+        fn, args = build("meta")
+        meta = analyze(fn, *args)
+        del fn, args
+        same = {k: card[k] == meta[k] for k in card}
+        print(f"  {label}: card {card['flops'] / 1e12:.4f} TFLOP "
+              f"{ {k: v / 1e12 for k, v in card['flops_by_dtype'].items()} }, "
+              f"{card['min_bytes'] / 1e9:.4f} GB compulsory, kernels "
+              f"{card['kernels']} (launched {launched}); equal on meta: "
+              f"{same}")
+        if launched != card["kernels"]:
+            fail(f"phase 15 (a) {label}: the count's kernels "
+                 f"{card['kernels']} are not those launched {launched}")
+        if not (same["flops_by_dtype"] and same["min_bytes"]
+                and same["kernels"]):
+            fail(f"phase 15 (a) {label}: the card's count differs from the "
+                 f"meta count: {card} vs {meta}")
+        out[label] = dict(card, launched=launched, equal_on_meta=same)
+    return out
+
+
+def main_path_share_part(dev, replay_s: float) -> dict:
+    """(b) the main path's bound and share: phase 4's guided UniPC-3 replay
+    of 8 requests against the roofline of the same engine spec run once
+    eagerly under the count (a graph replay cannot be counted), and its
+    MFU from the model FLOPs the dry run's sampling workload counts
+    (`model_flops_sample`: evals x rows x 2 N_active x tokens, the adaLN
+    projections once a row), with the utilisation of the FLOPs the run
+    counts beside it."""
+    from repro_torch.analysis.opcount import analyze
+    from repro_torch.analysis.roofline import (MFU_PEAK, Roofline,
+                                               model_flops_sample)
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.launch.sample import build_engine, latent_shape
+
+    cfg, B = get_config("dit-i256"), ANALYSIS_BATCH
+    engine = build_engine(cfg, perturbed_params(cfg, dev), VPLinear(), B,
+                          seed=0, device=dev)
+    eager = engine.build(EngineSpec(**MAIN_SPEC), jit=False)
+    x_T = torch.randn(latent_shape(cfg, B), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    acct = analyze(eager, x_T)
+    evals = acct["kernels"]["flash_attention"] // cfg.num_layers
+    rows = 2 * B if MAIN_SPEC["cfg_scale"] else B
+    mf = model_flops_sample(cfg, evals, rows)
+    roof = Roofline(acct["flops_by_dtype"], acct["min_bytes"], model_flops=mf)
+    mfu = mf / (replay_s * MFU_PEAK)
+    counted_util = acct["flops"] / (replay_s * MFU_PEAK)
+    print(f"  main path MFU {mfu:.4f}: {mf / 1e12:.4f} TFLOP of model "
+          f"operations ({evals} evals x {rows} rows, 2 N_active a token, "
+          f"adaLN once a row) in phase 4's replay of {replay_s:.5f} s, "
+          f"against {MFU_PEAK / 1e12:.0f} TFLOP/s; the counted "
+          f"{acct['flops'] / 1e12:.4f} TFLOP at {counted_util:.4f}")
+    print(f"  main path bound {roof.step_time_s * 1e3:.4f} ms by "
+          f"{roof.bottleneck} ({acct['flops'] / 1e12:.4f} TFLOP counted "
+          f"{ {k: v / 1e12 for k, v in acct['flops_by_dtype'].items()} }, "
+          f"{acct['min_bytes'] / 1e9:.4f} GB compulsory; kernels "
+          f"{acct['kernels']}); the replay at "
+          f"{roof.step_time_s / replay_s:.1%} of it")
+    del engine, eager
+    free_graphs()
+    return dict(replay_s=replay_s, bound_s=roof.step_time_s,
+                share=roof.step_time_s / replay_s, mfu=mfu, model_flops=mf,
+                counted_utilisation=counted_util,
+                evals=evals, roofline=roof.row(), kernels=acct["kernels"],
+                min_bytes=acct["min_bytes"])
+
+
+def memory_workloads() -> dict:
+    """{label: build(device) -> (fn, args, arguments)} of the paths the
+    script runs whose peak phase 15 (c) predicts: the main path's eager
+    engine run (its params, the weights kept once and x_T the arguments),
+    and the dry run's workloads at the script's shapes (the DiT and
+    qwen2-0.5b steps, the qwen2 and whisper prefills and whisper's step,
+    llama-vision's prefill at 10 layers)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.sample import build_engine, latent_shape
+    from repro_torch.models import api
+
+    B = ANALYSIS_BATCH
+    dit = get_config("dit-i256")
+
+    def replay(device):
+        params = api.init_params(dit, 0, device)
+        engine = build_engine(dit, params, VPLinear(), B, seed=0,
+                              device=device)
+        x_T = torch.zeros(latent_shape(dit, B), device=device)
+        kept = api.cast_weights_once(dit, params) if torch.device(
+            device).type == "meta" else None
+        return engine.build(EngineSpec(**MAIN_SPEC), jit=False), (x_T,), (
+            params, kept, x_T)
+
+    def workload(arch, kind, seq, objective="ar", layers=None):
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+
+        def build(device):
+            w = dryrun.build_workload(cfg, InputShape(kind, seq, B, kind),
+                                      objective, device)
+            return w.fn, w.args, w.parts
+        return build
+
+    S, W = TOKEN_SERVE["prompt_len"], COND_SERVE[AUDIO_ARCH]["prompt_len"]
+    return {
+        "dit-i256 sampling (the replay's spec, eager)": replay,
+        "dit-i256 training step": workload("dit-i256", "train",
+                                           dit.patch_tokens, "diffusion"),
+        f"{TOKEN_ARCH} prefill": workload(TOKEN_ARCH, "prefill", S),
+        f"{TOKEN_ARCH} AR step": workload(TOKEN_ARCH, "train", S),
+        f"{AUDIO_ARCH} prefill": workload(AUDIO_ARCH, "prefill", W),
+        f"{AUDIO_ARCH} AR step": workload(AUDIO_ARCH, "train", W),
+        f"{VLM_ARCH} prefill at {COND_LAYERS[VLM_ARCH]} layers": workload(
+            VLM_ARCH, "prefill", COND_SERVE[VLM_ARCH]["prompt_len"],
+            layers=COND_LAYERS[VLM_ARCH]),
+    }
+
+
+# what the script cuts, by the dry run's verdict on one card: (arch, kind,
+# layers, fits_80GB) at batch 8 x 512
+FIT_CUTS = [(HYBRID_ARCH, "train", None, False),
+            (HYBRID_ARCH, "train", TRAIN_LAYERS[HYBRID_ARCH], True),
+            (VLM_ARCH, "train", None, False),
+            ("deepseek-67b", "prefill", None, False),
+            ("mixtral-8x7b", "prefill", None, False)]
+
+
+def memory_part(dev) -> dict:
+    """(c) each path's peak predicted on meta as `dryrun.run_one` predicts
+    it (the arguments' bytes plus the largest live set of what the run
+    creates) beside `torch.cuda.max_memory_allocated` over the same run on
+    the card (reset once its arguments are made: their init's temporaries
+    are not the run's; less what was allocated before), with their ratio;
+    then the dry run's `fits_80GB` against
+    the cuts the script makes (FIT_CUTS)."""
+    from repro_torch.analysis.opcount import analyze
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for label, build in memory_workloads().items():
+        fn, args, arguments = build("meta")
+        acct = analyze(fn, *args)
+        predicted = dryrun.tree_bytes(arguments) + acct["peak_live_bytes"]
+        del fn, args, arguments
+        free_graphs()
+        base = torch.cuda.memory_allocated(dev)
+        fn, args, arguments = build(dev)
+        torch.cuda.synchronize()
+        made = torch.cuda.memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)   # past the params' init
+        fn(*args)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated(dev) - base
+        del fn, args, arguments
+        free_graphs()
+        ratio = predicted / measured
+        temp = (acct["peak_live_bytes"], measured - made)
+        print(f"  {label}: predicted peak {predicted / 1e9:.3f} GB, "
+              f"measured {measured / 1e9:.3f} GB (ratio {ratio:.3f}); "
+              f"beyond the arguments {temp[0] / 1e9:.3f} / "
+              f"{temp[1] / 1e9:.3f} GB (ratio {temp[0] / max(temp[1], 1):.3f})")
+        if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+            fail(f"phase 15 (c) {label}: predicted / measured peak "
+                 f"{ratio:.3f} outside {PEAK_RATIO}")
+        out[label] = dict(predicted_bytes=predicted, measured_bytes=measured,
+                          ratio=ratio, predicted_temp_bytes=temp[0],
+                          measured_temp_bytes=temp[1])
+    fits = {}
+    for arch, kind, layers, want in FIT_CUTS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        _, mem, _ = dryrun.measure(cfg, InputShape(kind, 512, ANALYSIS_BATCH,
+                                                   kind))
+        tag = f"{arch} {kind}{f' at {layers} layers' if layers else ''}"
+        print(f"  dry run, {tag} at batch {ANALYSIS_BATCH} x 512: peak "
+              f"{mem['peak_bytes'] / 1e9:.1f} GB (params "
+              f"{mem['params_bytes'] / 1e9:.1f}, AdamW "
+              f"{mem.get('optimizer_bytes', 0) / 1e9:.1f}), fits_80GB "
+              f"{mem['fits_80GB']} (the script's cut: {want})")
+        if mem["fits_80GB"] != want:
+            fail(f"phase 15 (c): the dry run says {tag} fits_80GB="
+                 f"{mem['fits_80GB']}, the script's cut says {want}")
+        fits[tag] = dict(peak_bytes=mem["peak_bytes"],
+                         fits_80GB=mem["fits_80GB"])
+    return dict(peaks=out, fits=fits)
+
+
+def analysis_phase(dev, replay_s: float) -> dict:
+    t0 = time.perf_counter()
+    print("  (a) counts on the card against counts on meta:")
+    counts = count_parity_part(dev)
+    print("  (b) the main path's bound and MFU:")
+    share = main_path_share_part(dev, replay_s)
+    print("  (c) predicted against measured peak memory:")
+    memory = memory_part(dev)
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+    return dict(counts=counts, main_path=share, memory=memory)
+
+
+# --------------------------------------------------------------------------
 
 
 KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
@@ -5517,6 +5705,12 @@ def main():
     ccounts14: dict = {}
     cond = cond_phase(dev, ccounts14)
 
+    print(f"== phase 15: the analysis layer (counts on the card against "
+          f"meta, the main path's bound and MFU, predicted against measured "
+          f"peak memory, the dry run's fits_80GB against the script's cuts) "
+          f"on {smi[0]}")
+    analysis = analysis_phase(dev, main_stats["walls"]["replay"]["median_s"])
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -5646,6 +5840,7 @@ def main():
                    vlm_and_audio={k: v for k, v in cond.items()
                                   if k not in ("kernels", "backward")},
                    tokens={k: v for k, v in tokens.items() if k != "kernels"},
+                   analysis=analysis,
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][
                        "other_operands_at_wq_site"])

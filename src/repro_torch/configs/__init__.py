@@ -3,7 +3,7 @@
 families and the DiTs."""
 
 from .base import INPUT_SHAPES, InputShape, ModelConfig
-from .registry import ARCH_IDS, get_config
+from .registry import ARCH_IDS, all_arch_ids, get_config, get_shape
 
 __all__ = ["ModelConfig", "InputShape", "INPUT_SHAPES", "ARCH_IDS",
-           "get_config"]
+           "all_arch_ids", "get_config", "get_shape"]

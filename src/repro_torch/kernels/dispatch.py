@@ -14,22 +14,63 @@ nowhere else. Under a CUDA graph (`engine/graphs.py`) the count is
 launches nothing, into the graph's own counter, and each replay adds that
 counter to `LAUNCHES`. So a run counts the same whether it ran eagerly or
 as a replay.
+
+While an operation count is active (`COUNT`, set by
+`analysis/opcount.py`), each wrapper reports one `Cost` a call to it
+(`COUNT.kernel`): the kernel's work, on whichever route the call takes. The
+count does not see the route's own aten ops (a kernel is a ctypes call it
+could not see anyway), so one call counts the same when the kernel runs on
+the card, when the plain version runs on the CPU, and on the meta device.
+A wrapper tests `COUNT` where it launches and, with no count active, goes
+straight to its route.
 """
 
 from __future__ import annotations
 
 from collections import Counter
 from contextlib import contextmanager
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
 BACKENDS = ("plain",)
 LAUNCHES: Counter = Counter()
+COUNT = None          # the active operation count (opcount.OpCount), or None
+
+
+class Cost(NamedTuple):
+    """What one kernel call must do at the least: its operations, the bytes
+    it must move (each input read once, each output written once) and the
+    dtype whose peak rate bounds the operations. `matmul`: the operations
+    are products of the kind an operation count of a whole run counts (the
+    reference's HLO dots, `torch.utils.flop_counter`'s formulas); an
+    elementwise kernel's are not, as no elementwise op's are."""
+    flops: float
+    bytes: float
+    dtype: torch.dtype
+    matmul: bool = False
+
+
+def nbytes(*ts: torch.Tensor) -> int:
+    """The bytes of the elements of each tensor (a view's, not its
+    storage's)."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def laid_out_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`t` in the layout the kernel gives its output (`torch.empty_like(
+    like)`): the plain version's result off the card while a count is
+    active, so the ops after the call (a view there, a copy after a
+    contiguous result) are those that follow the kernel's."""
+    if COUNT is None or t.stride() == like.stride():
+        return t
+    return torch.empty_like(like).copy_(t)
 
 
 def use_kernel(backend: Optional[str], t: torch.Tensor) -> bool:
-    """True to launch the kernel on `t`, False for the plain version."""
+    """True to launch the kernel on `t`, False for the plain version. A
+    meta tensor (shapes only: the dry run, `launch/dryrun.py`) takes the
+    plain version, which computes nothing there."""
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"backend must be None or one of {BACKENDS}, "
                          f"got {backend!r}")
@@ -37,7 +78,7 @@ def use_kernel(backend: Optional[str], t: torch.Tensor) -> bool:
         return False
     if t.device.type == "cuda":
         return True
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise RuntimeError(f"no kernel or plain path for device {t.device}")
     return False
 

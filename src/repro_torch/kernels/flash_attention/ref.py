@@ -18,7 +18,15 @@ def _visible(Sq: int, Skv: int, causal: bool, window, device) -> torch.Tensor:
 
 
 def attention(q, k, v, *, causal=True, window=None, round_p=False):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). fp32 softmax, scale 1/sqrt(D).
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). fp32 softmax, scale 1/sqrt(D);
+    `attention32`'s output rounded to q's dtype."""
+    return attention32(q, k, v, causal=causal, window=window,
+                       round_p=round_p).to(q.dtype)
+
+
+def attention32(q, k, v, *, causal=True, window=None, round_p=False):
+    """The fp32 output of `attention`, before its rounding to q's dtype (what
+    the kernel's `lse=True` form saves for the backward's Delta).
 
     `round_p=True` is a yardstick for the bf16 kernel, not a path of the
     port: P = exp(s - rowmax) is rounded to bf16 before P.V, as the kernel's
@@ -41,7 +49,7 @@ def attention(q, k, v, *, causal=True, window=None, round_p=False):
         o = o / p.sum(dim=-1, keepdim=True)
     else:
         o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1), vf)
-    return o.reshape(B, Hq, Sq, D).to(q.dtype)
+    return o.reshape(B, Hq, Sq, D)
 
 
 def attention_lse(q, k, *, causal=True, window=None):

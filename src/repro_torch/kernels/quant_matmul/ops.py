@@ -15,7 +15,18 @@ from typing import Optional
 import torch
 
 from . import kernel, ref
-from ..dispatch import refuse_grad, use_kernel
+from .. import dispatch
+from ..dispatch import Cost, nbytes, refuse_grad, use_kernel
+
+
+def cost(x2, qw, scale, out_dtype) -> Cost:
+    """x2 (M, K), the weight and its scales read, the (M, N) output written;
+    2 M K N operations at the peak of x2's dtype (int8 for W8A8, else the
+    activations' float type: the weights are widened to it)."""
+    M, (K, N) = x2.shape[0], qw.shape
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    return Cost(2 * M * K * N, nbytes(x2, qw, scale) + M * N * out_size,
+                x2.dtype, matmul=True)
 
 
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor, ws: torch.Tensor, *,
@@ -24,11 +35,23 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, ws: torch.Tensor, *,
     channel weight scales; sa: optional static activation scale (W8A8).
     Returns (..., N) in x's dtype. `backend="plain"` pins the plain version
     (kernels/dispatch.py)."""
-    if not use_kernel(backend, x):
-        return ref.quant_matmul(x, qw, ws, sa=sa)
-    # no backward kernel: checked here too, as W8A8's int8 x2 drops x's grad
-    refuse_grad("quant_matmul", x, ws, sa)
+    on_card = use_kernel(backend, x)
+    if on_card:
+        # no backward kernel: checked here too, as W8A8's int8 x2 drops x's
+        # grad
+        refuse_grad("quant_matmul", x, ws, sa)
     lead, K = x.shape[:-1], x.shape[-1]
     x2, scale = ref.fold_act(x.reshape(-1, K), ws, sa)
-    out = kernel.quant_matmul(x2, qw, scale, out_dtype=x.dtype)
+    if dispatch.COUNT is None:
+        out = _route(x2, qw, scale, x.dtype, on_card)
+    else:
+        with dispatch.COUNT.kernel("quant_matmul", cost(
+                x2, qw, scale, x.dtype), (x2, qw, scale)):
+            out = _route(x2, qw, scale, x.dtype, on_card)
     return out.reshape(*lead, qw.shape[-1])
+
+
+def _route(x2, qw, scale, out_dtype, on_card):
+    if on_card:
+        return kernel.quant_matmul(x2, qw, scale, out_dtype=out_dtype)
+    return ref.matmul(x2, qw, scale).to(out_dtype)

@@ -106,9 +106,12 @@ def _require(cfg: ModelConfig, families=("dit",) + TOKEN_FAMILIES,
 def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     """Random params from a seeded torch.Generator on `device`: the
     backbone, then (token families with `latent_dim`) the diffusion head
-    and the token latents."""
+    and the token latents. On the meta device (shapes and dtypes only, no
+    allocation: `launch/specs.abstract_params`) the generator is a CPU one,
+    as a meta generator does not exist."""
     _require(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device).manual_seed(seed)
     if cfg.family == "dit":
         return {"backbone": init_dit(cfg, gen, device,
                                      num_classes=NUM_CLASSES)}

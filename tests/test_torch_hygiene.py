@@ -126,6 +126,51 @@ def test_training_subpackages_are_scanned():
         assert f"src/repro_torch/{mod}.py" in names
 
 
+def test_analysis_subpackages_are_scanned():
+    """The modules ported with the analysis layer are in the import scan
+    above."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("analysis/__init__", "analysis/roofline", "analysis/opcount",
+                "launch/specs", "launch/dryrun"):
+        assert f"src/repro_torch/{mod}.py" in names
+
+
+def test_dryrun_is_a_meta_only_entry_point(monkeypatch, tmp_path, capsys):
+    """launch.dryrun never initialises CUDA, on any host: it builds and
+    counts on the meta device, as the reference's dry run lowers on host
+    CPU devices and never on the TPU."""
+    from repro_torch.launch import dryrun
+
+    def no_cuda(*a, **k):
+        raise AssertionError("launch.dryrun initialised CUDA")
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_cuda)
+    monkeypatch.setattr(torch.cuda, "init", no_cuda)
+    dryrun.main(["--arch", "dit-cifar", "--shape", "train_4k",
+                 "--objective", "diffusion", "--out", str(tmp_path)])
+    dryrun.main(["--sample", "--arch", "dit-cifar", "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[ok] dit-cifar x train_4k x h100x1" in out
+    assert "[ok] dit-cifar x sample_nfe10 x h100x1" in out
+    assert len(list(tmp_path.glob("*.json"))) == 2
+
+
+def test_chip_smoke_takes_every_bound_from_the_analysis_layer():
+    """chip_smoke.py holds no bound formula and no hardware constant of its
+    own: a kernel case's bound is its op's cost on `analysis/roofline.py`,
+    a path's the roofline of its operation count."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    defined = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assigned = {t.id for n in tree.body if isinstance(n, ast.Assign)
+                for t in n.targets if isinstance(t, ast.Name)}
+    assert not defined & {"token_bounds", "ssm_bounds", "cond_bounds",
+                          "attention_pairs"}
+    assert not assigned & {"HBM_BYTES_PER_S", "PEAK_FLOPS"}
+    imported = {(n.module, a.name) for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) for a in n.names}
+    assert ("repro_torch.analysis.roofline", "kernel_bound") in imported
+
+
 def test_cli_runs_on_the_cpu_when_asked(capsys):
     x0 = launch.main(["--arch", "dit-cifar", "--nfe", "2", "--batch", "1",
                       "--device", "cpu"])
