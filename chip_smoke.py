@@ -5557,6 +5557,235 @@ def analysis_phase(dev, replay_s: float) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 16: the mesh layer on the card
+
+MESH_SERVE = dict(batch=4, requests=4, arrival_rate=1.0, nfe=10, order=3,
+                  cfg_scale=2.0)
+MESH_MOE = dict(batch=4, seq=256, layers=4)
+MESH_MOE_TOL = 1e-4          # rel L-inf, shard-mapped MoE vs moe_apply (fp32)
+MESH_TRAIN = dict(batch=4, seq=256)
+MESH_PARTS = ("serve", "serve_rules", "moe", "moe_shard_map", "train",
+              "train_rules")
+
+
+def counted(counts_out: dict, part: str, fn):
+    """fn() with the kernel counts set to 0 just before and read into
+    counts_out[part] just after."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    counts_out[part] = dict(LAUNCHES)
+    return out
+
+
+def mesh_serving_part(dev, counts_out: dict) -> dict:
+    """(a) full-width dit-i256 through launch.serve, 4 requests, with no
+    rules and under SERVE_RULES on the card's 1x1 mesh: latents bit-equal,
+    the same launches a run and a tick, the same graphs captured."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_diffusion
+    from repro_torch.parallel.sharding import SERVE_RULES, sharding_rules
+    from repro_torch.serving import Request
+
+    cfg = get_config("dit-i256")
+    L = cfg.num_layers
+    params = perturbed_params(cfg, dev)
+    kw = dict(reduced=False, params=params, device=dev, return_run=True,
+              **MESH_SERVE)
+    one_eval = {"unipc_update": 2, "adaln_modulate": 2 * L + 1,
+                "gate_residual": 2 * L, "flash_attention": L}
+    mesh = make_host_mesh()
+    runs, ticks = {}, {}
+    for part in ("serve", "serve_rules"):
+        free_graphs()
+        t0 = time.perf_counter()
+        if part == "serve":
+            run = counted(counts_out, part,
+                          lambda: serve_diffusion("dit-i256", **kw))
+        else:
+            with sharding_rules(mesh, SERVE_RULES):
+                run = counted(counts_out, part,
+                              lambda: serve_diffusion("dit-i256", **kw))
+        wall = time.perf_counter() - t0
+        req = with_classes([Request(rid=1000, seed=1000)])
+        if part == "serve":
+            ticks[part] = one_tick_launches(run.sched, req)
+        else:
+            with sharding_rules(mesh, SERVE_RULES):
+                ticks[part] = one_tick_launches(run.sched, req)
+        runs[part] = run
+        print(f"  {part}: {run.metrics.completed} requests in {wall:.2f} s "
+              f"(captures {run.capture_s:.2f} s), launches "
+              f"{dict(sorted(counts_out[part].items()))}, a tick "
+              f"{dict(sorted(ticks[part].items()))}, graphs "
+              f"{len(run.program.step_graphs.graphs)}")
+    a, b = runs["serve"], runs["serve_rules"]
+    same = np.array_equal(a.latents, b.latents)
+    graphs = [len(r.program.step_graphs.graphs) for r in (a, b)]
+    print(f"  under SERVE_RULES on {mesh}: latents bit-equal {same}; "
+          f"launches equal {counts_out['serve'] == counts_out['serve_rules']}"
+          f"; a tick equal {ticks['serve'] == ticks['serve_rules']}; graphs "
+          f"{graphs[0]} / {graphs[1]}")
+    if not same or not np.isfinite(a.latents).all() or \
+            a.metrics.completed != MESH_SERVE["requests"]:
+        fail("phase 16 (a): serving under SERVE_RULES is not bit-equal to "
+             "serving without rules")
+    if counts_out["serve"] != counts_out["serve_rules"] or \
+            set(counts_out["serve"]) != set(one_eval):
+        fail(f"phase 16 (a): launches {counts_out['serve']} without rules, "
+             f"{counts_out['serve_rules']} under them")
+    if not ticks["serve"] == ticks["serve_rules"] == one_eval:
+        fail(f"phase 16 (a): a tick launched {ticks}, not {one_eval}")
+    if graphs[0] != graphs[1]:
+        fail(f"phase 16 (a): {graphs[0]} graphs without rules, {graphs[1]} "
+             f"under them")
+    del runs, a, b, run, params
+    free_graphs()
+    return dict(latents_bit_equal=same, launches_per_tick=ticks["serve"],
+                graphs=graphs[0])
+
+
+def mesh_moe_part(dev, counts_out: dict) -> dict:
+    """(b) granite-moe-3b-a800m at full width and MESH_MOE["layers"] of
+    its layers, fp32 through the kernels: a full-sequence forward (the
+    training and diffusion-LM path; the reference's prefill keeps
+    moe_apply whatever the flag says) with moe_shard_map=True on the card's
+    1x1 mesh, against the same forward with moe_apply: logits within
+    MESH_MOE_TOL rel L-inf, the shard-mapped block run each layer, the
+    same flash_attention launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.parallel.sharding import TRAIN_RULES, sharding_rules
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32",
+                              num_layers=MESH_MOE["layers"])
+    smap = dataclasses.replace(cfg, moe_shard_map=True)
+    params = init_model(cfg, 3, dev)["backbone"]
+    toks = torch.from_numpy(token_inputs(
+        cfg, MESH_MOE["batch"], MESH_MOE["seq"], seed=7)).long().to(dev)
+    calls = []
+    real = transformer.moe_apply_shard_map
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    def logits(c):
+        with torch.no_grad():
+            h, aux = transformer.forward(params, c, toks)
+            return transformer.logits_from_hidden(params, c, h), aux
+
+    ref, aux_ref = counted(counts_out, "moe", lambda: logits(cfg))
+    transformer.moe_apply_shard_map = spy
+    try:
+        with sharding_rules(make_host_mesh(), TRAIN_RULES):
+            got, aux = counted(counts_out, "moe_shard_map",
+                               lambda: logits(smap))
+    finally:
+        transformer.moe_apply_shard_map = real
+    err = rel_err(got, ref)
+    print(f"  {MOE_ARCH} at {cfg.num_layers} layers, fp32, "
+          f"{MESH_MOE['batch']} x {MESH_MOE['seq']}: shard-mapped MoE "
+          f"({len(calls)} blocks) vs moe_apply logits rel L-inf {err:.3e} "
+          f"(tol {MESH_MOE_TOL:g}), aux {float(aux):.6f} / "
+          f"{float(aux_ref):.6f}; launches {counts_out['moe_shard_map']} / "
+          f"{counts_out['moe']}")
+    if len(calls) != cfg.num_layers:
+        fail(f"phase 16 (b): the shard-mapped block ran {len(calls)} times")
+    if not err <= MESH_MOE_TOL or not torch.isfinite(got).all():
+        fail(f"phase 16 (b): shard-mapped logits {err:.3e} from moe_apply's")
+    want = {"flash_attention": cfg.num_layers}
+    if not counts_out["moe"] == counts_out["moe_shard_map"] == want:
+        fail(f"phase 16 (b): launches {counts_out['moe']} with moe_apply, "
+             f"{counts_out['moe_shard_map']} shard-mapped, not {want}")
+    del params, got, ref
+    free_graphs()
+    return dict(rel_err=err, blocks=len(calls), aux=float(aux),
+                aux_moe_apply=float(aux_ref))
+
+
+def mesh_training_part(dev, counts_out: dict) -> dict:
+    """(c) one full-width qwen2-0.5b AR step's loss and every gradient leaf
+    at MESH_TRAIN, under SEQ_PARALLEL_TRAIN_RULES on the card's 1x1 mesh and
+    with no rules: bit-equal, the same launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_batch_fn
+    from repro_torch.parallel.sharding import (SEQ_PARALLEL_TRAIN_RULES,
+                                               sharding_rules)
+
+    cfg = get_config(TOKEN_ARCH)
+    params = perturbed_token_params(cfg, dev)
+    batch = build_batch_fn(cfg, MESH_TRAIN["batch"], MESH_TRAIN["seq"],
+                           seed=0, device=dev)(0)
+    loss, grads = counted(counts_out, "train", lambda: token_loss_and_grads(
+        cfg, "ar", params, batch, None))
+    with sharding_rules(make_host_mesh(), SEQ_PARALLEL_TRAIN_RULES):
+        loss_r, grads_r = counted(
+            counts_out, "train_rules",
+            lambda: token_loss_and_grads(cfg, "ar", params, batch, None))
+    same = bool(torch.equal(loss, loss_r)) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads_r))
+    L = cfg.num_layers
+    want = {"flash_attention": L, "flash_attention_bwd": L}
+    print(f"  {TOKEN_ARCH}, {MESH_TRAIN['batch']} x {MESH_TRAIN['seq']}: "
+          f"loss {float(loss):.6f}; loss and {len(grads)} gradient leaves "
+          f"bit-equal under SEQ_PARALLEL_TRAIN_RULES: {same}; launches "
+          f"{counts_out['train_rules']} / {counts_out['train']}")
+    if not same or not torch.isfinite(loss):
+        fail("phase 16 (c): the step under SEQ_PARALLEL_TRAIN_RULES is not "
+             "bit-equal to the step without rules")
+    if not counts_out["train"] == counts_out["train_rules"] == want:
+        fail(f"phase 16 (c): launches {counts_out['train']} / "
+             f"{counts_out['train_rules']}, not {want}")
+    del params, grads, grads_r
+    free_graphs()
+    return dict(loss=float(loss), bit_equal=same)
+
+
+def mesh_dryrun_part() -> dict:
+    """(d) the dry run's --mesh single for the dit-i256 sampling workload
+    (meta device, no card): one chip's argument bytes of 256."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_sample_workload("dit-i256", mesh_kind="single")
+    one = dryrun.run_sample_workload("dit-i256")
+    m = rec["memory"]
+    print(f"  dit-i256 sample_nfe10 x single ({rec['chips']} chips): "
+          f"argument bytes a chip {m['argument_bytes']} (params "
+          f"{m['params_bytes']}, batch {m['batch_bytes']}) against "
+          f"{one['memory']['argument_bytes']} on one card")
+    if not (rec["chips"] == 256 and 0 < m["argument_bytes"]
+            < one["memory"]["argument_bytes"]
+            and m["argument_bytes"] == m["params_bytes"] + m["batch_bytes"]):
+        fail(f"phase 16 (d): the mesh record {m}")
+    return dict(argument_bytes=m["argument_bytes"],
+                params_bytes=m["params_bytes"], batch_bytes=m["batch_bytes"],
+                one_card_argument_bytes=one["memory"]["argument_bytes"])
+
+
+def mesh_phase(dev, counts_out: dict) -> dict:
+    t0 = time.perf_counter()
+    print("  (a) dit-i256 served under SERVE_RULES on the card's 1x1 mesh:")
+    serving = mesh_serving_part(dev, counts_out)
+    print("  (b) the shard-mapped MoE block:")
+    moe = mesh_moe_part(dev, counts_out)
+    print("  (c) a training step under SEQ_PARALLEL_TRAIN_RULES:")
+    train = mesh_training_part(dev, counts_out)
+    print("  (d) the dry run on the single-pod production mesh:")
+    dry = mesh_dryrun_part()
+    seconds = time.perf_counter() - t0
+    print(f"  phase 16 took {seconds:.1f} s")
+    return dict(serving=serving, moe=moe, training=train, dryrun=dry,
+                seconds=seconds)
+
+
+# --------------------------------------------------------------------------
 
 
 KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
@@ -5711,6 +5940,14 @@ def main():
           f"on {smi[0]}")
     analysis = analysis_phase(dev, main_stats["walls"]["replay"]["median_s"])
 
+    print(f"== phase 16: the mesh layer (dit-i256 served under SERVE_RULES "
+          f"on the card's 1x1 mesh, {MESH_SERVE['requests']} requests; "
+          f"{MOE_ARCH} at {MESH_MOE['layers']} layers, the shard-mapped MoE "
+          f"block; a {TOKEN_ARCH} step under SEQ_PARALLEL_TRAIN_RULES; the "
+          f"dry run's --mesh single) on {smi[0]}")
+    mcounts16: dict = {}
+    mesh = mesh_phase(dev, mcounts16)
+
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
         st = kstats[kname]
@@ -5781,6 +6018,9 @@ def main():
         # whisper's training runs (a decode step launches no port kernel)
         entry["cond_launches"] = {part: c.get(kname, 0)
                                   for part, c in ccounts14.items()}
+        # phase 16: each run with and without the mesh rules
+        entry["mesh_launches"] = {part: mcounts16[part].get(kname, 0)
+                                  for part in MESH_PARTS}
         if kname == "flash_attention":
             entry["cond_cases"] = {
                 label: {k: v for k, v in row.items()
@@ -5815,6 +6055,8 @@ def main():
             library_ms=st["library_ms"], library=st["library"],
             token_training_launches={part: gcounts[part].get(kname, 0)
                                      for part in TRAIN_PARTS},
+            mesh_launches={part: mcounts16[part].get(kname, 0)
+                           for part in MESH_PARTS},
             **{k: st[k] for k in ("fwd_bwd_queued_ms",
                                   "lse_output_bit_equal") if k in st})
         if kname == "flash_attention_bwd":
@@ -5840,7 +6082,7 @@ def main():
                    vlm_and_audio={k: v for k, v in cond.items()
                                   if k not in ("kernels", "backward")},
                    tokens={k: v for k, v in tokens.items() if k != "kernels"},
-                   analysis=analysis,
+                   analysis=analysis, mesh=mesh,
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][
                        "other_operands_at_wq_site"])

@@ -50,7 +50,9 @@ def peak_flops(d) -> float:
 class Roofline:
     flops_by_dtype: dict          # dtype (or its name) -> operations
     hbm_bytes: float
-    collective_bytes: float = 0.0  # kept for the mesh layer (ROADMAP 12e)
+    # per-chip collective bytes come from an SPMD partitioner's program
+    # (the reference reads XLA's); one card has none, so this stays 0
+    collective_bytes: float = 0.0
     chips: int = 1
     model_flops: float = 0.0       # whole model (6ND / 2ND)
 
@@ -70,7 +72,7 @@ class Roofline:
     def collective_s(self):
         if self.collective_bytes:
             raise ValueError("one card has no link: collective traffic "
-                             "needs the mesh layer (ROADMAP 12e)")
+                             "needs an SPMD partitioner's per-chip program")
         return 0.0
 
     @property

@@ -17,6 +17,7 @@ one kernel launch each.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -309,3 +310,11 @@ def unipc_sample_scan(model_fn: Callable, x_T: torch.Tensor,
                     dtype=dtype, model_kwargs=model_kwargs, cache0=cache0,
                     deep=deep_rows(augment_step_rows(sched)) if cached
                     else None)
+
+
+def sample_step_fn(sched: UniPCSchedule, fused_update: bool = True):
+    """One full UniPC sampling trajectory over `sched`, as a function of
+    (model_fn, x_T, **kw): `unipc_sample_scan` with the schedule and the
+    update bound (the reference's closure for the dry run's sampling
+    workload)."""
+    return partial(unipc_sample_scan, sched=sched, fused_update=fused_update)

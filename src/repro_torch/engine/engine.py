@@ -44,6 +44,7 @@ from ..core.unipc import (deep_rows, rows_on, run_rows, step_fn_over_rows,
 from ..diffusion.guidance import cfg_model, cfg_model_fused, dynamic_threshold
 from ..diffusion.process import eps_to_x0
 from ..diffusion.schedules import NoiseSchedule
+from ..parallel.sharding import shard
 from . import graphs
 from .compiler import (apply_model_cols, build_loop, compile_table,
                        flag_done, step_guidance_profile)
@@ -59,6 +60,20 @@ def resolve_device(device) -> torch.device:
                            "card by default — pass device='cpu' (--device "
                            "cpu) to run the plain PyTorch path on the CPU")
     return device
+
+
+def _shard_state(state: tuple) -> tuple:
+    """The slot state annotated over the batch axis under the active
+    sharding rules (the reference's SERVE_RULES path): x (B, ...), the ring
+    E (K+1, B, ...), the cache C (B, ...). The identity on one card, and
+    pure host code, so a captured step graph launches the same kernels."""
+    x, E = state[:2]
+    x = shard(x, "batch", *([None] * (x.dim() - 1)))
+    E = shard(E, None, "batch", *([None] * (E.dim() - 2)))
+    if len(state) == 2:
+        return x, E
+    C = state[2]
+    return x, E, shard(C, "batch", *([None] * (C.dim() - 1)))
 
 
 @dataclass(frozen=True)
@@ -519,7 +534,9 @@ class SamplerEngine:
                 gs = (torch.full(idx.shape, nominal, dtype=torch.float32,
                                  device=dev) if g is None else g)
                 kw["g"] = gs * prof.index_select(0, idx.clamp(0, n_rows - 1))
-            return core_step(state, idx, model_kwargs=kw or None, deep=deep)
+            state = core_step(_shard_state(state), idx,
+                              model_kwargs=kw or None, deep=deep)
+            return _shard_state(state)
 
         def flight(state, meta, g, extras, deep):
             # the slot's table index comes from its own counters, never

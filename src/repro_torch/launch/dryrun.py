@@ -7,6 +7,8 @@ bytes counted (`analysis/opcount.py`), its H100 roofline
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
         --shape all --out results/dryrun_h100
     PYTHONPATH=src python -m repro_torch.launch.dryrun --sample
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-67b \\
+        --shape decode_32k --mesh single multi --opt kvseq
 
 This entry point never touches CUDA. The reference's dry run never runs on
 a TPU either: it lowers on forced host CPU devices. Its one-card
@@ -14,9 +16,20 @@ counterpart builds on the meta device by design: a meta run counts the
 same operations and bytes as an eager run on the card (the kernels report
 their cost on every route), in seconds a cell on the CPU, with no card.
 
-One card has no mesh: the sharding rules, `rules_for` and the stages of
-the reference's `OPTIMIZATIONS` that set rules or `moe_shard_map` belong
-to the mesh layer (ROADMAP 12e); `--opt` refuses them.
+`--mesh` picks where the run is placed: `h100x1` (the default) is one card
+and no sharding context; `host` the 1x1 mesh (`launch.mesh.make_host_mesh`
+on meta); `single` and `multi` the abstract production meshes (16 x 16
+and 2 x 16 x 16 chips). Under a mesh the run happens inside
+`sharding_rules(mesh, rules)`, the rules being `rules_for(shape)` or the
+`--opt` stage's, and its record differs from one card's in these keys:
+`chips` is the mesh's; `memory.argument_bytes` is what one chip holds of
+the params, the AdamW state, the batch and the cache, summed from the
+spec tables' `shard_shape`s (and so are the `*_bytes` parts); the
+reference reads `temp_bytes`, `peak_bytes`, `output_bytes` and
+`collectives` from XLA's SPMD partitioner, which one card has not, so they
+are null; the operation count and the roofline stay the whole program's
+on one card (`count_scope` says so). An `--opt` stage's config applies on
+every mesh; its rules only under a mesh (one card places nothing).
 """
 
 from __future__ import annotations
@@ -39,10 +52,19 @@ from ..configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from ..configs.registry import all_arch_ids, get_config
 from ..models import api
 from ..optim import AdamW
-from .specs import abstract_cache, input_specs
+from ..parallel.sharding import (KV_SEQ_SERVE_RULES, LONG_SERVE_RULES,
+                                 SEQ_PARALLEL_TRAIN_RULES, SERVE_RULES,
+                                 TRAIN_RULES, NamedSharding, P,
+                                 normalize_axes, sharding_rules)
+from .mesh import make_host_mesh, make_production_mesh
+from .specs import (abstract_cache, batch_shardings, cache_shardings,
+                    input_specs, param_shardings, shard_bytes)
 from .train import make_train_step
 
 MESH = "h100x1"
+MESHES = (MESH, "host", "single", "multi")
+COUNT_SCOPE = ("whole program on one card: per-chip operations, temp and "
+               "peak memory and collectives need an SPMD partitioner")
 
 # (arch, shape) pairs that do not build, with the reason (DESIGN.md §7.2)
 SKIPS = {
@@ -67,33 +89,72 @@ def adapt_config(cfg, shape_name):
     return cfg
 
 
-# the reference's optimization stages that change the config alone (the
-# port honours them on one card): MoE dispatch locality, blockwise attention
+# the reference's per-(arch, shape) optimization stages, --opt <stage>:
+# cfg = dataclasses.replace overrides; rules = an alternative rule set
 OPTIMIZATIONS = {
+    # MoE dispatch locality
     ("granite-moe-3b-a800m", "train_4k"): {
-        "local_dispatch": dict(moe_dispatch_groups=32)},
+        "local_dispatch": dict(cfg=dict(moe_dispatch_groups=32)),
+        "shard_map": dict(cfg=dict(moe_shard_map=True)),
+        "shard_map_seqp": dict(cfg=dict(moe_shard_map=True),
+                               rules=SEQ_PARALLEL_TRAIN_RULES),
+    },
     ("mixtral-8x7b", "train_4k"): {
-        "local_dispatch": dict(moe_dispatch_groups=32)},
-    ("deepseek-67b", "train_4k"): {"chunk": dict(attention_chunk=512)},
+        "local_dispatch": dict(cfg=dict(moe_dispatch_groups=32)),
+        "shard_map": dict(cfg=dict(moe_shard_map=True)),
+    },
+    # sequence parallelism for the biggest dense train
+    ("deepseek-67b", "train_4k"): {
+        "seqp": dict(rules=SEQ_PARALLEL_TRAIN_RULES),
+        "seqp_chunk": dict(cfg=dict(attention_chunk=512),
+                           rules=SEQ_PARALLEL_TRAIN_RULES),
+        "chunk": dict(cfg=dict(attention_chunk=512)),
+    },
+    # KV-seq model sharding when kv-heads don't divide the axis
+    ("deepseek-67b", "decode_32k"): {
+        "kvseq": dict(rules=KV_SEQ_SERVE_RULES),
+        "kvseq_bf16": dict(cfg=dict(param_dtype="bfloat16"),
+                           rules=KV_SEQ_SERVE_RULES),
+    },
+    ("qwen2-0.5b", "decode_32k"): {
+        "kvseq": dict(rules=KV_SEQ_SERVE_RULES),
+    },
+    # blockwise attention for the memory-bound long prefill
     ("qwen2-0.5b", "prefill_32k"): {
-        "chunk": dict(attention_chunk=1024),
-        "chunk512": dict(attention_chunk=512),
-        "chunk2048": dict(attention_chunk=2048)},
+        "chunk": dict(cfg=dict(attention_chunk=1024)),
+        "chunk512": dict(cfg=dict(attention_chunk=512)),
+        "chunk2048": dict(cfg=dict(attention_chunk=2048)),
+    },
 }
-# the reference's stages that set sharding rules or moe_shard_map
-MESH_STAGES = ("shard_map", "shard_map_seqp", "seqp", "seqp_chunk", "kvseq",
-               "kvseq_bf16")
 
 
 def stage(arch: str, shape_name: str, opt: str) -> dict:
-    """The config overrides of optimization stage `opt` for (arch, shape)."""
-    if opt in MESH_STAGES:
-        raise ValueError(f"--opt {opt} needs the mesh layer (ROADMAP 12e)")
+    """Optimization stage `opt` of (arch, shape): `cfg` overrides and/or
+    `rules`."""
     stages = OPTIMIZATIONS.get((arch, shape_name), {})
     if opt not in stages:
         raise KeyError(f"no stage {opt!r} for {arch} x {shape_name}; have "
                        f"{sorted(stages)}")
     return stages[opt]
+
+
+def rules_for(shape: InputShape) -> dict:
+    if shape.kind == "train":
+        return TRAIN_RULES
+    if shape.name == "long_500k":
+        return LONG_SERVE_RULES
+    return SERVE_RULES
+
+
+def make_mesh(kind: str):
+    """The mesh of `--mesh kind`; None for one card."""
+    if kind not in MESHES:
+        raise ValueError(f"--mesh {kind!r}: one of {MESHES}")
+    if kind == MESH:
+        return None
+    if kind == "host":
+        return make_host_mesh("meta")
+    return make_production_mesh(multi_pod=kind == "multi")
 
 
 class Workload(NamedTuple):
@@ -175,10 +236,39 @@ def memory_record(parts: dict, acct: dict, train: bool) -> dict:
                 **sizes)
 
 
-def measure(cfg: ModelConfig, shape: InputShape, objective="ar") -> tuple:
-    """(count, memory, model_flops) of one workload run once on meta."""
+def mesh_memory_record(parts: dict, mesh, rules: dict) -> dict:
+    """What one chip of `mesh` holds of a workload's arguments under
+    `rules`: each part's bytes from the spec tables' `shard_shape`s (the
+    AdamW moments mirror the params' shardings, its step is replicated,
+    as in the reference), summed into `argument_bytes`. What XLA's SPMD
+    partitioner would add (outputs, temporaries, the peak) is null."""
+    sh = {"params": param_shardings(parts["params"], mesh, rules)}
+    if "optimizer" in parts:
+        opt = parts["optimizer"]
+        sh["optimizer"] = type(opt)(NamedSharding(mesh, P()), sh["params"],
+                                    sh["params"])
+    if "batch" in parts:
+        sh["batch"] = batch_shardings(parts["batch"], mesh, rules)
+    if "cache" in parts:
+        sh["cache"] = cache_shardings(parts["cache"], mesh, rules)
+    sizes = {f"{k}_bytes": shard_bytes(parts[k], s) for k, s in sh.items()}
+    return dict(argument_bytes=sum(sizes.values()), output_bytes=None,
+                temp_bytes=None, peak_bytes=None, **sizes)
+
+
+def measure(cfg: ModelConfig, shape: InputShape, objective="ar", mesh=None,
+            rules=None) -> tuple:
+    """(count, memory, model_flops) of one workload run once on meta; with
+    a `mesh`, inside `sharding_rules(mesh, rules)` and with one chip's
+    argument bytes (`mesh_memory_record`)."""
     w = build_workload(cfg, shape, objective)
-    acct = analyze(w.fn, *w.args)
+    if mesh is None:
+        acct = analyze(w.fn, *w.args)
+        memory = memory_record(w.parts, acct, shape.kind == "train")
+    else:
+        with sharding_rules(mesh, rules):
+            acct = analyze(w.fn, *w.args)
+        memory = mesh_memory_record(w.parts, mesh, rules)
     tokens = shape.global_batch * shape.seq_len
     if shape.kind == "train":
         mf = model_flops_train(cfg, tokens)
@@ -186,25 +276,34 @@ def measure(cfg: ModelConfig, shape: InputShape, objective="ar") -> tuple:
         mf = 2.0 * active_params(cfg) * tokens
     else:
         mf = model_flops_decode(cfg, shape.global_batch)
-    return acct, memory_record(w.parts, acct, shape.kind == "train"), mf
+    return acct, memory, mf
 
 
-def run_one(arch, shape, objective="ar", out_dir=None, opt=None) -> dict:
+def run_one(arch, shape, objective="ar", out_dir=None, opt=None,
+            mesh_kind=MESH) -> dict:
     """The dry-run record of one (arch, shape): `arch` an id or a config,
-    `shape` a name of INPUT_SHAPES or an InputShape. The roofline's bytes
-    are the run's compulsory traffic (`min_bytes`); the unfused traffic
-    proxy is kept under `cost_unfused`."""
+    `shape` a name of INPUT_SHAPES or an InputShape, placed on `mesh_kind`
+    (one of MESHES; see the module docstring). The roofline's bytes are
+    the run's compulsory traffic (`min_bytes`); the unfused traffic proxy
+    is kept under `cost_unfused`."""
     shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
     cfg = get_config(arch) if isinstance(arch, str) else arch
     cfg = adapt_config(cfg, shape)
+    mesh = make_mesh(mesh_kind)
+    rules = rules_for(shape)
     if opt:
-        cfg = dataclasses.replace(cfg, **stage(cfg.arch_id, shape.name, opt))
+        st = stage(cfg.arch_id, shape.name, opt)
+        if st.get("cfg"):
+            cfg = dataclasses.replace(cfg, **st["cfg"])
+        if st.get("rules") is not None:
+            rules = st["rules"]
     t0 = time.time()
-    acct, mem, mf = measure(cfg, shape, objective)
+    acct, mem, mf = measure(cfg, shape, objective, mesh, rules)
     roof = Roofline(acct["flops_by_dtype"], acct["min_bytes"],
                     acct["collectives"]["_total"], chips=1, model_flops=mf)
     rec = {
-        "arch": cfg.arch_id, "shape": shape.name, "mesh": MESH, "chips": 1,
+        "arch": cfg.arch_id, "shape": shape.name, "mesh": mesh_kind,
+        "chips": 1 if mesh is None else mesh.size,
         "opt": opt,
         "objective": objective if shape.kind == "train" else shape.kind,
         "compile_s": round(time.time() - t0, 2),
@@ -217,11 +316,14 @@ def run_one(arch, shape, objective="ar", out_dir=None, opt=None) -> dict:
         "roofline": roof.row(),
         "params_active": active_params(cfg),
     }
+    if mesh is not None:
+        rec["collectives"] = None
+        rec["count_scope"] = COUNT_SCOPE
     if out_dir:
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         suffix = f"__{opt}" if opt else ""
-        (out_dir / f"{cfg.arch_id}__{shape.name}__{MESH}{suffix}.json"
+        (out_dir / f"{cfg.arch_id}__{shape.name}__{mesh_kind}{suffix}.json"
          ).write_text(json.dumps(rec, indent=1))
     return rec
 
@@ -232,7 +334,8 @@ def sample_workload(cfg: ModelConfig, batch: int, nfe: int, order: int,
     whole UniPC trajectory of the eps-net through the port's row loop
     (`core/unipc.unipc_sample_scan`), data prediction over VPLinear;
     `evals[0]` counts the eps-net evals a run makes."""
-    from ..core import make_unipc_schedule, unipc_sample_scan
+    from ..core import make_unipc_schedule
+    from ..core.unipc import sample_step_fn
     from ..diffusion.schedules import VPLinear
 
     vp = VPLinear()
@@ -244,6 +347,7 @@ def sample_workload(cfg: ModelConfig, batch: int, nfe: int, order: int,
                       device=device)
     ids = torch.zeros((batch,), dtype=torch.int32, device=device)
     evals = [0]
+    trajectory = sample_step_fn(sched, fused_update=fused_update)
 
     @torch.no_grad()
     def sample_step(params, x_T, class_ids):
@@ -254,44 +358,79 @@ def sample_workload(cfg: ModelConfig, batch: int, nfe: int, order: int,
             return ((x.to(torch.float32) - sg * eps.to(torch.float32))
                     / a).to(x.dtype)
 
-        return unipc_sample_scan(data_model, x_T, sched,
-                                 fused_update=fused_update, dtype=act)
+        return trajectory(data_model, x_T, dtype=act)
 
     return sample_step, (params, x_T, ids), evals
 
 
 def run_sample_workload(arch="dit-i256", batch=256, nfe=10, order=3,
-                        out_dir=None, fused_update=True) -> dict:
+                        out_dir=None, fused_update=True,
+                        mesh_kind=MESH) -> dict:
     """Beyond the assigned pairs: count the paper's production workload, a
     whole UniPC sampling trajectory (one eps-net eval a row), on the meta
     device. model_flops = `model_flops_sample` (2 N_active a token, the
-    DiT's adaLN once a row)."""
+    DiT's adaLN once a row). Under a mesh, inside SERVE_RULES, the latents
+    and class ids split over the batch axes as the reference places them,
+    and one chip's argument bytes recorded."""
     cfg = get_config(arch)
+    mesh = make_mesh(mesh_kind)
     t0 = time.time()
     fn, args, evals = sample_workload(cfg, batch, nfe, order,
                                       fused_update=fused_update)
-    acct = analyze(fn, *args)
+    parts = dict(params=args[0], batch=args[1:])
+    if mesh is None:
+        acct = analyze(fn, *args)
+        memory = memory_record(parts, acct, train=False)
+    else:
+        with sharding_rules(mesh, SERVE_RULES):
+            acct = analyze(fn, *args)
+        baxes = normalize_axes(mesh, ("pod", "data"))
+        memory = mesh_memory_record(dict(params=args[0]), mesh, SERVE_RULES)
+        memory["batch_bytes"] = shard_bytes(
+            args[1:], (NamedSharding(mesh, P(baxes, None, None)),
+                       NamedSharding(mesh, P(baxes))))
+        memory["argument_bytes"] += memory["batch_bytes"]
     mf = model_flops_sample(cfg, evals[0], batch)
     roof = Roofline(acct["flops_by_dtype"], acct["min_bytes"], chips=1,
                     model_flops=mf)
-    rec = {"arch": arch, "shape": f"sample_nfe{nfe}", "mesh": MESH,
-           "chips": 1, "opt": None, "compile_s": round(time.time() - t0, 2),
+    rec = {"arch": arch, "shape": f"sample_nfe{nfe}", "mesh": mesh_kind,
+           "chips": 1 if mesh is None else mesh.size, "opt": None,
+           "compile_s": round(time.time() - t0, 2),
            "evals": evals[0], "collectives": acct["collectives"],
            "roofline": roof.row(), "kernels": acct["kernels"],
-           "memory": memory_record(dict(params=args[0], batch=args[1:]),
-                                   acct, train=False),
-           "params_active": active_params(cfg)}
+           "memory": memory, "params_active": active_params(cfg)}
+    if mesh is not None:
+        rec["collectives"] = None
+        rec["count_scope"] = COUNT_SCOPE
     r = rec["roofline"]
-    print(f"[ok] {arch} x sample_nfe{nfe} x {MESH}: "
+    print(f"[ok] {arch} x sample_nfe{nfe} x {mesh_kind}: "
           f"bottleneck={r['bottleneck']} compute={r['compute_s']:.2e}s "
           f"mem={r['memory_s']:.2e}s coll={r['collective_s']:.2e}s "
-          f"mfu={r['mfu']:.4f}")
+          f"mfu={r['mfu']:.4f} argument_bytes/chip="
+          f"{memory['argument_bytes']}")
     if out_dir:
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / f"{arch}__sample_nfe{nfe}__{MESH}.json").write_text(
+        (out_dir / f"{arch}__sample_nfe{nfe}__{mesh_kind}.json").write_text(
             json.dumps(rec, indent=1))
     return rec
+
+
+def _summary(rec: dict) -> str:
+    """The printed line of one record: its roofline, and its memory in GB
+    (one card's parts and peak, or one chip's arguments on a mesh)."""
+    r, m = rec["roofline"], rec["memory"]
+    keys = (("params_bytes", "optimizer_bytes", "cache_bytes",
+             "activation_bytes", "peak_bytes") if rec["mesh"] == MESH else
+            ("params_bytes", "optimizer_bytes", "batch_bytes", "cache_bytes",
+             "argument_bytes"))
+    digits = 1 if rec["mesh"] == MESH else 3
+    gb = " ".join(f"{k[:-6]}={m.get(k, 0) / 1e9:.{digits}f}GB" for k in keys)
+    tail = (f" fits_80GB={m['fits_80GB']}" if rec["mesh"] == MESH else
+            f" per chip of {rec['chips']}")
+    return (f"count={rec['compile_s']}s bottleneck={r['bottleneck']} "
+            f"compute={r['compute_s']:.2e}s mem={r['memory_s']:.2e}s "
+            f"coll={r['collective_s']:.2e}s {gb}{tail}")
 
 
 def main(argv=None):
@@ -301,48 +440,45 @@ def main(argv=None):
     ap.add_argument("--objective", default="ar", choices=["ar", "diffusion"])
     ap.add_argument("--out", default="results/dryrun_h100")
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--mesh", nargs="+", default=[MESH], choices=MESHES,
+                    help="h100x1 = one card, host = 1x1, single = 256 "
+                         "chips, multi = 512")
     ap.add_argument("--opt", default=None,
-                    help="a config-only optimization stage of OPTIMIZATIONS")
+                    help="optimization stage name from OPTIMIZATIONS")
     ap.add_argument("--sample", action="store_true",
                     help="count the UniPC sampling workload instead")
     args = ap.parse_args(argv)
 
     if args.sample:
         for arch in (args.arch if args.arch != ["all"] else ["dit-i256"]):
-            run_sample_workload(arch, out_dir=args.out)
+            for mesh_kind in args.mesh:
+                run_sample_workload(arch, out_dir=args.out,
+                                    mesh_kind=mesh_kind)
         return
     archs = all_arch_ids() if args.arch == ["all"] else args.arch
     shapes = list(INPUT_SHAPES) if args.shape == ["all"] else args.shape
     failures = []
     for arch in archs:
         for shape in shapes:
-            tag = f"{arch} x {shape} x {MESH}"
-            if (arch, shape) in SKIPS:
-                print(f"[SKIP] {tag}: {SKIPS[(arch, shape)]}")
-                continue
-            suffix = f"__{args.opt}" if args.opt else ""
-            out_file = Path(args.out) / f"{arch}__{shape}__{MESH}{suffix}.json"
-            if args.resume and out_file.exists():
-                print(f"[ok-cached] {tag}")
-                continue
-            try:
-                rec = run_one(arch, shape, args.objective, args.out,
-                              opt=args.opt)
-                r, m = rec["roofline"], rec["memory"]
-                gb = {k[:-6]: m.get(k, 0) / 1e9 for k in (
-                    "params_bytes", "optimizer_bytes", "cache_bytes",
-                    "activation_bytes", "peak_bytes")}
-                print(f"[ok] {tag}: count={rec['compile_s']}s "
-                      f"bottleneck={r['bottleneck']} "
-                      f"compute={r['compute_s']:.2e}s "
-                      f"mem={r['memory_s']:.2e}s "
-                      f"coll={r['collective_s']:.2e}s "
-                      + " ".join(f"{k}={v:.1f}GB" for k, v in gb.items())
-                      + f" fits_80GB={m['fits_80GB']}")
-            except Exception as e:  # noqa: BLE001 — report every cell
-                failures.append((tag, str(e)))
-                print(f"[FAIL] {tag}: {e}")
-                traceback.print_exc()
+            for mesh_kind in args.mesh:
+                tag = f"{arch} x {shape} x {mesh_kind}"
+                if (arch, shape) in SKIPS:
+                    print(f"[SKIP] {tag}: {SKIPS[(arch, shape)]}")
+                    continue
+                suffix = f"__{args.opt}" if args.opt else ""
+                out_file = (Path(args.out)
+                            / f"{arch}__{shape}__{mesh_kind}{suffix}.json")
+                if args.resume and out_file.exists():
+                    print(f"[ok-cached] {tag}")
+                    continue
+                try:
+                    rec = run_one(arch, shape, args.objective, args.out,
+                                  opt=args.opt, mesh_kind=mesh_kind)
+                    print(f"[ok] {tag}: " + _summary(rec))
+                except Exception as e:  # noqa: BLE001 — report every cell
+                    failures.append((tag, str(e)))
+                    print(f"[FAIL] {tag}: {e}")
+                    traceback.print_exc()
     if failures:
         print(f"\n{len(failures)} failures:")
         for tag, err in failures:

@@ -39,8 +39,10 @@ back as a pipelined trailing stream.
         --trace-out trace.json --metrics-out metrics.json \
         --probe-fraction 0.25 --probe-ref-nfe 16
 
-Not yet ported, and refused when asked for: the mesh sharding of the slot
-batch (the port serves on one card).
+Under an active `sharding_rules(mesh, SERVE_RULES)` context (the caller's;
+neither CLI has a mesh flag) the slot batch is annotated over the data axis,
+as in the reference; on one card the annotation is the identity, so the
+latents, the CUDA graphs and their launches are those of a run without it.
 """
 
 from __future__ import annotations

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.adaln_modulate import ops as adaln_ops
+from ..parallel.sharding import shard
 from .layers import attention_apply, attention_init, dense_apply, dense_init
 from .layers import layer_views as _layers
 from .layers import stack_trees as _stack
@@ -74,6 +75,7 @@ def _embed(params, cfg, x_t, t, class_ids):
     act = cfg.activation_dtype
     t = torch.as_tensor(t, dtype=torch.float32, device=x_t.device).expand(B)
     x = torch.matmul(x_t.to(act), params["in_proj"].to(act))
+    x = shard(x, "batch", "seq", "d_model")
     c = F.silu(torch.matmul(timestep_embedding(t, 256),
                             params["t_mlp1"].to(torch.float32)))
     c = torch.matmul(c, params["t_mlp2"].to(torch.float32))

@@ -21,6 +21,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import shard
 from .layers import (NORMS, attention_apply, attention_init, dense_init,
                      layer_views, mlp_apply, mlp_init, sdpa, stack_trees)
 from .transformer import (_attn_with_cache, _embed, cache_window,
@@ -106,6 +107,7 @@ def encode(params, cfg, audio_embeds) -> torch.Tensor:
     _, napply = NORMS[cfg.norm]
     x = audio_embeds.to(cfg.activation_dtype)
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    x = shard(x, "batch", "seq", "d_model")
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in layer_views(params["enc_layers"], cfg.encoder_layers):
         x = (checkpoint(_enc_block, lp, x, cfg, use_reentrant=False)
@@ -131,6 +133,7 @@ def encdec_forward(params, cfg, tokens, audio_embeds, *, inputs_embeds=None,
     enc_out = encode(params, cfg, audio_embeds)
     x = inputs_embeds if inputs_embeds is not None else _embed(params, cfg,
                                                                tokens)
+    x = shard(x, "batch", "seq", "d_model")
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in layer_views(params["dec_layers"], cfg.num_layers):
         x = (checkpoint(_dec_block, lp, x, enc_out, cfg, causal=causal,

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import shard
 from .layers import (NORMS, attention_apply, attention_init, dense_init,
                      layer_views, mlp_apply, mlp_init, stack_trees)
 from .ssm import init_mamba_state, mamba2_apply, mamba2_decode, mamba2_init
@@ -94,6 +95,7 @@ def mamba_forward(params, cfg, tokens, *, inputs_embeds=None) -> tuple:
     _, napply = NORMS[cfg.norm]
     x = inputs_embeds if inputs_embeds is not None else _embed(params, cfg,
                                                                tokens)
+    x = shard(x, "batch", "seq", "d_model")
     x = _ssm_stack(params["layers"], x, cfg, cfg.num_layers,
                    remat=cfg.remat and torch.is_grad_enabled())
     return (napply(params["final_ln"], x),
@@ -193,6 +195,7 @@ def zamba_forward(params, cfg, tokens, *, inputs_embeds=None) -> tuple:
     n_groups, tail = zamba_groups(cfg)
     x = inputs_embeds if inputs_embeds is not None else _embed(params, cfg,
                                                                tokens)
+    x = shard(x, "batch", "seq", "d_model")
     sp = params["shared_attn"]
     remat = cfg.remat and torch.is_grad_enabled()
     for gp in layer_views(params["groups"], n_groups):

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.quant_matmul import ops as qmm_ops
+from ..parallel.sharding import shard
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
@@ -154,6 +155,7 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(dense_apply(x, params["w_up"], cfg), approximate="tanh")
+    h = shard(h, "batch", "seq", "d_ff")
     return dense_apply(h, params["w_down"], cfg)
 
 
@@ -273,6 +275,8 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *, kv_src=None,
         kv_pos = (kv_positions if kv_positions is not None else
                   torch.arange(Skv, device=x.device).expand(B, Skv))
         k = apply_rope(k, kv_pos, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
     chunk = getattr(cfg, "attention_chunk", 0)
     if chunk and q.shape[1] > chunk:
         out = chunked_sdpa(q, k, v, causal=causal,

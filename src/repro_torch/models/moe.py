@@ -7,9 +7,22 @@ tokens fall through the residual connection. Expert FFNs run as one einsum
 over stacked expert weights. Aux losses: Switch-style load balance plus the
 router z-loss.
 
-The reference's `moe_apply_shard_map` needs a mesh, which the port does not
-have yet (ROADMAP item 12): with no mesh the reference takes `moe_apply`
-whatever `cfg.moe_shard_map` says, and so does the port.
+`moe_apply_shard_map` is the reference's MoE block under `shard_map` on a
+mesh (the model takes it when `cfg.moe_shard_map` is set and a mesh is
+active): every shard dispatches its own tokens into its own buffers, with
+its own capacity, so its result differs from `moe_apply`'s on a mesh of
+more than one data shard. One card runs what the shard map computes, one
+shard after another, on the device `x` is on:
+
+* the batch is split over the mesh's data axes ("pod", "data"), in mesh
+  order;
+* for each data shard and each model shard j of the expert hidden dim f,
+  `_moe_local` runs on `w_gate[..., f_j]`, `w_up[..., f_j]` and
+  `w_down[:, f_j, :]`;
+* the partial outputs are summed over the model shards in index order (the
+  reference's `psum`), and aux is the mean over all shards (its `pmean`).
+
+On a 1x1 mesh this is one call of `_moe_local`.
 """
 
 from __future__ import annotations
@@ -19,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import shard
 from .layers import dense_init
 
 
@@ -107,13 +121,75 @@ def moe_apply(params: dict, x: torch.Tensor, cfg) -> tuple:
     buf = torch.zeros((G, E, C + 1, d), dtype=x.dtype, device=x.device)
     buf[gi, flat_e, slot] = torch.where(keep[..., None], x_rep,
                                         torch.zeros_like(x_rep))
+    buf = shard(buf, "expert_cap", "experts", None, "d_model")
 
     h_g = torch.einsum("gecd,edf->gecf", buf, params["w_gate"].to(x.dtype))
     h_u = torch.einsum("gecd,edf->gecf", buf, params["w_up"].to(x.dtype))
     h = F.silu(h_g) * h_u
+    h = shard(h, "expert_cap", "experts", None, "d_ff")
     out_buf = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(x.dtype))
 
     y_rep = out_buf[gi, flat_e, slot] * keep[..., None]
+    y = (y_rep.reshape(N, k, d)
+         * top_p.to(x.dtype).reshape(N, k, 1)).sum(dim=1)
+    return y.reshape(B, S, d), aux
+
+
+def moe_apply_shard_map(params: dict, x: torch.Tensor, cfg, mesh,
+                        data_axes=("pod", "data"),
+                        model_axis: str = "model") -> tuple:
+    """The reference's shard-mapped MoE block on `mesh` (the port's
+    `launch.mesh.Mesh`, concrete or abstract), run shard by shard (see the
+    module docstring); returns the same (y, aux) contract as `moe_apply`."""
+    data_axes = tuple(a for a in data_axes if a in mesh.shape)
+    n_data = math.prod(mesh.shape[a] for a in data_axes)
+    n_model = mesh.shape[model_axis]
+    B = x.shape[0]
+    f = params["w_gate"].shape[-1]
+    if B % n_data or f % n_model:
+        raise ValueError(f"batch {B} over {n_data} data shards, hidden {f} "
+                         f"over {n_model} model shards: both must divide")
+    b, fs = B // n_data, f // n_model
+    ys, auxs = [], []
+    for i in range(n_data):
+        xs = x[i * b:(i + 1) * b]
+        y = None
+        for j in range(n_model):
+            cols = slice(j * fs, (j + 1) * fs)
+            y_j, aux = _moe_local(params["router"], params["w_gate"][..., cols],
+                                  params["w_up"][..., cols],
+                                  params["w_down"][:, cols, :], xs, cfg)
+            y = y_j if y is None else y + y_j
+            auxs.append(aux)
+        ys.append(y)
+    return torch.cat(ys), torch.stack(auxs).mean()
+
+
+def _moe_local(w_router, w_gate, w_up, w_down, x: torch.Tensor, cfg) -> tuple:
+    """One shard's dispatch and expert FFN: the router over its own tokens,
+    capacity C from its own N, partial sums over its slice of f."""
+    B, S, d = x.shape
+    N = B * S
+    k, E = cfg.experts_per_token, cfg.num_experts
+    C = max(1, int(math.ceil(k * N / E * cfg.capacity_factor)))
+    xf = x.reshape(N, d)
+    top_p, top_i, aux = _route({"router": w_router}, xf, cfg)
+
+    flat_e = top_i.reshape(N * k)
+    oh = one_hot(flat_e, E, torch.int32)
+    pos = (torch.cumsum(oh, dim=0) * oh).sum(-1) - 1
+    keep = pos < C
+    slot = torch.where(keep, pos, torch.full_like(pos, C))
+    x_rep = torch.repeat_interleave(xf, k, dim=0)
+    # kept slots are unique, only the trash slot C repeats (with zeros): an
+    # indexed store is the reference's scatter-add onto zeros
+    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
+    buf[flat_e, slot] = torch.where(keep[:, None], x_rep,
+                                    torch.zeros_like(x_rep))
+    h = (F.silu(torch.einsum("ecd,edf->ecf", buf, w_gate.to(x.dtype)))
+         * torch.einsum("ecd,edf->ecf", buf, w_up.to(x.dtype)))
+    out_buf = torch.einsum("ecf,efd->ecd", h, w_down.to(x.dtype))
+    y_rep = out_buf[flat_e, slot] * keep[:, None]
     y = (y_rep.reshape(N, k, d)
          * top_p.to(x.dtype).reshape(N, k, 1)).sum(dim=1)
     return y.reshape(B, S, d), aux

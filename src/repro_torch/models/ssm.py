@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import shard
 from .layers import dense_init, rmsnorm, rmsnorm_init
 
 
@@ -164,7 +165,8 @@ def mamba2_apply(params, u, cfg, *, return_state: bool = False):
     dt = softplus(dt.to(torch.float32)
                   + params["dt_bias"].to(torch.float32))
     A = -torch.exp(params["A_log"].to(torch.float32))
-    y, state = ssd_scan(x.reshape(b, l, H, P), dt, A, B.reshape(b, l, G, N),
+    x = shard(x.reshape(b, l, H, P), "batch", "seq", "heads", None)
+    y, state = ssd_scan(x, dt, A, B.reshape(b, l, G, N),
                         C.reshape(b, l, G, N), params["D"], cfg.ssm_chunk)
     y = y.reshape(b, l, di)
     y = rmsnorm(params["out_norm"], y * F.silu(z))

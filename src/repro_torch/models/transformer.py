@@ -28,10 +28,12 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import current_mesh, shard
 from .layers import (NORMS, apply_rope, attention_apply, attention_init,
                      dense_init, layer_views, mlp_apply, mlp_init,
                      stack_trees)
-from .moe import moe_apply, moe_decode_apply, moe_init
+from .moe import (moe_apply, moe_apply_shard_map, moe_decode_apply,
+                  moe_init)
 
 
 def layer_init(gen: torch.Generator, cfg, device) -> dict:
@@ -76,9 +78,11 @@ def _block(lp, x, cfg, *, sliding_window, causal=True):
     x = x + h
     y = napply(lp["ln2"], x)
     if cfg.num_experts:
-        # no mesh on one card: the reference takes moe_apply then too,
-        # whatever cfg.moe_shard_map says
-        y, aux = moe_apply(lp["moe"], y, cfg)
+        mesh = current_mesh()
+        if cfg.moe_shard_map and mesh is not None:
+            y, aux = moe_apply_shard_map(lp["moe"], y, cfg, mesh)
+        else:
+            y, aux = moe_apply(lp["moe"], y, cfg)
     else:
         y = mlp_apply(lp["mlp"], y, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -93,6 +97,7 @@ def forward(params, cfg, tokens, *, causal: bool = True,
     the same values, the block's activations recomputed in the backward."""
     x = inputs_embeds if inputs_embeds is not None else _embed(params, cfg,
                                                                tokens)
+    x = shard(x, "batch", "seq", "d_model")
     block = functools.partial(_block, cfg=cfg,
                               sliding_window=cfg.sliding_window,
                               causal=causal)
@@ -109,7 +114,8 @@ def forward(params, cfg, tokens, *, causal: bool = True,
 def logits_from_hidden(params, cfg, hidden) -> torch.Tensor:
     w = (params["embed"].T if cfg.tie_embeddings or "lm_head" not in params
          else params["lm_head"])
-    return torch.matmul(hidden, w.to(hidden.dtype))
+    return shard(torch.matmul(hidden, w.to(hidden.dtype)), "batch", "seq",
+                 "vocab")
 
 
 def lm_loss(params, cfg, tokens, targets) -> torch.Tensor:
@@ -192,7 +198,7 @@ def decode_step(params, cfg, cache, token, pos) -> tuple:
     """token: (B, 1) integers; pos: an int or a 0-d integer tensor. Returns
     (logits (B, 1, V), cache), the cache updated in place."""
     _, napply = NORMS[cfg.norm]
-    x = _embed(params, cfg, token)
+    x = shard(_embed(params, cfg, token), "batch", "seq", "d_model")
     pos = device_pos(pos, x.device)
     W = cache["k"].shape[2]
     layers = layer_views(params["layers"], cfg.num_layers)
@@ -243,7 +249,7 @@ def prefill(params, cfg, tokens, max_len: int) -> tuple:
     _, napply = NORMS[cfg.norm]
     B, S = tokens.shape
     W = cache_window(cfg, max_len)
-    x = _embed(params, cfg, tokens)
+    x = shard(_embed(params, cfg, tokens), "batch", "seq", "d_model")
     pos = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
     for lp in layer_views(params["layers"], cfg.num_layers):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import shard
 from .layers import (NORMS, attention_apply, attention_init, dense_init,
                      layer_views, mlp_apply, mlp_init, sdpa, stack_trees)
 from .transformer import (_attn_with_cache, _block, _embed, cache_window,
@@ -111,6 +112,7 @@ def vlm_forward(params, cfg, tokens, image_embeds, *, inputs_embeds=None,
     _, napply = NORMS[cfg.norm]
     x = inputs_embeds if inputs_embeds is not None else _embed(params, cfg,
                                                                tokens)
+    x = shard(x, "batch", "seq", "d_model")
     img = _project_image(params, image_embeds, x)
     G = _vlm_groups(cfg)
     remat = cfg.remat and torch.is_grad_enabled()

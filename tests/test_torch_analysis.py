@@ -96,7 +96,7 @@ def test_roofline_adds_one_compute_term_per_dtype():
     row = r.row()
     assert set(j_roof.Roofline(1.0, 1.0, 0.0, 1).row()) <= set(row)
     assert row["flops_by_dtype"] == {"bfloat16": 989e12, "float32": 67e12}
-    with pytest.raises(ValueError, match="12e"):
+    with pytest.raises(ValueError, match="SPMD partitioner"):
         roofline.Roofline({}, 0.0, collective_bytes=1.0).collective_s
     ms, by = roofline.kernel_bound(dispatch.Cost(67e9, 1.0, torch.float32))
     assert (ms, by) == (pytest.approx(1.0, rel=1e-12), "operations")
@@ -506,7 +506,28 @@ def test_run_one_returns_the_record(arch, kind, tmp_path):
 
 
 def test_dryrun_refuses_the_mesh_stages():
-    with pytest.raises(ValueError, match="12e"):
-        dryrun.stage("granite-moe-3b-a800m", "train_4k", "shard_map")
+    """No stage is refused now: the ones that set rules or moe_shard_map
+    give the reference's rule tables and config, as the config-only ones
+    give theirs; a stage the pair does not have raises."""
+    from repro.parallel import sharding as j_sh
+
+    granite, deepseek = "granite-moe-3b-a800m", "deepseek-67b"
+    assert dryrun.stage(granite, "train_4k", "shard_map") == \
+        dict(cfg=dict(moe_shard_map=True))
+    assert dryrun.stage(granite, "train_4k", "shard_map_seqp") == dict(
+        cfg=dict(moe_shard_map=True), rules=j_sh.SEQ_PARALLEL_TRAIN_RULES)
+    assert dryrun.stage("mixtral-8x7b", "train_4k", "shard_map") == \
+        dict(cfg=dict(moe_shard_map=True))
+    assert dryrun.stage(deepseek, "train_4k", "seqp") == \
+        dict(rules=j_sh.SEQ_PARALLEL_TRAIN_RULES)
+    assert dryrun.stage(deepseek, "train_4k", "seqp_chunk") == dict(
+        cfg=dict(attention_chunk=512), rules=j_sh.SEQ_PARALLEL_TRAIN_RULES)
+    assert dryrun.stage(deepseek, "decode_32k", "kvseq_bf16") == dict(
+        cfg=dict(param_dtype="bfloat16"), rules=j_sh.KV_SEQ_SERVE_RULES)
+    for arch in (deepseek, "qwen2-0.5b"):
+        assert dryrun.stage(arch, "decode_32k", "kvseq") == \
+            dict(rules=j_sh.KV_SEQ_SERVE_RULES)
     assert dryrun.stage("qwen2-0.5b", "prefill_32k", "chunk512") == \
-        dict(attention_chunk=512)
+        dict(cfg=dict(attention_chunk=512))
+    with pytest.raises(KeyError, match="no stage"):
+        dryrun.stage("qwen2-0.5b", "prefill_32k", "kvseq")

@@ -10,6 +10,7 @@
 """
 
 import ast
+import os
 import shutil
 import subprocess
 import sys
@@ -115,6 +116,34 @@ def test_train_defaults_to_the_card_and_raises_without_one():
                     "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tune.main(["--nfe", "2", "--batch", "1", "--train-steps", "1"])
+
+
+def test_host_mesh_defaults_to_the_card_and_raises_without_one():
+    """make_host_mesh() is the card's 1x1 mesh and raises without a card;
+    importing launch.mesh and parallel.sharding, or building an abstract or
+    a CPU mesh, touches no CUDA (checked in a fresh process)."""
+    from repro_torch.launch import mesh
+
+    code = ("import torch\n"
+            "def no_cuda(*a, **k):\n"
+            "    raise AssertionError('CUDA initialised')\n"
+            "torch.cuda._lazy_init = torch.cuda.init = no_cuda\n"
+            "from repro_torch.launch import mesh\n"
+            "from repro_torch.parallel import sharding\n"
+            "assert mesh.make_production_mesh(multi_pod=True).size == 512\n"
+            "assert mesh.make_host_mesh('cpu').size == 1\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_host_mesh()
+
+
+def test_mesh_modules_are_scanned():
+    """The modules ported with the mesh layer are in the import scan."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("parallel/__init__", "parallel/sharding", "launch/mesh"):
+        assert f"src/repro_torch/{mod}.py" in names
 
 
 def test_training_subpackages_are_scanned():
