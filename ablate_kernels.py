@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the port's redesigned kernels (flash_attention,
-quant_matmul's wgmma and skinny bodies, adaln_modulate, gate_residual,
-unipc_update's sampler-row ops) goes, on the card: ablation timings at the
-main path's shapes.
+"""Where the time of the port's redesigned kernels (flash_attention and
+its backward's wgmma body, quant_matmul's wgmma and skinny bodies,
+adaln_modulate and its backward, gate_residual, unipc_update's sampler-row
+ops) goes, on the
+card: ablation timings at the main path's shapes.
 
-    python3 ablate_kernels.py     # from the repository root, one CUDA card
+    python3 ablate_kernels.py          # from the repository root, one CUDA card
+    python3 ablate_kernels.py _bwd     # only the ablations whose name has "_bwd"
 
 Each ablation is a copy of a kernel's CUDA source with one part of its work
-taken out (the product, the softmax's exponentials, the widening, the
+taken out (the product, the softmax's exponentials, the backward's
+products or exponentials pass by pass, the widening, the
 loads after the first ring's worth, modulate's reductions or conditioning
 loads, gate_residual's gate, the row ops' weight prologue or ring write).
 Its output is wrong and unchecked; only its device time counts, next to
@@ -95,6 +98,38 @@ _ROW_NO_RING = (
     "      if (k < K) ch[1 + k].store(ring_out + (k + 1) * slot + row);\n",
     "    (void)ring_out;\n    (void)slot;\n")
 
+# the backward's wgmma body, pass by pass: its products (S and dP, then dQ;
+# S^T and dP^T, then dV and dK) replaced by a use of their operands, its
+# exponentials by their arguments; "loads only" both (the producer's ring
+# and the consumers' waits and releases stay)
+_DQ_NO_PRODUCTS = [
+    ("      wgmma_ss<WB_BK>(sc, desc_k(q_u, 64, kk), desc_k(k_u, 64, kk), kk);",
+     "      (void)kk;"),
+    ("      wgmma_ss<WB_BK>(dp, desc_k(do_u, 64, kk), desc_k(v_u, 64, kk), kk);",
+     "      (void)kk;"),
+    ("      wgmma_dn<ND>(dqa, hi[kk], k_u, 64, kk);\n"
+     "      wgmma_dn<ND>(dqa, lo[kk], k_u, 64, kk);",
+     "      dqa[0] += __uint_as_float(hi[kk][0] ^ lo[kk][3]);")]
+_DQ_NO_EXP = [
+    ("        sc[j] = exp2f(sc[j] * scale_log2 - lse2[(j >> 1) & 1]) * (dp[j] - dlt[(j >> 1) & 1]);",
+     "        sc[j] = (sc[j] * scale_log2 - lse2[(j >> 1) & 1]) * (dp[j] - dlt[(j >> 1) & 1]);"),
+    ("          const float pv = ok ? exp2f(sc[4 * n + e] * scale_log2 - lse2[e >> 1]) : 0.f;",
+     "          const float pv = ok ? sc[4 * n + e] * scale_log2 - lse2[e >> 1] : 0.f;")]
+_DKDV_NO_PRODUCTS = [
+    ("        wgmma_ss<BQ>(pt, desc_k(k_u, 64, kk), desc_k(q_u, BQ, kk), kk);  // S^T",
+     "        (void)kk;"),
+    ("        wgmma_ss<BQ>(dpt, desc_k(v_u, 64, kk), desc_k(do_u, BQ, kk), kk);  // dP^T",
+     "        (void)kk;"),
+    ("        wgmma_dn<ND>(dva, hi[kk], do_u, BQ, kk);\n"
+     "        wgmma_dn<ND>(dva, lo[kk], do_u, BQ, kk);",
+     "        dva[0] += __uint_as_float(hi[kk][0] ^ lo[kk][3]);"),
+    ("        wgmma_dn<ND>(dka, shi[kk], q_u, BQ, kk);\n"
+     "        wgmma_dn<ND>(dka, slo[kk], q_u, BQ, kk);",
+     "        dka[0] += __uint_as_float(shi[kk][0] ^ slo[kk][3]);")]
+_DKDV_NO_EXP = [
+    ("          const float pv = ok ? exp2f(pt[4 * n + e] * scale_log2 - ls.x) : 0.f;",
+     "          const float pv = ok ? pt[4 * n + e] * scale_log2 - ls.x : 0.f;")]
+
 # name -> (source, [(anchor, replacement)])
 ABLATIONS = {
     "flash_attention": ("flash_attention", []),
@@ -115,6 +150,68 @@ ABLATIONS = {
     "flash_attention first K/V tiles only": ("flash_attention", [
         ("    if (i < n_tiles) {\n      unsigned char* st",
          "    if (i < MMA_STAGES - 1 && i < n_tiles) {\n      unsigned char* st")]),
+    "flash_attention_bwd": ("flash_attention", []),
+    "flash_attention_bwd dq pass only (no dk/dv launch)": ("flash_attention", [
+        ("  err = cudaLaunchKernelEx(&cfg, attn_bwd_dkdv_wg<ND, MASK>,",
+         "  if (nq > 0) return static_cast<int>(cudaGetLastError());\n"
+         "  err = cudaLaunchKernelEx(&cfg, attn_bwd_dkdv_wg<ND, MASK>,")]),
+    "flash_attention_bwd dk/dv pass only (no dq launch)": ("flash_attention", [
+        ("  attn_bwd_dq_wg<ND, MASK><<<dim3(sh.B * sh.Hq, nq), WB_THREADS, W::DQ_ALLOC, s>>>(",
+         "  if (nq < 0) attn_bwd_dq_wg<ND, MASK><<<dim3(sh.B * sh.Hq, nq), WB_THREADS, W::DQ_ALLOC, s>>>(")]),
+    "flash_attention_bwd dq pass no Delta loads": ("flash_attention", [
+        ("      for (int c = half; c < D / 8; c += 2) {",
+         "      for (int c = half; c < 0; c += 2) {")]),
+    "flash_attention_bwd dq pass no products": ("flash_attention", _DQ_NO_PRODUCTS),
+    "flash_attention_bwd dq pass no exp": ("flash_attention", _DQ_NO_EXP),
+    "flash_attention_bwd dq pass loads only": (
+        "flash_attention", _DQ_NO_PRODUCTS + _DQ_NO_EXP),
+    "flash_attention_bwd dq pass first ring of loads only": ("flash_attention", [
+        ("      if (i >= WB_STAGES) mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);\n"
+         "      const unsigned k_u = ring_u + s * 2 * W::TILE64;",
+         "      if (i >= WB_STAGES) { mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);\n"
+         "        mbar_arrive(full + 8 * s); continue; }\n"
+         "      const unsigned k_u = ring_u + s * 2 * W::TILE64;")]),
+    "flash_attention_bwd dk/dv pass first ring of loads only": ("flash_attention", [
+        ("        if (i >= WB_STAGES) mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);\n"
+         "        const unsigned st_u = ring_u + s * 2 * W::TILEQ;",
+         "        if (i >= WB_STAGES) { mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);\n"
+         "          mbar_arrive(full + 8 * s); continue; }\n"
+         "        const unsigned st_u = ring_u + s * 2 * W::TILEQ;")]),
+    "flash_attention_bwd dq pass ring only (first ring of loads, no products, no exp)": (
+        "flash_attention", _DQ_NO_PRODUCTS + _DQ_NO_EXP + [
+            ("      if (i >= WB_STAGES) mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);\n"
+             "      const unsigned k_u = ring_u + s * 2 * W::TILE64;",
+             "      if (i >= WB_STAGES) { mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);\n"
+             "        mbar_arrive(full + 8 * s); continue; }\n"
+             "      const unsigned k_u = ring_u + s * 2 * W::TILE64;")]),
+    "flash_attention_bwd dk/dv pass ring only (first ring of loads, no products, no exp)": (
+        "flash_attention", _DKDV_NO_PRODUCTS + _DKDV_NO_EXP + [
+            ("        if (i >= WB_STAGES) mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);\n"
+             "        const unsigned st_u = ring_u + s * 2 * W::TILEQ;",
+             "        if (i >= WB_STAGES) { mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);\n"
+             "          mbar_arrive(full + 8 * s); continue; }\n"
+             "        const unsigned st_u = ring_u + s * 2 * W::TILEQ;")]),
+    "flash_attention_bwd dk/dv pass no products": (
+        "flash_attention", _DKDV_NO_PRODUCTS),
+    "flash_attention_bwd dk/dv pass no exp": ("flash_attention", _DKDV_NO_EXP),
+    "flash_attention_bwd dk/dv pass loads only": (
+        "flash_attention", _DKDV_NO_PRODUCTS + _DKDV_NO_EXP),
+    "adaln_modulate_bwd": ("adaln_modulate", []),
+    "adaln_modulate_bwd no tile sums (no second launch)": ("adaln_modulate", [
+        ("  const cudaError_t e2 = cudaLaunchKernelEx(&cfg, tile_sum_kernel<T>, static_cast<const float*>(part),\n"
+         "                                            static_cast<T*>(dshift), static_cast<T*>(dscale),\n"
+         "                                            tiles, D);",
+         "  const cudaError_t e2 = cudaSuccess;")]),
+    "adaln_modulate_bwd dx only (no partial sums)": ("adaln_modulate", [
+        ("  const cudaError_t e2 = cudaLaunchKernelEx(&cfg, tile_sum_kernel<T>, static_cast<const float*>(part),\n"
+         "                                            static_cast<T*>(dshift), static_cast<T*>(dscale),\n"
+         "                                            tiles, D);",
+         "  const cudaError_t e2 = cudaSuccess;"),
+        ("        pc[q] = a;\n        pc[q + D / 4] = ax;", "        (void)a;\n        (void)ax;"),
+        ("  __syncthreads();\n  float* pg = part + (b * gridDim.x + blockIdx.x) * 2LL * D;  "
+         "// [sum g | sum g x_hat]\n  for (int c = threadIdx.x; c < 2 * D; c += rows_threads<T>()) {",
+         "  if (D > 0) return;\n  float* pg = part + (b * gridDim.x + blockIdx.x) * 2LL * D;\n"
+         "  for (int c = threadIdx.x; c < 2 * D; c += rows_threads<T>()) {")]),
     "quant_matmul": ("quant_matmul", []),
     "quant_matmul no product": ("quant_matmul", [
         ("        wgmma_n144_rs(acc, a[kk], smem_desc(x_u + kk * 32, 16, 1024, 1));",
@@ -233,11 +330,14 @@ ROW_PLANS = {
 }
 
 
-def build_all() -> dict:
-    """Compile every ablation in parallel; {name: library path}."""
+def build_all(only: str = "") -> dict:
+    """Compile every ablation whose name contains `only` in parallel;
+    {name: library path}."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc, procs = build._nvcc(), {}
     for i, (name, (src, edits)) in enumerate(ABLATIONS.items()):
+        if only not in name:
+            continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for anchor, repl in edits:
             if anchor not in text:
@@ -268,10 +368,13 @@ def use(src: str, so: Path) -> None:
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     build._LIBS[src] = lib
-    {"flash_attention": fa_kernel._launcher,
-     "quant_matmul": qmm_kernel._launcher,
-     "adaln_modulate": adaln_kernel._launchers,
-     "unipc_update": uni_kernel._launcher}[src].cache_clear()
+    for launcher in {"flash_attention": (fa_kernel._launcher,
+                                         fa_kernel._bwd_launcher),
+                     "quant_matmul": (qmm_kernel._launcher,),
+                     "adaln_modulate": (adaln_kernel._launchers,
+                                        adaln_kernel._bwd_launchers),
+                     "unipc_update": (uni_kernel._launcher,)}[src]:
+        launcher.cache_clear()
 
 
 def row_operands(dev, g) -> dict:
@@ -326,7 +429,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"{smi}; torch {torch.__version__}")
-    libs = build_all()
+    libs = build_all(sys.argv[1] if len(sys.argv) > 1 else "")
     g = torch.Generator(device=dev).manual_seed(0)
     # flash_attention at the dit-i256 shape, head-major views as in the model
     q, k, v = (torch.randn(16, 256, 16, 72, generator=g, device=dev).to(
@@ -368,6 +471,22 @@ def main():
         skinny[site] = (x, [w for w, _ in ws_], ws_[0][1].float().contiguous(),
                         torch.empty(M, N, dtype=torch.bfloat16, device=dev))
     rows = row_operands(dev, g)
+    # modulate_bwd at the DiT's training shape, scale read in place
+    xb, gb = (torch.randn(8, 256, 1152, generator=g, device=dev).to(bf)
+              for _ in range(2))
+    sb = torch.randn(8, 6 * 1152, generator=g, device=dev).to(bf)[:, 1152:2304]
+    # flash_attention_bwd (the wgmma body) at qwen2-0.5b's AR step and
+    # whisper's encoder, the forward's lse and o32 from the unedited library
+    bwd_cases = {}
+    for label, (B, Hq, Hkv, S, D, causal) in {
+            "qwen2-0.5b AR (8, 14/2, 512, 64) causal": (8, 14, 2, 512, 64, True),
+            "whisper encoder (8, 12, 1500, 64)": (8, 12, 12, 1500, 64, False)}.items():
+        qb, dob = (torch.randn(B, S, Hq, D, generator=g, device=dev).to(bf)
+                   .transpose(1, 2) for _ in range(2))
+        kb, vb = (torch.randn(B, S, Hkv, D, generator=g, device=dev).to(bf)
+                  .transpose(1, 2) for _ in range(2))
+        _, lse, o32 = fa_kernel.flash_attention(qb, kb, vb, causal=causal, lse=True)
+        bwd_cases[label] = (qb, kb, vb, o32, lse, dob, causal)
     for name, so in libs.items():
         src = ABLATIONS[name][0]
         use(src, so)
@@ -378,6 +497,16 @@ def main():
                     for op, (mode, args, like, p, _) in rows.items()}
                 print(f"row ops [{name}]{label}: " + ", ".join(
                     f"{op} {t:.6f} ms" for op, t in times.items()))
+        elif name.startswith("adaln_modulate_bwd"):
+            held = adaln_kernel.BWD_ROWS_THREADS[bf] // 32  # rows a block at once
+            for turns in (1, 2, 4):  # rows a warp takes
+                bp = dict(adaln_kernel.plan_bwd(gb, xb, sb, xb),
+                          rows_per_group=turns, tiles=256 // (held * turns))
+                ms = chip_smoke.device_ms(functools.partial(
+                    adaln_kernel._launch_modulate_bwd, gb, xb, sb,
+                    torch.empty_like(xb), 1e-5, bp))
+                print(f"{name} (8, 256, 1152) bf16, {turns} rows a warp "
+                      f"({8 * bp['tiles']} blocks of {held} warps): {ms:.6f} ms")
         elif src == "adaln_modulate":
             mod_plans = {} if name.startswith("gate_residual") else {
                 "": lambda p: p}
@@ -394,6 +523,10 @@ def main():
                     adaln_kernel._launch_gate, *a, gp) for a in gsets])
                 print(f"gate_residual [{name}]{label}: graph {ms:.5f} ms, "
                       f"rotated {rot:.5f} ms")
+        elif name.startswith("flash_attention_bwd"):
+            print(f"{name}: " + ", ".join(
+                f"{label} {chip_smoke.device_ms(functools.partial(fa_kernel.flash_attention_bwd, qb, kb, vb, o32, lse, dob, causal=causal)):.6f} ms"
+                for label, (qb, kb, vb, o32, lse, dob, causal) in bwd_cases.items()))
         elif src == "flash_attention":
             ms = chip_smoke.device_ms(functools.partial(
                 fa_kernel.flash_attention, q, k, v, causal=False))

@@ -1214,7 +1214,8 @@ def kernel_kind(name: str, kinds=KERNEL_KINDS) -> str:
 # a training step's kernels: the backward kernels first ("attn_" would
 # take attention's)
 TRAIN_KINDS = (
-    ("backward kernels (port)", ("modulate_bwd_kernel", "gate_bwd_kernel",
+    ("backward kernels (port)", ("modulate_bwd_kernel", "modulate_bwd_rows",
+                                 "tile_sum_kernel", "gate_bwd_kernel",
                                  "column_sum_kernel", "attn_bwd_")),
     ("forward kernels (port)", ("modulate_kernel", "gate_kernel", "attn_")),
 ) + KERNEL_KINDS[1:]
@@ -3962,6 +3963,45 @@ STEP_TOL = 2e-2
 STEP_FP32_DEPTH = 4
 STEP_FP32_TOL = 1e-4
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}   # per backward case
+# the backward kernels' times recorded before the redesign of their bf16
+# bodies for Hopper (PERF.md §6, the mma.sync body and the row-pass adaLN
+# body: 100 calls in a CUDA graph, an H100 80GB HBM3 at 700 W), printed
+# beside this run's: {kernel name or backward case label: ms}
+EARLIER_BWD_MS = {
+    "adaln_modulate_bwd": 0.018865, "gate_residual_bwd": 0.008673,
+    "flash_attention_bwd": 0.091287,
+    "qwen2-0.5b AR, causal GQA 14/2": 0.250294,
+    "qwen2-0.5b diffusion LM, GQA 14/2": 0.247790,
+    "diffusion LM at S 128, GQA 14/2": 0.054874,
+    "granite AR, causal GQA 24/8": 0.070797,
+    "window 64, GQA 14/2, S=300": 0.097118,
+    "dit-i256 training, MHA": 0.091287,
+    "zamba2-7b training, causal MHA D=112": 0.595877,
+    "whisper encoder, non-causal MHA D=64": 1.264342,
+    "whisper cross-attention, 384 over 1500 frames": 0.392375,
+    "llama-vision prefill, causal GQA 64/8 D=128": 1.082434,
+    "llama-vision cross-attention, 512 over 1600, GQA 64/8": 3.842517,
+    "whisper diffusion LM cross-attention, 64 over 1500": 0.142697,
+    "llama-vision diffusion LM cross-attention, 64 over 1600": 0.550401,
+}
+
+
+@contextlib.contextmanager
+def bwd_body(fk, body: str):
+    """flash_attention_bwd's plan held to one bf16 body while the block
+    runs: "mma" (the earlier mma.sync body, wherever it runs) or "wgmma"
+    (also at one query tile with a group, where plan_bwd picks mma)."""
+    kept = fk.WGMMA_MAX_GROUP, fk.WGMMA_ONE_TILE_MAX_GROUP
+    if body == "mma":
+        fk.WGMMA_MAX_GROUP = 0
+    else:
+        fk.WGMMA_ONE_TILE_MAX_GROUP = fk.WGMMA_MAX_GROUP
+    try:
+        yield
+    finally:
+        fk.WGMMA_MAX_GROUP, fk.WGMMA_ONE_TILE_MAX_GROUP = kept
+
+
 BWD_KERNELS = [  # name, source, replaces (the TPU kernel differentiated)
     ("adaln_modulate_bwd", "src/repro_torch/kernels/csrc/adaln_modulate.cu",
      "src/repro/kernels/adaln_modulate/kernel.py:61"),
@@ -4033,17 +4073,28 @@ def backward_kernel_cases(dev) -> dict:
         st["max_abs_err"] = max(st["max_abs_err"], abs_err)
         st["max_rel_err"] = max(st["max_rel_err"], err)
 
-    def timed(name, k_fn, p_fn, lib, cost, **extra):
+    def timed(name, k_fn, p_fn, lib, cost, earlier=None, **extra):
+        """`earlier`: a context under which the wrapper plans the body it
+        had before the Hopper redesign, for the host cost of a call before
+        and after."""
         bms, by = bound(cost)
         lib_ms = queued_device_ms(lib) if lib is not None else None
         out[name].update(ms=device_ms(k_fn), host_call_ms=host_call_ms(k_fn),
                          plain_ms=device_ms(p_fn), library_ms=lib_ms,
                          bound_ms=bms, bound_by=by, **extra)
+        if earlier is not None:
+            with earlier():
+                out[name]["earlier_body_ms"] = device_ms(k_fn)
+                out[name]["earlier_body_host_call_ms"] = host_call_ms(k_fn)
         st = out[name]
-        print(f"  {name}: {st['ms']:.6f} ms a call on the card (bound "
-              f"{bms:.6f} by {by}), plain {st['plain_ms']:.6f}, library "
+        print(f"  {name}: {st['ms']:.6f} ms a call on the card (recorded "
+              f"before: {EARLIER_BWD_MS[name]:.6f}; bound {bms:.6f} by "
+              f"{by}), plain "
+              f"{st['plain_ms']:.6f}, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 6)}, host "
-              f"{st['host_call_ms']:.6f} ms a call eager; "
+              f"{st['host_call_ms']:.6f} ms a call eager (the earlier body: "
+              f"{st.get('earlier_body_ms')} ms, host "
+              f"{st.get('earlier_body_host_call_ms')}); "
               f"{ {k: v for k, v in extra.items()} }")
 
     # adaLN modulate and gate_residual: (B, T, D, dtype, conditioning
@@ -4063,9 +4114,18 @@ def backward_kernel_cases(dev) -> dict:
         x, y, gr = (randn(b_, t_, d_, dtype=dt) for _ in range(3))
         mod = randn(b_, width * d_, dtype=dt)
         scale, gate = mod[:, d_:2 * d_], mod[:, (width - 1) * d_:width * d_]
-        tag = f"{label} ({b_}, {t_}, {d_}) {str(dt)[6:]}, rows {ak.bwd_rows(x)}"
-        check("adaln_modulate_bwd", tag, ak.modulate_bwd(gr, x, scale),
-              ar.modulate_bwd(gr, x, scale), dt)
+        mp = ak.plan_bwd(gr, x, scale, x)
+        body = (f"{mp['body']} {mp['lanes']} lanes x {mp['chunks']} chunks, "
+                f"{mp['rows_per_group']} rows a group"
+                if mp["body"] == "registers" else f"{mp['body']}")
+        tag = (f"{label} ({b_}, {t_}, {d_}) {str(dt)[6:]}, [{body}, "
+               f"{mp['tile_rows']} rows a tile], gate rows {ak.bwd_rows(x)}")
+        got = ak.modulate_bwd(gr, x, scale)
+        again = ak.modulate_bwd(gr, x, scale)
+        check("adaln_modulate_bwd", tag, got, ar.modulate_bwd(gr, x, scale),
+              dt)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"adaln_modulate_bwd [{tag}] differs run to run")
         check("gate_residual_bwd", tag, ak.gate_residual_bwd(gr, gate, y),
               ar.gate_residual_bwd(gr, gate, y), dt)
         if not path:
@@ -4076,11 +4136,21 @@ def backward_kernel_cases(dev) -> dict:
     zeros = torch.zeros(D, device=dev, dtype=x.dtype)
     _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], ones, zeros,
                                                      1e-5)
+
+    @contextlib.contextmanager
+    def generic_body():  # modulate_bwd's earlier body, at every width
+        saved = set(ak.REGISTER_BODIES)
+        ak.REGISTER_BODIES.clear()
+        try:
+            yield
+        finally:
+            ak.REGISTER_BODIES.update(saved)
+
     timed("adaln_modulate_bwd", lambda: ak.modulate_bwd(gr, x, scale),
           lambda: ar.modulate_bwd(gr, x, scale),
           lambda: torch.ops.aten.native_layer_norm_backward(
               gr, x, [D], mean, rstd, ones, zeros, [True, True, True]),
-          adaln_ops.cost_modulate_bwd(gr, x, scale),
+          adaln_ops.cost_modulate_bwd(gr, x, scale), earlier=generic_body,
           library="aten.native_layer_norm_backward (dx, and the column "
                   "sums over all B*T rows)")
     timed("gate_residual_bwd", lambda: ak.gate_residual_bwd(gr, gate, y),
@@ -4114,9 +4184,10 @@ def backward_kernel_cases(dev) -> dict:
         same = torch.equal(o, o_plain) and torch.equal(o32.to(dt), o)
         lse_err = rel_err(lse, fr.attention_lse(q, k, causal=False))
         lse_same = lse_same and same
-        p = fk.plan_bwd(q, k, v, do)
+        p = fk.plan_bwd(q, k, v, do, o32)
         tag = (f"{label} ({b_}, {h_}, {sq}, {skv}, {d_}) {str(dt)[6:]}, "
-               f"{p['body']} chunks {p['chunks']} vec_in {p['vec_in']}")
+               f"{p['body']} chunks {p['chunks']} vec_in {p['vec_in']}, "
+               f"grids {p['blocks']}")
         print(f"  flash_attention with lse and o32 [{label}]: output "
               f"bit-equal to the forward without them, o32 rounding to it: "
               f"{same}; lse rel L-inf {lse_err:.3e}")
@@ -4124,12 +4195,15 @@ def backward_kernel_cases(dev) -> dict:
             fail(f"flash_attention with lse [{label}]: output equal {same}, "
                  f"lse {lse_err:.3e}")
         got = fk.flash_attention_bwd(q, k, v, o32, lse, do)
+        again = fk.flash_attention_bwd(q, k, v, o32, lse, do)
         want = fr.attention_bwd(q, k, v, o32, lse, do)
         for a, src in zip(got, (q, k, v)):
             if a.stride() != src.stride():
                 fail(f"flash_attention_bwd [{label}]: gradient strides "
                      f"{a.stride()} != the input's {src.stride()}")
         check("flash_attention_bwd", tag, got, want, dt)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd [{tag}] differs run to run")
         if not apath:
             apath = dict(q=q, k=k, v=v, do=do, o=o32, lse=lse)
     q, k, v, do, o, lse = (apath[n] for n in ("q", "k", "v", "do", "o",
@@ -4148,6 +4222,7 @@ def backward_kernel_cases(dev) -> dict:
           lambda: fk.flash_attention_bwd(q, k, v, o, lse, do),
           lambda: fr.attention_bwd(q, k, v, o, lse, do), sdpa_fwd_bwd,
           fa_ops.cost_bwd(q, k, v, o, lse, do, causal=False, window=None),
+          earlier=lambda: bwd_body(fk, "mma"),
           library="SDPA forward + backward through autograd",
           fwd_bwd_queued_ms=queued_device_ms(ours_fwd_bwd),
           lse_output_bit_equal=lse_same)
@@ -4543,13 +4618,17 @@ TOKEN_BWD = [
 # sha256 of (o, lse, dq, dk, dv) at the DiT's training shape from
 # `dit_bwd_inputs`, measured on an H100 80GB HBM3 (torch 2.11.0+cu128): fp32
 # with the non-causal, Hq == Hkv backward that preceded masks and groups,
-# which the extended backward reproduces; bf16 re-measured when the bf16
-# backward came to split P and dS into hi and lo halves and to read Delta
-# from the forward's fp32 output, which change those bits on purpose.
-# The kernels must reproduce them bit for bit.
+# which the extended backward reproduces (the fp32 CUDA-core body is
+# unchanged since); bf16 re-measured when the bf16 backward came to split P
+# and dS into hi and lo halves and to read Delta from the forward's fp32
+# output, and again for the wgmma body, whose products sum each gradient
+# in another order (per k16 step on the tensor cores, hi then lo, Delta
+# from 16-byte loads): both change those bits on purpose, and each re-pin
+# followed the 1e-2 gates and the run-twice bit-equality holding on the
+# card. The kernels must reproduce them bit for bit.
 DIT_BWD_SHA256 = {
     torch.bfloat16:
-        "9e264de9b06524e3667099e3050134a91f09a22b90a0eef572f9f62ea0c58a82",
+        "dc4fb340cac5110cc7e035b063f709b92c5fc09357b713d66bbf8dc82233e6ea",
     torch.float32:
         "2397ded79cc686b1c47ccd5ee05add098b7111767a1bc6a6b1701eeb3fd2d05b"}
 PARAM_PERTURB = 0.02      # added to the constant-initialised leaves in (c)
@@ -4613,11 +4692,22 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
             again = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
             want = fr.attention_bwd(q, k, v, o32, lse, do, **kw)
             torch.cuda.synchronize()
-            p = fk.plan_bwd(q, k, v, do)
-            body = (f"{p['body']}, D in {8 * p['chunks']}, "
-                    f"{'16' if p['vec_in'] else '2'}-byte loads, grids "
-                    f"{p['blocks']}" if p["body"] == "mma"
-                    else f"{p['body']}, grids {p['blocks']}")
+            p = fk.plan_bwd(q, k, v, do, o32)
+            if p["body"] == "wgmma":
+                body = (f"wgmma, D in {8 * p['chunks']}, TMA ring, "
+                        f"clusters of {p['cluster']}, grids {p['blocks']}")
+            elif p["body"] == "mma":
+                body = (f"mma, D in {8 * p['chunks']}, "
+                        f"{'16' if p['vec_in'] else '2'}-byte loads, grids "
+                        f"{p['blocks']}")
+            else:
+                body = f"{p['body']}, grids {p['blocks']}"
+            # bf16: wgmma wherever Sq spans two query tiles or the group is
+            # one head (every shape a training path runs), else mma
+            planned = ("wgmma" if S > fk.WGMMA_ROWS or Hq == Hkv else "mma")
+            if dt == torch.bfloat16 and p["body"] != planned:
+                fail(f"flash_attention_bwd [{label}]: the bf16 operands "
+                     f"planned {p['body']}, not {planned}")
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             linf = max(rel_err(a, b) for a, b in zip(got, want))
             l2 = max(rel_l2(a, b) for a, b in zip(got, want))
@@ -4648,7 +4738,20 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
                     fail(f"flash_attention_bwd at the DiT's shape ({name}) "
                          f"differs from the pinned kernel output: {sha}")
                 row[f"pinned_bits_equal_{name}"] = ok
-        # q, k, v, do, o32, lse are the bf16 ones now: time the path's dtype
+        # q, k, v, do, o32, lse are the bf16 ones now: time the path's
+        # dtype, and the body plan_bwd did not pick, held to plain too
+        other = "mma" if planned == "wgmma" else "wgmma"
+        with bwd_body(fk, other):
+            if fk.plan_bwd(q, k, v, do, o32)["body"] != other:
+                fail(f"flash_attention_bwd [{label}]: cannot hold the plan "
+                     f"to {other}")
+            got = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+            err = max(rel_l2(a, b) for a, b in zip(got, want))
+            if not err <= BWD_TOL[torch.bfloat16]:
+                fail(f"flash_attention_bwd [{label}] {other} body: rel L2 "
+                     f"{err:.3e}")
+            other_ms = device_ms(lambda: fk.flash_attention_bwd(
+                q, k, v, o32, lse, do, **kw))
         pairs = fa_ops.attention_pairs(S, Skv, causal, window)
         bms, by = bound(fa_ops.cost_bwd(q, k, v, o32, lse, do, causal=causal,
                                         window=window))
@@ -4677,12 +4780,17 @@ def token_backward_cases(dev, cases=TOKEN_BWD) -> dict:
                                                         do, **kw), iters=20),
             library_ms=queued_device_ms(lib),
             fwd_bwd_queued_ms=queued_device_ms(ours), bound_ms=bms,
-            bound_by=by, pairs=pairs)
+            bound_by=by, pairs=pairs, other_body=other,
+            other_body_ms=other_ms, other_body_rel_err_bf16=err)
         print(f"  flash_attention_bwd [{label}] bf16: {row['ms']:.6f} ms in "
-              f"the graph (bound {bms:.6f} by {by}, {bms / row['ms']:.0%}); "
-              f"plain {row['plain_ms']:.6f}; forward + backward queued "
-              f"{row['fwd_bwd_queued_ms']:.6f} against SDPA's "
-              f"{row['library_ms']:.6f} (enable_gqa)")
+              f"the graph ({planned}; the {other} body {other_ms:.6f} in "
+              f"this run, rel L2 {err:.3e}; recorded before the wgmma body: "
+              f"{EARLIER_BWD_MS.get(label)}; bound {bms:.6f} by {by}, "
+              f"{bms / row['ms']:.0%}); SDPA forward + backward "
+              f"{row['library_ms']:.6f} (enable_gqa), "
+              f"{row['library_ms'] / row['ms']:.2f}x this backward; plain "
+              f"{row['plain_ms']:.6f}; this forward + backward queued "
+              f"{row['fwd_bwd_queued_ms']:.6f}")
         out[label] = row
     return out
 

@@ -30,6 +30,11 @@ MOD_THREADS = 256
 BLOCKS_PER_SM = 2
 H100_SMS = build.H100_SMS
 BWD_MAX_ROWS = 64       # rows of one tile of the backward (BWD_MAX_ROWS)
+# blocks an SM that modulate_bwd's register bodies plan for (one row a
+# group at the DiT's training shape)
+BWD_BLOCKS_PER_SM = 1
+# threads a block of modulate_bwd's register bodies (rows_threads<T>())
+BWD_ROWS_THREADS = {torch.bfloat16: 512, torch.float32: 256}
 
 
 @functools.cache
@@ -182,7 +187,7 @@ def _bwd_launchers():
     lib = build.library("adaln_modulate")
     mod, gate = lib.adaln_modulate_bwd, lib.gate_residual_bwd
     mod.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     gate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -191,11 +196,38 @@ def _bwd_launchers():
 
 
 def bwd_rows(x: torch.Tensor) -> int:
-    """Rows of one tile of the backward kernels: about two blocks an SM over
-    the B * T rows, at most BWD_MAX_ROWS (each tile leaves one partial
-    row of the (B, D) sums in the workspace)."""
+    """Rows of one tile of gate_residual_bwd and of modulate_bwd's generic
+    body: about two blocks an SM over the B * T rows, at most BWD_MAX_ROWS
+    (each tile leaves one partial row of the (B, D) sums in the
+    workspace)."""
     B, T, _ = x.shape
     return max(1, min(BWD_MAX_ROWS, -(-B * T // (2 * build.sm_count(x)))))
+
+
+def plan_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+             dx: torch.Tensor) -> dict:
+    """modulate_bwd's plan: plan()'s rule over x, scale, g and dx (access
+    width, lanes, chunks). Where plan() picks a register body, so does the
+    backward: each group of `lanes` lanes reads a row of x and g once into
+    registers and `rows_per_group` rows in turn, a block holding
+    BWD_ROWS_THREADS // lanes rows at once and adding them to its tile's
+    partial sums; the rows a group takes grow by an integer factor until
+    the tiles fit BWD_BLOCKS_PER_SM blocks an SM. Else "generic":
+    bwd_rows() rows a tile, each read from memory in every pass. `tiles`
+    is a b's count of partial rows in the workspace, `blocks` the row
+    pass's grid."""
+    B, T, _ = x.shape
+    p = _row_plan(x, (scale, g), dx)
+    if p["body"] == "generic":
+        rows = bwd_rows(x)
+        return dict(p, rows_per_group=0, tiles=-(-T // rows),
+                    blocks=B * -(-T // rows), tile_rows=rows)
+    held = BWD_ROWS_THREADS[x.dtype] // p["lanes"]
+    per_b = -(-T // held)
+    turns = -(-B * per_b // (BWD_BLOCKS_PER_SM * build.sm_count(x)))
+    tiles = -(-T // (held * turns))
+    return dict(p, rows_per_group=turns, tiles=tiles, blocks=B * tiles,
+                tile_rows=held * turns)
 
 
 def _check_grad(name, g, x):
@@ -211,23 +243,32 @@ def modulate_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     """(dx, dshift, dscale) of `adaln_modulate(x, shift, scale)` from the
     output's gradient g (contiguous, x's shape and dtype); dshift and dscale
     are new contiguous (B, D) tensors. Two launches (rows, then the sums
-    over T), counted once."""
-    stride = _check_rows("adaln_modulate_bwd", x, scale)
+    over T), counted once; the plan is plan_bwd()'s."""
+    _check_rows("adaln_modulate_bwd", x, scale)
     _check_grad("adaln_modulate_bwd", g, x)
-    B, T, D = x.shape
-    rows = bwd_rows(x)
     dx = torch.empty_like(x)
+    dshift, dscale = _launch_modulate_bwd(g, x, scale, dx, eps,
+                                          plan_bwd(g, x, scale, dx))
+    return dx, dshift, dscale
+
+
+def _launch_modulate_bwd(g, x, scale, dx, eps, p) -> tuple:
+    """Launch modulate's backward on plan `p` (see plan_bwd()) into dx;
+    returns the new (dshift, dscale)."""
+    B, T, D = x.shape
     dshift, dscale = (torch.empty((B, D), dtype=x.dtype, device=x.device)
                       for _ in range(2))
-    part = torch.empty((B, -(-T // rows), 2, D), dtype=torch.float32,
+    part = torch.empty((B, p["tiles"], 2, D), dtype=torch.float32,
                        device=x.device)
+    rows = p["rows_per_group"] or p["tile_rows"]
     rc = _bwd_launchers()[0](
         g.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(),
         dshift.data_ptr(), dscale.data_ptr(), part.data_ptr(), B, T, D,
-        stride, eps, build.dtype_code(x.dtype), rows, build.stream_of(x))
+        scale.stride(0), eps, build.dtype_code(x.dtype), rows,
+        p["access_bytes"], p["lanes"], p["chunks"], build.stream_of(x))
     build.check(rc, "adaln_modulate_bwd", "adaln_modulate")
     LAUNCHES["adaln_modulate_bwd"] += 1
-    return dx, dshift, dscale
+    return dshift, dscale
 
 
 def gate_residual_bwd(g: torch.Tensor, gate: torch.Tensor,

@@ -358,22 +358,34 @@ extern "C" int gate_residual(const void* resid, const void* gate, const void* y,
 // TPU kernels' forwards through XLA. Here the forwards are hand-written, so
 // their gradients are kernels too, in two deterministic stages (no
 // atomics, so a training step repeats bit for bit):
-// * stage 1, a block per (tile of `rows` rows, b) of BWD_THREADS threads.
-//   modulate: a warp a row (fp32 mean and rstd recomputed from x as the
-//   forward computes them, then mean(g_hat) and mean(g_hat x_hat) with
-//   g_hat = g (1 + scale)) writes dx = rstd (g_hat - mean(g_hat) - x_hat
-//   mean(g_hat x_hat)); then a thread a column sums g and g x_hat over the
-//   tile's rows into an fp32 workspace. gate_residual: a thread a column
-//   writes dy = gate g (one fp32 product, rounded once, as the plain
-//   version) and sums g y over the tile's rows.
-// * stage 2, column_sum_kernel: each (b, column) sums its tiles' partials
-//   in tile order and rounds once to the parameter's dtype (dshift,
-//   dscale; dgate). dresid is the incoming gradient itself.
+// * stage 1, a block per (tile of rows, b).
+//   modulate, register bodies (modulate_bwd_rows; the forward's compiled
+//   widths, blocks of rows_threads): a group of LANES lanes owns a row,
+//   which it reads once into registers as 16-byte chunks in the forward's
+//   layout (lane l holds chunks l, l + LANES, ...; scale's chunks come from
+//   L1). From those registers: the fp32 mean and rstd as the forward
+//   computes them, then mean(g_hat) and mean(g_hat x_hat) with g_hat = g
+//   (1 + scale), each a butterfly over the group; dx = rstd (g_hat -
+//   mean(g_hat) - x_hat mean(g_hat x_hat)) is written once. Each lane adds
+//   its columns' g and g x_hat to the group's fp32 partial row in shared
+//   memory over the rows the group takes; the groups' rows are summed in
+//   group order into the tile's partial row of an fp32 workspace, and
+//   tile_sum_kernel sums b's tiles in order, a thread a column, launched
+//   as a programmatic dependent so that its launch overlaps the row pass.
+//   The generic body (modulate_bwd_kernel, any other D, BWD_THREADS) walks
+//   a row from memory in each pass and its column pass reads the tile's
+//   rows again. gate_residual: a thread a column writes dy = gate g (one
+//   fp32 product, rounded once, as the plain version) and sums g y over
+//   the tile's rows.
+// * stage 2 (gate_residual and modulate's generic body), column_sum_kernel:
+//   each (b, column) sums its tiles' partials in tile order and rounds
+//   once to the parameter's dtype (dshift, dscale; dgate). dresid is the
+//   incoming gradient itself.
 // Bound on the H100: bytes, as the forwards. At the training shape (batch
 // 8, T = 256, D = 1152, bf16) modulate's backward reads x and g and writes
 // dx (14.2 MB, 4.2 us at 3.35 TB/s); gate_residual's reads g and y and
-// writes dy (the same). The rows are read once by the row pass and again
-// (from L2: a tile is 8 rows) by the column pass; a simple kernel first.
+// writes dy (the same). The register bodies read x and g once; the
+// workspace adds a tile's partial row (fp32, 2D) a tile.
 
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_MAX_ROWS = 64;  // rows of one tile
@@ -434,6 +446,150 @@ modulate_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
     pg[c] = a;
     pg[D + c] = ax;
   }
+}
+
+// Threads a block of modulate's backward register bodies (kernel.py:
+// BWD_ROWS_THREADS): bf16 rows need fewer registers
+constexpr int BF16_ROWS_THREADS = 512;
+template <typename T>
+__host__ __device__ constexpr int rows_threads() {
+  return sizeof(T) == 2 ? BF16_ROWS_THREADS : 256;
+}
+
+// The register bodies of modulate's backward: grid (tiles, B), a tile being
+// the (rows_threads<T>() / LANES) * turns rows t0 .. of one b; group i takes rows
+// t0 + i, t0 + i + GROUPS, ... (turns of them). Dynamic shared memory:
+// GROUPS partial rows of 2D floats ([sum g | sum g x_hat]), summed in group
+// order into the tile's row of `part`.
+template <typename T, int VEC, int LANES, int NCHUNK>
+__global__ void __launch_bounds__(rows_threads<T>(), 1)
+modulate_bwd_rows(const T* __restrict__ g, const T* __restrict__ x,
+                  const T* __restrict__ scale, T* __restrict__ dx, float* __restrict__ part,
+                  int T_, int D, long long cond_stride, int turns, float eps) {
+  using C = Chunk<T, VEC>;
+  constexpr int GROUPS = rows_threads<T>() / LANES;
+  extern __shared__ float spart[];
+  const int sub = (threadIdx.x & 31) % LANES, grp = threadIdx.x / LANES;
+  const int nvec = D / VEC;
+  const long long b = blockIdx.y;
+  const int t0 = blockIdx.x * GROUPS * turns;
+  const T* sc = scale + b * cond_stride;
+  float* mine = spart + grp * 2 * D;
+  // the tile sums may launch now: they wait for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // the loop bound is uniform across the group, so every lane reaches
+  // every shuffle; a row past T adds zeros and writes nothing
+  for (int k = 0; k < turns; ++k) {
+    const int t = t0 + k * GROUPS + grp;
+    const bool valid = t < T_;
+    const long long row = (b * T_ + (valid ? t : 0)) * D;
+    C xv[NCHUNK], gv[NCHUNK];  // the row, read once
+#pragma unroll
+    for (int j = 0; j < NCHUNK; ++j) {
+      const int c = j * LANES + sub;
+      xv[j].zero();
+      gv[j].zero();
+      if (valid && c < nvec) {
+        xv[j].load(x + row + c * VEC);
+        gv[j].load(g + row + c * VEC);
+      }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCHUNK; ++j)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) s += xv[j].get(i);
+    const float mu = group_sum<LANES>(s) / D;
+    float s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCHUNK; ++j) {
+      if (j * LANES + sub < nvec) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float d = xv[j].get(i) - mu;
+          s2 += d * d;
+        }
+      }
+    }
+    const float r = rsqrtf(group_sum<LANES>(s2) / D + eps);
+    // scale's chunks come again from L1 at each use: held in registers
+    // across the rows they would spill
+    float sg = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCHUNK; ++j) {
+      const int c = j * LANES + sub;
+      C sv;
+      sv.zero();
+      if (c < nvec) sv.load(sc + c * VEC);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float gh = gv[j].get(i) * (1.f + sv.get(i));
+        sg += gh;
+        sgx += gh * ((xv[j].get(i) - mu) * r);
+      }
+    }
+    const float mg = group_sum<LANES>(sg) / D, mgx = group_sum<LANES>(sgx) / D;
+#pragma unroll
+    for (int j = 0; j < NCHUNK; ++j) {
+      const int c = j * LANES + sub;
+      if (c >= nvec) continue;
+      C sv;
+      sv.load(sc + c * VEC);
+      float f[VEC], pg[VEC], pgx[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float gi = gv[j].get(i), gh = gi * (1.f + sv.get(i));
+        const float xh = (xv[j].get(i) - mu) * r;
+        f[i] = r * (gh - mg - xh * mgx);
+        pg[i] = valid ? gi : 0.f;
+        pgx[i] = valid ? gi * xh : 0.f;
+      }
+      if (valid) store_chunk<T, VEC>(dx + row + c * VEC, f);
+      // the group's partial sums, 16 bytes at a time
+      float4* pc = reinterpret_cast<float4*>(mine + c * VEC);
+#pragma unroll
+      for (int q = 0; q < VEC / 4; ++q) {
+        float4 a = make_float4(pg[4 * q], pg[4 * q + 1], pg[4 * q + 2], pg[4 * q + 3]);
+        float4 ax = make_float4(pgx[4 * q], pgx[4 * q + 1], pgx[4 * q + 2], pgx[4 * q + 3]);
+        if (k > 0) {
+          const float4 o = pc[q], ox = pc[q + D / 4];
+          a.x += o.x; a.y += o.y; a.z += o.z; a.w += o.w;
+          ax.x += ox.x; ax.y += ox.y; ax.z += ox.z; ax.w += ox.w;
+        }
+        pc[q] = a;
+        pc[q + D / 4] = ax;
+      }
+    }
+  }
+  __syncthreads();
+  float* pg = part + (b * gridDim.x + blockIdx.x) * 2LL * D;  // [sum g | sum g x_hat]
+  for (int c = threadIdx.x; c < 2 * D; c += rows_threads<T>()) {
+    float a = 0.f;
+#pragma unroll
+    for (int i = 0; i < GROUPS; ++i) a += spart[i * 2 * D + c];
+    pg[c] = a;
+  }
+}
+
+constexpr int SUM_THREADS = 128;
+
+// dshift and dscale of b: b's tile rows of `part` summed in tile order, a
+// thread a column of [sum g | sum g x_hat], rounded once
+template <typename T>
+__global__ void __launch_bounds__(SUM_THREADS)
+tile_sum_kernel(const float* __restrict__ part, T* __restrict__ dshift,
+                T* __restrict__ dscale, int tiles, int D) {
+  const long long b = blockIdx.y;
+  const int c = blockIdx.x * SUM_THREADS + threadIdx.x;
+  // launched as a programmatic dependent of the row pass: wait for its
+  // partial rows
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (c >= 2 * D) return;
+  const float* p = part + b * tiles * 2LL * D + c;
+  float a = 0.f;
+#pragma unroll 16  // the DiT's 16 tiles a b: every load in flight at once
+  for (int i = 0; i < tiles; ++i) a += p[i * 2LL * D];
+  *(c < D ? dshift + b * D + c : dscale + b * D + c - D) = from_f32<T>(a);
 }
 
 template <typename T>
@@ -497,6 +653,61 @@ static int launch_modulate_bwd(const void* g, const void* x, const void* scale, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int VEC, int LANES, int NCHUNK>
+static int launch_modulate_bwd_rows(const void* g, const void* x, const void* scale,
+                                    void* dx, void* dshift, void* dscale, float* part, int B,
+                                    int T_, int D, long long cond_stride, float eps,
+                                    int turns, cudaStream_t s) {
+  constexpr int GROUPS = rows_threads<T>() / LANES;
+  const int smem = GROUPS * 2 * D * static_cast<int>(sizeof(float));
+  static int sized = 0;  // the dynamic shared memory set so far, per instantiation
+  if (smem > sized) {
+    const cudaError_t err = cudaFuncSetAttribute(modulate_bwd_rows<T, VEC, LANES, NCHUNK>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = smem;
+  }
+  const int tiles = (T_ + GROUPS * turns - 1) / (GROUPS * turns);
+  modulate_bwd_rows<T, VEC, LANES, NCHUNK><<<dim3(tiles, B), rows_threads<T>(), smem, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(scale),
+      static_cast<T*>(dx), part, T_, D, cond_stride, turns, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a programmatic dependent launch: set up while the row pass ends
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((2 * D + SUM_THREADS - 1) / SUM_THREADS, B);
+  cfg.blockDim = dim3(SUM_THREADS);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e2 = cudaLaunchKernelEx(&cfg, tile_sum_kernel<T>, static_cast<const float*>(part),
+                                            static_cast<T*>(dshift), static_cast<T*>(dscale),
+                                            tiles, D);
+  if (e2 != cudaSuccess) return static_cast<int>(e2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using BwdRowsLaunch = int (*)(const void*, const void*, const void*, void*, void*, void*,
+                              float*, int, int, int, long long, float, int, cudaStream_t);
+// modulate's backward register bodies: the forward's (ROW_BODIES), mirrored
+// by kernels/adaln_modulate/kernel.py (REGISTER_BODIES)
+struct BwdBody {
+  int dtype, bytes, lanes, chunks;
+  BwdRowsLaunch launch;
+};
+#define BWD_BODY(DT, T, BYTES, LANES, CHUNKS) \
+  {DT, BYTES, LANES, CHUNKS, launch_modulate_bwd_rows<T, BYTES / sizeof(T), LANES, CHUNKS>}
+static const BwdBody BWD_BODIES[] = {
+    BWD_BODY(DTYPE_BF16, bf16, 16, 32, 5), BWD_BODY(DTYPE_BF16, bf16, 16, 16, 3),
+    BWD_BODY(DTYPE_BF16, bf16, 16, 16, 1), BWD_BODY(DTYPE_F32, float, 16, 32, 9),
+    BWD_BODY(DTYPE_F32, float, 16, 32, 3), BWD_BODY(DTYPE_F32, float, 16, 16, 2),
+};
+#undef BWD_BODY
+
 template <typename T>
 static int launch_gate_bwd(const void* g, const void* gate, const void* y, void* dy,
                            void* dgate, float* part, int B, int T_, int D,
@@ -514,14 +725,32 @@ static int launch_gate_bwd(const void* g, const void* gate, const void* y, void*
 
 // g, x, dx: contiguous (B, T, D); scale: (B, D) rows of stride cond_stride;
 // dshift, dscale: contiguous (B, D); part: an fp32 workspace of
-// (B, ceil(T / rows), 2, D). All of one dtype (part aside).
+// (B, tiles, 2, D). All of one dtype (part aside). chunks 0: the generic
+// body, tiles of `rows` rows. chunks > 0: the register body of (dtype,
+// bytes, lanes, chunks), tiles of (rows_threads / lanes) * rows rows (rows:
+// the rows each group takes); refused where the operands cannot take the
+// plan (as adaln_modulate's plans) or no body is compiled for it. Either
+// sums the tiles in a second launch.
 extern "C" int adaln_modulate_bwd(const void* g, const void* x, const void* scale, void* dx,
                                   void* dshift, void* dscale, void* part, int B, int T_,
                                   int D, long long cond_stride, float eps, int dtype,
-                                  int rows, void* stream) {
-  if (!bwd_ok(B, T_, D, rows, cond_stride, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+                                  int rows, int bytes, int lanes, int chunks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
+  if (chunks > 0) {
+    // the forward's checks of alignment and chunk count, on (x, scale, g, dx)
+    if (!row_body(x, scale, g, dx, B, T_, D, cond_stride, dtype, bytes, lanes, chunks, 1,
+                  1) ||
+        rows < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (const BwdBody& body : BWD_BODIES)
+      if (body.dtype == dtype && body.bytes == bytes && body.lanes == lanes &&
+          body.chunks == chunks)
+        return body.launch(g, x, scale, dx, dshift, dscale, p, B, T_, D, cond_stride, eps,
+                           rows, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!bwd_ok(B, T_, D, rows, cond_stride, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   return dtype == DTYPE_F32
              ? launch_modulate_bwd<float>(g, x, scale, dx, dshift, dscale, p, B, T_, D,
                                           cond_stride, eps, rows, s)

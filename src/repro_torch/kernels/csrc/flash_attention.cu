@@ -55,7 +55,10 @@
 // written in place.
 #include <math.h>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 constexpr int BQ = 64;                 // query rows per block
 constexpr int GROUP = 4;               // threads per query row
@@ -180,9 +183,6 @@ struct FaTile {
   static constexpr int MIN_BLOCKS = ND <= 9 ? 2 : 1;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(full ? 16 : 0));
@@ -649,7 +649,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 // of its block's tile; S/dP accumulate in registers and P, dS become the
 // split (hi + lo) bf16 A fragments of the next products without leaving
 // them, so dq, dk and dv cost two products each (10 in all); the streamed tiles
-// arrive by cp.async into a ring of two stages. fp32 runs on CUDA cores
+// arrive by cp.async into a ring of two stages. The operands that the wgmma
+// body further down takes (16-byte rows, D from 64 to 128, every path's)
+// run there instead; this body serves the rest. fp32 runs on CUDA cores
 // with the forward's layout (4 threads a row).
 
 constexpr int BW_WARPS = 4;
@@ -1020,6 +1022,524 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  1.f);
 }
 
+// ---- backward, wgmma body (sm_90a): the bf16 training path -----------------
+//
+// The same two passes, masks, statistics and hi + lo splits as the mma body
+// above, redesigned for this card's tensor-core path:
+// * Every product is a wgmma of one consumer warpgroup (64 rows of the
+//   block's own tile). S = Q K^T and dP = dO V^T (S^T, dP^T in the dk/dv
+//   pass) take both operands from shared memory, K-major, contracting D
+//   padded to a multiple of 16 (D 72 -> 80: TMA zero-fills the columns
+//   past D, so D 112 and 128 do no padding work); dQ += dS K, dV += P^T
+//   dO and dK += dS^T Q take P^T, dS and dS^T as the register operand A
+//   (the S accumulator fragments rounded to bf16 hi + lo halves, two
+//   products each, as the mma body) and the streamed tile as B, MN-major.
+// * Tiles arrive from a producer warp: TMA loads of whole tiles (4-D tensor
+//   maps of the strided head-major views, boxes of 64 columns x rows with
+//   the 128-byte swizzle, one or two a tile: wgmma's swizzled layout) into
+//   a ring of two stages on mbarriers, so the next tile lands while the
+//   consumers compute; a stage is released once its products are done.
+//   (Boxes of 16-byte rows, the no-swizzle layout, held TMA to about 10
+//   bytes a cycle an SM: both passes waited on their loads.)
+// * Delta = rowsum(dO o32) is computed once, by the dq pass, with 16-byte
+//   loads (two threads a row), and written beside each query's log-sum-exp
+//   (base 2) as an (lse2, Delta) pair in the padded workspace that the
+//   dk/dv pass bulk-copies with each query tile.
+// * The GQA group is split across blocks: the dk/dv pass runs one block per
+//   (q head of the group, b and kv head, 64-key tile), the group's blocks
+//   one thread block cluster. Each block keeps its head's dK, dV in
+//   registers; at the end they meet in shared memory and each block sums
+//   its share of the 64 rows over the cluster's blocks in head order
+//   (distributed shared memory), so the sum's order is fixed: no atomics,
+//   a step repeats bit for bit. MHA (a group of one) stores directly.
+// * Grid order puts the heaviest tiles first under a causal mask (the last
+//   query tiles in the dq pass, the first key tiles in the dk/dv pass).
+// What bounds it on the card (ablate_kernels.py): each pass's products and
+// the softmax between them, one warpgroup's steps in turn (two or three
+// blocks an SM overlap them only in part); the loads hide behind them.
+// The fully masked queries' dv term is the mma body's: do / Skv of those
+// rows of the group's heads, added to each key's dv before its rounding.
+// Rows of q, k, v and dO must be 16-byte aligned with D % 8 == 0 and D >=
+// 64, and o32 rows 16-byte aligned; the group at most WB_MAX_GROUP (the
+// portable cluster size); plan_bwd() picks this body then, the mma body
+// otherwise.
+
+constexpr int WB_ROWS = 64;                      // a block's own rows: one consumer warpgroup
+constexpr int WB_BK = 64;                        // keys a streamed tile (dq pass)
+constexpr int WB_STAGES = 2;                     // ring depth of both passes
+constexpr int WB_CONSUMERS = 128;
+constexpr int WB_THREADS = WB_CONSUMERS + 32;    // and the producer warp
+constexpr int WB_MAX_GROUP = 8;
+
+// ND: the head dim as compiled, in 8-column chunks (8, 9, 14, 16). A tile
+// of R rows is [atom][row][128 bytes]: each row's 64-column atoms, the
+// 128-byte swizzle within every 8 rows, the columns past D zero-filled.
+template <int ND>
+struct WbShape {
+  static constexpr int KS = (ND + 1) / 2;        // k16 steps over D (padded to 16)
+  static constexpr int DN = 8 * ND;              // N of the dq, dk and dv products
+  static constexpr int ATOMS = DN > 64 ? 2 : 1;
+  static constexpr int BQ = 32;                  // queries a streamed tile (dk/dv pass)
+  static constexpr int TILE64 = ATOMS * 64 * 128;  // bytes of a 64-row tile
+  static constexpr int TILEQ = ATOMS * BQ * 128;
+  // dq pass: Q, dO, the ring of (K, V), each row's (lse2, Delta), barriers
+  static constexpr int DQ_RING = 2 * TILE64;
+  static constexpr int DQ_STAT = DQ_RING + WB_STAGES * 2 * TILE64;
+  static constexpr int DQ_BAR = DQ_STAT + WB_ROWS * 8;
+  static constexpr int DQ_ALLOC = DQ_BAR + (2 * WB_STAGES + 1) * 8 + 1024;
+  // dk/dv pass: K, V, the ring of (Q, dO), the ring's (lse2, Delta) rows;
+  // after the loop the same bytes hold the block's fp32 dK and dV for the
+  // group sum
+  static constexpr int KV_RING = 2 * TILE64;
+  static constexpr int KV_STATS = KV_RING + WB_STAGES * 2 * TILEQ;
+  static constexpr int KV_MAIN = KV_STATS + WB_STAGES * BQ * 8;
+  static constexpr int SUM_PITCH = DN + 4;       // floats a row of the sum buffers
+  static constexpr int KV_SUM = 2 * WB_ROWS * SUM_PITCH * 4;
+  static constexpr int KV_DEAD = KV_MAIN > KV_SUM ? KV_MAIN : KV_SUM;
+  static constexpr int KV_BAR = KV_DEAD + MAX_D * 4;
+  static constexpr int KV_ALLOC = KV_BAR + (2 * WB_STAGES + 1) * 8 + 1024;
+  static_assert(TILE64 % 1024 == 0 && TILEQ % 1024 == 0, "swizzled boxes land 1 KB aligned");
+  static_assert(DQ_ALLOC <= 232448 && KV_ALLOC <= 232448, "a block fits an SM");
+};
+
+__device__ __forceinline__ void consumers_sync() {  // the consumer warpgroup
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// K-major operand (rows x 16 columns) of k16 step kk of a tile of `rows`
+// rows: 32 bytes into the 128-byte rows of atom kk / 4
+__device__ __forceinline__ uint64_t desc_k(unsigned tile, int rows, int kk) {
+  return smem_desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 1024, 1);
+}
+// MN-major operand (rows 16kk .. 16kk + 15 x the atoms' columns)
+__device__ __forceinline__ uint64_t desc_mn(unsigned tile, int rows, int kk) {
+  return smem_desc(tile + kk * 2048, rows * 128, 1024, 1);
+}
+
+// acc (64 x DN) += A B, A the register fragment, B MN-major: k16 step kk of
+// a tile of `rows` rows, one product over both 64-column atoms (the atom
+// stride is the descriptor's leading byte offset; a product an atom ran no
+// faster on the card)
+template <int ND>
+__device__ __forceinline__ void wgmma_dn(float (&acc)[WbShape<ND>::DN / 2],
+                                         const uint32_t (&a)[4], unsigned tile, int rows,
+                                         int kk) {
+  wgmma_rs_mn<WbShape<ND>::DN>(acc, a, desc_mn(tile, rows, kk), 1);
+}
+// rows r0 .. r0 + rows - 1 of head (h, b) into a tile: a box of 64 columns
+// an atom, counted on bar
+template <int ATOMS>
+__device__ __forceinline__ void load_tile(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                          int r0, int h, int b, int rows) {
+#pragma unroll
+  for (int a = 0; a < ATOMS; ++a) tma_load_4d(dst + a * rows * 128, map, bar, 64 * a, r0, h, b);
+}
+// The bf16 hi + lo A fragments of k16 step kk from fp32 accumulators in the
+// m64nN layout (column tiles 2kk and 2kk + 1)
+__device__ __forceinline__ void split_a(const float* acc, int kk, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float* pr = acc + 4 * (2 * kk + (j >> 1)) + 2 * (j & 1);
+    hi[j] = pack_bf16(pr[0], pr[1]);
+    lo[j] = pack_bf16_residual(pr[0], pr[1], hi[j]);
+  }
+}
+
+__device__ __forceinline__ float dot_bf16x2(uint32_t d, float o0, float o1) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&d));
+  return f.x * o0 + f.y * o1;
+}
+
+template <int ND, bool MASK>
+__global__ void __launch_bounds__(WB_THREADS, ND <= 9 ? 2 : 1)
+attn_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map, const float* __restrict__ o,
+               const bf16* __restrict__ dout, const float* __restrict__ lse,
+               float* __restrict__ ws, bf16* __restrict__ dq, int Hq, int Hkv, int Sq,
+               int Skv, int D, int sq_pad, BwStrides st, float scale, int causal,
+               int window) {
+  using W = WbShape<ND>;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw_u = smem_u32(smem_raw);
+  const unsigned base = (raw_u + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw_u);
+  const unsigned q_u = base, do_u = base + W::TILE64, ring_u = base + W::DQ_RING;
+  float2* stat = reinterpret_cast<float2*>(smem + W::DQ_STAT);
+  const unsigned full = base + W::DQ_BAR, empty = full + 8 * WB_STAGES;
+  const unsigned qbar = empty + 8 * WB_STAGES;
+
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * WB_ROWS;
+  const int b = bh / Hq, h = bh - b * Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q_last = min(q0 + WB_ROWS, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Skv + WB_BK - 1) / WB_BK;
+  if (MASK && causal) kt_hi = min(q_last, Skv - 1) / WB_BK + 1;
+  if (MASK && window > 0) kt_lo = max(0, q0 - window + 1) / WB_BK;
+  const int n_tiles = max(0, kt_hi - kt_lo);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WB_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WB_CONSUMERS) {  // the producer warp
+    if (threadIdx.x != WB_CONSUMERS) return;
+    mbar_expect_tx(qbar, 2 * W::TILE64);
+    load_tile<W::ATOMS>(q_u, &q_map, qbar, q0, h, b, WB_ROWS);
+    load_tile<W::ATOMS>(do_u, &do_map, qbar, q0, h, b, WB_ROWS);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % WB_STAGES;
+      if (i >= WB_STAGES) mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);
+      const unsigned k_u = ring_u + s * 2 * W::TILE64;
+      const int key0 = (kt_lo + i) * WB_BK;
+      mbar_expect_tx(full + 8 * s, 2 * W::TILE64);
+      load_tile<W::ATOMS>(k_u, &k_map, full + 8 * s, key0, hk, b, WB_ROWS);
+      load_tile<W::ATOMS>(k_u + W::TILE64, &v_map, full + 8 * s, key0, hk, b, WB_ROWS);
+    }
+    return;
+  }
+
+  // Delta of the block's rows, once: two threads a row, 16-byte loads of
+  // o32 (fp32) and dO (bf16); written with the row's lse2 to the workspace
+  {
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, qi = q0 + r;
+    float acc = 0.f;
+    if (qi < Sq) {
+      const float* orow = o + b * st.o.b + h * st.o.h + (long long)qi * st.o.s;
+      const bf16* drow = dout + b * st.dout.b + h * st.dout.h + (long long)qi * st.dout.s;
+      for (int c = half; c < D / 8; c += 2) {
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow + 8 * c);
+        const float4 o0 = *reinterpret_cast<const float4*>(orow + 8 * c);
+        const float4 o1 = *reinterpret_cast<const float4*>(orow + 8 * c + 4);
+        acc += dot_bf16x2(dv.x, o0.x, o0.y) + dot_bf16x2(dv.y, o0.z, o0.w) +
+               dot_bf16x2(dv.z, o1.x, o1.y) + dot_bf16x2(dv.w, o1.z, o1.w);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      const float2 v = make_float2(qi < Sq ? lse[(long long)bh * Sq + qi] * LOG2E : 0.f, acc);
+      stat[r] = v;
+      reinterpret_cast<float2*>(ws)[(long long)bh * sq_pad + qi] = v;
+    }
+  }
+  consumers_sync();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float2 v = stat[warp * 16 + g + 8 * r];
+    lse2[r] = v.x;
+    dlt[r] = v.y;
+  }
+
+  const float scale_log2 = scale * LOG2E;
+  float dqa[W::DN / 2], sc[WB_BK / 2], dp[WB_BK / 2];
+#pragma unroll
+  for (int i = 0; i < W::DN / 2; ++i) dqa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WB_BK / 2; ++i) sc[i] = dp[i] = 0.f;
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % WB_STAGES;
+    mbar_wait(full + 8 * s, (i / WB_STAGES) & 1);
+    const unsigned k_u = ring_u + s * 2 * W::TILE64, v_u = k_u + W::TILE64;
+    fence_acc(sc);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < W::KS; ++kk)
+      wgmma_ss<WB_BK>(sc, desc_k(q_u, 64, kk), desc_k(k_u, 64, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < W::KS; ++kk)
+      wgmma_ss<WB_BK>(dp, desc_k(do_u, 64, kk), desc_k(v_u, 64, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+
+    const int key0 = (kt_lo + i) * WB_BK;
+    // unmasked, a tile inside the keys takes no bounds check (a second
+    // loop for the masked bodies' whole tiles made the causal cases slower
+    // on the card)
+    const bool whole = !MASK && key0 + WB_BK <= Skv;
+    if (whole) {
+#pragma unroll
+      for (int j = 0; j < WB_BK / 2; ++j)
+        sc[j] = exp2f(sc[j] * scale_log2 - lse2[(j >> 1) & 1]) * (dp[j] - dlt[(j >> 1) & 1]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < WB_BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + n * 8 + 2 * t4 + (e & 1);
+          const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
+          const bool ok = key < Skv && (!MASK || visible(key, qi, causal, window));
+          const float pv = ok ? exp2f(sc[4 * n + e] * scale_log2 - lse2[e >> 1]) : 0.f;
+          sc[4 * n + e] = pv * (dp[4 * n + e] - dlt[e >> 1]);  // dS
+        }
+    }
+    uint32_t hi[WB_BK / 16][4], lo[WB_BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < WB_BK / 16; ++kk) split_a(sc, kk, hi[kk], lo[kk]);
+    fence_acc(dqa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WB_BK / 16; ++kk) {
+      wgmma_dn<ND>(dqa, hi[kk], k_u, 64, kk);
+      wgmma_dn<ND>(dqa, lo[kk], k_u, 64, kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dqa);
+    if (threadIdx.x == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  bf16* dqh = dq + b * st.dq.b + h * st.dq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * t4;
+      const float* v = dqa + 4 * n + 2 * r;
+      if (c < D)
+        *reinterpret_cast<uint32_t*>(dqh + (long long)qi * st.dq.s + c) =
+            pack_bf16(v[0] * scale, v[1] * scale);
+    }
+  }
+}
+
+template <int ND, bool MASK>
+__global__ void __launch_bounds__(WB_THREADS, ND <= 9 ? 2 : 1)
+attn_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap do_map, const bf16* __restrict__ dout,
+                 const float* __restrict__ ws, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 int Hq, int Hkv, int Sq, int Skv, int D, int sq_pad, BwStrides st,
+                 float scale, int causal, int window) {
+  using W = WbShape<ND>;
+  constexpr int BQ = W::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw_u = smem_u32(smem_raw);
+  const unsigned base = (raw_u + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw_u);
+  const unsigned k_u = base, v_u = base + W::TILE64, ring_u = base + W::KV_RING;
+  const unsigned full = base + W::KV_BAR, empty = full + 8 * WB_STAGES;
+  const unsigned kvbar = empty + 8 * WB_STAGES;
+  float* dead_s = reinterpret_cast<float*>(smem + W::KV_DEAD);
+
+  const int group = gridDim.x, j = blockIdx.x;  // j: the block's rank in its cluster
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y - b * Hkv, h = hk * group + j;
+  const int k0 = blockIdx.z * WB_ROWS;
+  const int k_last = min(k0 + WB_ROWS, Skv) - 1;
+  int qt_lo = 0, qt_hi = (Sq + BQ - 1) / BQ;
+  if (MASK && causal) qt_lo = min(k0 / BQ, qt_hi);
+  if (MASK && window > 0) qt_hi = min(qt_hi, min(Sq - 1, k_last + window - 1) / BQ + 1);
+  const int n_tiles = max(0, qt_hi - qt_lo);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WB_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float dka[W::DN / 2], dva[W::DN / 2];
+#pragma unroll
+  for (int i = 0; i < W::DN / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  if (threadIdx.x >= WB_CONSUMERS) {  // the producer warp (stays for the group sum)
+    if (threadIdx.x == WB_CONSUMERS) {
+      mbar_expect_tx(kvbar, 2 * W::TILE64);
+      load_tile<W::ATOMS>(k_u, &k_map, kvbar, k0, hk, b, WB_ROWS);
+      load_tile<W::ATOMS>(v_u, &v_map, kvbar, k0, hk, b, WB_ROWS);
+      const float2* wsb = reinterpret_cast<const float2*>(ws) + (long long)(b * Hq + h) * sq_pad;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % WB_STAGES;
+        if (i >= WB_STAGES) mbar_wait(empty + 8 * s, (i / WB_STAGES - 1) & 1);
+        const unsigned st_u = ring_u + s * 2 * W::TILEQ;
+        const int q0 = (qt_lo + i) * BQ;
+        mbar_expect_tx(full + 8 * s, 2 * W::TILEQ + BQ * 8);
+        load_tile<W::ATOMS>(st_u, &q_map, full + 8 * s, q0, h, b, BQ);
+        load_tile<W::ATOMS>(st_u + W::TILEQ, &do_map, full + 8 * s, q0, h, b, BQ);
+        bulk_load(base + W::KV_STATS + s * BQ * 8, wsb + q0, BQ * 8, full + 8 * s);
+      }
+    }
+  } else {  // the consumer warpgroup: this head's dK, dV over the query tiles
+    const float scale_log2 = scale * LOG2E;
+    float pt[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) pt[i] = dpt[i] = 0.f;
+    mbar_wait(kvbar, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % WB_STAGES;
+      mbar_wait(full + 8 * s, (i / WB_STAGES) & 1);
+      const unsigned q_u = ring_u + s * 2 * W::TILEQ, do_u = q_u + W::TILEQ;
+      const float2* sst = reinterpret_cast<const float2*>(smem + W::KV_STATS + s * BQ * 8);
+      fence_acc(pt);
+      fence_acc(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < W::KS; ++kk)
+        wgmma_ss<BQ>(pt, desc_k(k_u, 64, kk), desc_k(q_u, BQ, kk), kk);  // S^T
+#pragma unroll
+      for (int kk = 0; kk < W::KS; ++kk)
+        wgmma_ss<BQ>(dpt, desc_k(v_u, 64, kk), desc_k(do_u, BQ, kk), kk);  // dP^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(pt);
+      fence_acc(dpt);
+
+      const int qb = (qt_lo + i) * BQ;
+      // unmasked, a tile inside the queries takes no bounds check
+      const bool whole = !MASK && qb + BQ <= Sq;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n * 8 + 2 * t4 + (e & 1);
+          const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+          const float2 ls = sst[col];
+          const bool ok =
+              whole || (qb + col < Sq && (!MASK || visible(key, qb + col, causal, window)));
+          const float pv = ok ? exp2f(pt[4 * n + e] * scale_log2 - ls.x) : 0.f;
+          pt[4 * n + e] = pv;
+          dpt[4 * n + e] = pv * (dpt[4 * n + e] - ls.y);  // dS^T
+        }
+      uint32_t hi[BQ / 16][4], lo[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) split_a(pt, kk, hi[kk], lo[kk]);
+      fence_acc(dva);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {  // dV += P^T dO
+        wgmma_dn<ND>(dva, hi[kk], do_u, BQ, kk);
+        wgmma_dn<ND>(dva, lo[kk], do_u, BQ, kk);
+      }
+      wgmma_commit();
+      uint32_t shi[BQ / 16][4], slo[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) split_a(dpt, kk, shi[kk], slo[kk]);
+      fence_acc(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {  // dK += dS^T Q
+        wgmma_dn<ND>(dka, shi[kk], q_u, BQ, kk);
+        wgmma_dn<ND>(dka, slo[kk], q_u, BQ, kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dka);
+      fence_acc(dva);
+      if (threadIdx.x == 0) mbar_arrive(empty + 8 * s);
+    }
+  }
+
+  // the queries with every key masked: do / Skv of the group's heads into
+  // each dv (the mma body's term)
+  const int dead0 = first_dead_query(Sq, Skv, window);
+  const bool dead = MASK && dead0 < Sq;
+  if (dead) {
+    for (int d = threadIdx.x; d < D; d += WB_THREADS) {
+      float acc = 0.f;
+      for (int jj = 0; jj < group; ++jj) {
+        const bf16* dj = dout + b * st.dout.b + (hk * group + jj) * st.dout.h;
+        for (int qi = dead0; qi < Sq; ++qi) acc += to_f32(dj[(long long)qi * st.dout.s + d]);
+      }
+      dead_s[d] = acc / Skv;
+    }
+    __syncthreads();
+  }
+
+  if (group == 1) {
+    if (threadIdx.x >= WB_CONSUMERS) return;
+    bf16* dkh = dk + b * st.dk.b + hk * st.dk.h;
+    bf16* dvh = dv + b * st.dv.b + hk * st.dv.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + warp * 16 + g + 8 * r;
+      if (key >= Skv) continue;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const int c = n * 8 + 2 * t4;
+        if (c >= D) continue;
+        const float e0 = dead ? dead_s[c] : 0.f, e1 = dead ? dead_s[c + 1] : 0.f;
+        const float* kv = dka + 4 * n + 2 * r;
+        const float* vv = dva + 4 * n + 2 * r;
+        *reinterpret_cast<uint32_t*>(dkh + (long long)key * st.dk.s + c) =
+            pack_bf16(kv[0] * scale, kv[1] * scale);
+        *reinterpret_cast<uint32_t*>(dvh + (long long)key * st.dv.s + c) =
+            pack_bf16(vv[0] + e0, vv[1] + e1);
+      }
+    }
+    return;
+  }
+
+  // the group's sum: each block's fp32 dK, dV into its own shared memory
+  // (over the ring, whose products are done), then block j sums its share
+  // of the 64 rows over the cluster's blocks in head order
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  float* sum_k = reinterpret_cast<float*>(smem);
+  float* sum_v = sum_k + WB_ROWS * W::SUM_PITCH;
+  if (threadIdx.x < WB_CONSUMERS) {
+    consumers_sync();  // every warp's products are done before the ring is overwritten
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const int c = n * 8 + 2 * t4;
+        const float* kv = dka + 4 * n + 2 * r;
+        const float* vv = dva + 4 * n + 2 * r;
+        *reinterpret_cast<float2*>(sum_k + row * W::SUM_PITCH + c) = make_float2(kv[0], kv[1]);
+        *reinterpret_cast<float2*>(sum_v + row * W::SUM_PITCH + c) = make_float2(vv[0], vv[1]);
+      }
+    }
+  }
+  cluster.sync();
+  const int share = (WB_ROWS + group - 1) / group;
+  const int r_lo = j * share, r_hi = min(WB_ROWS, r_lo + share);
+  bf16* dkh = dk + b * st.dk.b + hk * st.dk.h;
+  bf16* dvh = dv + b * st.dv.b + hk * st.dv.h;
+  for (int e = threadIdx.x; e < (r_hi - r_lo) * (W::DN / 4); e += WB_THREADS) {
+    const int row = r_lo + e / (W::DN / 4), c = 4 * (e % (W::DN / 4));
+    const int key = k0 + row;
+    if (key >= Skv || c >= D) continue;
+    float4 ak = make_float4(0.f, 0.f, 0.f, 0.f), av = ak;
+    for (int rank = 0; rank < group; ++rank) {
+      const float4 pk = *cluster.map_shared_rank(
+          reinterpret_cast<float4*>(sum_k + row * W::SUM_PITCH + c), rank);
+      const float4 pv = *cluster.map_shared_rank(
+          reinterpret_cast<float4*>(sum_v + row * W::SUM_PITCH + c), rank);
+      ak.x += pk.x; ak.y += pk.y; ak.z += pk.z; ak.w += pk.w;
+      av.x += pv.x; av.y += pv.y; av.z += pv.z; av.w += pv.w;
+    }
+    if (dead) {
+      av.x += dead_s[c]; av.y += dead_s[c + 1]; av.z += dead_s[c + 2]; av.w += dead_s[c + 3];
+    }
+    *reinterpret_cast<uint2*>(dkh + (long long)key * st.dk.s + c) =
+        make_uint2(pack_bf16(ak.x * scale, ak.y * scale), pack_bf16(ak.z * scale, ak.w * scale));
+    *reinterpret_cast<uint2*>(dvh + (long long)key * st.dv.s + c) =
+        make_uint2(pack_bf16(av.x, av.y), pack_bf16(av.z, av.w));
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
 // fp32 on CUDA cores: the forward's layout, GROUP threads a row, each owning
 // every GROUP-th column; the streamed tiles (BK rows) in static shared memory.
 template <int DPT, bool MASK>
@@ -1251,6 +1771,83 @@ static int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// The 4-D tensor map of a bf16 (B, H, S, D) operand with (b, h, s) strides
+// `st` in elements and unit column stride, in boxes of 64 columns x `rows`
+// rows with the 128-byte swizzle (the columns past D and the rows past S
+// land as zeros)
+static bool encode_heads(CUtensorMap* map, const void* ptr, int B, int H, int S, int D,
+                         const Strides& st, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  auto bytes = [](long long stride, int n) {  // a dim of one element takes any stride
+    return static_cast<cuuint64_t>(n > 1 ? stride * 2 : 16);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {bytes(st.s, S), bytes(st.h, H), bytes(st.b, B)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int ND, bool MASK>
+static int launch_bwd_wg(const bf16* q, const bf16* k, const bf16* v, const float* o,
+                         const bf16* dout, const float* lse, float* ws, bf16* dq, bf16* dk,
+                         bf16* dv, const BwShape& sh, const BwStrides& st, float scale,
+                         cudaStream_t s) {
+  using W = WbShape<ND>;
+  static bool sized = false;  // once per instantiation
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_dq_wg<ND, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize, W::DQ_ALLOC);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dkdv_wg<ND, MASK>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, W::KV_ALLOC);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  CUtensorMap qm, km, vm, dm, qt, dt;
+  if (!encode_heads(&qm, q, sh.B, sh.Hq, sh.Sq, sh.D, st.q, WB_ROWS) ||
+      !encode_heads(&dm, dout, sh.B, sh.Hq, sh.Sq, sh.D, st.dout, WB_ROWS) ||
+      !encode_heads(&km, k, sh.B, sh.Hkv, sh.Skv, sh.D, st.k, WB_ROWS) ||
+      !encode_heads(&vm, v, sh.B, sh.Hkv, sh.Skv, sh.D, st.v, WB_ROWS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  qt = qm;
+  dt = dm;
+  if (W::BQ != WB_ROWS &&
+      (!encode_heads(&qt, q, sh.B, sh.Hq, sh.Sq, sh.D, st.q, W::BQ) ||
+       !encode_heads(&dt, dout, sh.B, sh.Hq, sh.Sq, sh.D, st.dout, W::BQ)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nq = (sh.Sq + WB_ROWS - 1) / WB_ROWS, nk = (sh.Skv + WB_ROWS - 1) / WB_ROWS;
+  const int group = sh.Hq / sh.Hkv;
+  attn_bwd_dq_wg<ND, MASK><<<dim3(sh.B * sh.Hq, nq), WB_THREADS, W::DQ_ALLOC, s>>>(
+      qm, km, vm, dm, o, dout, lse, ws, dq, sh.Hq, sh.Hkv, sh.Sq, sh.Skv, sh.D, nq * WB_ROWS,
+      st, scale, sh.causal, sh.window);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a cluster of the group's q heads for each (b, kv head, key tile)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(group, sh.B * sh.Hkv, nk);
+  cfg.blockDim = dim3(WB_THREADS);
+  cfg.dynamicSmemBytes = W::KV_ALLOC;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = group;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = group > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, attn_bwd_dkdv_wg<ND, MASK>, qt, km, vm, dt, dout,
+                           static_cast<const float*>(ws), dk, dv, sh.Hq, sh.Hkv, sh.Sq, sh.Skv,
+                           sh.D, nq * WB_ROWS, st, scale, sh.causal, sh.window);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DPT, bool MASK>
 static int launch_bwd_f32(const float* q, const float* k, const float* v, const float* o,
                           const float* dout, const float* lse, float* delta, float* dq,
@@ -1273,16 +1870,20 @@ static int launch_bwd_f32(const float* q, const float* k, const float* v, const 
 // dk, dv (B, Hkv, Skv, D), Hq % Hkv == 0; window 0 for
 // none. strides: 24 values, (b, h, s) strides of q, k, v, o, dout, dq, dk,
 // dv in elements (unit column stride); lse: the forward's (B, Hq, Sq)
-// log-sum-exp; delta: a (B, Hq, Sq) fp32 workspace. bf16 runs the mma
+// log-sum-exp; delta: an fp32 workspace, (B, Hq, Sq) for the mma body and
+// (B, Hq, ceil(Sq / 64) * 64, 2) for the wgmma body (each query's lse2 and
+// Delta). fp32 runs on CUDA cores (body 0). bf16 runs body 0, the mma
 // bodies compiled for nd 8-column chunks (4, 8, 9 or 16; nd * 8 >= D),
 // vec_in loading q, k, v and dout rows as 16-byte chunks (D % 8 == 0 and
-// 16-byte aligned rows, checked here too); fp32 runs on CUDA cores.
+// 16-byte aligned rows, checked here too), or body 1, the wgmma bodies
+// compiled for nd 8, 9, 14 or 16, which need vec_in, D >= 64, o rows
+// 16-byte aligned and a group of at most WB_MAX_GROUP (refused otherwise).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv, int B, int Hq,
                                    int Hkv, int Sq, int Skv, int D, const long long* strides,
                                    int causal, int window, float scale, int dtype, int nd,
-                                   int vec_in, void* stream) {
+                                   int vec_in, int body, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Skv < 1 || D < 1 || D > MAX_D ||
       window < 0 || (Sq + BQ - 1) / BQ > 65535 || (Skv + BQ - 1) / BQ > 65535 ||
       (long long)B * Hq > 0x7fffffffLL)
@@ -1297,6 +1898,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   const float* ls = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == DTYPE_F32) {
+    if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
     const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k),
                 *vp = static_cast<const float*>(v), *op = static_cast<const float*>(o),
                 *dp = static_cast<const float*>(dout);
@@ -1324,6 +1926,29 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
              *vp = static_cast<const bf16*>(v), *dp = static_cast<const bf16*>(dout);
   const float* op = static_cast<const float*>(o);  // the forward's o32
   bf16 *gq = static_cast<bf16*>(dq), *gk = static_cast<bf16*>(dk), *gv = static_cast<bf16*>(dv);
+  if (body == 1) {
+    bool ok = vec_in && D >= 64 && Hq / Hkv <= WB_MAX_GROUP && (long long)B * Hkv <= 65535 &&
+              reinterpret_cast<uintptr_t>(o) % 16 == 0;
+    for (int j = 9; j < 12; ++j) ok = ok && x[j] % 4 == 0;  // o32 rows: 16-byte loads
+    // q, k, v, o, dout: the (b, h, s) extents, whose strides the tensor maps
+    // take, positive wherever the extent exceeds one
+    const int ext[5][3] = {{B, Hq, Sq}, {B, Hkv, Skv}, {B, Hkv, Skv}, {B, Hq, Sq}, {B, Hq, Sq}};
+    for (int i = 0; i < 5; ++i)
+      for (int j = 0; j < 3; ++j) ok = ok && (ext[i][j] == 1 || x[3 * i + j] > 0);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+#define FA_BWD_WG(ND)                                                                       \
+  (mask ? launch_bwd_wg<ND, true>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, sh, st, scale, s) \
+        : launch_bwd_wg<ND, false>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, sh, st, scale, s))
+    switch (nd) {
+      case 8: return FA_BWD_WG(8);
+      case 9: return FA_BWD_WG(9);
+      case 14: return FA_BWD_WG(14);
+      case 16: return FA_BWD_WG(16);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef FA_BWD_WG
+  }
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
 #define FA_BWD(ND)                                                                        \
   (mask ? launch_bwd_mma<ND, true>(qp, kp, vp, op, dp, ls, dl, gq, gk, gv, sh, st, scale,  \
                                    vec_in, s)                                            \

@@ -59,13 +59,13 @@
 // the loads) and masked in the stores; the WMMA bodies' 16-byte copies are
 // used where the rows allow them, element copies elsewhere. Int8 x int8
 // tensor cores and a fused activation quantize are later work.
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_fp8.h>
 #include <mma.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using bf16 = __nv_bfloat16;
 using fp8 = __nv_fp8_e4m3;
@@ -373,71 +373,6 @@ struct WgSmem {
   static_assert(ALLOC <= 232448, "one block fits an SM's shared memory");
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// box at (c0 = column, c1 = row) of a 2-D tensor map into shared memory;
-// completion is counted on `bar` in bytes
-__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map,
-                                            unsigned bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator registers across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), layout (0: no swizzle, 1: 128-byte swizzle)
-__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo, unsigned sbo,
-                                              unsigned layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
 __device__ __forceinline__ void consumers_sync() {  // the two consumer warpgroups
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
@@ -679,27 +614,6 @@ qmm_wg_kernel(const __grid_constant__ CUtensorMap x_map,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// -lcuda at link time)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // map of a row-major (rows, cols) matrix of bf16 (wide) or bytes, row

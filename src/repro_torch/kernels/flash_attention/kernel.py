@@ -22,6 +22,20 @@ BLOCK_Q = 64            # 65535 query tiles of the fp32 body bound Sq
 # a D between them runs in the next one up, zero-padded in shared memory
 MMA_CHUNKS = (4, 8, 9, 16)
 MMA_BLOCK_Q = 128
+# the backward's wgmma body (sm_90a): head dims from 64 to 128 compiled in
+# 8-column chunks (a D between them runs in the next one up), 64-row tiles
+# in both passes, and at most WGMMA_MAX_GROUP q heads a kv head (a thread
+# block cluster)
+WGMMA_CHUNKS = (8, 9, 14, 16)
+WGMMA_ROWS = 64
+WGMMA_MAX_GROUP = 8
+# with one query tile (Sq <= WGMMA_ROWS) a dk/dv block's cluster sum of its
+# group's dK and dV outweighs its one tile of work, and the mma body, each
+# block walking the group's heads, is faster (llama-vision's 64 queries over
+# 1600, GQA 64/8, on an H100: PERF.md §6): there the wgmma body takes no
+# group larger than this
+WGMMA_ONE_TILE_MAX_GROUP = 1
+BWD_BODIES = {"cuda_cores": 0, "mma": 0, "wgmma": 1}
 
 
 @functools.cache
@@ -39,7 +53,7 @@ def _bwd_launcher():
     fn = build.library("flash_attention").flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -122,21 +136,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse_out, o32_out) if lse else out
 
 
-def plan_bwd(q, k, v, do) -> dict:
-    """The backward's body: fp32 -> "cuda_cores"; bf16 -> "mma" with the
-    forward's head-dim chunks, q, k, v and do rows loaded as 16-byte chunks
-    where D % 8 == 0 and every row is 16-byte aligned (`vec_in`). `blocks`
-    is the grid of each of its two passes: one block per (b, q head) and
-    64-query tile (dq), and per (b, kv head) and 64-key tile (dk, dv, each
-    summed over the kv head's group of q heads)."""
+def plan_bwd(q, k, v, do, o=None) -> dict:
+    """The backward's body, chosen up front by dtype, shape and alignment:
+    fp32 -> "cuda_cores"; bf16 -> "wgmma" (the sm_90a body: TMA tiles from
+    a producer warp, wgmma products) where D % 8 == 0 and D >= 64, every
+    row of q, k, v and do is 16-byte aligned (`vec_in`), the rows of `o`
+    (the forward's fp32 output; contiguous when not given) are too, and a
+    kv head has at most WGMMA_MAX_GROUP q heads (WGMMA_ONE_TILE_MAX_GROUP
+    where Sq fits one 64-query tile), with the head dim compiled as
+    `chunks` 8-column chunks of WGMMA_CHUNKS; else "mma" (mma.sync) with the
+    forward's chunks and 2-byte loads where rows are not 16-byte aligned.
+    `blocks` is the grid of each of its two passes: the dq pass one block
+    per (b, q head) and 64-query tile; the dk/dv pass one block per (b, kv
+    head) and 64-key tile (mma: each summing the kv head's group of q
+    heads in turn), or per (b, q head) and 64-key tile (wgmma: `cluster`
+    blocks, the group, summing their dk and dv in head order)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
     grids = (B * Hq * -(-Sq // BLOCK_Q), B * Hkv * -(-Skv // BLOCK_Q))
     if q.dtype == torch.float32:
         return dict(body="cuda_cores", chunks=0, vec_in=False, blocks=grids)
+    vec_in = D % 8 == 0 and all(_rows16(t) for t in (q, k, v, do))
+    o_rows = o is None or (o.data_ptr() % 16 == 0
+                           and all(o.stride(i) % 4 == 0 for i in range(3)))
+    positive = all(t.stride(i) > 0 or t.shape[i] == 1
+                   for t in (q, k, v, do) for i in range(3))
+    max_group = (WGMMA_MAX_GROUP if Sq > WGMMA_ROWS
+                 else min(WGMMA_MAX_GROUP, WGMMA_ONE_TILE_MAX_GROUP))
+    if (vec_in and D >= 64 and o_rows and positive
+            and group <= max_group and B * Hkv <= 65535):
+        return dict(body="wgmma",
+                    chunks=next(c for c in WGMMA_CHUNKS if 8 * c >= D),
+                    vec_in=True, cluster=group,
+                    blocks=(B * Hq * -(-Sq // WGMMA_ROWS),
+                            B * Hq * -(-Skv // WGMMA_ROWS)))
     return dict(body="mma", chunks=next(c for c in MMA_CHUNKS if 8 * c >= D),
-                vec_in=D % 8 == 0 and all(_rows16(t) for t in (q, k, v, do)),
-                blocks=grids)
+                vec_in=vec_in, blocks=grids)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -180,18 +216,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "stride 1")
     if -(-max(Sq, Skv) // BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention_bwd: Sq, Skv <= {65535 * BLOCK_Q}")
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    p = plan_bwd(q, k, v, do, o)
+    # the workspace: Delta (mma), or each query's (lse2, Delta) over whole
+    # 64-query tiles (wgmma)
+    delta = torch.empty(
+        (B, Hq, -(-Sq // WGMMA_ROWS) * WGMMA_ROWS, 2) if p["body"] == "wgmma"
+        else (B, Hq, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 24)(*[
         t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in (0, 1, 2)])
-    p = plan_bwd(q, k, v, do)
     rc = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides),
         int(causal), int(window or 0), 1.0 / math.sqrt(D),
         build.dtype_code(q.dtype), p["chunks"], int(p["vec_in"]),
-        build.stream_of(q))
+        BWD_BODIES[p["body"]], build.stream_of(q))
     build.check(rc, "flash_attention_bwd", "flash_attention")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -199,23 +199,136 @@ def test_refuse_grad_only_under_grad():
     assert dispatch.needs_grad(None, w) and not dispatch.needs_grad(0.5)
 
 
-@pytest.mark.parametrize("dtype,D,chunks,vec", [
-    (torch.bfloat16, 72, 9, True), (torch.bfloat16, 64, 8, True),
-    (torch.bfloat16, 100, 16, False), (torch.float32, 72, 0, False)])
-def test_attention_bwd_plan(dtype, D, chunks, vec):
+@pytest.mark.parametrize("dtype,D,chunks,vec,body", [
+    (torch.bfloat16, 72, 9, True, "wgmma"), (torch.bfloat16, 64, 8, True, "wgmma"),
+    (torch.bfloat16, 100, 16, False, "mma"),
+    (torch.float32, 72, 0, False, "cuda_cores")])
+def test_attention_bwd_plan(dtype, D, chunks, vec, body):
+    """bf16 with 16-byte rows takes the wgmma body (D 72 in 9 chunks, its
+    contraction padded to 10), a ragged D the mma body, fp32 CUDA cores;
+    the grids are the same at one q head a kv head."""
     q, k, v, do = _attn_inputs(2, 3, 130, 70, D, dtype)
     p = fa_kernel.plan_bwd(q, k, v, do)
     assert p["chunks"] == chunks and p["vec_in"] == vec
-    assert p["body"] == ("mma" if dtype == torch.bfloat16 else "cuda_cores")
+    assert p["body"] == body
     assert p["blocks"] == (2 * 3 * 3, 2 * 3 * 2)
 
 
-@pytest.mark.parametrize("B,T,rows", [(8, 256, 8), (1, 1, 1), (16, 256, 16),
-                                      (64, 4096, 64), (2, 37, 1)])
-def test_adaln_bwd_rows(B, T, rows):
-    """About two blocks an SM (132 on a CPU tensor's plan), at most 64 rows
-    a tile."""
+def _heads(B, H, S, D, dtype=torch.bfloat16):
+    """A head-major view of an uninitialised (B, S, H, D) projection."""
+    return torch.empty(B, S, H, D, dtype=dtype).transpose(1, 2)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, chunks): qwen2-0.5b's AR step, granite's, the
+# DiT's, zamba2's D 112, D 128, whisper's cross-attention
+WGMMA_GRIDS = [(8, 14, 2, 512, 512, 64, 8), (4, 24, 8, 256, 256, 64, 8),
+               (8, 16, 16, 256, 256, 72, 9), (8, 32, 32, 512, 512, 112, 14),
+               (1, 2, 2, 130, 70, 128, 16), (8, 12, 12, 384, 1500, 64, 8)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,chunks", WGMMA_GRIDS)
+def test_attention_bwd_wgmma_grid(B, Hq, Hkv, Sq, Skv, D, chunks):
+    """The wgmma body's grid: the dq pass a block per (b, q head, 64
+    queries), the dk/dv pass a block per (b, q head, 64 keys), the group's
+    q heads one cluster (qwen2: 7 a cluster, 896 blocks for 132 SMs, where
+    the mma body's dk/dv pass had 128)."""
+    q, do = _heads(B, Hq, Sq, D), _heads(B, Hq, Sq, D)
+    k, v = _heads(B, Hkv, Skv, D), _heads(B, Hkv, Skv, D)
+    o32 = torch.empty(B, Hq, Sq, D)
+    p = fa_kernel.plan_bwd(q, k, v, do, o32)
+    assert p["body"] == "wgmma" and p["chunks"] == chunks and p["vec_in"]
+    assert p["cluster"] == Hq // Hkv
+    assert p["blocks"] == (B * Hq * -(-Sq // 64), B * Hq * -(-Skv // 64))
+
+
+@pytest.mark.parametrize("case", ["q off 16 bytes", "o32 off 16 bytes",
+                                  "group of 16", "D 100", "D 48"])
+def test_attention_bwd_misaligned_keeps_mma(case):
+    """Operands the wgmma body cannot take keep the mma body: a q or o32
+    row off a 16-byte boundary, a group past the cluster size, D % 8, D
+    under 64 (a 64-column box a tile row)."""
+    B, Hq, Hkv, S, D = 2, 4, 2, 70, 64
+    if case == "group of 16":
+        Hq, Hkv = 16, 1
+    if case.startswith("D "):
+        D = int(case[2:])
+    q, do = _heads(B, Hq, S, D), _heads(B, Hq, S, D)
+    k, v = _heads(B, Hkv, S, D), _heads(B, Hkv, S, D)
+    o32 = torch.empty(B, Hq, S, D)
+    if case == "q off 16 bytes":
+        q = torch.empty(B * S * Hq * D + 1, dtype=torch.bfloat16)[1:].view(
+            B, S, Hq, D).transpose(1, 2)
+    if case == "o32 off 16 bytes":
+        o32 = torch.empty(B * Hq * S * D + 1)[1:].view(B, Hq, S, D)
+    p = fa_kernel.plan_bwd(q, k, v, do, o32)
+    assert p["body"] == "mma"
+    assert p["chunks"] == (16 if D == 100 else 8)
+    assert p["blocks"] == (B * Hq * 2, B * Hkv * 2)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, body): at one query tile a group takes the mma
+# body (llama-vision's diffusion LM, 64 queries over 1600, GQA 64/8), one
+# head a kv head the wgmma body (whisper's, 64 over 1500), two query tiles
+# of a group the wgmma body (qwen2's diffusion LM at 128)
+ONE_TILE_PLANS = [(8, 64, 8, 64, 1600, 128, "mma"),
+                  (8, 12, 12, 64, 1500, 64, "wgmma"),
+                  (8, 14, 2, 128, 128, 64, "wgmma"),
+                  (2, 4, 2, 65, 65, 64, "wgmma")]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,body", ONE_TILE_PLANS)
+def test_attention_bwd_one_query_tile_plan(B, Hq, Hkv, Sq, Skv, D, body):
+    """Where Sq fits one 64-query tile, the wgmma body takes no group
+    past WGMMA_ONE_TILE_MAX_GROUP (each dk/dv block would do one tile of
+    work before its cluster's sum); the mma body takes the group."""
+    q, do = _heads(B, Hq, Sq, D), _heads(B, Hq, Sq, D)
+    k, v = _heads(B, Hkv, Skv, D), _heads(B, Hkv, Skv, D)
+    p = fa_kernel.plan_bwd(q, k, v, do, torch.empty(B, Hq, Sq, D))
+    assert p["body"] == body
+    if body == "mma":
+        assert p["blocks"] == (B * Hq * -(-Sq // 64), B * Hkv * -(-Skv // 64))
+    else:
+        assert p["cluster"] == Hq // Hkv
+
+
+def _rows_like(B, T, D, dtype):
+    """x-like (B, T, D) operands and a (B, D) scale view of a (B, 6D)
+    modulation, none of them allocated at full size."""
+    x = torch.empty(1, 1, D, dtype=dtype).expand(B, T, D)
+    return x, torch.empty(B, 6 * D, dtype=dtype)[:, D:2 * D]
+
+
+# (B, T, rows, turns, tiles): rows, gate_residual_bwd's and the generic
+# body's tile (about two blocks an SM, 132 on a CPU tensor's plan, at
+# most 64 rows); turns and tiles, modulate_bwd's register body at the
+# DiT's D 1152 bf16 (16 rows a block at once, `turns` rows a warp, the
+# tiles about one block an SM)
+@pytest.mark.parametrize("B,T,rows,turns,tiles", [
+    (8, 256, 8, 1, 16), (1, 1, 1, 1, 1), (16, 256, 16, 2, 8),
+    (64, 4096, 64, 125, 3), (2, 37, 1, 1, 3)])
+def test_adaln_bwd_rows(B, T, rows, turns, tiles):
     assert adaln_kernel.bwd_rows(torch.empty(B, T, 8)) == rows
+    x, scale = _rows_like(B, T, 1152, torch.bfloat16)
+    p = adaln_kernel.plan_bwd(x, x, scale, x)
+    assert (p["body"], p["lanes"], p["chunks"]) == ("registers", 32, 5)
+    assert p["rows_per_group"] == turns and p["tiles"] == tiles
+    assert p["blocks"] == B * tiles and p["tile_rows"] == 16 * turns
+
+
+@pytest.mark.parametrize("D,dtype,body,lanes,chunks", [
+    (1152, torch.float32, "registers", 32, 9),
+    (384, torch.bfloat16, "registers", 16, 3),
+    (72, torch.float32, "registers", 16, 2),
+    (100, torch.bfloat16, "generic", 32, 0),
+    (8192, torch.bfloat16, "generic", 32, 0)])
+def test_adaln_bwd_plan_bodies(D, dtype, body, lanes, chunks):
+    """modulate_bwd reads each row once where the forward has a register
+    body (the path's widths); other widths walk the row from memory."""
+    x, scale = _rows_like(2, 33, D, dtype)
+    p = adaln_kernel.plan_bwd(x, x, scale, x)
+    assert (p["body"], p["lanes"], p["chunks"]) == (body, lanes, chunks)
+    if body == "generic":
+        assert p["tile_rows"] == adaln_kernel.bwd_rows(x)
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +385,63 @@ def test_card_attention_bwd_matches_plain(cuda, B, H, Sq, Skv, D, dtype):
         assert (_linf(a, b) if dtype == torch.float32
                 else _l2(a, b)) <= _card_tol(dtype)
     again = fa_kernel.flash_attention_bwd(q, k, v, o32, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window) for the wgmma body on the card:
+# causal GQA (groups 7 and 3, ragged S), windows (one with queries whose
+# every key is masked), cross-attention (Sq != Skv, a group of 8 at D 128),
+# zamba2's D 112, the DiT's D 72
+WGMMA_CASES = [(2, 14, 2, 130, 130, 64, True, None),
+               (2, 24, 8, 70, 70, 64, True, None),
+               (2, 14, 2, 150, 150, 64, True, 32),
+               (1, 4, 4, 200, 40, 64, True, 16),
+               (2, 12, 12, 96, 300, 64, False, None),
+               (1, 16, 2, 70, 90, 128, False, None),
+               (2, 8, 8, 100, 100, 112, True, None),
+               (2, 4, 4, 67, 67, 72, False, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,window", WGMMA_CASES)
+def test_card_attention_bwd_wgmma_masks_and_groups(cuda, B, Hq, Hkv, Sq, Skv,
+                                                   D, causal, window):
+    """The wgmma body within 1e-2 relative L2 of the plain backward, and
+    bit-equal run to run (the group's sum in a fixed order)."""
+    q = _randn((B, Sq, Hq, D), 60, torch.bfloat16).to(cuda).transpose(1, 2)
+    do = _randn((B, Sq, Hq, D), 61, torch.bfloat16).to(cuda).transpose(1, 2)
+    k = _randn((B, Skv, Hkv, D), 62, torch.bfloat16).to(cuda).transpose(1, 2)
+    v = _randn((B, Skv, Hkv, D), 63, torch.bfloat16).to(cuda).transpose(1, 2)
+    kw = dict(causal=causal, window=window)
+    _, lse, o32 = fa_kernel.flash_attention(q, k, v, lse=True, **kw)
+    assert fa_kernel.plan_bwd(q, k, v, do, o32)["body"] == "wgmma"
+    got = fa_kernel.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+    want = fa_ref.attention_bwd(q, k, v, o32, lse, do, **kw)
+    for a, b, src in zip(got, want, (q, k, v)):
+        assert a.stride() == src.stride() and torch.isfinite(a.float()).all()
+        assert _l2(a, b) <= _card_tol(torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,D", [(3, 37, 1152), (2, 5, 384), (5, 129, 1152),
+                                   (4, 3, 72)])
+def test_card_modulate_bwd_ragged_t(cuda, B, T, D, dtype):
+    """The register body at ragged T (rows past T add nothing to the
+    sums) against the plain version, and bit-equal run to run."""
+    x, g = (_randn((B, T, D), s, dtype).to(cuda) for s in (70, 71))
+    scale = _randn((B, 6 * D), 72, dtype).to(cuda)[:, D:2 * D]
+    p = adaln_kernel.plan_bwd(g, x, scale, torch.empty_like(x))
+    assert p["body"] == "registers"
+    got = adaln_kernel.modulate_bwd(g, x, scale)
+    again = adaln_kernel.modulate_bwd(g, x, scale)
+    want = adaln_ref.modulate_bwd(g, x, scale)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert (_linf(a, b) if dtype == torch.float32
+                else _l2(a, b)) <= _card_tol(dtype)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -30,7 +30,8 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "ablate_kernels.py"]
+    ROOT / "chip_smoke.py", ROOT / "ablate_kernels.py",
+    ROOT / "step_walls.py"]
 
 
 def _imported_modules(path: Path):
