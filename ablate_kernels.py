@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's redesigned kernels (flash_attention and
 its backward's wgmma body, quant_matmul's wgmma and skinny bodies,
-adaln_modulate and its backward, gate_residual, unipc_update's sampler-row
-ops) goes, on the
+adaln_modulate and its backward, gate_residual and its backward,
+unipc_update's sampler-row ops) goes, on the
 card: ablation timings at the main path's shapes.
 
     python3 ablate_kernels.py          # from the repository root, one CUDA card
@@ -12,12 +12,14 @@ Each ablation is a copy of a kernel's CUDA source with one part of its work
 taken out (the product, the softmax's exponentials, the backward's
 products or exponentials pass by pass, the widening, the
 loads after the first ring's worth, modulate's reductions or conditioning
-loads, gate_residual's gate, the row ops' weight prologue or ring write).
+loads, gate_residual's gate, the backward's tile sums or partial rows, the
+row ops' weight prologue or ring write).
 Its output is wrong and unchecked; only its device time counts, next to
 the unchanged kernel built the same way. adaln_modulate, gate_residual,
 the skinny body and the row ops are also timed on other plans than their
-plan() picks (ADALN_PLANS, GATE_PLANS, SKINNY_PLANS, ROW_PLANS): other
-grids, 4-warp blocks, 8- and 4-byte accesses, half and double the K split.
+plan() picks (ADALN_PLANS, GATE_PLANS, GATE_BWD_TARGETS, SKINNY_PLANS,
+ROW_PLANS): other grids, 4-warp blocks, 8- and 4-byte accesses, half and
+double the K split.
 All copies build in parallel under build/ablate/; each is timed by
 chip_smoke.device_ms (100 calls in a CUDA graph), gate_residual and the
 skinny body also by chip_smoke.rotated_ms (operands rotated past the L2).
@@ -130,6 +132,13 @@ _DKDV_NO_EXP = [
     ("          const float pv = ok ? exp2f(pt[4 * n + e] * scale_log2 - ls.x) : 0.f;",
      "          const float pv = ok ? pt[4 * n + e] * scale_log2 - ls.x : 0.f;")]
 
+_MOD_NO_TILE_SUMS = (
+    "  return launch_tile_sums<T>(part, dshift, dscale, B, tiles, D, 2, s);",
+    "  return static_cast<int>(cudaGetLastError());")
+_GATE_NO_TILE_SUMS = (
+    "  return launch_tile_sums<T>(part, dgate, dgate, B, tiles, D, 1, s);",
+    "  return static_cast<int>(cudaGetLastError());")
+
 # name -> (source, [(anchor, replacement)])
 ABLATIONS = {
     "flash_attention": ("flash_attention", []),
@@ -138,10 +147,12 @@ ABLATIONS = {
          "        (void)b0; (void)b1; (void)b2; (void)b3;"),
         ("        mma_k8(s[n], qf8[0], qf8[1], b0);", "        (void)b0;")]),
     "flash_attention no PV": ("flash_attention", [
-        ("        mma_k16(oacc[n], pa, b0, b1);\n        mma_k16(oacc[n + 1], pa, b2, b3);",
-         "        oacc[n][0] += __uint_as_float(pa[0] & b0 & b2);"),
-        ("        mma_k16(oacc[ND - 1], pa, b0, b1);",
-         "        oacc[ND - 1][0] += __uint_as_float(pa[1] & b0 & b1);")]),
+        ("        mma_k16(oacc[n], pa, b0, b1);\n        mma_k16(oacc[n + 1], pa, b2, b3);\n"
+         "        mma_k16(oacc[n], pl, b0, b1);\n        mma_k16(oacc[n + 1], pl, b2, b3);",
+         "        oacc[n][0] += __uint_as_float(pa[0] & pl[0] & b0 & b2);"),
+        ("        mma_k16(oacc[ND - 1], pa, b0, b1);\n        mma_k16(oacc[ND - 1], pl, b0, b1);",
+         "        oacc[ND - 1][0] += __uint_as_float(pa[1] & pl[1] & b0 & b1);")]),
+
     "flash_attention no exp": ("flash_attention", [
         ("        const float p0 = exp2f(sv[0] - m_r[0]), p1 = exp2f(sv[1] - m_r[0]);\n"
          "        const float p2 = exp2f(sv[2] - m_r[1]), p3 = exp2f(sv[3] - m_r[1]);",
@@ -198,20 +209,22 @@ ABLATIONS = {
         "flash_attention", _DKDV_NO_PRODUCTS + _DKDV_NO_EXP),
     "adaln_modulate_bwd": ("adaln_modulate", []),
     "adaln_modulate_bwd no tile sums (no second launch)": ("adaln_modulate", [
-        ("  const cudaError_t e2 = cudaLaunchKernelEx(&cfg, tile_sum_kernel<T>, static_cast<const float*>(part),\n"
-         "                                            static_cast<T*>(dshift), static_cast<T*>(dscale),\n"
-         "                                            tiles, D);",
-         "  const cudaError_t e2 = cudaSuccess;")]),
+        _MOD_NO_TILE_SUMS]),
     "adaln_modulate_bwd dx only (no partial sums)": ("adaln_modulate", [
-        ("  const cudaError_t e2 = cudaLaunchKernelEx(&cfg, tile_sum_kernel<T>, static_cast<const float*>(part),\n"
-         "                                            static_cast<T*>(dshift), static_cast<T*>(dscale),\n"
-         "                                            tiles, D);",
-         "  const cudaError_t e2 = cudaSuccess;"),
+        _MOD_NO_TILE_SUMS,
         ("        pc[q] = a;\n        pc[q + D / 4] = ax;", "        (void)a;\n        (void)ax;"),
         ("  __syncthreads();\n  float* pg = part + (b * gridDim.x + blockIdx.x) * 2LL * D;  "
          "// [sum g | sum g x_hat]\n  for (int c = threadIdx.x; c < 2 * D; c += rows_threads<T>()) {",
          "  if (D > 0) return;\n  float* pg = part + (b * gridDim.x + blockIdx.x) * 2LL * D;\n"
          "  for (int c = threadIdx.x; c < 2 * D; c += rows_threads<T>()) {")]),
+    "gate_residual_bwd": ("adaln_modulate", []),
+    "gate_residual_bwd no tile sums (no second launch)": ("adaln_modulate", [
+        _GATE_NO_TILE_SUMS]),
+    # the partial rows dropped: the y loads and the products go with them
+    "gate_residual_bwd g loads and dy stores only": ("adaln_modulate", [
+        _GATE_NO_TILE_SUMS,
+        ("  // the tile's partial row: the groups' sums in group order\n",
+         "  if (T_ > 0) return;\n")]),
     "quant_matmul": ("quant_matmul", []),
     "quant_matmul no product": ("quant_matmul", [
         ("        wgmma_n144_rs(acc, a[kk], smem_desc(x_u + kk * 32, 16, 1024, 1));",
@@ -297,6 +310,11 @@ GATE_PLANS = {
     "gate_residual loads and stores only (resid + y, no gate loads)": {
         "": lambda p: p},
 }
+# gate_residual_bwd's plans at the DiT's training shape (8, 256, 1152)
+# bf16, as plan_gate_bwd makes them with other targets: (blocks an SM,
+# threads a block); the first is the plan's own
+GATE_BWD_TARGETS = [(2, 256), (1, 256), (4, 256), (2, 128), (4, 128),
+                    (1, 432), (2, 432)]
 # the skinny body's plans at the adaLN sites (the plan: split 8)
 SKINNY_PLANS = {
     "quant_matmul": {
@@ -475,6 +493,13 @@ def main():
     xb, gb = (torch.randn(8, 256, 1152, generator=g, device=dev).to(bf)
               for _ in range(2))
     sb = torch.randn(8, 6 * 1152, generator=g, device=dev).to(bf)[:, 1152:2304]
+    # gate_residual_bwd at the same shape, the gate read in place
+    yb = torch.randn(8, 256, 1152, generator=g, device=dev).to(bf)
+    gtb = torch.randn(8, 6 * 1152, generator=g, device=dev).to(bf)[
+        :, 2304:3456]
+    print(f"gate_residual_bwd bound "
+          f"{chip_smoke.bound(adaln_ops.cost_gate_bwd(gb, gtb, yb))[0]:.6f} "
+          f"ms; plan {adaln_kernel.plan_gate_bwd(gb, gtb, yb, yb)}")
     # flash_attention_bwd (the wgmma body) at qwen2-0.5b's AR step and
     # whisper's encoder, the forward's lse and o32 from the unedited library
     bwd_cases = {}
@@ -497,6 +522,26 @@ def main():
                     for op, (mode, args, like, p, _) in rows.items()}
                 print(f"row ops [{name}]{label}: " + ", ".join(
                     f"{op} {t:.6f} ms" for op, t in times.items()))
+        elif name.startswith("gate_residual_bwd"):
+            targets = (GATE_BWD_TARGETS if name == "gate_residual_bwd"
+                       else GATE_BWD_TARGETS[:1])
+            for per_sm, threads in targets:
+                kept = (adaln_kernel.GATE_BWD_BLOCKS_PER_SM,
+                        adaln_kernel.GATE_BWD_THREADS)
+                adaln_kernel.GATE_BWD_BLOCKS_PER_SM = per_sm
+                adaln_kernel.GATE_BWD_THREADS = threads
+                try:
+                    gp = adaln_kernel.plan_gate_bwd(gb, gtb, yb, yb)
+                finally:
+                    (adaln_kernel.GATE_BWD_BLOCKS_PER_SM,
+                     adaln_kernel.GATE_BWD_THREADS) = kept
+                ms = chip_smoke.device_ms(functools.partial(
+                    adaln_kernel._launch_gate_bwd, gb, gtb, yb,
+                    torch.empty_like(yb), gp))
+                print(f"{name} (8, 256, 1152) bf16, {gp['blocks']} blocks "
+                      f"of {gp['cols']} x {gp['groups']}, "
+                      f"{gp['rows_per_thread']} rows a thread, "
+                      f"{gp['tiles']} tiles: {ms:.6f} ms")
         elif name.startswith("adaln_modulate_bwd"):
             held = adaln_kernel.BWD_ROWS_THREADS[bf] // 32  # rows a block at once
             for turns in (1, 2, 4):  # rows a warp takes

@@ -11,7 +11,10 @@ Phases (any failure exits non-zero):
      the wrapper's plan() chose, timed on the device (a CUDA graph of many
      calls, replayed between CUDA events) beside its bound, its plain
      version and one PyTorch library call; the wrapper's host cost per
-     call is reported apart. adaln_modulate, gate_residual and the adaLN
+     call is reported apart. Every bf16 flash_attention case here and in
+     phases 11, 13 and 14 (a) also holds C9's gate (pv_precision): its
+     fp32 output within PV_RATIO of the rounded-P variant's distance from
+     the fp32-P plain output. adaln_modulate, gate_residual and the adaLN
      sites of quant_matmul are also timed on buffers rotated past the 50
      MB L2, as the main path finds them. unipc_update's sampler-row ops
      (predictor and corrector) are held bit-equal to their plain versions
@@ -113,7 +116,9 @@ Phases (any failure exits non-zero):
      backward kernel (adaln_modulate_bwd, gate_residual_bwd,
      flash_attention_bwd) against its plain version at the path's shapes
      and strided operands and at edge shapes (fp32 1e-5 relative L-inf,
-     bf16 1e-2 relative L2), the attention forward with its log-sum-exp
+     bf16 1e-2 relative L2; gate_residual_bwd's dy bit-equal, also on
+     operands off 16-byte alignment, and every call bit-equal to a second
+     one), the attention forward with its log-sum-exp
      bit-equal to the forward without it, each timed as in phase 3 beside
      its bound, its plain version and a library yardstick; (b) `train`
      for 20 steps: every loss finite, launches exactly 57 / 56 / 28
@@ -674,10 +679,14 @@ def kernel_phase(dev) -> dict:
                for _ in range(3))
     bf = torch.bfloat16
 
+    pv = {}
+
     def fa_case(label, q_, k_, v_, causal, window=None):
         got = fa_ops.attention(q_, k_, v_, causal=causal, window=window)
         want = fa_ops.attention(q_, k_, v_, causal=causal, window=window,
                                 backend="plain")
+        if q_.dtype == torch.bfloat16:   # C9's gate on P V
+            pv[label] = pv_precision(label, q_, k_, v_, causal, window)
         p = fa_kernel.plan(q_, k_, v_, got)
         loads = "16-byte" if p["vec_in"] else "2-byte"
         body = (f"{p['body']}, D in {8 * p['chunks']}, {loads} loads"
@@ -719,6 +728,7 @@ def kernel_phase(dev) -> dict:
         lambda: F.scaled_dot_product_attention(q, k, v),
         fa_ops.cost(q, k, v, causal=False, window=None)))
     out["flash_attention"]["body"] = fa_kernel.plan(q, k, v, q)["body"]
+    out["flash_attention"]["pv_precision"] = pv
     out["quant_matmul"] = quant_kernel_cases(dev, randn)
     return out
 
@@ -1215,7 +1225,7 @@ def kernel_kind(name: str, kinds=KERNEL_KINDS) -> str:
 # take attention's)
 TRAIN_KINDS = (
     ("backward kernels (port)", ("modulate_bwd_kernel", "modulate_bwd_rows",
-                                 "tile_sum_kernel", "gate_bwd_kernel",
+                                 "tile_sum_kernel", "gate_bwd_rows",
                                  "column_sum_kernel", "attn_bwd_")),
     ("forward kernels (port)", ("modulate_kernel", "gate_kernel", "attn_")),
 ) + KERNEL_KINDS[1:]
@@ -3034,6 +3044,39 @@ TOKEN_TOL = 1e-2
 DECODE_TOL = 1e-4         # fp32 prefill + decode against the forward
 DECODE_DEPTH = 4          # layers of the fp32 decode-vs-forward check
 MOE_CAPACITY = 8.0        # no token drops (the reference's test_models.py)
+# C9: the bf16 attention forward's fp32 output (lse=True) at most this
+# share of the rounded-P variant's relative L-inf from the fp32-P plain
+# output: P V keeps P's 16 bits (a hi + lo split), as the TPU kernel's fp32
+# p @ v does, where one bf16 P is 2^-9 off
+PV_RATIO = 0.125
+
+
+def pv_precision(label: str, q, k, v, causal, window) -> dict:
+    """C9's gate on one bf16 forward: the kernel's fp32 output copy (the
+    form the backward reads) and the rounded-P variant, each against the
+    fp32-P plain output (`ref.attention32`), relative L-inf; fails unless
+    the kernel's distance is at most PV_RATIO of the variant's."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    kw = dict(causal=causal, window=window)
+    o32 = fk.flash_attention(q, k, v, lse=True, **kw)[2]
+    exact = fr.attention32(q, k, v, **kw)
+    kernel_err = rel_err(o32, exact)
+    rounded_err = rel_err(fr.attention32(q, k, v, round_p=True, **kw), exact)
+    ratio = kernel_err / max(rounded_err, 1e-30)
+    print(f"  flash_attention [{label}] bf16 P V: fp32 output "
+          f"{kernel_err:.3e} from fp32-P plain, the rounded-P variant {rounded_err:.3e} "
+          f"(ratio {ratio:.4f}, gate <= {PV_RATIO:g})")
+    if not ratio <= PV_RATIO:
+        fail(f"flash_attention [{label}] bf16: P V is not kept at fp32 P's "
+             f"precision: {kernel_err:.3e} > {PV_RATIO:g} x the rounded-P "
+             f"variant's {rounded_err:.3e} (ROADMAP C9)")
+    del o32, exact
+    return dict(kernel_vs_fp32_p=kernel_err, rounded_p_vs_fp32_p=rounded_err,
+                ratio=ratio)
+
+
 TOKEN_ATTENTION = [  # label, B, Hq, Hkv, S, D, causal, window
     ("qwen2-0.5b prefill, causal GQA 14/2", 8, 14, 2, 512, 64, True, None),
     ("qwen2-0.5b diffusion LM, GQA 14/2", 8, 14, 2, 64, 64, False, None),
@@ -3100,7 +3143,7 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
                 (got.double() - want.double()).abs().max())
             row[f"body_{name}"] = body
         # the bf16 outputs' share bit-equal to plain's (fp32 P) and to the
-        # rounded-P variant's (one bf16 P, as the kernel's P V takes it)
+        # rounded-P variant's (one bf16 P); then C9's gate on P V
         with plain_rounding_p():
             rounded = fa_ops.attention(q, k, v, causal=causal, window=window,
                                        backend="plain")
@@ -3112,6 +3155,7 @@ def token_kernel_cases(dev, cases=TOKEN_ATTENTION,
               f"to plain's, {row['bit_equal_share_rounded_p']:.2%} to the "
               f"rounded-P variant's")
         del rounded
+        row["pv_precision"] = pv_precision(label, q, k, v, causal, window)
         # q, k, v are the bf16 ones now: time the path's dtype
         if window:
             qi = torch.arange(S, device=dev)[:, None]
@@ -3187,10 +3231,11 @@ def token_inputs(cfg, batch: int, length: int, seed: int) -> np.ndarray:
 @contextlib.contextmanager
 def plain_rounding_p():
     """Inside the block, the plain attention (what `backend="plain"` runs)
-    is its round_p=True variant: P rounded to bf16 before P.V, the row sum
-    from the fp32 P, as the bf16 kernel's `mma` body does it (the port's
-    plain version and the reference's Pallas kernel keep P in fp32). A
-    yardstick for the kernel runs only; no path of the port reaches it."""
+    is its round_p=True variant: P rounded once to bf16 before P.V, the row
+    sum from the fp32 P (the port's plain version, the reference's Pallas
+    kernel and the bf16 kernel's hi + lo split of P keep P's precision). A
+    second correct plain run one rounding apart, and the yardstick of
+    pv_precision(); no path of the port reaches it."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     plain = fa_ref.attention
@@ -4097,6 +4142,25 @@ def backward_kernel_cases(dev) -> dict:
               f"{st.get('earlier_body_host_call_ms')}); "
               f"{ {k: v for k, v in extra.items()} }")
 
+    def gate_bwd_body(g_, gate_, y_):
+        p = ak.plan_gate_bwd(g_, gate_, y_, y_)
+        return (f"{p['access_bytes']}-byte, {p['cols']} chunks x "
+                f"{p['groups']} groups, {p['rows_per_thread']} rows a "
+                f"thread, {p['tiles']} tiles, {p['blocks']} blocks")
+
+    def gate_bwd_case(tag, g_, gate_, y_, dt):
+        """gate_residual_bwd against its plain version: dy bit-equal, dgate
+        at BWD_TOL, and each output bit-equal to a second call's."""
+        got = ak.gate_residual_bwd(g_, gate_, y_)
+        again = ak.gate_residual_bwd(g_, gate_, y_)
+        want = ar.gate_residual_bwd(g_, gate_, y_)
+        check("gate_residual_bwd", tag, got, want, dt)
+        if not torch.equal(got[2], want[2]):
+            fail(f"gate_residual_bwd [{tag}]: dy is not bit-equal to the "
+                 f"plain version's gate * g")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"gate_residual_bwd [{tag}] differs run to run")
+
     # adaLN modulate and gate_residual: (B, T, D, dtype, conditioning
     # width): the path's block and head rows at batch 8, the fp32 run's,
     # ragged D and T, dit-cifar, MAX_D
@@ -4119,17 +4183,31 @@ def backward_kernel_cases(dev) -> dict:
                 f"{mp['rows_per_group']} rows a group"
                 if mp["body"] == "registers" else f"{mp['body']}")
         tag = (f"{label} ({b_}, {t_}, {d_}) {str(dt)[6:]}, [{body}, "
-               f"{mp['tile_rows']} rows a tile], gate rows {ak.bwd_rows(x)}")
+               f"{mp['tile_rows']} rows a tile], gate "
+               f"[{gate_bwd_body(gr, gate, y)}]")
         got = ak.modulate_bwd(gr, x, scale)
         again = ak.modulate_bwd(gr, x, scale)
         check("adaln_modulate_bwd", tag, got, ar.modulate_bwd(gr, x, scale),
               dt)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"adaln_modulate_bwd [{tag}] differs run to run")
-        check("gate_residual_bwd", tag, ak.gate_residual_bwd(gr, gate, y),
-              ar.gate_residual_bwd(gr, gate, y), dt)
+        gate_bwd_case(tag, gr, gate, y, dt)
         if not path:
             path = dict(x=x, y=y, g=gr, scale=scale, gate=gate)
+    # gate_residual_bwd on operands off 16-byte alignment: the gate a row
+    # of (B, D + 1) from column 1 (y = g), or y starting one element past
+    # an aligned address (the narrower accesses plan_gate_bwd then picks)
+    for b_, t_, d_, dt, label in [(B, T, D, torch.bfloat16, "path"),
+                                  (4, 37, 1003, torch.float32, "ragged")]:
+        gr = randn(b_, t_, d_, dtype=dt)
+        for where, gate_, y_ in (
+                ("gate", randn(b_, d_ + 1, dtype=dt)[:, 1:], gr),
+                ("y", randn(b_, 6 * d_, dtype=dt)[:, 2 * d_:3 * d_],
+                 randn(b_ * t_ * d_ + 1, dtype=dt)[1:].view(b_, t_, d_))):
+            gate_bwd_case(f"{label} ({b_}, {t_}, {d_}) {str(dt)[6:]}, "
+                          f"{where} off alignment "
+                          f"[{gate_bwd_body(gr, gate_, y_)}]", gr, gate_,
+                          y_, dt)
     x, y, gr, scale, gate = (path[k] for k in ("x", "y", "g", "scale",
                                                "gate"))
     ones = torch.ones(D, device=dev, dtype=x.dtype)
@@ -4157,7 +4235,7 @@ def backward_kernel_cases(dev) -> dict:
           lambda: ar.gate_residual_bwd(gr, gate, y), None,
           adaln_ops.cost_gate_bwd(gr, gate, y),
           library="none: no one PyTorch call computes dy and the per-b "
-                  "sums")
+                  "sums", body=gate_bwd_body(gr, gate, y))
 
     # attention: (B, H, Sq, Skv, D, dtype, label); q, k, v, do as the
     # head-major views of (B, S, H, D) projections the DiT passes
@@ -4621,14 +4699,16 @@ TOKEN_BWD = [
 # which the extended backward reproduces (the fp32 CUDA-core body is
 # unchanged since); bf16 re-measured when the bf16 backward came to split P
 # and dS into hi and lo halves and to read Delta from the forward's fp32
-# output, and again for the wgmma body, whose products sum each gradient
-# in another order (per k16 step on the tensor cores, hi then lo, Delta
-# from 16-byte loads): both change those bits on purpose, and each re-pin
-# followed the 1e-2 gates and the run-twice bit-equality holding on the
-# card. The kernels must reproduce them bit for bit.
+# output, again for the wgmma body, whose products sum each gradient in
+# another order (per k16 step on the tensor cores, hi then lo, Delta from
+# 16-byte loads), and again when the forward's P V came to take P as hi +
+# lo halves (o, lse's partner o32 and so Delta change): each changes those
+# bits on purpose, and each re-pin followed the 1e-2 gates and the
+# run-twice bit-equality holding on the card. The kernels must reproduce
+# them bit for bit.
 DIT_BWD_SHA256 = {
     torch.bfloat16:
-        "dc4fb340cac5110cc7e035b063f709b92c5fc09357b713d66bbf8dc82233e6ea",
+        "d93da74ff071514e1178c59d635decbea26978f4d11369cadc432752b3ef5f6a",
     torch.float32:
         "2397ded79cc686b1c47ccd5ee05add098b7111767a1bc6a6b1701eeb3fd2d05b"}
 PARAM_PERTURB = 0.02      # added to the constant-initialised leaves in (c)
@@ -6106,7 +6186,8 @@ def main():
                 label: {k: v for k, v in row.items()
                         if k in ("shape", "ms", "plain_ms", "library_ms",
                                  "bound_ms", "bound_by", "rel_err_bf16",
-                                 "rel_err_fp32", "body_bf16")}
+                                 "rel_err_fp32", "body_bf16",
+                                 "pv_precision")}
                 for label, row in tokens["kernels"].items()
                 if label != "unipc_row_ops"}
         if kname == "unipc_update":
@@ -6120,7 +6201,8 @@ def main():
                 label: {k: v for k, v in row.items()
                         if k in ("shape", "ms", "plain_ms", "library_ms",
                                  "bound_ms", "bound_by", "rel_err_bf16",
-                                 "rel_err_fp32", "body_bf16")}
+                                 "rel_err_fp32", "body_bf16",
+                                 "pv_precision")}
                 for label, row in ssm["kernels"].items()}
         # phase 14: the vlm and audio archs' prefills, sampling replays and
         # whisper's training runs (a decode step launches no port kernel)
@@ -6136,7 +6218,8 @@ def main():
                                  "library_ms", "bound_ms", "bound_by",
                                  "rel_err_bf16", "rel_err_fp32",
                                  "body_bf16", "bit_equal_share_plain",
-                                 "bit_equal_share_rounded_p")}
+                                 "bit_equal_share_rounded_p",
+                                 "pv_precision")}
                 for label, row in cond["kernels"].items()}
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [
                 row[f"abs_err_{n}"] for row in cond["kernels"].values()
@@ -6146,7 +6229,7 @@ def main():
                 served["cache"]["launches"]["shallow"][kname])
         for key in ("layer_norm_subset_ms", "fp32_ms", "fp32_bound_ms",
                     "rotated_ms", "rotated_library_ms", "per_call_over",
-                    "row_ops", "row_forms", "combine"):
+                    "row_ops", "row_forms", "combine", "pv_precision"):
             if key in st:
                 entry[key] = st[key]
         entries.append(entry)

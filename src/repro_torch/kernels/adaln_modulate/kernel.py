@@ -35,6 +35,16 @@ BWD_MAX_ROWS = 64       # rows of one tile of the backward (BWD_MAX_ROWS)
 BWD_BLOCKS_PER_SM = 1
 # threads a block of modulate_bwd's register bodies (rows_threads<T>())
 BWD_ROWS_THREADS = {torch.bfloat16: 512, torch.float32: 256}
+# gate_residual_bwd: rows whose loads a thread has in flight at once
+# (GATE_BWD_UNROLL in the source; a thread takes a multiple of them), the
+# block size its plan aims at and the most the source takes
+# (GATE_BWD_MAX_THREADS), the widest column strip of a block in chunks,
+# and the blocks an SM its tiles are sized for
+GATE_BWD_UNROLL = 4
+GATE_BWD_THREADS = 256
+GATE_BWD_MAX_THREADS = 512
+GATE_BWD_MAX_COLS = 256
+GATE_BWD_BLOCKS_PER_SM = 2
 
 
 @functools.cache
@@ -190,16 +200,15 @@ def _bwd_launchers():
         ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     gate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     mod.restype = gate.restype = ctypes.c_int
     return mod, gate
 
 
 def bwd_rows(x: torch.Tensor) -> int:
-    """Rows of one tile of gate_residual_bwd and of modulate_bwd's generic
-    body: about two blocks an SM over the B * T rows, at most BWD_MAX_ROWS
-    (each tile leaves one partial row of the (B, D) sums in the
-    workspace)."""
+    """Rows of one tile of modulate_bwd's generic body: about two blocks an
+    SM over the B * T rows, at most BWD_MAX_ROWS (each tile leaves one
+    partial row of the (B, D) sums in the workspace)."""
     B, T, _ = x.shape
     return max(1, min(BWD_MAX_ROWS, -(-B * T // (2 * build.sm_count(x)))))
 
@@ -228,6 +237,41 @@ def plan_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     tiles = -(-T // (held * turns))
     return dict(p, rows_per_group=turns, tiles=tiles, blocks=B * tiles,
                 tile_rows=held * turns)
+
+
+def plan_gate_bwd(g: torch.Tensor, gate: torch.Tensor, y: torch.Tensor,
+                  dy: torch.Tensor) -> dict:
+    """gate_residual_bwd's plan over g, the gate rows, y and dy.
+
+    `access_bytes` is plan()'s rule over the four (16 at the DiT's shapes;
+    narrower where a pointer, the rows or the gate's row stride allow no
+    more): a row is `D * size / access_bytes` chunks, and each thread owns
+    one chunk of every row it takes, its gate chunk held in registers. A
+    block covers a strip of `cols` chunks (a row's, or an even share of
+    it over `strips` strips of at most GATE_BWD_MAX_COLS) with `groups`
+    row groups (about GATE_BWD_THREADS threads in all, at most
+    GATE_BWD_MAX_THREADS); each group takes
+    `rows_per_thread` rows of the tile in turn (a multiple of
+    GATE_BWD_UNROLL, grown until the grid fits GATE_BWD_BLOCKS_PER_SM
+    blocks an SM), so a tile is `tile_rows` rows and b has `tiles` of
+    them: its count of partial rows in the workspace. `blocks` is the row
+    pass's grid."""
+    B, T, D = y.shape
+    width = _row_plan(y, (gate, g), dy)["access_bytes"]
+    nvec = D * y.element_size() // width
+    strips = -(-nvec // GATE_BWD_MAX_COLS)
+    cols = -(-nvec // strips)
+    groups = max(1, min((GATE_BWD_THREADS + cols // 2) // cols,
+                        GATE_BWD_MAX_THREADS // cols))
+    per_b = -(-T // groups)                     # one row a group
+    turns = -(-B * strips * per_b
+              // (GATE_BWD_BLOCKS_PER_SM * build.sm_count(y)))
+    turns = GATE_BWD_UNROLL * -(-turns // GATE_BWD_UNROLL)
+    tiles = -(-T // (groups * turns))
+    return dict(access_bytes=width, cols=cols, strips=strips, groups=groups,
+                threads=cols * groups, rows_per_thread=turns,
+                tile_rows=groups * turns, tiles=tiles,
+                blocks=B * strips * tiles)
 
 
 def _check_grad(name, g, x):
@@ -274,20 +318,30 @@ def _launch_modulate_bwd(g, x, scale, dx, eps, p) -> tuple:
 def gate_residual_bwd(g: torch.Tensor, gate: torch.Tensor,
                       y: torch.Tensor) -> tuple:
     """(dresid, dgate, dy) of `gate_residual(resid, gate, y)` from the
-    output's gradient g: dresid is g itself, dgate a new contiguous (B, D)
-    tensor. Two launches, counted once."""
-    stride = _check_rows("gate_residual_bwd", y, gate)
+    output's gradient g: dresid is g itself, dy = gate * g (bit-equal to
+    the plain version), dgate a new contiguous (B, D) tensor, the fp32 sum
+    over T of g * y in a fixed order, rounded once. Two launches (the row
+    pass, then the tile sums as its programmatic dependent), counted once;
+    the plan is plan_gate_bwd()'s."""
+    _check_rows("gate_residual_bwd", y, gate)
     _check_grad("gate_residual_bwd", g, y)
-    B, T, D = y.shape
-    rows = bwd_rows(y)
     dy = torch.empty_like(y)
+    dgate = _launch_gate_bwd(g, gate, y, dy, plan_gate_bwd(g, gate, y, dy))
+    return g, dgate, dy
+
+
+def _launch_gate_bwd(g, gate, y, dy, p) -> torch.Tensor:
+    """Launch gate_residual's backward on plan `p` (see plan_gate_bwd())
+    into dy; returns the new dgate."""
+    B, T, D = y.shape
     dgate = torch.empty((B, D), dtype=y.dtype, device=y.device)
-    part = torch.empty((B, -(-T // rows), D), dtype=torch.float32,
+    part = torch.empty((B, p["tiles"], D), dtype=torch.float32,
                        device=y.device)
     rc = _bwd_launchers()[1](
         g.data_ptr(), gate.data_ptr(), y.data_ptr(), dy.data_ptr(),
-        dgate.data_ptr(), part.data_ptr(), B, T, D, stride,
-        build.dtype_code(y.dtype), rows, build.stream_of(y))
+        dgate.data_ptr(), part.data_ptr(), B, T, D, gate.stride(0),
+        build.dtype_code(y.dtype), p["access_bytes"], p["cols"],
+        p["groups"], p["rows_per_thread"], build.stream_of(y))
     build.check(rc, "gate_residual_bwd", "adaln_modulate")
     LAUNCHES["gate_residual_bwd"] += 1
-    return g, dgate, dy
+    return dgate

@@ -369,23 +369,35 @@ extern "C" int gate_residual(const void* resid, const void* gate, const void* y,
 //   mean(g_hat) - x_hat mean(g_hat x_hat)) is written once. Each lane adds
 //   its columns' g and g x_hat to the group's fp32 partial row in shared
 //   memory over the rows the group takes; the groups' rows are summed in
-//   group order into the tile's partial row of an fp32 workspace, and
-//   tile_sum_kernel sums b's tiles in order, a thread a column, launched
-//   as a programmatic dependent so that its launch overlaps the row pass.
+//   group order into the tile's partial row of an fp32 workspace.
 //   The generic body (modulate_bwd_kernel, any other D, BWD_THREADS) walks
 //   a row from memory in each pass and its column pass reads the tile's
-//   rows again. gate_residual: a thread a column writes dy = gate g (one
-//   fp32 product, rounded once, as the plain version) and sums g y over
-//   the tile's rows.
-// * stage 2 (gate_residual and modulate's generic body), column_sum_kernel:
-//   each (b, column) sums its tiles' partials in tile order and rounds
-//   once to the parameter's dtype (dshift, dscale; dgate). dresid is the
-//   incoming gradient itself.
+//   rows again.
+//   gate_residual (gate_bwd_rows, grid (column strips, tiles, B)): a thread
+//   owns one chunk of a row's columns, 16 bytes where every pointer, the
+//   rows and the gate's row stride allow (8 bf16 or 4 fp32; else the
+//   widest access they all take), and loads its gate chunk once into
+//   registers. A block is `groups` row groups over one strip of `cols`
+//   chunks; group i takes the tile's rows i * turns .. (i + 1) * turns - 1
+//   in order, GATE_BWD_UNROLL rows' g and y loads in flight at once, and
+//   writes dy = gate * g (one fp32 product, rounded once to the output
+//   type: the plain version's arithmetic, so dy is bit-equal to it) as
+//   one access a row. Its partial sums of g y stay in fp32 registers in
+//   row order; the block adds its groups' partials in group order, in
+//   shared memory, into the tile's partial row of the workspace, so the
+//   tile's sum runs over its rows in order.
+// * stage 2: modulate's register bodies and gate_residual sum b's tiles in
+//   tile order (tile_sum_kernel, a thread a column of the workspace,
+//   launched as a programmatic dependent of stage 1 so that its launch
+//   overlaps the row pass); modulate's generic body in an ordinary second
+//   launch (column_sum_kernel). Each output is rounded once to the
+//   parameter's dtype (dshift, dscale; dgate). dresid is the incoming
+//   gradient itself.
 // Bound on the H100: bytes, as the forwards. At the training shape (batch
 // 8, T = 256, D = 1152, bf16) modulate's backward reads x and g and writes
 // dx (14.2 MB, 4.2 us at 3.35 TB/s); gate_residual's reads g and y and
-// writes dy (the same). The register bodies read x and g once; the
-// workspace adds a tile's partial row (fp32, 2D) a tile.
+// writes dy (the same). Both read each row once; the workspace adds a
+// tile's partial row (fp32) a tile.
 
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_MAX_ROWS = 64;  // rows of one tile
@@ -573,50 +585,133 @@ modulate_bwd_rows(const T* __restrict__ g, const T* __restrict__ x,
 
 constexpr int SUM_THREADS = 128;
 
-// dshift and dscale of b: b's tile rows of `part` summed in tile order, a
-// thread a column of [sum g | sum g x_hat], rounded once
+// out_k[b, c] = b's tile rows of `part` ((B, tiles, nout * D) fp32) summed
+// in tile order at column k * D + c, for k < nout (dshift and dscale of
+// modulate, nout 2; dgate, nout 1): a thread a column, rounded once
 template <typename T>
 __global__ void __launch_bounds__(SUM_THREADS)
-tile_sum_kernel(const float* __restrict__ part, T* __restrict__ dshift,
-                T* __restrict__ dscale, int tiles, int D) {
+tile_sum_kernel(const float* __restrict__ part, T* __restrict__ out0,
+                T* __restrict__ out1, int tiles, int D, int nout) {
   const long long b = blockIdx.y;
   const int c = blockIdx.x * SUM_THREADS + threadIdx.x;
+  const long long width = static_cast<long long>(nout) * D;
   // launched as a programmatic dependent of the row pass: wait for its
   // partial rows
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  if (c >= 2 * D) return;
-  const float* p = part + b * tiles * 2LL * D + c;
+  if (c >= width) return;
+  const float* p = part + b * tiles * width + c;
   float a = 0.f;
-#pragma unroll 16  // the DiT's 16 tiles a b: every load in flight at once
-  for (int i = 0; i < tiles; ++i) a += p[i * 2LL * D];
-  *(c < D ? dshift + b * D + c : dscale + b * D + c - D) = from_f32<T>(a);
+#pragma unroll 16  // the DiT's 16-32 tiles a b: every load in flight at once
+  for (int i = 0; i < tiles; ++i) a += p[i * width];
+  *(c < D ? out0 + b * D + c : out1 + b * D + c - D) = from_f32<T>(a);
 }
 
+// tile_sum_kernel over the (B, tiles, nout * D) workspace, as a
+// programmatic dependent launch: set up while the row pass ends
 template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS)
-gate_bwd_kernel(const T* __restrict__ g, const T* __restrict__ gate,
-                const T* __restrict__ y, T* __restrict__ dy, float* __restrict__ part,
-                int T_, int D, long long gate_stride, int rows) {
-  const long long b = blockIdx.y;
-  const int t0 = blockIdx.x * rows;
-  const int nrows = min(rows, T_ - t0);
-  const T* gt = gate + b * gate_stride;
-  float* pg = part + (b * gridDim.x + blockIdx.x) * (long long)D;
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    const float gc = to_f32(gt[c]);
-    float a = 0.f;
-    for (int i = 0; i < nrows; ++i) {
-      const long long idx = (b * T_ + t0 + i) * D + c;
-      const float gv = to_f32(g[idx]);
-      dy[idx] = from_f32<T>(__fmul_rn(gc, gv));
-      a += gv * to_f32(y[idx]);
+static int launch_tile_sums(const float* part, void* out0, void* out1, int B, int tiles,
+                            int D, int nout, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((nout * D + SUM_THREADS - 1) / SUM_THREADS, B);
+  cfg.blockDim = dim3(SUM_THREADS);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, tile_sum_kernel<T>, part,
+                                             static_cast<T*>(out0), static_cast<T*>(out1),
+                                             tiles, D, nout);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows of g and y whose loads a thread of gate_bwd_rows has in flight at
+// once (kernel.py: GATE_BWD_UNROLL); a thread takes a multiple of them
+constexpr int GATE_BWD_UNROLL = 4;
+constexpr int GATE_BWD_MAX_THREADS = 512;
+
+// grid (strips, tiles, B), blocks of cols * groups threads: thread (i, c)
+// owns chunk blockIdx.x * cols + c of each row (VEC elements, one access)
+// and takes rows t0 + i * turns .. t0 + (i + 1) * turns - 1 of b, t0 =
+// blockIdx.y * groups * turns. Dynamic shared memory: groups partial rows
+// of cols * VEC floats where groups > 1.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(GATE_BWD_MAX_THREADS)
+gate_bwd_rows(const T* __restrict__ g, const T* __restrict__ gate,
+              const T* __restrict__ y, T* __restrict__ dy, float* __restrict__ part,
+              int T_, int D, long long gate_stride, int cols, int turns) {
+  using C = Chunk<T, VEC>;
+  extern __shared__ float spart[];
+  const int c = threadIdx.x % cols, grp = threadIdx.x / cols;
+  const int groups = blockDim.x / cols;
+  const int chunk = blockIdx.x * cols + c;
+  const bool live = chunk < D / VEC;
+  const long long b = blockIdx.z;
+  const int t0 = (blockIdx.y * groups + grp) * turns;
+  // the tile sums may launch now: they wait for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  C gc;  // the gate chunk, held for every row
+  gc.zero();
+  if (live) gc.load(gate + b * gate_stride + chunk * VEC);
+  float gf[VEC], acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    gf[i] = gc.get(i);
+    acc[i] = 0.f;
+  }
+  const long long col0 = b * T_ * D + static_cast<long long>(chunk) * VEC;
+  for (int k = 0; k < turns; k += GATE_BWD_UNROLL) {
+    C gv[GATE_BWD_UNROLL], yv[GATE_BWD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GATE_BWD_UNROLL; ++u) {  // every load, then the math
+      const int t = t0 + k + u;
+      gv[u].zero();
+      yv[u].zero();
+      if (live && t < T_) {
+        gv[u].load(g + col0 + static_cast<long long>(t) * D);
+        yv[u].load(y + col0 + static_cast<long long>(t) * D);
+      }
     }
-    pg[c] = a;
+#pragma unroll
+    for (int u = 0; u < GATE_BWD_UNROLL; ++u) {
+      const int t = t0 + k + u;
+      if (!live || t >= T_) continue;
+      float f[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float gi = gv[u].get(i);
+        f[i] = __fmul_rn(gf[i], gi);
+        acc[i] += gi * yv[u].get(i);
+      }
+      store_chunk<T, VEC>(dy + col0 + static_cast<long long>(t) * D, f);
+    }
+  }
+  // the tile's partial row: the groups' sums in group order
+  float* prow = part + (b * gridDim.y + blockIdx.y) * static_cast<long long>(D);
+  if (groups == 1) {
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) prow[chunk * VEC + i] = acc[i];
+    }
+    return;
+  }
+  const int width = cols * VEC;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) spart[grp * width + c * VEC + i] = acc[i];
+  __syncthreads();
+  const int c0 = blockIdx.x * width;
+  for (int e = threadIdx.x; e < width && c0 + e < D; e += blockDim.x) {
+    float a = 0.f;
+    for (int i = 0; i < groups; ++i) a += spart[i * width + e];
+    prow[c0 + e] = a;
   }
 }
 
 // out_k[b, c] = sum over the tiles of part[b, tile, k, c], in tile order,
-// for k < nout (the (B, tiles, nout, D) workspace of stage 1).
+// for k < nout (the (B, tiles, nout, D) workspace of modulate's generic
+// body), in an ordinary second launch.
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS)
 column_sum_kernel(const float* __restrict__ part, T* __restrict__ out0,
@@ -674,21 +769,7 @@ static int launch_modulate_bwd_rows(const void* g, const void* x, const void* sc
       static_cast<T*>(dx), part, T_, D, cond_stride, turns, eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // a programmatic dependent launch: set up while the row pass ends
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((2 * D + SUM_THREADS - 1) / SUM_THREADS, B);
-  cfg.blockDim = dim3(SUM_THREADS);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e2 = cudaLaunchKernelEx(&cfg, tile_sum_kernel<T>, static_cast<const float*>(part),
-                                            static_cast<T*>(dshift), static_cast<T*>(dscale),
-                                            tiles, D);
-  if (e2 != cudaSuccess) return static_cast<int>(e2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tile_sums<T>(part, dshift, dscale, B, tiles, D, 2, s);
 }
 
 using BwdRowsLaunch = int (*)(const void*, const void*, const void*, void*, void*, void*,
@@ -708,20 +789,38 @@ static const BwdBody BWD_BODIES[] = {
 };
 #undef BWD_BODY
 
-template <typename T>
+template <typename T, int VEC>
 static int launch_gate_bwd(const void* g, const void* gate, const void* y, void* dy,
                            void* dgate, float* part, int B, int T_, int D,
-                           long long gate_stride, int rows, cudaStream_t s) {
-  const int tiles = (T_ + rows - 1) / rows;
-  gate_bwd_kernel<T><<<dim3(tiles, B), BWD_THREADS, 0, s>>>(
+                           long long gate_stride, int cols, int groups, int turns,
+                           cudaStream_t s) {
+  const int strips = (D / VEC + cols - 1) / cols;
+  const int tiles = (T_ + groups * turns - 1) / (groups * turns);
+  const int smem = groups > 1 ? groups * cols * VEC * static_cast<int>(sizeof(float)) : 0;
+  gate_bwd_rows<T, VEC><<<dim3(strips, tiles, B), cols * groups, smem, s>>>(
       static_cast<const T*>(g), static_cast<const T*>(gate), static_cast<const T*>(y),
-      static_cast<T*>(dy), part, T_, D, gate_stride, rows);
+      static_cast<T*>(dy), part, T_, D, gate_stride, cols, turns);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  column_sum_kernel<T><<<dim3((D + BWD_THREADS - 1) / BWD_THREADS, B), BWD_THREADS, 0, s>>>(
-      part, static_cast<T*>(dgate), static_cast<T*>(dgate), tiles, D, 1);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tile_sums<T>(part, dgate, dgate, B, tiles, D, 1, s);
 }
+
+using GateBwdLaunch = int (*)(const void*, const void*, const void*, void*, void*, float*,
+                              int, int, int, long long, int, int, int, cudaStream_t);
+// gate_residual's backward bodies: (dtype, access bytes), mirrored by
+// kernels/adaln_modulate/kernel.py (ACCESS_BYTES)
+struct GateBwdBody {
+  int dtype, bytes;
+  GateBwdLaunch launch;
+};
+#define GATE_BWD_BODY(DT, T, BYTES) {DT, BYTES, launch_gate_bwd<T, BYTES / sizeof(T)>}
+static const GateBwdBody GATE_BWD_BODIES[] = {
+    GATE_BWD_BODY(DTYPE_BF16, bf16, 16), GATE_BWD_BODY(DTYPE_BF16, bf16, 8),
+    GATE_BWD_BODY(DTYPE_BF16, bf16, 4),  GATE_BWD_BODY(DTYPE_BF16, bf16, 2),
+    GATE_BWD_BODY(DTYPE_F32, float, 16), GATE_BWD_BODY(DTYPE_F32, float, 8),
+    GATE_BWD_BODY(DTYPE_F32, float, 4),
+};
+#undef GATE_BWD_BODY
 
 // g, x, dx: contiguous (B, T, D); scale: (B, D) rows of stride cond_stride;
 // dshift, dscale: contiguous (B, D); part: an fp32 workspace of
@@ -759,16 +858,30 @@ extern "C" int adaln_modulate_bwd(const void* g, const void* x, const void* scal
 }
 
 // g, y, dy: contiguous (B, T, D); gate: (B, D) rows of stride gate_stride;
-// dgate: contiguous (B, D); part: fp32 (B, ceil(T / rows), D).
+// dgate: contiguous (B, D); part: fp32 (B, tiles, D), tiles = ceil(T /
+// (groups * turns)). The plan (kernel.py: plan_gate_bwd): accesses of
+// `bytes` (every pointer, the rows and the gate's row stride aligned to
+// it), blocks of `cols` chunks by `groups` row groups, `turns` rows a
+// group (a multiple of GATE_BWD_UNROLL). A plan the operands cannot take,
+// or that no compiled body serves, is refused with cudaErrorInvalidValue.
 extern "C" int gate_residual_bwd(const void* g, const void* gate, const void* y, void* dy,
                                  void* dgate, void* part, int B, int T_, int D,
-                                 long long gate_stride, int dtype, int rows, void* stream) {
-  if (!bwd_ok(B, T_, D, rows, gate_stride, dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  return dtype == DTYPE_F32
-             ? launch_gate_bwd<float>(g, gate, y, dy, dgate, p, B, T_, D, gate_stride, rows, s)
-             : launch_gate_bwd<bf16>(g, gate, y, dy, dgate, p, B, T_, D, gate_stride, rows, s);
+                                 long long gate_stride, int dtype, int bytes, int cols,
+                                 int groups, int turns, void* stream) {
+  const int size = dtype == DTYPE_F32 ? 4 : dtype == DTYPE_BF16 ? 2 : 0;
+  if (!size || B < 1 || B > 65535 || T_ < 1 || D < 1 || D > MOD_MAX_D || gate_stride < 0 ||
+      bytes < size || bytes % size || (D * size) % bytes || (gate_stride * size) % bytes ||
+      cols < 1 || groups < 1 || cols * groups > GATE_BWD_MAX_THREADS || turns < 1 ||
+      turns % GATE_BWD_UNROLL || (T_ + groups * turns - 1) / (groups * turns) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[] = {g, gate, y, dy};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % bytes) return static_cast<int>(cudaErrorInvalidValue);
+  for (const GateBwdBody& body : GATE_BWD_BODIES)
+    if (body.dtype == dtype && body.bytes == bytes)
+      return body.launch(g, gate, y, dy, dgate, static_cast<float*>(part), B, T_, D,
+                         gate_stride, cols, groups, turns, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 EXPORT_ERROR_STRING

@@ -18,12 +18,18 @@
 //   head's K and V once: 2 reads of each K/V byte in all. What the design
 //   does about the bytes bound:
 //   - S, P and O never leave registers. The fp32 accumulator fragment of
-//     S = Q K^T, P = exp2(S - m) rounded to bf16, is the A fragment of P V
-//     (the TPU kernel widens q, k, v and keeps P fp32: a hi + lo split of P
-//     into two products would restore that, for about 15% more time); row
-//     max and sum take two quad shuffles, the sum over the unrounded P;
-//     exp2f with scale * log2(e) folded into the scores; O is rescaled in
-//     registers and divided by l once at the end.
+//     S = Q K^T gives P = exp2(S - m), split into two bf16 A fragments of
+//     P V: hi = P rounded to bf16 and lo = (P - hi) rounded to bf16 (the
+//     difference is exact in fp32). Each V fragment is loaded once and
+//     feeds hi, then lo, into the same fp32 accumulator, so P carries 16
+//     significant bits into the product and every product of bf16 halves
+//     is exact: the TPU kernel's fp32 p @ v (it widens v), up to the
+//     order of the sums. The split doubles P V's products (at D = 72, 72
+//     mma a warp a key tile in place of 36, beside Q K^T's 40); its time
+//     at each shape is in PERF.md §6. Row max and sum take two quad
+//     shuffles, the sum over the unsplit fp32 P; exp2f with scale *
+//     log2(e) folded into the scores; O is rescaled in registers and
+//     divided by l once at the end.
 //   - K/V tiles of 64 keys arrive by 16-byte cp.async into a ring of 3
 //     stages, two tiles ahead of the products, one barrier per tile.
 //   - Shared-memory rows hold an odd number of 16-byte chunks (D = 72:
@@ -248,7 +254,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // what pack_bf16(lo, hi) = `packed` left out, rounded to bf16 in turn: the
 // differences are exact in fp32, so packed + residual carries 16 bits (the
-// backward's split operands)
+// split P of the forward's P V and the backward's split operands)
 __device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi,
                                                        uint32_t packed) {
   const float2 r = __bfloat1622float2(
@@ -425,11 +431,12 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       oacc[n][3] *= alpha[1];
     }
 
-    // O += P V, 16 keys a step: P's bf16 A fragment straight from S's
-    // accumulators (n8 tiles 2kk and 2kk + 1)
+    // O += P V, 16 keys a step: P's bf16 hi and lo A fragments straight
+    // from S's accumulators (n8 tiles 2kk and 2kk + 1); each V fragment
+    // feeds both products into the same accumulator, hi first
 #pragma unroll
     for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-      uint32_t pa[4];
+      uint32_t pa[4], pl[4];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const float* sv = s[2 * kk + half];
@@ -439,6 +446,8 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l_r[1] += p2 + p3;
         pa[2 * half] = pack_bf16(p0, p1);
         pa[2 * half + 1] = pack_bf16(p2, p3);
+        pl[2 * half] = pack_bf16_residual(p0, p1, pa[2 * half]);
+        pl[2 * half + 1] = pack_bf16_residual(p2, p3, pa[2 * half + 1]);
       }
       const unsigned v_row = v_u + (kk * 16 + (lane & 15)) * PITCH;
 #pragma unroll
@@ -447,11 +456,14 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ldsm_x4_t(v_row + (n + (lane >> 4)) * 16, b0, b1, b2, b3);
         mma_k16(oacc[n], pa, b0, b1);
         mma_k16(oacc[n + 1], pa, b2, b3);
+        mma_k16(oacc[n], pl, b0, b1);
+        mma_k16(oacc[n + 1], pl, b2, b3);
       }
       if (ND & 1) {
         uint32_t b0, b1;
         ldsm_x2_t(v_row + (ND - 1) * 16, b0, b1);
         mma_k16(oacc[ND - 1], pa, b0, b1);
+        mma_k16(oacc[ND - 1], pl, b0, b1);
       }
     }
   }

@@ -28,11 +28,13 @@ def attention32(q, k, v, *, causal=True, window=None, round_p=False):
     """The fp32 output of `attention`, before its rounding to q's dtype (what
     the kernel's `lse=True` form saves for the backward's Delta).
 
-    `round_p=True` is a yardstick for the bf16 kernel, not a path of the
-    port: P = exp(s - rowmax) is rounded to bf16 before P.V, as the kernel's
-    `mma` body packs it, and the denominator sums the unrounded fp32 P, as
-    the kernel's row sum does. The default keeps P in fp32 (the reference's
-    Pallas kernel does too)."""
+    `round_p=True` is a yardstick, not a path of the port: P = exp(s -
+    rowmax) is rounded once to bf16 before P.V, and the denominator sums
+    the unrounded fp32 P. It is what a bf16 kernel that packs P into one
+    bf16 operand computes, and the distance a kernel's P.V has to stay well
+    inside: the `mma` body splits P into bf16 hi + lo operands and keeps
+    its 16 bits. The default keeps P in fp32 (the reference's Pallas kernel
+    does too)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv

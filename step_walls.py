@@ -6,6 +6,8 @@
     python3 step_walls.py --src OTHER/src      # another checkout's port
     python3 step_walls.py --attention-bwd mma  # the attention backward held
                                                # to its mma.sync body
+    python3 step_walls.py --runs dit-i256      # only the DiT's step
+    python3 step_walls.py --runs none          # the kernel calls alone
 
 Three steps through launch.train at full width, as chip_smoke.py's phases
 10 (b), 12 (b) and 14 (e) run them: dit-i256's diffusion step (20 steps at
@@ -13,9 +15,11 @@ batch 8), qwen2-0.5b's AR step (20 at 8 x 512) and whisper-small's AR
 step (10 at 8 x 384). Each prints the median wall after the first step
 (host clock to a sync), the device-timeline split (CUDA events), and one
 step under torch.profiler (device time by kind, the share of the wall with
-no kernel running). Then the backward kernels' host cost a call (100 eager
-calls back to back) and device time (100 calls in a CUDA graph) at the
-shapes those steps give them. The last line is one JSON object.
+no kernel running, each port kernel's time in the path). Then the
+backward kernels' host cost a call (100 eager calls back to back) and
+device time (100 calls in a CUDA graph) at the shapes those steps give
+them, and the bf16 attention forward's device time at every bf16 shape of
+PERF.md's kernel table. The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -45,6 +49,29 @@ ATTENTION = [("dit-i256", 8, 16, 16, 256, 256, 72, False),
              ("qwen2-0.5b AR", 8, 14, 2, 512, 512, 64, True),
              ("whisper encoder", 8, 12, 12, 1500, 1500, 64, False),
              ("whisper cross-attention", 8, 12, 12, 384, 1500, 64, False)]
+# (label, B, Hq, Hkv, Sq, Skv, D, causal, window): the bf16 attention
+# forward's shapes in PERF.md's kernel table (chip_smoke.py's phases 3, 11,
+# 13 and 14)
+FORWARD = [("dit-i256 serving", 16, 16, 16, 256, 256, 72, False, None),
+           ("qwen2-0.5b prefill", 8, 14, 2, 512, 512, 64, True, None),
+           ("qwen2-0.5b diffusion LM", 8, 14, 2, 64, 64, 64, False, None),
+           ("granite prefill", 4, 24, 8, 256, 256, 64, True, None),
+           ("olmo-1b prefill", 8, 16, 16, 512, 512, 128, True, None),
+           ("window 64", 8, 14, 2, 300, 300, 64, True, 64),
+           ("zamba2 prefill", 8, 32, 32, 512, 512, 112, True, None),
+           ("zamba2 diffusion LM", 8, 32, 32, 64, 64, 112, True, None),
+           ("whisper encoder", 8, 12, 12, 1500, 1500, 64, False, None),
+           ("whisper cross-attention", 8, 12, 12, 384, 1500, 64, False,
+            None),
+           ("llama-vision prefill", 8, 64, 8, 512, 512, 128, True, None),
+           ("llama-vision cross-attention", 8, 64, 8, 512, 1600, 128, False,
+            None),
+           ("whisper diffusion LM", 8, 12, 12, 64, 1500, 64, False, None),
+           ("llama-vision diffusion LM", 8, 64, 8, 64, 1600, 128, False,
+            None)]
+# backward kernels of earlier checkouts, named so that a run of one (--src)
+# splits its step's device time as this checkout's does
+EARLIER_BWD_KERNELS = ("gate_bwd_kernel",)
 
 
 def backward_calls(dev) -> dict:
@@ -71,16 +98,27 @@ def backward_calls(dev) -> dict:
             body=fk.plan_bwd(q, k, v, do)["body"],
             host_call_ms=chip_smoke.host_call_ms(call),
             ms=chip_smoke.device_ms(call))
-    x, gr = (torch.randn(8, 256, 1152, generator=g, device=dev).bfloat16()
-             for _ in range(2))
-    scale = torch.randn(8, 6 * 1152, generator=g,
-                        device=dev).bfloat16()[:, 1152:2304]
+    x, gr, y = (torch.randn(8, 256, 1152, generator=g, device=dev)
+                .bfloat16() for _ in range(3))
+    mod6 = torch.randn(8, 6 * 1152, generator=g, device=dev).bfloat16()
+    scale, gate = mod6[:, 1152:2304], mod6[:, 2304:3456]
 
     def mod():
         return ak.modulate_bwd(gr, x, scale)
-    out["adaln_modulate_bwd dit-i256"] = dict(
-        host_call_ms=chip_smoke.host_call_ms(mod),
-        ms=chip_smoke.device_ms(mod))
+
+    def gate_bwd():
+        return ak.gate_residual_bwd(gr, gate, y)
+    for name, call in (("adaln_modulate_bwd dit-i256", mod),
+                       ("gate_residual_bwd dit-i256", gate_bwd)):
+        out[name] = dict(host_call_ms=chip_smoke.host_call_ms(call),
+                         ms=chip_smoke.device_ms(call))
+    for label, B, Hq, Hkv, Sq, Skv, D, causal, window in FORWARD:
+        q = heads(B, Sq, Hq, D)
+        k, v = heads(B, Skv, Hkv, D), heads(B, Skv, Hkv, D)
+        out[f"flash_attention {label}"] = dict(ms=chip_smoke.device_ms(
+            lambda: fk.flash_attention(q, k, v, causal=causal,
+                                       window=window)))
+        del q, k, v
     for name, row in out.items():
         print(f"  {name}: {row}")
     return out
@@ -92,6 +130,10 @@ def main(argv=None) -> int:
                     help="the port's src directory (default: this one)")
     ap.add_argument("--attention-bwd", choices=("planned", "mma"),
                     default="planned")
+    ap.add_argument("--runs", nargs="+", default=[r[1] for r in RUNS],
+                    choices=[r[1] for r in RUNS] + ["none"],
+                    help="the archs whose steps run (default: all three; "
+                         "none: the kernel calls alone)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_walls.py: no CUDA card", file=sys.stderr)
@@ -100,6 +142,10 @@ def main(argv=None) -> int:
     import chip_smoke
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fk
+
+    kind, names = chip_smoke.TRAIN_KINDS[0]
+    chip_smoke.TRAIN_KINDS = ((kind, names + EARLIER_BWD_KERNELS),
+                              ) + chip_smoke.TRAIN_KINDS[1:]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -114,6 +160,8 @@ def main(argv=None) -> int:
                   steps={})
     with body:
         for label, arch, objective, shape, profile_at in RUNS:
+            if arch not in args.runs:
+                continue
             print(f"-- {label}")
             run = chip_smoke.token_train_run(dev, arch, objective, {},
                                              profile_at=profile_at, **shape)
@@ -128,7 +176,7 @@ def main(argv=None) -> int:
                 by_kind=prof.get("by_kind"))
             del run
             chip_smoke.free_graphs()
-        print("-- the backward kernels alone")
+        print("-- the kernels alone")
         result["calls"] = backward_calls(dev)
     print(json.dumps(result))
     return 0

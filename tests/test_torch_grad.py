@@ -18,8 +18,9 @@ formulas written out in `ref.py` (`modulate_bwd`, `gate_residual_bwd`,
 
 The `gpu` tests hold each backward kernel against its plain version on the
 card (1e-5 relative L-inf at fp32; 1e-2 relative L2 at bf16, where the
-kernels round P and dS to bf16 for the tensor cores) and pin the grad-mode
-rules, and skip elsewhere.
+kernels take P and dS as bf16 hi + lo halves on the tensor cores and
+round each output once; gate_residual's dy bit-equal) and pin the
+grad-mode rules, and skip elsewhere.
 """
 
 import math
@@ -298,11 +299,11 @@ def _rows_like(B, T, D, dtype):
     return x, torch.empty(B, 6 * D, dtype=dtype)[:, D:2 * D]
 
 
-# (B, T, rows, turns, tiles): rows, gate_residual_bwd's and the generic
-# body's tile (about two blocks an SM, 132 on a CPU tensor's plan, at
-# most 64 rows); turns and tiles, modulate_bwd's register body at the
-# DiT's D 1152 bf16 (16 rows a block at once, `turns` rows a warp, the
-# tiles about one block an SM)
+# (B, T, rows, turns, tiles): rows, the tile of modulate_bwd's generic
+# body, the only user of bwd_rows (about two blocks an SM, 132 on a CPU
+# tensor's plan, at most 64 rows); turns and tiles, modulate_bwd's
+# register body at the DiT's D 1152 bf16 (16 rows a block at once,
+# `turns` rows a warp, the tiles about one block an SM)
 @pytest.mark.parametrize("B,T,rows,turns,tiles", [
     (8, 256, 8, 1, 16), (1, 1, 1, 1, 1), (16, 256, 16, 2, 8),
     (64, 4096, 64, 125, 3), (2, 37, 1, 1, 3)])
@@ -331,6 +332,83 @@ def test_adaln_bwd_plan_bodies(D, dtype, body, lanes, chunks):
         assert p["tile_rows"] == adaln_kernel.bwd_rows(x)
 
 
+def _gate_bwd_operands(B, T, D, dtype, layout):
+    """(g, gate, y) of gate_residual_bwd: contiguous g and y, the gate the
+    third D columns of a (B, 6D) modulation as the DiT passes it; "view":
+    y starting one element past an aligned address."""
+    n = B * T * D
+    y = torch.zeros(n + 1, dtype=dtype)
+    y = y[1:].view(B, T, D) if layout == "view" else y[:n].view(B, T, D)
+    gate = torch.zeros(B, 6 * D, dtype=dtype)[:, 2 * D:3 * D]
+    return torch.zeros(B, T, D, dtype=dtype), gate, y
+
+
+# (B, T, D, dtype, layout, access bytes, cols, groups, rows a thread,
+# tiles, blocks): gate_residual_bwd's plan on a CPU tensor (132 SMs) at
+# the DiT's training shape in bf16 and fp32 (two strips of 144 chunks),
+# serving batch 16, a ragged T, D 100 in both dtypes (8-byte accesses in
+# bf16: 200-byte rows) and y a view 2 bytes off (2-byte accesses)
+@pytest.mark.parametrize(
+    "B,T,D,dtype,layout,access,cols,groups,rows,tiles,blocks", [
+        (8, 256, 1152, torch.bfloat16, "dit", 16, 144, 2, 4, 32, 256),
+        (8, 256, 1152, torch.float32, "dit", 16, 144, 2, 8, 16, 256),
+        (16, 256, 1152, torch.bfloat16, "dit", 16, 144, 2, 8, 16, 256),
+        (2, 37, 1152, torch.bfloat16, "dit", 16, 144, 2, 4, 5, 10),
+        (2, 33, 100, torch.bfloat16, "dit", 8, 25, 10, 4, 1, 2),
+        (3, 37, 100, torch.float32, "dit", 16, 25, 10, 4, 1, 3),
+        (8, 256, 1152, torch.bfloat16, "view", 2, 231, 1, 40, 7, 280)])
+def test_gate_bwd_plan(B, T, D, dtype, layout, access, cols, groups, rows,
+                       tiles, blocks):
+    """plan_gate_bwd: the access width every operand allows, a thread a
+    chunk of a row over `rows` rows (a multiple of the unroll), the tiles
+    covering T, the strips covering D, and blocks the source takes."""
+    g, gate, y = _gate_bwd_operands(B, T, D, dtype, layout)
+    p = adaln_kernel.plan_gate_bwd(g, gate, y, g)
+    assert (p["access_bytes"], p["cols"], p["groups"]) == (access, cols,
+                                                           groups)
+    assert (p["rows_per_thread"], p["tiles"], p["blocks"]) == (rows, tiles,
+                                                               blocks)
+    nvec = D * y.element_size() // access
+    assert p["strips"] * p["cols"] >= nvec > (p["strips"] - 1) * p["cols"]
+    assert p["tile_rows"] == p["groups"] * rows
+    assert p["tiles"] * p["tile_rows"] >= T > (p["tiles"] - 1) * p["tile_rows"]
+    assert rows % adaln_kernel.GATE_BWD_UNROLL == 0
+    assert p["threads"] == cols * groups <= 512
+    assert p["blocks"] == B * p["strips"] * p["tiles"]
+
+
+@pytest.mark.parametrize("B,T,D,dtype", [(2, 37, 72, torch.bfloat16),
+                                         (3, 37, 100, torch.float32),
+                                         (2, 33, 1152, torch.bfloat16),
+                                         (8, 256, 1152, torch.float32)])
+def test_gate_bwd_order_of_sums_matches_plain(B, T, D, dtype):
+    """gate_residual_bwd's dgate summed in the kernel's order on its plan,
+    in fp32: each group's rows in order, the block's groups in order, b's
+    tiles in order, rounded once. Every row counts once (the tiles cover
+    T), and the result is the plain version's up to the order of fp32
+    sums: 1e-5 relative L-inf at fp32, one bf16 ulp at bf16."""
+    g, y = (_randn((B, T, D), s, dtype) for s in (90, 91))
+    gate = _randn((B, 6 * D), 92, dtype)[:, 2 * D:3 * D]
+    p = adaln_kernel.plan_gate_bwd(g, gate, y, g)
+    prod = (g.float() * y.float()).numpy()
+    rows = p["rows_per_thread"]
+    dgate = np.zeros((B, D), np.float32)
+    for b in range(B):
+        for tile in range(p["tiles"]):
+            part = np.zeros(D, np.float32)
+            for grp in range(p["groups"]):
+                acc = np.zeros(D, np.float32)
+                t0 = (tile * p["groups"] + grp) * rows
+                for t in range(t0, min(t0 + rows, T)):
+                    acc += prod[b, t]
+                part += acc
+            dgate[b] += part
+    want = adaln_ref.gate_residual_bwd(g, gate, y)[1]
+    got = torch.from_numpy(dgate).to(dtype)
+    tol = FP32_TOL * 10 if dtype == torch.float32 else BF16_ULP
+    assert _linf(got, want) <= tol
+
+
 # ---------------------------------------------------------------------------
 # the backward kernels against their plain versions (card only)
 # ---------------------------------------------------------------------------
@@ -354,18 +432,49 @@ def test_card_adaln_bwd_kernels_match_plain(cuda, B, T, D, dtype):
     x, y, g = (_randn((B, T, D), s, dtype).to(cuda) for s in (40, 41, 42))
     mod = _randn((B, 6 * D), 43, dtype).to(cuda)
     scale, gate = mod[:, D:2 * D], mod[:, 2 * D:3 * D]
+    gate_got = adaln_kernel.gate_residual_bwd(g, gate, y)
+    gate_want = adaln_ref.gate_residual_bwd(g, gate, y)
     for got, want in ((adaln_kernel.modulate_bwd(g, x, scale),
                        adaln_ref.modulate_bwd(g, x, scale)),
-                      (adaln_kernel.gate_residual_bwd(g, gate, y),
-                       adaln_ref.gate_residual_bwd(g, gate, y))):
+                      (gate_got, gate_want)):
         for a, b in zip(got, want):
             assert a.shape == b.shape and a.dtype == b.dtype
             tol = _card_tol(dtype)
             assert (_linf(a, b) if dtype == torch.float32
                     else _l2(a, b)) <= tol
+    assert torch.equal(gate_got[2], gate_want[2])     # dy = gate * g
     again = adaln_kernel.modulate_bwd(g, x, scale)
     assert all(torch.equal(a, b) for a, b in
                zip(again, adaln_kernel.modulate_bwd(g, x, scale)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(gate_got, adaln_kernel.gate_residual_bwd(g, gate, y)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,D,where", [(8, 256, 1152, "y"),
+                                         (8, 256, 1152, "gate"),
+                                         (3, 37, 100, "y"),
+                                         (2, 5, 1003, "gate")])
+def test_card_gate_bwd_misaligned_views(cuda, B, T, D, dtype, where):
+    """gate_residual_bwd where y starts one element past an aligned
+    address, or the gate is a (B, D + 1) row's columns 1..D: the narrower
+    accesses plan_gate_bwd picks give dy bit-equal to plain, dgate within
+    the card tolerance, and the same bits twice."""
+    g = _randn((B, T, D), 80, dtype).to(cuda)
+    y = _randn((B * T * D + 1,), 81, dtype).to(cuda)
+    y = y[1:].view(B, T, D) if where == "y" else y[:-1].view(B, T, D)
+    gate = _randn((B, D + 1), 82, dtype).to(cuda)
+    gate = gate[:, 1:] if where == "gate" else gate[:, :D]
+    p = adaln_kernel.plan_gate_bwd(g, gate, y, g)
+    assert p["access_bytes"] == g.element_size()
+    got = adaln_kernel.gate_residual_bwd(g, gate, y)
+    want = adaln_ref.gate_residual_bwd(g, gate, y)
+    assert torch.equal(got[2], want[2])
+    assert (_linf(got[1], want[1]) if dtype == torch.float32
+            else _l2(got[1], want[1])) <= _card_tol(dtype)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, adaln_kernel.gate_residual_bwd(g, gate, y)))
 
 
 @pytest.mark.gpu

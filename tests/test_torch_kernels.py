@@ -398,6 +398,38 @@ def test_card_attention_main_shape_views_and_contiguous(cuda):
     torch.testing.assert_close(dense.float().cpu(), got, rtol=0, atol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (16, 16, 16, 256, 256, 72, False),   # the DiT's
+    (8, 14, 2, 512, 512, 64, True),      # qwen2-0.5b's prefill, GQA 14/2
+    (2, 4, 4, 100, 150, 72, False)])     # ragged, Sq != Skv
+def test_card_attention_pv_keeps_p_at_fp32_precision(cuda, B, Hq, Hkv, Sq,
+                                                     Skv, D, causal):
+    """The bf16 kernel's P V takes P as bf16 hi + lo halves, so its fp32
+    output copy sits at most 1/8 as far (relative L-inf) from the fp32-P
+    plain output as the variant that rounds P once to bf16 does (the TPU
+    kernel computes p @ v with fp32 p)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(B, Sq, Hq, D, generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn(B, Skv, Hkv, D, generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        o32 = fa_kernel.flash_attention(q, k, v, causal=causal, lse=True)[2]
+        exact = fa_ref.attention32(q, k, v, causal=causal)
+        rounded = fa_ref.attention32(q, k, v, causal=causal, round_p=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    exact = exact.double().cpu().numpy()
+    assert _rel(o32.double().cpu().numpy(), exact) <= _rel(
+        rounded.double().cpu().numpy(), exact) / 8
+
+
 # ---------------------------------------------------------------------------
 # the bodies the wrappers choose (host side, so testable on the CPU)
 # ---------------------------------------------------------------------------
