@@ -1,0 +1,11 @@
+"""sample.attention_roofline: the least time of the attention work the window's evals
+did, from their shapes (yardstick.attention_bound_s), over the device time of the
+kernels that did it, named in sample.attention_roofline.json."""
+
+from pathlib import Path
+
+from perfbench import harness
+
+
+def read(run):
+    return harness.roofline_share(run, Path(__file__).with_suffix(".json"))
