@@ -236,6 +236,27 @@ class StepProgram:
         return self._handout("meta", meta)
 
 
+class CountedRun:
+    """`SamplerEngine.build`'s run function, `run(x_T, **model_kwargs) ->
+    x0`, with a count of the eps-net evaluations its calls have made, eager
+    or graphed: `evals` the rows that run the whole network, and under a
+    feature-reuse plan `shallow_evals` the rows that reuse the deep
+    blocks' cache, each its table's rows times the calls returned."""
+
+    def __init__(self, fn: Callable, deep_rows: int, shallow_rows: int):
+        self.fn = fn
+        self.deep_rows = deep_rows
+        self.shallow_rows = shallow_rows
+        self.evals = 0
+        self.shallow_evals = 0
+
+    def __call__(self, x_T: torch.Tensor, **model_kwargs) -> torch.Tensor:
+        x0 = self.fn(x_T, **model_kwargs)
+        self.evals += self.deep_rows
+        self.shallow_evals += self.shallow_rows
+        return x0
+
+
 @dataclass
 class SamplerEngine:
     """Sampling engine over one eps-network on one device.
@@ -383,13 +404,14 @@ class SamplerEngine:
         return model
 
     def build(self, spec: EngineSpec, jit: bool = True,
-              table: Optional[SolverTable] = None) -> Callable:
+              table: Optional[SolverTable] = None) -> CountedRun:
         """spec -> run(x_T, **model_kwargs) -> x0, the uniform sampler.
         `model_kwargs` (e.g. class_ids for a per-request-conditioned
         engine) reach the eps-net on every row. The step and its device
         table are built here, once. On the card with `jit`, a run is one
         CUDA graph replay of all its rows (`graphs.graph_run`); otherwise
-        it loops over the rows eagerly."""
+        it loops over the rows eagerly. `run.evals` (and
+        `run.shallow_evals`) count the evaluations its calls made."""
         spec = spec.resolve()
         tab = table if table is not None else self.compile(spec)
         cached = bool(spec.cache_block)
@@ -413,10 +435,11 @@ class SamplerEngine:
         def run(x_T, **model_kwargs):
             return rows(n_rows, x_T, model_kwargs)
 
-        if not graphs.graphed(jit, self.device):
-            return run
-        return graphs.graph_run(
-            run, lambda x_T, **kw: rows(1, x_T, kw), self.device)
+        n_deep = sum(deep) if cached else n_rows
+        if graphs.graphed(jit, self.device):
+            run = graphs.graph_run(
+                run, lambda x_T, **kw: rows(1, x_T, kw), self.device)
+        return CountedRun(run, n_deep, n_rows - n_deep)
 
     def build_step(self, spec: EngineSpec, jit: bool = True,
                    table: Optional[SolverTable] = None,

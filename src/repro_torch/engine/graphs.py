@@ -29,6 +29,11 @@ shared-memory limits, cuBLAS makes its handle), and those launches count
 as eager ones in `kernels.dispatch.LAUNCHES`; a replay adds what the
 capture recorded. A capture that fails raises with its cause: nothing here
 falls back to an eager run.
+
+While a `torch.profiler` records, the host's part of a replay is ranges on
+its timeline (`obs.trace.live`): ``engine.launch`` around every graph
+launch, and in `graph_run` ``engine.copy_in`` (the inputs into the static
+buffers) and ``engine.copy_out`` (the output's copy) around it.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..kernels import dispatch
+from ..obs import trace
 
 
 @contextlib.contextmanager
@@ -102,7 +108,8 @@ class Graph:
     def replay(self):
         """Run the graph on what its static buffers hold now; returns its
         static outputs, which the next replay overwrites."""
-        self.graph.replay()
+        with trace.live("engine.launch"):
+            self.graph.replay()
         dispatch.LAUNCHES.update(self.launches)
         return self.outputs
 
@@ -141,9 +148,12 @@ def graph_run(run: Callable, warmup: Callable,
                 lambda x, *kw: run(x, **dict(zip(names, kw))), static,
                 lambda x, *kw: warmup(x, **dict(zip(names, kw))))
         else:
-            for s, (_, t) in zip(g.inputs, args):
-                s.copy_(t)
-        return g.replay().clone()
+            with trace.live("engine.copy_in"):
+                for s, (_, t) in zip(g.inputs, args):
+                    s.copy_(t)
+        out = g.replay()
+        with trace.live("engine.copy_out"):
+            return out.clone()
 
     return replay
 

@@ -1,10 +1,11 @@
 """Serving observability (the port of `repro.obs`, DESIGN.md §15): tracing,
 metrics, quality probe.
 
-Layering: `trace` is stdlib-only, `metrics` adds numpy, `report` renders
-both; `probe` steps the engine only inside `build_reference_fn` (the
-reference runner), so importing the package never drags in the engine. The
-serving scheduler depends on this package — never the reverse.
+Layering: `trace` needs only torch's profiler flag and range type,
+`metrics` adds numpy, `report` renders both; `probe` steps the engine only
+inside `build_reference_fn` (the reference runner), so importing the
+package never drags in the engine. The serving scheduler and the engine's
+graphs depend on this package — never the reverse.
 """
 
 from .metrics import (METRICS_SCHEMA, MetricsRegistry, delta, parse_fullname,

@@ -1,21 +1,41 @@
 """Structured event tracer -> Chrome/Perfetto ``trace_event`` JSON (the
-port's copy of `repro.obs.trace`).
+port's copy of `repro.obs.trace`), and the live ranges the port's spans lay
+on the profiler's own timeline.
 
-Zero-dependency (stdlib only): the tracer is a bounded ring buffer of event
-records the serving hot path appends tuples into; all formatting happens at
-export time, so an *enabled* tracer costs one `deque.append` per event plus
-whatever timestamps the caller already took (the scheduler reuses the
-`perf_counter_ns` reads it takes for host-overhead accounting — tracing adds
-no extra clock calls on the tick path). A *disabled* tracer is simply absent:
-every call site is guarded by ``if tracer is not None``, so the off path is
-bit-identical to pre-instrumentation code (pinned in `tests/test_torch_obs.py`).
+A span is recorded once, at its site, into two sinks:
 
-Event model (DESIGN.md §15):
+* **the Chrome ring** (`Tracer`), when one is attached, under the
+  reference's names (``tick``, ``admission``, ``dispatch``, ``readback``,
+  ``emit``). The tracer is a bounded ring buffer of event records the
+  serving hot path appends tuples into; all formatting happens at export
+  time, so an *enabled* tracer costs one `deque.append` per event plus
+  whatever timestamps the caller already took (the scheduler reuses the
+  `perf_counter_ns` reads it takes for host-overhead accounting). Its
+  stamps are `time.perf_counter_ns` values.
+* **the profiler's timeline** (`live`), while a `torch.profiler` records:
+  a `_RecordFunctionFast` range under a prefixed name (the scheduler's
+  ``serve.tick``, ``serve.admission``, ``serve.dispatch``,
+  ``serve.readback``, ``serve.emit``; the engine's ``engine.copy_in``,
+  ``engine.launch``, ``engine.copy_out``). A live range is stamped by
+  kineto itself, on the clock of the device intervals and of the CUDA
+  runtime calls, so the spans lay over the device trace with no offset
+  between clocks estimated. It is a function-scope range: kineto does not
+  mirror it onto the device's timeline, as it does a user-scope
+  `record_function` range.
+
+With no tracer and no profiler a site does what it did before the spans
+existed: `live` reads one bool and hands back a shared no-op context (no
+clock read, no allocation), and every ring call site is guarded by
+``if tracer is not None``; latents, completions and the deterministic
+metrics slice are pinned equal in `tests/test_torch_obs.py`.
+
+Event model of the ring (DESIGN.md §15):
 
 * **Tick spans** — complete ("ph": "X") events on the scheduler thread
   track: ``tick`` encloses the per-phase children ``admission`` /
   ``dispatch`` / ``readback`` / ``emit``. Nesting is by timestamp
-  containment, exactly how chrome://tracing renders stacks.
+  containment, exactly how chrome://tracing renders stacks; the profiler's
+  ``serve.*`` ranges nest the same way.
 * **Request lifecycle spans** — async events keyed by rid: "b" at submit,
   "n" instants at admit / segment boundaries, "e" at emission, carrying the
   request's tier, eval_cost, evals, and latency in the args.
@@ -31,10 +51,14 @@ is the reference's, so a trace reads the same from either package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from collections import deque
 from typing import Dict, List, Optional
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 # record layouts appended into the ring (tuples keep the hot-path append
 # cheap; export expands them into trace_event dicts):
@@ -43,6 +67,23 @@ from typing import Dict, List, Optional
 #   ("C", name, ts_ns, values)
 #   ("b"|"n"|"e", name, cat, id, ts_ns, args)
 _ASYNC_PHASES = ("b", "n", "e")
+
+_OFF = contextlib.nullcontext()    # shared: the off path allocates nothing
+
+
+def profiling() -> bool:
+    """Whether a `torch.profiler` records now: one read of the flag torch
+    sets while one does."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def live(name: str):
+    """A range named `name` on the profiler's own timeline while a
+    `torch.profiler` records, entered and left with ``with``; otherwise a
+    shared no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 class Tracer:

@@ -49,6 +49,13 @@ Idle slots park on row 0 (an identity update), so the batch shape — and
 the captured graphs — never change. `gang=True` degrades admission to
 sequential full-batch serving (admit only when every slot is free): the
 baseline continuous batching is compared with.
+
+While a `torch.profiler` records, a tick lays its phases on the profiler's
+timeline (`obs.trace.live`): ``serve.tick`` encloses ``serve.admission``,
+``serve.dispatch`` (the graph's ``engine.launch`` inside it) and, for a
+completing flight consumed in the tick, ``serve.readback`` (the event
+wait) and ``serve.emit``. The tick's self time is its bookkeeping. A
+`flush()` outside a tick books its readbacks and emits outside any tick.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ import torch
 from ..engine.compiler import DONE_NONFINITE
 from ..engine.engine import StepProgram
 from ..engine.graphs import readback_sync
+from ..obs import trace
 from ..obs.metrics import MetricsRegistry
 from .faults import FaultInjector, FaultPlan
 from .resilience import (DEFAULT_RESILIENCE, FAIL_NONFINITE,
@@ -235,6 +243,11 @@ class Completion:
     requeues: int = 0
     first_tier: Optional[str] = None
     fail_reason: Optional[str] = None
+    # service on the wall clock, with a tracer attached (None without one):
+    # the perf_counter_ns stamps of the request's last admission and of its
+    # emission, those of its "admit" and "e" trace events
+    admit_ns: Optional[int] = field(default=None, compare=False)
+    emit_ns: Optional[int] = field(default=None, compare=False)
 
     @property
     def latency_ticks(self) -> float:
@@ -263,6 +276,7 @@ class _Flight:
     admits: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     budgets: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     offs: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
+    admit_ns: Optional[np.ndarray] = None   # with a tracer attached
 
 
 class SlotScheduler:
@@ -276,11 +290,14 @@ class SlotScheduler:
     every latent — is identical at every depth; the device done mask is
     verified against the prediction at consumption time.
 
-    `tracer=` (an `obs.Tracer`) records tick spans and request lifecycles;
+    `tracer=` (an `obs.Tracer`) records tick spans and request lifecycles
+    into its ring, and stamps each `Completion`'s `admit_ns` / `emit_ns`;
     `probe=` (an `obs.QualityProbe`) replays a sampled fraction of the
     completions against its high-NFE reference. Both are opt-in: with None
     every call site is skipped and a tick does exactly what it does
-    without them.
+    without them. Independently of them, the tick's phases are ranges on a
+    recording `torch.profiler`'s timeline (the module docstring); with no
+    profiler recording, each such site reads one bool.
     """
 
     def __init__(self, program: StepProgram, slots: int,
@@ -322,6 +339,7 @@ class SlotScheduler:
         self._busy = np.zeros(slots, bool)
         self.slot_row = np.zeros(slots, np.int64)    # next row (tier-relative)
         self.slot_admit = np.zeros(slots, np.int64)
+        self.slot_admit_ns = np.zeros(slots, np.int64)  # with a tracer
         # plan-bank bookkeeping: each slot's row span in the stacked table.
         # Single-plan programs keep offset 0 / budget n_rows for every slot.
         self.slot_off = np.zeros(slots, np.int64)
@@ -605,12 +623,14 @@ class SlotScheduler:
         if self.tracer is not None:
             # the admit instant opens the request's step segment: rows
             # [offset, offset + budget) execute over the next `budget` ticks
+            now = time.perf_counter_ns()
+            self.slot_admit_ns[taken] = now
             for j, r in enumerate(reqs):
                 self.tracer.async_instant(
                     "admit", r.rid,
                     args={"slot": int(taken[j]), "tick": self.ticks,
                           "offset": int(offs[j]), "budget": int(budgets[j]),
-                          "tier": r.tier})
+                          "tier": r.tier}, ts_ns=now)
         # full-width masked update buffers, written in numpy into one pinned
         # staging buffer, sent in one copy and folded into the device state
         # by one fixed-shape apply. The buffer is a fresh one from torch's
@@ -652,11 +672,22 @@ class SlotScheduler:
 
         At pipeline_depth=1 the returned completions are this tick's; at
         depth N they are the completions of the tick dispatched N-1 ticks
-        ago (its readback has had N-1 device ticks to land)."""
+        ago (its readback has had N-1 device ticks to land).
+
+        A recording profiler gets a ``serve.tick`` range for a call with a
+        busy slot or a queued request: every executed tick, and a call
+        whose queue held only requests that expire at admission."""
+        if not (trace.profiling() and (self.queue or self._busy.any())):
+            return self._tick()
+        with trace.live("serve.tick"):
+            return self._tick()
+
+    def _tick(self) -> List[Completion]:
         t0 = time.perf_counter_ns()
         b0 = self._blocked_ns
         p0 = self._probe_ns
-        self._admit()
+        with trace.live("serve.admission"):
+            self._admit()
         a1 = time.perf_counter_ns()
         adm_ns = a1 - t0
         self._admission_ns += adm_ns
@@ -687,8 +718,9 @@ class SlotScheduler:
         # (StepProgram.step_flight); nothing tick-varying crosses from the
         # host here
         d0 = time.perf_counter_ns()
-        self.state, self.meta, mask = self._flight(
-            self.state, self.meta, *self._step_tail(), **kw)
+        with trace.live("serve.dispatch"):
+            self.state, self.meta, mask = self._flight(
+                self.state, self.meta, *self._step_tail(), **kw)
         d1 = time.perf_counter_ns()
         flight = _Flight(
             tick=self.ticks,
@@ -704,6 +736,8 @@ class SlotScheduler:
             flight.admits = self.slot_admit[slots_done].copy()
             flight.budgets = self.slot_budget[slots_done].copy()
             flight.offs = self.slot_off[slots_done].copy()
+            if self.tracer is not None:
+                flight.admit_ns = self.slot_admit_ns[slots_done].copy()
             # the trailing readback stream: the done mask and ONE padded
             # gather of the finished slots' latents, copied to this flight's
             # host buffers without blocking, then its event. They are queued
@@ -805,11 +839,32 @@ class SlotScheduler:
         if not f.slots.size:
             return []
         tb = time.perf_counter_ns()
-        self._land(f)
-        mask_np = f.mask.numpy().copy()
-        lat_np = f.lat.numpy()[:f.slots.size].copy()
+        with trace.live("serve.readback"):
+            self._land(f)
+            mask_np = f.mask.numpy().copy()
+            lat_np = f.lat.numpy()[:f.slots.size].copy()
         te = time.perf_counter_ns()
         self._blocked_ns += te - tb
+        with trace.live("serve.emit"):
+            emitted = self._emit(f, mask_np, lat_np, tb, te)
+        if self.probe is not None:
+            # replay a sampled fraction against the high-NFE reference; the
+            # replay is device work, not scheduler bookkeeping — timed apart
+            # so it never pollutes the per-phase host accounting. Failed
+            # completions are never probed (their latent is non-finite).
+            pp0 = time.perf_counter_ns()
+            for req, c in emitted:
+                if c.ok and self.probe.selected(c.rid):
+                    self.probe.observe(req, c, self._draw(req))
+            self._probe_ns += time.perf_counter_ns() - pp0
+        return [c for _, c in emitted]
+
+    def _emit(self, f: _Flight, mask_np: np.ndarray, lat_np: np.ndarray,
+              tb: int, te: int) -> List[Tuple[Request, Completion]]:
+        """A landed flight's completions, with the requests they serve:
+        the done mask checked against the prediction (a desync recovers
+        and emits nothing), failed latents retried, the rest recorded in
+        the completions, the registry and the tracer."""
         got = np.flatnonzero(mask_np)
         if not np.array_equal(got, f.slots):
             if self.resilience.recovery == "raise":
@@ -845,7 +900,9 @@ class SlotScheduler:
                 retries=int(prov.get("retries", 0)),
                 requeues=int(prov.get("requeues", 0)),
                 first_tier=prov.get("first_tier"),
-                fail_reason=FAIL_NONFINITE if bad[j] else None)
+                fail_reason=FAIL_NONFINITE if bad[j] else None,
+                admit_ns=(int(f.admit_ns[j]) if f.admit_ns is not None
+                          else None))
             if not c.ok:
                 self.events.append(("failed", f.tick, c.rid))
                 self._count_event("serve_failed")
@@ -870,7 +927,9 @@ class SlotScheduler:
                               lbl, help="per-tier request latency in "
                                         "ticks").observe(c.latency_ticks)
         if self.tracer is not None:
+            now = time.perf_counter_ns()
             for c in done:
+                c.emit_ns = now
                 args = {"tier": c.tier, "evals": c.evals,
                         "eval_cost": c.eval_cost,
                         "latency_ticks": c.latency_ticks,
@@ -880,20 +939,10 @@ class SlotScheduler:
                     args.update(ok=c.ok, retries=c.retries,
                                 requeues=c.requeues,
                                 fail_reason=c.fail_reason)
-                self.tracer.async_end("request", c.rid, args=args)
+                self.tracer.async_end("request", c.rid, args=args, ts_ns=now)
             self.tracer.complete("readback", tb, te)
             self.tracer.complete("emit", te, time.perf_counter_ns())
-        if self.probe is not None:
-            # replay a sampled fraction against the high-NFE reference; the
-            # replay is device work, not scheduler bookkeeping — timed apart
-            # so it never pollutes the per-phase host accounting. Failed
-            # completions are never probed (their latent is non-finite).
-            pp0 = time.perf_counter_ns()
-            for req, c in emitted:
-                if c.ok and self.probe.selected(c.rid):
-                    self.probe.observe(req, c, self._draw(req))
-            self._probe_ns += time.perf_counter_ns() - pp0
-        return done
+        return emitted
 
     def _retry(self, req: Request, f: _Flight, prov: dict) -> None:
         """Re-admit a request whose finished latent failed validation:

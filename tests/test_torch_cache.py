@@ -218,6 +218,23 @@ def test_cached_engine_all_full_is_bitwise_the_uncached_engine(pair):
     assert torch.equal(runs[0][-1][0], ref)
 
 
+def test_cached_build_counts_full_and_shallow_evals_apart(pair):
+    """Under a reuse plan the run counts the rows that run the whole
+    network and the rows that reuse the cache apart, each a call as the
+    step program's reuse column has them."""
+    t_cfg, tp, _, _ = pair
+    cached = t_engine_cached(t_cfg, tp)
+    cspec = TSpec(solver="unipc", nfe=4, order=2, cache_block=1)
+    tab = cached.compile(cspec, table=cached_plan(4).compile(TVP()))
+    run = cached.build(cspec, table=tab)
+    x_T = torch.as_tensor(_x(t_cfg))
+    for _ in range(2):
+        run(x_T)
+    reuse = cached.build_step(cspec, table=tab).row_reuse
+    assert int(reuse.sum()) == 3 and len(reuse) == 5
+    assert (run.evals, run.shallow_evals) == (2 * 2, 2 * 3)
+
+
 def test_cached_build_matches_reference_with_shallow_steps(pair):
     """A plan with shallow steps: finite, off the uncached run, and within
     1e-5 (relative) of the reference's cached build."""

@@ -17,7 +17,14 @@ and probe call sites, `launch.serve`'s observability flags and
   as (name, ph, id), the same probed rids with discrepancies within 1e-5
   relative, and `obsreport --check` passing on the port's artifact;
 * tracing and probing change nothing: traced against untraced latents
-  bit-equal at depths 1 and 2;
+  bit-equal at depths 1 and 2, and so are runs under a recording
+  `torch.profiler`; a traced completion's service stamps are its trace
+  events' stamps;
+* the profiler's sink: a tick's phases are `serve.*` ranges on the
+  profiler's timeline, nested as the ring's spans and in their order, and
+  `live` is a shared no-op without a profiler;
+* `SamplerEngine.build`'s run counts its evals, eager here and graphed on
+  the card, where `graph_run`'s ranges land on the profiler's timeline;
 * `build_reference_fn`'s x_ref within 1e-5 of the reference's.
 """
 
@@ -28,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.configs.registry import get_config as j_get_config
 from repro.diffusion import VPLinear as JVP
@@ -242,12 +250,21 @@ def _reqs(n=7):
             for i, a in enumerate(arrivals)]
 
 
+def _profiled(fn):
+    """fn() under a recording CPU profiler: (its result, kineto's events)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof.profiler.kineto_results.events()
+
+
 @pytest.mark.parametrize("depth", [1, 2])
 def test_tracer_and_probe_change_nothing_on_the_scheduler(depth):
-    """Tracing and probing are observation only: latents, completion
-    records and the deterministic metrics slice (bar the probe's own
-    series) EQUAL to the untraced run; the trace validates, with a tick
-    span per executed tick and one balanced span per request."""
+    """Tracing, probing and a recording profiler are observation only:
+    latents, completion records and the deterministic metrics slice (bar
+    the probe's own series) EQUAL to the untraced run; the trace
+    validates, with a tick span per executed tick and one balanced span
+    per request; a traced completion's service stamps are its "admit" and
+    "e" events' stamps, an untraced one has none."""
     program = t_engine().build_step(TSpec(nfe=4, order=3))
 
     def run(**kw):
@@ -260,14 +277,29 @@ def test_tracer_and_probe_change_nothing_on_the_scheduler(depth):
     probe = QualityProbe(lambda x, g=None, extras=None: np.asarray(x),
                          fraction=0.5)
     traced, m1 = run(tracer=tr, probe=probe)
-    assert ([(c.rid, c.admit_tick, c.finish_tick) for c in plain.completions]
-            == [(c.rid, c.admit_tick, c.finish_tick)
-                for c in traced.completions])
-    for a, b in zip(plain.completions, traced.completions):
-        np.testing.assert_array_equal(a.latent, b.latent)
+    (profiled, m2), _ = _profiled(run)
+    for other in (traced, profiled):
+        assert ([(c.rid, c.admit_tick, c.finish_tick)
+                 for c in plain.completions]
+                == [(c.rid, c.admit_tick, c.finish_tick)
+                    for c in other.completions])
+        for a, b in zip(plain.completions, other.completions):
+            np.testing.assert_array_equal(a.latent, b.latent)
+    assert m2.ticks == m0.ticks
+    assert plain.registry.snapshot(deterministic_only=True) == \
+        profiled.registry.snapshot(deterministic_only=True)
     det = traced.registry.snapshot(deterministic_only=True)
     assert plain.registry.snapshot(deterministic_only=True) == {
         k: v for k, v in det.items() if not k.startswith("probe_")}
+    assert all(c.admit_ns is None and c.emit_ns is None
+               for c in plain.completions + profiled.completions)
+    ring = tr.to_json()["traceEvents"]
+    for c in traced.completions:
+        admit = [e["ts"] for e in ring if e["name"] == "admit"
+                 and e["id"] == c.rid]
+        end = [e["ts"] for e in ring if e["ph"] == "e" and e["id"] == c.rid]
+        assert c.admit_ns < c.emit_ns
+        assert tr._us(c.admit_ns) == admit[-1] and tr._us(c.emit_ns) == end[0]
     assert probe.results and traced._probe_ns > 0
     obj = json.loads(json.dumps(tr.to_json()))
     assert validate_trace(obj) == []
@@ -278,6 +310,36 @@ def test_tracer_and_probe_change_nothing_on_the_scheduler(depth):
     ends = sum(1 for e in obj["traceEvents"] if e["ph"] == "e")
     probes = [e for e in obj["traceEvents"] if e["name"] == "probe"]
     assert begins == ends == 7 and len(probes) == len(probe.results)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_profiler_gets_the_ticks_phases_nested_as_the_ring(depth):
+    """Under a recording profiler a traced scheduler lays one `serve.tick`
+    range per executed tick on the profiler's timeline, each admission and
+    dispatch inside one, and its `serve.*` ranges are the ring's spans
+    renamed, in the same order; with no profiler `live` hands back one
+    shared no-op context."""
+    program = t_engine().build_step(TSpec(nfe=4, order=3))
+    tr = Tracer()
+    sched = tsv.SlotScheduler(program, 3, (D,), pipeline_depth=depth,
+                              tracer=tr)
+    assert not t_trace.profiling()
+    assert t_trace.live("serve.tick") is t_trace.live("engine.launch")
+    (m, inside), events = _profiled(
+        lambda: (tsv.run_trace(sched, _reqs()),
+                 (t_trace.profiling(), t_trace.live("serve.tick"))))
+    assert inside[0] and inside[1] is not t_trace.live("serve.tick")
+    spans = sorted((e.start_ns(), -e.end_ns(), e.name()) for e in events
+                   if e.name().startswith("serve."))
+    ticks = [(s, -ne) for s, ne, n in spans if n == "serve.tick"]
+    assert len(ticks) == m.ticks == sched.ticks > 0
+    for s, ne, n in spans:
+        if n in ("serve.admission", "serve.dispatch"):
+            assert sum(a <= s and -ne <= b for a, b in ticks) == 1, n
+    ring = sorted((e["ts"], -e["dur"], e["name"])
+                  for e in tr.to_json()["traceEvents"] if e["ph"] == "X")
+    assert [n for _, _, n in spans] == [f"serve.{n}" for _, _, n in ring]
+    assert {"serve.readback", "serve.emit"} <= {n for _, _, n in spans}
 
 
 def test_tracer_records_resilience_events_as_the_reference():
@@ -523,6 +585,22 @@ def test_serve_cli_takes_the_observability_flags(tmp_path, capsys):
                                 device="cpu")
 
 
+@pytest.mark.parametrize("cfg", [False, True])
+def test_build_counts_its_evals(cfg):
+    """`SamplerEngine.build`'s run counts the table's rows a call, every
+    call (a guided row is one stacked eval), and nothing shallow without a
+    reuse plan."""
+    eng = t_engine(cfg=cfg)
+    spec = TSpec(nfe=4, order=3, cfg_scale=2.0 if cfg else 0.0)
+    run = eng.build(spec, jit=False)
+    rows = eng.build_step(spec).n_rows
+    assert (run.evals, run.shallow_evals) == (0, 0)
+    x = torch.as_tensor(np.stack([_x_T(0), _x_T(1)]))
+    outs = [run(x) for _ in range(3)]
+    assert rows == 5 and run.evals == 3 * rows and run.shallow_evals == 0
+    np.testing.assert_array_equal(outs[0], eng.build(spec, jit=False)(x))
+
+
 # ---------------------------------------------------------------------------
 # the card
 # ---------------------------------------------------------------------------
@@ -565,3 +643,30 @@ def test_card_reference_fn_captures_once_and_syncs_only_to_read_back(cuda,
     assert not np.array_equal(first, other) and np.isfinite(other).all()
     with readback_sync(cuda):
         assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.gpu
+def test_card_graph_run_counts_its_evals_and_lays_its_ranges(cuda):
+    """A graphed run counts its rows a call as the eager one does, and
+    under a recording profiler each later call is an `engine.copy_in`, an
+    `engine.launch` (the graph's one `cudaGraphLaunch` inside it) and an
+    `engine.copy_out` on the profiler's timeline."""
+    eng = t_engine(device=cuda)
+    spec = TSpec(nfe=4, order=3)
+    run = eng.build(spec)
+    x = torch.as_tensor(np.stack([_x_T(0), _x_T(1)])).to(cuda)
+    first = run(x)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = run(x)
+        torch.cuda.synchronize()
+    assert run.evals == 2 * eng.build_step(spec).n_rows
+    torch.testing.assert_close(first, again, rtol=0, atol=0)
+    events = prof.profiler.kineto_results.events()
+    names = [e.name() for e in sorted(events, key=lambda e: e.start_ns())
+             if e.name().startswith("engine.")]
+    assert names == ["engine.copy_in", "engine.launch", "engine.copy_out"]
+    launch = [(e.start_ns(), e.end_ns()) for e in events
+              if e.name() == "engine.launch"][0]
+    calls = [e.start_ns() for e in events if e.name() == "cudaGraphLaunch"]
+    assert len(calls) == 1 and launch[0] <= calls[0] <= launch[1]
