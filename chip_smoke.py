@@ -1203,6 +1203,27 @@ def expected_launches(cfg, rows: int, quantized: bool = False) -> dict:
     return out
 
 
+def run_launches(one_row: dict, rows: int, tail: bool = True) -> dict:
+    """Launches of `SamplerEngine.build`'s run over a table of `rows` rows
+    of `one_row`'s launches each: where the last row's corrector is off
+    (`tail`, `core.unipc.tail_elided` of the table) the run ends on that
+    row's predictor, one `unipc_update` and no eval."""
+    if not tail:
+        return {k: v * rows for k, v in one_row.items()}
+    out = {k: v * (rows - 1) for k, v in one_row.items()}
+    out["unipc_update"] += 1
+    return out
+
+
+def table_tail(tab) -> bool:
+    """Whether a build run of the compiled table `tab` ends on its last
+    row's predictor."""
+    from repro_torch.core.coeffs import augment_step_rows
+    from repro_torch.core.unipc import tail_elided
+
+    return tail_elided(augment_step_rows(tab))
+
+
 # substrings of device kernel names, by what runs them on the main path
 KERNEL_KINDS = (
     ("port kernels", ("modulate_kernel", "gate_kernel", "attn_", "qmm_",
@@ -1401,8 +1422,8 @@ def main_path_phase(dev, counts_out: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     x_T = torch.randn(latent_shape(cfg, batch), generator=gen, device=dev)
     spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale)
-    expected = expected_launches(cfg, rows)
     warm = expected_launches(cfg, 1)
+    expected = run_launches(warm, rows)
 
     # every op pinned to its plain version, same params and x_T, eager
     engine = build_engine(plain_pinned(cfg), params, VPLinear(), batch,
@@ -1811,8 +1832,8 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)   # phase 4's x_T
     x_T = torch.randn(latent_shape(cfg, batch), generator=gen, device=dev)
     spec = EngineSpec(nfe=nfe, order=order, cfg_scale=g_scale, quant="w8a16")
-    expected = expected_launches(cfg, rows, quantized=True)
     warm = expected_launches(cfg, 1, quantized=True)
+    expected = run_launches(warm, rows)
 
     def plain_run(cfg_q, params_q, tier, x):
         """The plain-pinned uniform run of a tier; `cfg_q` may carry the
@@ -1906,8 +1927,9 @@ def quant_path_phase(dev, counts_out: dict, x_unquantized) -> dict:
         torch.cuda.synchronize()
         n_qmm = LAUNCHES["quant_matmul"]
         # one eager warm-up row before the capture, then the replay
-        want = expected_launches(cfg4, rows + 1, quantized=True)[
-            "quant_matmul"]
+        one = expected_launches(cfg4, 1, quantized=True)
+        want = (one["quant_matmul"]
+                + run_launches(one, rows)["quant_matmul"])
         qcfg, qparams, _ = api.calibrate_and_quantize(cfg4, params4, tier,
                                                       schedule=VPLinear())
         xp = plain_run(qcfg, qparams, tier, x_T)
@@ -2088,7 +2110,8 @@ def zoo_phase(dev) -> dict:
         tab = engine.compile(spec)
         rows = len(tab.timesteps)
         tables.append(zoo_row_cases(dev, tab, label))
-        expected = expected_launches(cfg, rows)
+        expected = run_launches(expected_launches(cfg, 1), rows,
+                                table_tail(tab))
         counts: dict = {}
         free_graphs()
         g = graph_checks(label, engine, spec, x_T, expected, counts)
@@ -2157,10 +2180,10 @@ def zoo_phase(dev) -> dict:
 
     # the entry point with a zoo solver: its graph's first call, counted
     spec = EngineSpec(solver="dpmpp", order=3, nfe=nfe, cfg_scale=g_scale)
-    rows = len(engine.compile(spec).timesteps)
-    want = {k: a + b for (k, a), b in zip(
-        expected_launches(cfg, rows).items(),
-        expected_launches(cfg, 1).values())}
+    tab = engine.compile(spec)
+    one = expected_launches(cfg, 1)
+    want = {k: v + one[k] for k, v in run_launches(
+        one, len(tab.timesteps), table_tail(tab)).items()}
     LAUNCHES.clear()
     x0 = sample("dit-i256", reduced=False, solver="dpmpp", order=3, nfe=nfe,
                 cfg_scale=g_scale, batch=batch, params=params, x_T=x_T,
@@ -2990,13 +3013,15 @@ def tuner_part(dev, cfg, params, counts_out: dict) -> dict:
     got = sample("dit-i256", reduced=False, batch=batch, plan=str(path),
                  params=params, x_T=x_T, device=dev)
     counts_out["sample_plan"] = dict(LAUNCHES)
-    want = engine.build(spec, table=engine.compile(
-        spec, table=SolverPlan.load(str(path)).compile(sched)))(
-            x_T).cpu().numpy()
+    tab = engine.compile(spec, table=SolverPlan.load(str(path)).compile(
+        sched))
+    want = engine.build(spec, table=tab)(x_T).cpu().numpy()
     same = np.array_equal(got, want)
     # on the card the first call runs one eager warm-up row, then the
-    # capture's replay of every row
-    want_counts = row_launches(L, rows + (dev.type == "cuda"))
+    # capture's replay of the run
+    one = row_launches(L, 1)
+    want_counts = {k: v + one[k] * (dev.type == "cuda") for k, v in
+                   run_launches(one, rows, table_tail(tab)).items()}
     print(f"  sample(plan=) (d): launches "
           f"{dict(sorted(counts_out['sample_plan'].items()))} (expected "
           f"{want_counts}: a warm-up row and the replay), latents bit-equal "
@@ -3821,8 +3846,8 @@ def token_sample_part(dev, counts_out: dict, arch: str = TOKEN_ARCH) -> dict:
     x_T = diffusion_lm_inputs(cfg, params, B, dev)
     spec = EngineSpec(nfe=nfe, order=order)
     L = attention_launches(cfg)
-    expected = nonzero({"flash_attention": L * rows, "unipc_update": 2 * rows})
     warm = nonzero({"flash_attention": L, "unipc_update": 2})
+    expected = run_launches(warm, rows)
     free_graphs()
     LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -4557,7 +4582,7 @@ def checkpoint_part(dev, params) -> dict:
     cfg = get_config("dit-i256")
     nfe, order, g_scale, batch = 10, 3, 2.0, 8
     rows = nfe + 1
-    expected = expected_launches(cfg, rows)
+    expected = run_launches(expected_launches(cfg, 1), rows)
     # on the card sample()'s first call runs one eager warm-up row more
     warm = expected_launches(cfg, int(dev.type == "cuda"))
     free_graphs()
@@ -5142,8 +5167,8 @@ def token_checkpoint_part(dev, params, arch: str = TOKEN_ARCH,
     nfe, order, batch = (TOKEN_CKPT_SAMPLE[k] for k in ("nfe", "order",
                                                         "batch"))
     rows, L = nfe + 1, attention_launches(cfg)
-    want = nonzero({"flash_attention": L * (rows + 1),
-                    "unipc_update": 2 * (rows + 1)})
+    one = nonzero({"flash_attention": L, "unipc_update": 2})
+    want = {k: v + one[k] for k, v in run_launches(one, rows).items()}
     free_graphs()
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
@@ -5384,8 +5409,8 @@ def cond_sample_part(dev, counts_out: dict, arch: str, layers=None) -> dict:
     cond = {k: torch.from_numpy(v).to(dev)
             for k, v in frontend_embeds(cfg, B, 1).items()}
     spec = EngineSpec(nfe=nfe, order=order)
-    expected = {"flash_attention": attention_launches(cfg) * rows,
-                "unipc_update": 2 * rows}
+    expected = run_launches({"flash_attention": attention_launches(cfg),
+                             "unipc_update": 2}, rows)
     free_graphs()
     engine = lm_engine(cfg, params, B, dev, cond)
     g = graph_checks(f"{arch} diffusion LM", engine, spec, x_T, expected,

@@ -169,11 +169,36 @@ def unipc_step_fn(model_fn: Callable, sched: UniPCSchedule, *, device,
     """(step, n_rows) over `coeffs.augment_step_rows(sched)` — the init row
     (identity transfer, eval at timesteps[0]) then the M body rows. See
     `step_fn_over_rows` for the step's contract."""
+    step, _, n_rows = unipc_run_fns(model_fn, sched, device=device,
+                                    fused_update=fused_update, dtype=dtype,
+                                    cached=cached)
+    return step, n_rows
+
+
+def unipc_run_fns(model_fn: Callable, sched: UniPCSchedule, *, device,
+                  fused_update: bool = True, dtype=torch.float32,
+                  cached: bool = False):
+    """(step, tail, n_rows): `unipc_step_fn`'s step and, over the same
+    device table, `tail((x, E, ...), idx) -> x_pred`, the last row's
+    predictor alone, for a run that ends there (`run_rows(..., tail=...)`):
+    the same row op on the same packed row as the step's, so the run's
+    output is bit-equal to stepping every row, with one eval fewer. `tail`
+    is None where the last row corrects (`tail_elided`)."""
     rows_np = augment_step_rows(sched)
-    step = step_fn_over_rows(model_fn, rows_on(rows_np, device, dtype),
-                             sign=sched.sign, fused_update=fused_update,
-                             cached=cached)
-    return step, len(rows_np["t"])
+    rows, model_cols, col_keys = pack_step_rows(rows_on(rows_np, device,
+                                                        dtype))
+    step = step_fn_over_packed(model_fn, rows, model_cols, col_keys,
+                               sign=sched.sign, fused_update=fused_update,
+                               cached=cached)
+    if not tail_elided(rows_np):
+        return step, None, len(rows_np["t"])
+    backend = None if fused_update else "plain"
+
+    def tail(carry, idx):
+        return row_ops.unipc_row_predict(carry[0], carry[1], rows, idx,
+                                         sched.sign, backend=backend)
+
+    return step, tail, len(rows_np["t"])
 
 
 def deep_rows(rows_np: dict) -> list:
@@ -186,6 +211,14 @@ def deep_rows(rows_np: dict) -> list:
     if reuse is None:
         return [True] * n
     return [bool(r <= 0.5) for r in np.asarray(reuse, np.float64)]
+
+
+def tail_elided(rows_np: dict) -> bool:
+    """Whether a whole-trajectory run of an augmented row dict may end on
+    its last row's predictor: that row's corrector is off (no
+    `corrector_at_last`), so its output is x_pred + 0 * (x_corr - x_pred)
+    and its eval feeds only the ring, which no later row reads."""
+    return float(rows_np["use_c"][-1]) == 0.0
 
 
 def pack_step_rows(tab: dict) -> tuple:
@@ -269,20 +302,24 @@ def step_fn_over_packed(model_fn: Callable, rows: torch.Tensor,
 
 def run_rows(step: Callable, n_rows: int, x_T: torch.Tensor, *, ring: int,
              dtype=torch.float32, model_kwargs=None, cache0=None,
-             deep=None) -> torch.Tensor:
+             deep=None, tail=None) -> torch.Tensor:
     """Rows 0..n_rows-1 of `step` from x_T over a zeroed eval ring of `ring`
     slots; returns the final state. Row j's index is a 0-d view of one
     device arange, so no row copies an index from the host. `cache0` is the
     zeroed deep-feature cache of a cached step (it rides the carry), and
-    `deep` its per-row host flags (`deep_rows`; None = every row deep)."""
+    `deep` its per-row host flags (`deep_rows`; None = every row deep).
+    `tail` (`unipc_run_fns`) takes the last row's place: the run returns
+    that row's predictor and evaluates nothing there."""
     row_ids = torch.arange(n_rows, device=x_T.device)
     carry = (x_T.to(dtype),
              torch.zeros((ring,) + tuple(x_T.shape), dtype=dtype,
                          device=x_T.device))
     carry += (cache0,) if cache0 is not None else ()
-    for j in range(n_rows):
+    for j in range(n_rows - (tail is not None)):
         carry = step(carry, row_ids[j], model_kwargs,
                      deep=True if deep is None else deep[j])
+    if tail is not None:
+        return tail(carry, row_ids[n_rows - 1])
     return carry[0]
 
 

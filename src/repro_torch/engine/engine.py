@@ -40,7 +40,7 @@ import torch
 from ..core.coeffs import (SolverTable, augment_step_rows, eval_cost_rows,
                            stack_step_rows)
 from ..core.unipc import (deep_rows, rows_on, run_rows, step_fn_over_rows,
-                          unipc_step_fn)
+                          unipc_run_fns)
 from ..diffusion.guidance import cfg_model, cfg_model_fused, dynamic_threshold
 from ..diffusion.process import eps_to_x0
 from ..diffusion.schedules import NoiseSchedule
@@ -241,19 +241,26 @@ class CountedRun:
     x0`, with a count of the eps-net evaluations its calls have made, eager
     or graphed: `evals` the rows that run the whole network, and under a
     feature-reuse plan `shallow_evals` the rows that reuse the deep
-    blocks' cache, each its table's rows times the calls returned."""
+    blocks' cache, each the rows a call evaluates times the calls returned;
+    `elided_evals` the last rows a call ends on their predictor alone
+    (`core.unipc.unipc_run_fns`), one a call where the table's last
+    corrector is off."""
 
-    def __init__(self, fn: Callable, deep_rows: int, shallow_rows: int):
+    def __init__(self, fn: Callable, deep_rows: int, shallow_rows: int,
+                 elided_rows: int):
         self.fn = fn
         self.deep_rows = deep_rows
         self.shallow_rows = shallow_rows
+        self.elided_rows = elided_rows
         self.evals = 0
         self.shallow_evals = 0
+        self.elided_evals = 0
 
     def __call__(self, x_T: torch.Tensor, **model_kwargs) -> torch.Tensor:
         x0 = self.fn(x_T, **model_kwargs)
         self.evals += self.deep_rows
         self.shallow_evals += self.shallow_rows
+        self.elided_evals += self.elided_rows
         return x0
 
 
@@ -410,15 +417,18 @@ class SamplerEngine:
         engine) reach the eps-net on every row. The step and its device
         table are built here, once. On the card with `jit`, a run is one
         CUDA graph replay of all its rows (`graphs.graph_run`); otherwise
-        it loops over the rows eagerly. `run.evals` (and
-        `run.shallow_evals`) count the evaluations its calls made."""
+        it loops over the rows eagerly. Where the table's last corrector is
+        off, a run ends on that row's predictor and skips its eval, whose
+        result nothing reads: the same output, one eval fewer. `run.evals`
+        (and `run.shallow_evals`, `run.elided_evals`) count the
+        evaluations its calls made (and skipped)."""
         spec = spec.resolve()
         tab = table if table is not None else self.compile(spec)
         cached = bool(spec.cache_block)
-        step, n_rows = unipc_step_fn(self.model_fn(spec, tab), tab,
-                                     device=self.device,
-                                     fused_update=spec.fused_update,
-                                     cached=cached)
+        step, tail, n_rows = unipc_run_fns(self.model_fn(spec, tab), tab,
+                                           device=self.device,
+                                           fused_update=spec.fused_update,
+                                           cached=cached)
         ring = tab.w_pred.shape[1] + 1
         # a cached run carries its cache from a zeroed one; each row holds
         # the deep blocks only where the table's reuse column says a full
@@ -429,17 +439,22 @@ class SamplerEngine:
         def rows(n, x_T, kw):
             cache0 = (cache_spec.zeros(x_T.shape[0], x_T.device) if cached
                       else None)
+            # only a call over the whole table ends on the tail: the
+            # graph's one-row warm-up evaluates, so it loads every kernel
             return run_rows(step, n, x_T, ring=ring, model_kwargs=kw or None,
-                            cache0=cache0, deep=deep)
+                            cache0=cache0, deep=deep,
+                            tail=tail if n == n_rows else None)
 
         def run(x_T, **model_kwargs):
             return rows(n_rows, x_T, model_kwargs)
 
-        n_deep = sum(deep) if cached else n_rows
+        elided = int(tail is not None)
+        evaluated = (deep if cached else [True] * n_rows)[:n_rows - elided]
         if graphs.graphed(jit, self.device):
             run = graphs.graph_run(
                 run, lambda x_T, **kw: rows(1, x_T, kw), self.device)
-        return CountedRun(run, n_deep, n_rows - n_deep)
+        return CountedRun(run, sum(evaluated),
+                          len(evaluated) - sum(evaluated), elided)
 
     def build_step(self, spec: EngineSpec, jit: bool = True,
                    table: Optional[SolverTable] = None,

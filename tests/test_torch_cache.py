@@ -221,7 +221,8 @@ def test_cached_engine_all_full_is_bitwise_the_uncached_engine(pair):
 def test_cached_build_counts_full_and_shallow_evals_apart(pair):
     """Under a reuse plan the run counts the rows that run the whole
     network and the rows that reuse the cache apart, each a call as the
-    step program's reuse column has them."""
+    step program's reuse column has them, but the last row (shallow here),
+    which ends on its predictor."""
     t_cfg, tp, _, _ = pair
     cached = t_engine_cached(t_cfg, tp)
     cspec = TSpec(solver="unipc", nfe=4, order=2, cache_block=1)
@@ -232,7 +233,9 @@ def test_cached_build_counts_full_and_shallow_evals_apart(pair):
         run(x_T)
     reuse = cached.build_step(cspec, table=tab).row_reuse
     assert int(reuse.sum()) == 3 and len(reuse) == 5
-    assert (run.evals, run.shallow_evals) == (2 * 2, 2 * 3)
+    assert reuse[-1]
+    assert (run.evals, run.shallow_evals) == (2 * 2, 2 * (3 - 1))
+    assert run.elided_evals == 2
 
 
 def test_cached_build_matches_reference_with_shallow_steps(pair):

@@ -587,8 +587,9 @@ def test_serve_cli_takes_the_observability_flags(tmp_path, capsys):
 
 @pytest.mark.parametrize("cfg", [False, True])
 def test_build_counts_its_evals(cfg):
-    """`SamplerEngine.build`'s run counts the table's rows a call, every
-    call (a guided row is one stacked eval), and nothing shallow without a
+    """`SamplerEngine.build`'s run counts the table's rows but the last a
+    call, every call (a guided row is one stacked eval; the last row, its
+    corrector off, ends on its predictor), and nothing shallow without a
     reuse plan."""
     eng = t_engine(cfg=cfg)
     spec = TSpec(nfe=4, order=3, cfg_scale=2.0 if cfg else 0.0)
@@ -597,7 +598,8 @@ def test_build_counts_its_evals(cfg):
     assert (run.evals, run.shallow_evals) == (0, 0)
     x = torch.as_tensor(np.stack([_x_T(0), _x_T(1)]))
     outs = [run(x) for _ in range(3)]
-    assert rows == 5 and run.evals == 3 * rows and run.shallow_evals == 0
+    assert rows == 5 and run.evals == 3 * (rows - 1) and run.shallow_evals == 0
+    assert run.elided_evals == 3
     np.testing.assert_array_equal(outs[0], eng.build(spec, jit=False)(x))
 
 
@@ -647,7 +649,7 @@ def test_card_reference_fn_captures_once_and_syncs_only_to_read_back(cuda,
 
 @pytest.mark.gpu
 def test_card_graph_run_counts_its_evals_and_lays_its_ranges(cuda):
-    """A graphed run counts its rows a call as the eager one does, and
+    """A graphed run counts its evals a call as the eager one does, and
     under a recording profiler each later call is an `engine.copy_in`, an
     `engine.launch` (the graph's one `cudaGraphLaunch` inside it) and an
     `engine.copy_out` on the profiler's timeline."""
@@ -660,7 +662,8 @@ def test_card_graph_run_counts_its_evals_and_lays_its_ranges(cuda):
                              ProfilerActivity.CUDA]) as prof:
         again = run(x)
         torch.cuda.synchronize()
-    assert run.evals == 2 * eng.build_step(spec).n_rows
+    assert run.evals == 2 * (eng.build_step(spec).n_rows - 1)
+    assert run.elided_evals == 2
     torch.testing.assert_close(first, again, rtol=0, atol=0)
     events = prof.profiler.kineto_results.events()
     names = [e.name() for e in sorted(events, key=lambda e: e.start_ns())

@@ -487,7 +487,8 @@ def test_weights_kept_once_are_bit_equal_and_cast_nothing(monkeypatch):
     config's precision): build_engine's latents equal the per-use-cast
     form's bit for bit, its tree holds bf16 exactly where a cast was made at
     use (fp32, and the same tensors, elsewhere), and a run makes 8L + 4 fewer
-    casts an eval. (The card's exact launch counts are chip_smoke's.)"""
+    casts an eval, over the rows but the last (whose eval the run skips).
+    (The card's exact launch counts are chip_smoke's.)"""
     cfg = dataclasses.replace(t_get_config("dit-i256").reduced(),
                               dtype="bfloat16")
     params = t_api.params_from_numpy(
@@ -508,8 +509,8 @@ def test_weights_kept_once_are_bit_equal_and_cast_nothing(monkeypatch):
         m.setattr(t_api, "cast_weights_once", lambda cfg, p: p)
         per_use, n_per_use = run()
     assert torch.equal(once, per_use) and torch.isfinite(once).all()
-    rows = spec.nfe + 1
-    assert n_per_use - n_once == (8 * cfg.num_layers + 4) * rows
+    evals = spec.nfe            # the table's nfe + 1 rows but the last
+    assert n_per_use - n_once == (8 * cfg.num_layers + 4) * evals
 
     kept = t_api.cast_weights_once(cfg, params)["backbone"]
     bb = params["backbone"]
@@ -572,6 +573,95 @@ def test_thresholded_step_matches_reference():
     t_prog = t_engine().build_step(TSpec(**THRESH))
     j_prog = j_engine().build_step(JSpec(**THRESH), donate=False)
     _flight(t_prog, j_prog, cfg=True)
+
+
+# ---------------------------------------------------------------------------
+# the whole-trajectory run ends on the last row's predictor
+# ---------------------------------------------------------------------------
+
+
+def _counted(fn, calls):
+    def counted(*a, **kw):
+        calls.append(1)
+        return fn(*a, **kw)
+    return counted
+
+
+def _cached_eps(eps):
+    """An analytic feature-reuse eval: a deep eval keeps its eps as the
+    cache, a shallow one averages with it, so the output reads the cache."""
+    def eps_cached(x, t, cache, reuse, deep=True, **_):
+        e = eps(x, t)
+        return (e, e) if deep else (0.5 * (e + cache), cache)
+    return eps_cached
+
+
+TAIL_CASES = {
+    "plain": dict(nfe=10, order=3),
+    "guided": dict(nfe=8, order=3, cfg_scale=2.0),
+    "thresholded": THRESH,
+    "bf16": dict(nfe=6, order=2, eval_dtype="bfloat16"),
+    "reuse": dict(nfe=4, order=2, cache_block=1),
+    "corrector_at_last": dict(nfe=6, order=3, corrector_at_last=True),
+}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_build_skips_the_last_rows_eval_bit_equal(case, monkeypatch):
+    """Where the table's last corrector is off, `build`'s run evaluates
+    every row but the last, ends on that row's predictor and counts the
+    skipped eval; its output is bit-equal to stepping all the rows with the
+    same step. With `corrector_at_last` every row evaluates. The one-row
+    warm-up a graphed run makes before its capture still evaluates."""
+    from repro_torch.core.coeffs import augment_step_rows
+    from repro_torch.core.unipc import deep_rows, run_rows, unipc_step_fn
+    from repro_torch.engine import CacheSpec, graphs
+    from repro_torch.tuning import SolverPlan
+
+    spec = TSpec(**TAIL_CASES[case])
+    eng = t_engine()
+    eng.eval_dtype = spec.eval_dtype
+    calls, eps = [], eng.eps
+    eng.eps = _counted(eps, calls)
+    eng.eps_stacked = _counted(eng.eps_stacked, calls)
+    table = None
+    if spec.cache_block:
+        eng.eps_cached = _counted(_cached_eps(eps), calls)
+        eng.cache_spec = CacheSpec((D,), 1, 2)
+        plan = dataclasses.replace(SolverPlan.default(spec.nfe, order=2),
+                                   cache_depth=[0] + [1] * (spec.nfe - 1))
+        table = plan.compile(TVP())
+    tab = eng.compile(spec, table=table)
+    x = torch.as_tensor(np.stack([3.0 * _x_T(0), 3.0 * _x_T(1)]))
+
+    step, n_rows = unipc_step_fn(eng.model_fn(spec, tab), tab, device="cpu",
+                                 cached=bool(spec.cache_block))
+    deep = deep_rows(augment_step_rows(tab)) if spec.cache_block else None
+    calls.clear()
+    want = run_rows(step, n_rows, x, ring=tab.w_pred.shape[1] + 1,
+                    cache0=(eng.cache_spec.zeros(2) if spec.cache_block
+                            else None), deep=deep)
+    assert len(calls) == n_rows
+
+    elided = int(not spec.corrector_at_last)
+    run = eng.build(spec, jit=False, table=tab)
+    calls.clear()
+    outs = [run(x) for _ in range(2)]
+    assert len(calls) == 2 * (n_rows - elided)
+    assert run.elided_evals == 2 * elided
+    assert run.evals + run.shallow_evals == 2 * (n_rows - elided)
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+    assert torch.isfinite(want).all()
+
+    # the warm-up row `build` hands a graphed run
+    warm = {}
+    monkeypatch.setattr(graphs, "graphed", lambda jit, device: True)
+    monkeypatch.setattr(graphs, "graph_run", lambda run, warmup, device:
+                        warm.setdefault("fn", warmup) and run)
+    eng.build(spec, table=tab)
+    calls.clear()
+    warm["fn"](x)
+    assert len(calls) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -674,11 +764,11 @@ def test_card_launches_of_a_replay_equal_the_eager_counts(cuda):
     LAUNCHES.clear()
     eng.build(spec, jit=False)(x)
     eager = dict(LAUNCHES)
-    assert eager == {"unipc_update": 2 * 9}
+    assert eager == {"unipc_update": 2 * 8 + 1}   # the last row: predictor
     run = eng.build(spec)
     LAUNCHES.clear()
     run(x)                 # one warm-up row eagerly, the capture, a replay
-    assert dict(LAUNCHES) == {"unipc_update": 2 * 10}
+    assert dict(LAUNCHES) == {"unipc_update": 2 + 2 * 8 + 1}
     LAUNCHES.clear()
     run(x)
     torch.cuda.synchronize()
