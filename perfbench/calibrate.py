@@ -1,9 +1,10 @@
 """The readings a cell's limits are set from: the numbers compared, on many
 seeds, for the program as its configuration states it and for the controls
-(the program's own lower-precision tiers), in one process:
+(the program's own lower-precision tiers, or the benchmark's rounding of
+the program's weights, `round:e4m3`), in one process:
 
     python3 perfbench/calibrate.py --workload dit-i256.batch32 \
-        --seeds 12 --controls fp8a16,w8a16 --seconds 3
+        --seeds 12 --controls fp8a16,round:e4m3 --seconds 3
 
 Each seed is a whole run of the cell (set-up, a short window at the cell's
 load, the comparison), printed as one JSON line; the last line sums up the
@@ -28,8 +29,9 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", type=int, default=3)
     ap.add_argument("--first-seed", type=int, default=3_000_000_011)
     ap.add_argument("--controls", default="",
-                    help="comma-separated quantized tiers run in the "
-                         "program's place (the port's own paths)")
+                    help="comma-separated controls run in the program's "
+                         "place: the port's quantized tiers (fp8a16) or "
+                         "the benchmark's weight rounding (round:e4m3)")
     ap.add_argument("--seconds", type=float, default=3.0)
     args = ap.parse_args(argv)
 
@@ -43,22 +45,22 @@ def main(argv=None) -> int:
     man = harness.manifest(ROOT)
     dev = torch.device("cuda", 0)
     runs = [(None, args.first_seed + 7919 * i) for i in range(args.seeds)]
-    for tier in filter(None, args.controls.split(",")):
-        runs += [(tier, args.first_seed + 104729 + 7919 * i)
+    for control in filter(None, args.controls.split(",")):
+        runs += [(control, args.first_seed + 104729 + 7919 * i)
                  for i in range(args.control_seeds)]
     summary: dict = {}
-    for tier, seed in runs:
+    for control, seed in runs:
         t0 = time.perf_counter()
         out = harness.run_cell(man, args.workload, seed, args.seconds,
-                               False, dev, t0, quant_override=tier)
-        line = {"workload": args.workload, "tier": tier or "program",
+                               False, dev, t0, control=control)
+        line = {"workload": args.workload, "tier": control or "program",
                 "seed": seed, "correct": out["correct"],
                 "failed": out["failed"],
                 **{k: v["value"] for k, v in out["check"].items()},
                 "notes": out["notes"], "wall_s": time.perf_counter() - t0}
         print(json.dumps(line), flush=True)
         harness.free_device()
-        key = tier or "program"
+        key = control or "program"
         for k, v in out["check"].items():
             agg = summary.setdefault(key, {}).setdefault(k, [])
             agg.append(v["value"])

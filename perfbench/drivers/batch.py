@@ -44,10 +44,11 @@ def replay_seed(seed: int, k: int) -> int:
 
 
 def inputs(cfg: dict, batch: int, seed: int, k: int, device):
-    """Replay k's latents x_T (batch, T, C) and class ids (or None)."""
+    """Replay k's latents x_T (batch, *sample shape) and class ids (or
+    None)."""
     gen = torch.Generator(device=device).manual_seed(replay_seed(seed, k))
-    x_T = torch.randn((batch, cfg["patch_tokens"], cfg["latent_dim"]),
-                      generator=gen, device=device, dtype=torch.float32)
+    x_T = torch.randn((batch,) + harness.sample_shape(cfg), generator=gen,
+                      device=device, dtype=torch.float32)
     ids = (torch.randint(0, cfg["num_classes"], (batch,), generator=gen,
                          device=device) if cfg["conditional"] else None)
     return x_T, ids
@@ -64,7 +65,7 @@ def setup(cfg, traffic, seed, device, params, quant, tracer,
     run = eng.build(program.spec(cfg, traffic, quant, w))
     part("build")
     cuda = device.type == "cuda"
-    shape = (B, cfg["patch_tokens"], cfg["latent_dim"])
+    shape = (B,) + harness.sample_shape(cfg)
     state = State(cfg, traffic, seed, device, run,
                   bufs=[torch.empty(shape, pin_memory=cuda)
                         for _ in range(2)],

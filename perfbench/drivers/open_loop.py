@@ -48,8 +48,8 @@ def request_inputs(cfg: dict, traffic: dict, seed: int, n: int, device):
     the scales the traffic lists, in equal shares, in an order drawn from
     the seed."""
     gen = torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
-    x_T = torch.randn((n, cfg["patch_tokens"], cfg["latent_dim"]),
-                      generator=gen, device=device, dtype=torch.float32)
+    x_T = torch.randn((n,) + harness.sample_shape(cfg), generator=gen,
+                      device=device, dtype=torch.float32)
     classes = torch.randint(0, max(cfg["num_classes"], 1), (n,),
                             generator=gen, device=device)
     scales = np.resize(np.asarray(traffic["guidance_w"], np.float64), n)
@@ -78,8 +78,7 @@ def setup(cfg, traffic, seed, device, params, quant, tracer,
     eng = program.engine(cfg, params, slots, seed, quant, device)
     prog = eng.build_step(program.spec(cfg, traffic, quant,
                                        traffic["guidance_w"][0]))
-    sched = SlotScheduler(prog, slots,
-                          (cfg["patch_tokens"], cfg["latent_dim"]),
+    sched = SlotScheduler(prog, slots, harness.sample_shape(cfg),
                           pipeline_depth=traffic["pipeline_depth"],
                           extras_init={"class_ids": 0})
     part("engine")

@@ -6,11 +6,16 @@ Everything that belongs to one configuration, traffic mix, driver or
 metric is a file of its own, found by the name `BENCHMARK.json` gives it:
 
     configs/<config>.json      sizes and precision, and `reference`, the
-                               module of reference/ that recomputes it
+                               module of reference/ that recomputes it;
+                               optionally `weights` (params/<name>.py),
+                               `port` and `sample_shape`
     traffic/<traffic>.json     parameters, and `driver`, the module of
                                drivers/ that runs them
-    metrics/<metric>.py        `read(run) -> float | None`
-    limits/<workload>.json     the limit of each number compared
+    metrics/<metric>.py        `read(run) -> float | None`; a roofline's
+                               `.json` names its bound, in yardstick.py or
+                               as `<module>:<function>` of bounds/
+    limits/<workload>.json     the limit of each number compared, and the
+                               control it was set against
 """
 
 from __future__ import annotations
@@ -32,6 +37,10 @@ from typing import Optional
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# where a configuration's modules are found by name
+PACKAGES = {"params": "perfbench.params", "reference": "perfbench.reference",
+            "bounds": "perfbench.bounds"}
+LIMITS = HERE / "limits"
 REF_BLOCK = 32      # latents the reference samples at once
 
 
@@ -88,6 +97,30 @@ def driver_of(traffic: dict):
 
 def reader_of(metric: str):
     return load_module(HERE / "metrics" / f"{metric}.py")
+
+
+def module_of(kind: str, name: str):
+    """The module `name` of the package of `kind` (a key of PACKAGES)."""
+    return importlib.import_module(f"{PACKAGES[kind]}.{name}")
+
+
+def bound_of(name: str):
+    """A roofline's bound `(cfg, rows, evals) -> seconds`: `<module>:
+    <function>` of bounds/, or a bare name of yardstick.py."""
+    if ":" in name:
+        mod, fn = name.split(":")
+        return getattr(module_of("bounds", mod), fn)
+    from . import yardstick
+
+    return getattr(yardstick, name)
+
+
+def sample_shape(cfg: dict) -> tuple:
+    """The shape of one sample, x_T and its latent: the configuration's
+    `sample_shape`, else a DiT's (patch_tokens, latent_dim)."""
+    if "sample_shape" in cfg:
+        return tuple(cfg["sample_shape"])
+    return (cfg["patch_tokens"], cfg["latent_dim"])
 
 
 def forbidden_modules() -> list:
@@ -303,16 +336,13 @@ def roofline_share(run: Run, patterns: Path) -> Optional[float]:
     function the file `patterns` names under `bound`), over the device
     time of the kernels that did it (the file's `kernels`, regular
     expressions on their names). None where no such kernel ran."""
-    from . import yardstick
-
     if run.trace is None or not run.calls:
         return None
     spec = load_json(patterns)
     spent = run.trace.seconds_matching(spec["kernels"])
     if not spent:
         return None
-    bound = getattr(yardstick, spec["bound"])(run.cfg, run.rows_per_call,
-                                             run.calls)
+    bound = bound_of(spec["bound"])(run.cfg, run.rows_per_call, run.calls)
     return 100.0 * bound / spent
 
 
@@ -344,16 +374,21 @@ def compare(cfg: dict, traffic: dict, seed: int, samples: list,
     """Recompute every sample with the configuration's reference, from
     weights made anew from the seed, in blocks; returns the numbers
     compared: the worst relative L2 distance of a sample from the
-    reference's latent."""
+    reference's latent. A sample of another shape than the configuration's
+    reads inf."""
     import torch
 
     from . import weights
 
-    ref = importlib.import_module(f"perfbench.reference.{cfg['reference']}")
+    ref = module_of("reference", cfg["reference"])
     params = weights.make_params(cfg, seed, device)
+    shape = sample_shape(cfg)
     worst = 0.0
     for i in range(0, len(samples), REF_BLOCK):
         part = samples[i:i + REF_BLOCK]
+        if any(tuple(torch.as_tensor(v).shape) != shape
+               for s in part for v in (s.x_T, s.out)):
+            return {"worst_rel_l2": math.inf}
         x_T = torch.stack([torch.as_tensor(s.x_T) for s in part]).to(device)
         out = torch.stack([torch.as_tensor(s.out) for s in part]).to(
             device, torch.float64)
@@ -382,18 +417,41 @@ def judge(readings: dict, limits: dict) -> bool:
 # one run of one cell
 # ---------------------------------------------------------------------------
 
-def port_config(cfg: dict, quant_override: Optional[str] = None):
+def port_config(cfg: dict):
     """The program's ModelConfig of a configuration file: its registry
-    entry with the file's sizes and precision."""
+    entry with the file's sizes and precision (`num_kv_heads` where the
+    file gives it, else `num_heads`; `patch_tokens` where it gives it),
+    then the fields of the file's `port`, a family's own. A `port` key that
+    is no field of ModelConfig raises."""
     from repro_torch.configs.registry import get_config
 
-    return dataclasses.replace(
-        get_config(cfg["arch"]), num_layers=cfg["num_layers"],
+    base = get_config(cfg["arch"])
+    port = cfg.get("port", {})
+    unknown = set(port) - {f.name for f in dataclasses.fields(base)}
+    if unknown:
+        raise ValueError(f"{cfg['name']}: `port` names no field of the "
+                         f"port's ModelConfig: {sorted(unknown)}")
+    sized = dataclasses.replace(
+        base, num_layers=cfg["num_layers"],
         d_model=cfg["d_model"], num_heads=cfg["num_heads"],
-        num_kv_heads=cfg["num_heads"], head_dim=cfg["head_dim"],
-        d_ff=cfg["d_ff"], patch_tokens=cfg["patch_tokens"],
+        num_kv_heads=cfg.get("num_kv_heads", cfg["num_heads"]),
+        head_dim=cfg["head_dim"], d_ff=cfg["d_ff"],
+        patch_tokens=cfg.get("patch_tokens", base.patch_tokens),
         latent_dim=cfg["latent_dim"], dtype=cfg["dtype"],
         param_dtype=cfg["param_dtype"])
+    return dataclasses.replace(sized, **port)
+
+
+def split_control(control: Optional[str]) -> tuple:
+    """(tier, rounding) of a control run in the program's place: a port
+    tier ("fp8a16": the program's own lower-precision path), or the
+    benchmark's own rounding of the program's weights ("round:e4m3", a key
+    of weights.ROUNDINGS). (None, None) for the program as configured."""
+    if control is None:
+        return None, None
+    if control.startswith("round:"):
+        return None, control.split(":", 1)[1]
+    return control, None
 
 
 def quant_mode(cfg: dict, override: Optional[str] = None) -> str:
@@ -426,14 +484,15 @@ def power_limit() -> Optional[str]:
 
 
 def run_cell(man: dict, cell: str, seed: int, seconds: float, trace: bool,
-             device, t_start: float, quant_override: Optional[str] = None,
+             device, t_start: float, control: Optional[str] = None,
              cfg_override: Optional[dict] = None,
              traffic_override: Optional[dict] = None) -> dict:
     """Set up the cell, measure one window, compare, read the metrics.
     Returns the result dict (`correct`, `attempted`, `failed`, `metrics`,
-    `device`, and with `trace` `breakdown`; `check` last). The overrides
-    are for the calibration and the tests: the control's quantized tier,
-    a smaller configuration, a shorter traffic."""
+    `device`, and with `trace` `breakdown`; `check` last). The control
+    (`split_control`) and the overrides are for the calibration and the
+    tests: a smaller configuration, a shorter traffic. The reference
+    always computes from the exact weights."""
     import torch
 
     from . import weights
@@ -460,10 +519,13 @@ def run_cell(man: dict, cell: str, seed: int, seconds: float, trace: bool,
     parts["setup.before_cell_s"] = t - t_start
     program.import_port()
     part("port_import")
+    tier, rounding = split_control(control)
     params = weights.make_params(cfg, seed, device)
+    if rounding is not None:
+        weights.rounded(params, rounding)
     part("weights")
     state = driver.setup(cfg, traffic, seed, device, params,
-                         quant_mode(cfg, quant_override), tracer, part)
+                         quant_mode(cfg, tier), tracer, part)
     del params
     part("rest")
     tracer.start()
@@ -483,7 +545,7 @@ def run_cell(man: dict, cell: str, seed: int, seconds: float, trace: bool,
     readings = compare(cfg, traffic, seed, samples, device)
     run.notes["check_s"] = time.perf_counter() - t_check
     run.notes["check_samples"] = len(samples)
-    limits = load_json(HERE / "limits" / f"{cell}.json")
+    limits = load_json(LIMITS / f"{cell}.json")
     correct = judge(readings, limits) and failed == 0
     metrics = {}
     for m in metrics_of(man, cell, trace):

@@ -2,6 +2,7 @@
 shares, percentiles over all requests, the yardstick's work from shapes,
 the metric readers, and the open-loop generator."""
 
+import json
 import math
 import statistics
 
@@ -137,6 +138,23 @@ def test_readers_on_a_synthetic_run():
     run.trace = None
     for name in ("sample.dense_roofline", "idle_share.sample"):
         assert harness.reader_of(name).read(run) is None
+
+
+def test_roofline_bound_by_name(monkeypatch, tmp_path):
+    assert harness.bound_of("dense_bound_s") is yardstick.dense_bound_s
+    tiny.hybrid(monkeypatch, tmp_path)
+    spec = tmp_path / "ssm.proj_roofline.json"
+    spec.write_text(json.dumps({"kernels": ["nvjet"],
+                                "bound": "hybrid:ssm_proj_bound_s"}))
+    bound = harness.bound_of("hybrid:ssm_proj_bound_s")
+    assert bound.__module__ == "perfbench.tests.fixtures.bounds.hybrid"
+    run = harness.Run(cfg=tiny.HYBRID, traffic={"solver": {"nfe": 10}},
+                      window_s=2.0, images=4, calls=10, rows_per_call=4,
+                      trace=trace())
+    assert harness.roofline_share(run, spec) == pytest.approx(
+        100 * bound(tiny.HYBRID, 4, 10) / 300e-9)
+    with pytest.raises(ModuleNotFoundError):
+        harness.bound_of("nonesuch:bound_s")
 
 
 @pytest.mark.parametrize("seed", [3, 2 ** 31 + 99, 2 ** 33 + 1])

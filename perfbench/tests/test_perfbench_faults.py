@@ -1,6 +1,8 @@
 """A whole run of a cell, on the CPU at a tiny size (the look for a card
 skipped), with the timed path broken underneath: `correct` has to come out
-false for every fault the cell can have, and true without one."""
+false for every fault the cell can have, and true without one. The tiny
+hybrid cell (`tiny.hybrid`) is the proof that a configuration of another
+family runs whole through the harness."""
 
 import dataclasses
 import time
@@ -55,8 +57,11 @@ class Broken:
         return dataclasses.replace(prog, step_flight=broken)
 
 
-def run_tiny(name: str, monkeypatch, fault=None) -> dict:
-    man, cfg, traffic = tiny.cell(name)
+def run_tiny(name: str, monkeypatch, tmp_path, fault=None) -> dict:
+    if name == tiny.HYBRID_CELL:
+        man, cfg, traffic = tiny.hybrid(monkeypatch, tmp_path)
+    else:
+        man, cfg, traffic = tiny.cell(name)
     if fault is not None:
         real = program.engine
         monkeypatch.setattr(program, "engine",
@@ -67,12 +72,12 @@ def run_tiny(name: str, monkeypatch, fault=None) -> dict:
 
 
 CELLS = ["dit-i256.batch32", "dit-s4-cifar.batch1024", "dit-i256.serve32",
-         "dit-i256.batch32-w8a16"]
+         "dit-i256.batch32-w8a16", tiny.HYBRID_CELL]
 
 
 @pytest.mark.parametrize("name", CELLS)
-def test_sound_run_is_correct(name, monkeypatch):
-    out = run_tiny(name, monkeypatch)
+def test_sound_run_is_correct(name, monkeypatch, tmp_path):
+    out = run_tiny(name, monkeypatch, tmp_path)
     assert out["correct"], out["check"]
     assert out["attempted"] > 0 and out["failed"] == 0
     assert list(out)[-1] == "check"
@@ -80,6 +85,6 @@ def test_sound_run_is_correct(name, monkeypatch):
 
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
 @pytest.mark.parametrize("name", CELLS)
-def test_fault_is_not_correct(name, fault, monkeypatch):
-    out = run_tiny(name, monkeypatch, fault)
+def test_fault_is_not_correct(name, fault, monkeypatch, tmp_path):
+    out = run_tiny(name, monkeypatch, tmp_path, fault)
     assert not out["correct"], (fault, out["check"])

@@ -78,6 +78,12 @@ def test_files_found_by_name(w):
     assert entry["file"] == f"perfbench/configs/{w['config']}.json"
     assert cfg["name"] == w["config"]
     assert (harness.HERE / "reference" / f"{cfg['reference']}.py").exists()
+    assert callable(harness.module_of("reference", cfg["reference"]).sample)
+    name = cfg.get("weights", "dit")
+    assert name == "dit" or callable(
+        harness.module_of("params", name).make_params)
+    harness.port_config(cfg)        # raises on a `port` key of no field
+    assert len(harness.sample_shape(cfg)) >= 1
     traffic = harness.load_json(
         harness.HERE / "traffic" / f"{w['traffic']}.json")
     assert (harness.HERE / "drivers" / f"{traffic['driver']}.py").exists()
@@ -87,6 +93,10 @@ def test_files_found_by_name(w):
     for m in (harness.metrics_of(MAN, w["name"], False)
               + harness.metrics_of(MAN, w["name"], True)):
         assert callable(harness.reader_of(m["name"]).read)
+        roofline = harness.HERE / "metrics" / f"{m['name']}.json"
+        if roofline.exists():
+            assert callable(harness.bound_of(
+                harness.load_json(roofline)["bound"]))
 
 
 def test_config_widths_are_the_published_ones():
