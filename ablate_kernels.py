@@ -150,8 +150,8 @@ ABLATIONS = {
         ("        mma_k16(oacc[n], pa, b0, b1);\n        mma_k16(oacc[n + 1], pa, b2, b3);\n"
          "        mma_k16(oacc[n], pl, b0, b1);\n        mma_k16(oacc[n + 1], pl, b2, b3);",
          "        oacc[n][0] += __uint_as_float(pa[0] & pl[0] & b0 & b2);"),
-        ("        mma_k16(oacc[ND - 1], pa, b0, b1);\n        mma_k16(oacc[ND - 1], pl, b0, b1);",
-         "        oacc[ND - 1][0] += __uint_as_float(pa[1] & pl[1] & b0 & b1);")]),
+        ("        mma_k16(oacc[NDV - 1], pa, b0, b1);\n        mma_k16(oacc[NDV - 1], pl, b0, b1);",
+         "        oacc[NDV - 1][0] += __uint_as_float(pa[1] & pl[1] & b0 & b1);")]),
 
     "flash_attention no exp": ("flash_attention", [
         ("        const float p0 = exp2f(sv[0] - m_r[0]), p1 = exp2f(sv[1] - m_r[0]);\n"

@@ -269,6 +269,22 @@ Phases (any failure exits non-zero):
      ratio within [0.5, 2]), and the dry run's fits_80GB agreeing with the
      script's cuts (zamba2 trained at 13 of 81 layers, llama-vision not
      trained, deepseek-67b and mixtral-8x7b CPU-only).
+ 17. DeepSeek-V2-Lite's diffusion LM at the published widths (27 layers,
+     MLA, 64 routed + 2 shared experts, top 6, dropless; bf16 weights):
+     (a) flash_attention's MLA body (192-deep scores, 128-wide values,
+     the softmax scale with YaRN's mscale) on q, k, v laid out as
+     `models/mla.py` hands them over at the benchmark cell's shape (16
+     sequences x 16 heads x 1024), against `ref.attention32` (bf16 output
+     within 1e-2 rel L-inf, twice bit-equal), timed beside its bound, its
+     plain version and SDPA with the same scale; (b) the engine through
+     `launch.sample.build_engine` / `SamplerEngine.build` at batch 16,
+     UniPC-3 bh2 NFE 10: a replay alone counted (270 flash_attention,
+     the row ops), bit-equal to its eager loop, no host sync; the routed
+     rows per expert the graph adds to its device counters (every layer's
+     sum k tokens an eval: none dropped) and the most-loaded expert over
+     the mean; the replay's wall and images/s, the peak memory and the
+     profiler's split of a replay. `python3 chip_smoke.py --only deepseek`
+     runs phases 1, 2 and 17 alone.
 Every bound the script prints comes from `analysis/roofline.py`: a kernel
 case's from its op's `cost` (next to the wrapper), a path's from the
 operation count of one eager call (`path_bound`).
@@ -5999,6 +6015,183 @@ def mesh_phase(dev, counts_out: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 17: DeepSeek-V2-Lite's diffusion LM at the published widths
+# --------------------------------------------------------------------------
+
+DEEPSEEK_ARCH = "deepseek-v2-lite"
+# the benchmark cell deepseek-v2-lite.batch16: 16 sequences of 1024 tokens,
+# unguided UniPC-3 bh2 at NFE 10 over the logSNR grid
+DEEPSEEK_SAMPLE = dict(batch=16, nfe=10, order=3)
+
+
+def mla_operands(cfg, B: int, S: int, dev, g) -> tuple:
+    """q, k, v of one MLA layer as `models/mla.py` hands them to the kernel:
+    head-major views of q (B, S, H, nope + rope), of k = [k_nope, k_pe]
+    with the one rope head broadcast over the heads, and of v, the last
+    v_head_dim columns of each head's (nope + v) row of wkv_b's output."""
+    H, dn = cfg.num_heads, cfg.qk_nope_head_dim
+    dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
+    bf16 = torch.bfloat16
+    q = torch.randn(B, S, H, dn + dr, generator=g, device=dev).to(bf16)
+    kv = torch.randn(B, S, H, dn + dv, generator=g, device=dev).to(bf16)
+    k_pe = torch.randn(B, S, 1, dr, generator=g, device=dev).to(bf16)
+    k = torch.cat([kv[..., :dn], k_pe.expand(B, S, H, dr)], dim=-1)
+    return q.transpose(1, 2), k.transpose(1, 2), kv[..., dn:].transpose(1, 2)
+
+
+def mla_kernel_case(dev, cfg, B: int, S: int) -> dict:
+    """(a): the MLA body against the fp32 plain version at the cell's
+    shape, twice bit-equal, timed as phase 3 times."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models.mla import softmax_scale
+
+    F = torch.nn.functional
+    scale = softmax_scale(cfg)
+    q, k, v = mla_operands(cfg, B, S, dev,
+                           torch.Generator(device=dev).manual_seed(17))
+    got = fa_ops.attention(q, k, v, causal=False, scale=scale)
+    again = fa_ops.attention(q, k, v, causal=False, scale=scale)
+    want = fa_ref.attention32(q, k, v, causal=False, scale=scale)
+    torch.cuda.synchronize()
+    p = fa_kernel.plan(q, k, v, got)
+    err = rel_err(got, want)
+    same = torch.equal(got, again)
+    shape = [B, cfg.num_heads, S, q.shape[3], v.shape[3]]
+    print(f"  flash_attention [MLA {shape}, scale {scale:.6f}] [{p['body']},"
+          f" scores {8 * p['chunks']} deep, values {8 * p['chunks_v']} wide]"
+          f" rel L-inf {err:.3e} against the fp32 plain version (tol "
+          f"{TOL[torch.bfloat16]:g}); twice bit-equal {same}")
+    if not (p["body"] == "mla" and torch.isfinite(got.float()).all()
+            and err <= TOL[torch.bfloat16] and same):
+        fail(f"flash_attention's MLA body disagrees with its plain version "
+             f"(body {p['body']}, rel {err:.3e}) or with itself ({same})")
+    del want, again
+    bms, by = bound(fa_ops.cost(q, k, v, causal=False, window=None))
+    row = dict(shape=shape, scale=scale, body=p["body"], rel_err=err,
+               ms=device_ms(lambda: fa_ops.attention(q, k, v, causal=False,
+                                                     scale=scale), iters=20),
+               plain_ms=device_ms(lambda: fa_ops.attention(
+                   q, k, v, causal=False, scale=scale, backend="plain"),
+                   iters=2, reps=2),
+               bound_ms=bms, bound_by=by)
+
+    def lib():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    try:
+        lib_err = rel_err(lib(), got)
+        row.update(library_ms=device_ms(lib, iters=20),
+                   library_rel_err=lib_err)
+        lib_note = (f"SDPA {row['library_ms']:.6f} (rel L-inf to the kernel "
+                    f"{lib_err:.3e})")
+    except RuntimeError as e:         # no SDPA backend takes Dv != D here
+        row.update(library_ms=None, library_error=str(e).splitlines()[0])
+        lib_note = f"SDPA not measured: {row['library_error']}"
+    print(f"  flash_attention [MLA] bf16: {row['ms']:.6f} ms in the graph "
+          f"(bound {bms:.6f} by {by}, {bms / row['ms']:.0%}; {lib_note}; "
+          f"plain {row['plain_ms']:.6f})")
+    return row
+
+
+def deepseek_header(card: str) -> str:
+    return (f"== phase 17: {DEEPSEEK_ARCH} at the published widths (bf16 "
+            f"weights; the MLA body at the cell's shape; build_engine at "
+            f"batch {DEEPSEEK_SAMPLE['batch']} x 1024, UniPC-"
+            f"{DEEPSEEK_SAMPLE['order']} NFE {DEEPSEEK_SAMPLE['nfe']}, one "
+            f"CUDA graph) on {card}")
+
+
+def deepseek_phase(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import VPLinear
+    from repro_torch.engine import EngineSpec
+    from repro_torch.launch.sample import build_engine
+
+    t0 = time.perf_counter()
+    cfg = get_config(DEEPSEEK_ARCH)
+    B, S = DEEPSEEK_SAMPLE["batch"], 1024
+    print(f"  {DEEPSEEK_ARCH}: {describe(cfg)}; MLA rank "
+          f"{cfg.kv_lora_rank}, {cfg.num_experts} experts of "
+          f"{cfg.moe_d_ff} top {cfg.experts_per_token} + "
+          f"{cfg.num_shared_experts} shared, dropless")
+    print("  (a) flash_attention's MLA body at the cell's shape:")
+    out = {"mla_kernel": mla_kernel_case(dev, cfg, B, S)}
+
+    print(f"  (b) the engine at batch {B} x {S} tokens:")
+    free_graphs()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_model(cfg, 0, dev)
+    params.pop("token_latents", None)
+    params["backbone"].pop("embed", None)
+    params["backbone"].pop("lm_head", None)
+    diffusion_lm_inputs(cfg, params, B, dev)      # out_proj drawn
+    # launch.sample's diffusion LM runs a 64-token window; the cell 1024
+    x_T = torch.randn((B, S, cfg.latent_dim), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    spec = EngineSpec(nfe=DEEPSEEK_SAMPLE["nfe"],
+                      order=DEEPSEEK_SAMPLE["order"], variant="bh2",
+                      prediction="data", spacing="logsnr",
+                      lower_order_final=True)
+    engine = build_engine(cfg, params, VPLinear(), B, device=dev)
+    tab = engine.compile(spec)
+    L = cfg.num_layers
+    expected = run_launches({"unipc_update": 2, "flash_attention": L},
+                            len(tab.timesteps), table_tail(tab))
+    counts: dict = {}
+    g = graph_checks(DEEPSEEK_ARCH, engine, spec, x_T, expected, counts)
+    run = g["run"]
+    evals = counts["flash_attention"] // L
+
+    # the routed rows per expert of one replay, from the device counters
+    # the graph adds to; and the replay under the sync check
+    counters = engine.counters
+    counters.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x_again = run(x_T)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = counters.read()["moe.routed_rows"]
+    if not torch.equal(x_again, g["x_graph"]):
+        fail(f"{DEEPSEEK_ARCH}: the sync-checked replay differs")
+    per_layer = rows.sum(dim=1)
+    want_rows = evals * B * S * cfg.experts_per_token
+    load = rows.double() / rows.double().mean(dim=1, keepdim=True)
+    print(f"  routed rows of one replay: {tuple(rows.shape)} (MoE layers x "
+          f"experts), every layer's sum {sorted(set(per_layer.tolist()))} "
+          f"(want {want_rows}: {evals} evals x {B * S} tokens x "
+          f"{cfg.experts_per_token}); most-loaded expert over the mean "
+          f"{float(load.max()):.3f} (layer median "
+          f"{float(load.max(dim=1).values.median()):.3f}); no host sync in "
+          f"the replay")
+    if not bool((per_layer == want_rows).all()):
+        fail(f"{DEEPSEEK_ARCH}: routed rows {per_layer.tolist()} != "
+             f"{want_rows} a layer: a token was dropped or counted twice")
+
+    walls = median_walls({"replay": lambda: run(x_T)})
+    replay_s = walls["replay"]["median_s"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  replay wall median {replay_s:.4f} s of "
+          f"{[round(v, 4) for v in walls['replay']['reps_s']]}: "
+          f"{B / replay_s:.3f} sequences/s; peak memory {peak / 2**30:.2f} "
+          f"GiB (weights, a graph, its pool)")
+    print("  profile of a replay:")
+    split = profile_split(lambda: run(x_T))
+    seconds = time.perf_counter() - t0
+    print(f"  phase 17 took {seconds:.1f} s")
+    out.update(launches_per_replay=counts, evals=evals,
+               routed_rows_per_layer=want_rows,
+               max_expert_load=float(load.max()),
+               replay_s=replay_s, sequences_per_s=B / replay_s,
+               peak_bytes=peak, profile=split, seconds=seconds)
+    del run, g, engine, params
+    free_graphs()
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
@@ -6016,6 +6209,12 @@ KERNELS = [  # name, source, replaces (TPU kernel file:line), launches per eval
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("deepseek",),
+                    help="run phases 1 and 2 and this phase alone")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "CUDA card")
@@ -6054,6 +6253,16 @@ def main():
             elif "registers" in line:
                 print(f"  ptxas {kname} {entry[:60]}: {line.split(':', 1)[-1].strip()}"
                       f"; {spills}")
+
+    if args.only == "deepseek":
+        print(deepseek_header(smi[0]))
+        deepseek = deepseek_phase(dev)
+        print("summary " + json.dumps({"deepseek": deepseek}))
+        print(smi[0])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
 
     print("== phase 3: kernels vs plain versions (main-path shapes)")
     kstats = kernel_phase(dev)
@@ -6160,6 +6369,9 @@ def main():
           f"dry run's --mesh single) on {smi[0]}")
     mcounts16: dict = {}
     mesh = mesh_phase(dev, mcounts16)
+
+    print(deepseek_header(smi[0]))
+    deepseek = deepseek_phase(dev)
 
     entries = []
     for kname, src, replaces, per_eval in KERNELS:
@@ -6298,7 +6510,7 @@ def main():
                    vlm_and_audio={k: v for k, v in cond.items()
                                   if k not in ("kernels", "backward")},
                    tokens={k: v for k, v in tokens.items() if k != "kernels"},
-                   analysis=analysis, mesh=mesh,
+                   analysis=analysis, mesh=mesh, deepseek=deepseek,
                    zoo={k: v for k, v in zoo.items() if k != "tables"},
                    quant_other_operands_at_wq_site=kstats["quant_matmul"][
                        "other_operands_at_wq_site"])

@@ -84,6 +84,12 @@ class ModelConfig:
     # keep configs free of a models import.
     quant: Optional[object] = None
 
+    # DeepSeek-V2's latent attention (MLA), YaRN rope and MoE settings are
+    # fields of `DeepSeekConfig` only, below (this dataclass carries the
+    # reference's fields, field for field); every other config reads their
+    # defaults, set on this class from DeepSeekConfig's after it, which
+    # leave its model as it was.
+
     def __post_init__(self):
         if self.num_kv_heads is None:
             self.num_kv_heads = self.num_heads
@@ -139,6 +145,43 @@ class ModelConfig:
             base.update(latent_dim=min(self.latent_dim, 32))
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclass
+class DeepSeekConfig(ModelConfig):
+    """A DeepSeek-V2 model: multi-head latent attention (MLA), YaRN rope,
+    leading dense layers, then MoE layers with shared experts and a
+    softmax router over routed experts, dispatched dropless."""
+
+    kv_lora_rank: int = 0           # > 0: MLA over a latent of this width
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_yarn_factor: float = 1.0   # > 1: YaRN-scaled rope (layers.yarn_rope)
+    norm_eps: float = 1e-5
+    num_shared_experts: int = 0     # one SwiGLU of num_shared x moe_d_ff
+    first_k_dense: int = 0          # leading layers with a dense MLP
+    norm_topk_prob: bool = True     # renormalise the top-k router weights
+    router_fp32: bool = False       # router logits from fp32 x and weights
+    moe_dropless: bool = False      # sorted by expert, every token kept
+
+    def reduced(self, **overrides) -> "DeepSeekConfig":
+        """The CPU variant: `ModelConfig.reduced`'s sizes, one dense and
+        one MoE layer, a small latent and small head splits."""
+        base = dict(num_layers=2, first_k_dense=min(self.first_k_dense, 1),
+                    num_kv_heads=min(self.num_heads, 4),
+                    kv_lora_rank=min(self.kv_lora_rank, 32),
+                    qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+                    head_dim=16, num_shared_experts=min(
+                        self.num_shared_experts, 1))
+        base.update(overrides)
+        return super().reduced(**base)
+
+
+for _f in dataclasses.fields(DeepSeekConfig):
+    if not hasattr(ModelConfig, _f.name):
+        setattr(ModelConfig, _f.name, _f.default)
+del _f
 
 
 @dataclass(frozen=True)

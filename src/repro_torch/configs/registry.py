@@ -18,7 +18,12 @@ ARCH_IDS = [
     "dit-i256", "dit-cifar",
 ]
 
-_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+# the port's own architectures, which the reference has not: `get_config`
+# resolves them, `all_arch_ids` (the reference's lists) leaves them out
+PORT_ARCH_IDS = ["deepseek-v2-lite"]
+
+_MODULES = {a: a.replace("-", "_").replace(".", "_")
+            for a in ARCH_IDS + PORT_ARCH_IDS}
 
 
 def get_config(arch_id: str) -> ModelConfig:

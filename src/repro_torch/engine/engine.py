@@ -244,11 +244,15 @@ class CountedRun:
     blocks' cache, each the rows a call evaluates times the calls returned;
     `elided_evals` the last rows a call ends on their predictor alone
     (`core.unipc.unipc_run_fns`), one a call where the table's last
-    corrector is off."""
+    corrector is off. `counters` are the eps-net's own program counters,
+    kept on the device and added to inside the graph
+    (`obs.counters.DeviceCounters`, the engine's; None without them): a
+    dropless MoE's rows routed to each expert."""
 
     def __init__(self, fn: Callable, deep_rows: int, shallow_rows: int,
-                 elided_rows: int):
+                 elided_rows: int, counters=None):
         self.fn = fn
+        self.counters = counters
         self.deep_rows = deep_rows
         self.shallow_rows = shallow_rows
         self.elided_rows = elided_rows
@@ -288,6 +292,8 @@ class SamplerEngine:
                  cache'), the feature-reuse eval, with `cache_spec` its
                  contract (`build_engine(cache_block=...)` wires both);
                  needed by specs with cache_block > 0.
+    counters:    the wired eps-net's device counters
+                 (`obs.counters.DeviceCounters`), handed to `build`'s runs.
     """
 
     schedule: NoiseSchedule
@@ -299,6 +305,7 @@ class SamplerEngine:
     eval_dtype: str = "float32"
     eps_cached: Optional[Callable] = None
     cache_spec: Optional[CacheSpec] = None
+    counters: Optional[object] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -454,7 +461,8 @@ class SamplerEngine:
             run = graphs.graph_run(
                 run, lambda x_T, **kw: rows(1, x_T, kw), self.device)
         return CountedRun(run, sum(evaluated),
-                          len(evaluated) - sum(evaluated), elided)
+                          len(evaluated) - sum(evaluated), elided,
+                          counters=self.counters)
 
     def build_step(self, spec: EngineSpec, jit: bool = True,
                    table: Optional[SolverTable] = None,

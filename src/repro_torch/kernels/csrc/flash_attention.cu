@@ -49,6 +49,17 @@
 //   Rows of D % 8 == 0 at 16-byte-aligned addresses and strides load by
 //   cp.async; any other shape fills the same tiles with 2-byte loads (the
 //   wrapper decides by shape and reports which).
+// * bf16, multi-head latent attention (DeepSeek-V2's MLA) — attn_mla_kernel:
+//   the same body with scores Dk = 192 deep and values Dv = 128 wide, each
+//   in its own chunk count (24, 16) and shared-memory pitch (400, 272
+//   bytes), so no column of either is padding. At DeepSeek-V2-Lite's
+//   sampling shape (16 sequences, 16 heads, S = 1024) a call does
+//   2 * B * H * S^2 * (192 + 128) = 172 GFLOP (174 us at 989 TFLOP/s) on
+//   335 MB of q/k/v/o (100 us at 3.35 TB/s): the operations bound it. Q's
+//   24 chunks and O's 16 would not both fit in registers, so Q's fragments
+//   are read from shared memory at each key tile, two k16 steps at a time
+//   over the tile's 8 key groups (each accumulator takes its steps in
+//   order, as the register path does). One block of 176 KB per SM.
 // * fp32 (the reference-precision serving path) — attn_kernel: fp32 CUDA
 //   cores, so fp32 inputs keep fp32 products. One block per (b * Hq + h,
 //   64-query tile), 256 threads: four threads share a query row and each
@@ -179,14 +190,21 @@ constexpr int MMA_STAGES = 3;           // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// ND: the head dim in 8-column (16-byte) chunks as compiled
-template <int ND>
+// ND: the head dim in 8-column (16-byte) chunks as compiled; NDV, the
+// value width's, where it differs from the score depth's (MLA: 24 and 16)
+template <int ND, int NDV = ND>
 struct FaTile {
   static constexpr int PITCH = (ND | 1) * 16;  // bytes; an odd chunk count
+  static constexpr int PITCH_V = (NDV | 1) * 16;
   static constexpr int Q_BYTES = MMA_BQ * PITCH;
-  static constexpr int KV_BYTES = MMA_BK * PITCH;  // one K or one V tile
-  static constexpr int SMEM = Q_BYTES + MMA_STAGES * 2 * KV_BYTES;
+  static constexpr int KV_BYTES = MMA_BK * PITCH;  // one K tile
+  static constexpr int V_BYTES = MMA_BK * PITCH_V;
+  static constexpr int STAGE = KV_BYTES + V_BYTES;
+  static constexpr int SMEM = Q_BYTES + MMA_STAGES * STAGE;
   static constexpr int MIN_BLOCKS = ND <= 9 ? 2 : 1;
+  // Q's fragments stay in registers over the key tiles up to 16 chunks;
+  // deeper scores (MLA's 24) reload them from shared memory each tile
+  static constexpr bool Q_REGS = ND <= 16;
 };
 
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool full) {
@@ -290,16 +308,17 @@ __device__ __forceinline__ void fill_rows(unsigned char* dst, const bf16* __rest
   }
 }
 
-template <int ND>
-__global__ void __launch_bounds__(MMA_THREADS, FaTile<ND>::MIN_BLOCKS)
-attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o,
-                float* __restrict__ lse, float* __restrict__ o32, int Hq, int Hkv,
-                int Sq, int Skv, int D,
-                Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
-                float scale_log2, int vec_in, int vec_out) {
-  using T = FaTile<ND>;
+// The bf16 forward's body: scores D deep in ND chunks, values Dv wide in
+// NDV chunks (equal but for MLA's kernel below).
+template <int ND, int NDV>
+__device__ __forceinline__ void attn_mma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, float* __restrict__ o32, int Hq,
+    int Hkv, int Sq, int Skv, int D, int Dv, Strides qs, Strides ks, Strides vs,
+    Strides os, int causal, int window, float scale_log2, int vec_in, int vec_out) {
+  using T = FaTile<ND, NDV>;
   constexpr int PITCH = T::PITCH;
+  constexpr int PITCH_V = T::PITCH_V;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* q_s = smem;
   unsigned char* kv_s = smem + T::Q_BYTES;  // stage s: K, then V
@@ -329,10 +348,10 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto issue = [&](int i) {  // tile kt_lo + i into stage i % STAGES
     if (i < n_tiles) {
-      unsigned char* st = kv_s + (i % MMA_STAGES) * 2 * T::KV_BYTES;
+      unsigned char* st = kv_s + (i % MMA_STAGES) * T::STAGE;
       const int key0 = (kt_lo + i) * MMA_BK;
       fill_rows<ND>(st, kb, ks.s, key0, Skv, MMA_BK, D, vec_in);
-      fill_rows<ND>(st + T::KV_BYTES, vb, vs.s, key0, Skv, MMA_BK, D, vec_in);
+      fill_rows<NDV>(st + T::KV_BYTES, vb, vs.s, key0, Skv, MMA_BK, Dv, vec_in);
     }
     cp_async_commit();
   };
@@ -343,30 +362,56 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // every n8 tile (the m16n8 accumulator layout)
   const int g = lane >> 2, t4 = lane & 3;
   const int row0 = q0 + warp * 16 + g;
-  uint32_t qf[ND / 2 > 0 ? ND / 2 : 1][4];
+  constexpr int NQF = T::Q_REGS ? (ND / 2 > 0 ? ND / 2 : 1) : 1;
+  uint32_t qf[NQF][4];
   uint32_t qf8[2];
-  float oacc[ND][4];
+  float oacc[NDV][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  for (int n = 0; n < NDV; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   const unsigned q_row = q_u + (warp * 16 + (lane & 15)) * PITCH;
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<MMA_STAGES - 2>();  // tile i (and Q) landed
     __syncthreads();                   // ... for every thread; tile i-1 consumed
-    if (i == 0) {
+    if constexpr (T::Q_REGS) {
+      if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < ND / 2; ++kk)
-        ldsm_x4(q_row + (2 * kk + (lane >> 4)) * 16, qf[kk][0], qf[kk][1], qf[kk][2],
-                qf[kk][3]);
-      if (ND & 1) ldsm_x2(q_row + (ND - 1) * 16, qf8[0], qf8[1]);
+        for (int kk = 0; kk < ND / 2; ++kk)
+          ldsm_x4(q_row + (2 * kk + (lane >> 4)) * 16, qf[kk][0], qf[kk][1], qf[kk][2],
+                  qf[kk][3]);
+        if (ND & 1) ldsm_x2(q_row + (ND - 1) * 16, qf8[0], qf8[1]);
+      }
     }
     issue(i + MMA_STAGES - 1);  // into the stage tile i-1 left
-    const unsigned k_u = kv_u + (i % MMA_STAGES) * 2 * T::KV_BYTES;
+    const unsigned k_u = kv_u + (i % MMA_STAGES) * T::STAGE;
     const unsigned v_u = k_u + T::KV_BYTES;
 
     // S = Q K^T: 16 x 64 per warp, 8 n8 tiles of keys
     float s[MMA_BK / 8][4];
+    if constexpr (!T::Q_REGS) {
+      // two 16-column steps of Q at a time from shared memory, each over
+      // all 8 key tiles: every accumulator takes its steps in the same
+      // order as below
+      static_assert(ND % 4 == 0, "the shared-memory Q path takes ND % 4 == 0");
+#pragma unroll
+      for (int n = 0; n < MMA_BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < ND / 2; kk += 2) {
+        uint32_t qa[4], qb[4];
+        ldsm_x4(q_row + (2 * kk + (lane >> 4)) * 16, qa[0], qa[1], qa[2], qa[3]);
+        ldsm_x4(q_row + (2 * kk + 2 + (lane >> 4)) * 16, qb[0], qb[1], qb[2], qb[3]);
+#pragma unroll
+        for (int n = 0; n < MMA_BK / 8; ++n) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(k_u + (n * 8 + (lane & 7)) * PITCH + (2 * kk + (lane >> 3)) * 16, b0,
+                  b1, b2, b3);
+          mma_k16(s[n], qa, b0, b1);
+          mma_k16(s[n], qb, b2, b3);
+        }
+      }
+    }
+    if constexpr (T::Q_REGS) {
 #pragma unroll
     for (int n = 0; n < MMA_BK / 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -390,6 +435,7 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ldsm_x1(k_row + (ND - 1) * 16, b0);
         mma_k8(s[n], qf8[0], qf8[1], b0);
       }
+    }
     }
 
     // scale (log2 domain), mask, running max
@@ -424,7 +470,7 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l_r[r] *= alpha[r];
     }
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
+    for (int n = 0; n < NDV; ++n) {
       oacc[n][0] *= alpha[0];
       oacc[n][1] *= alpha[0];
       oacc[n][2] *= alpha[1];
@@ -449,9 +495,9 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pl[2 * half] = pack_bf16_residual(p0, p1, pa[2 * half]);
         pl[2 * half + 1] = pack_bf16_residual(p2, p3, pa[2 * half + 1]);
       }
-      const unsigned v_row = v_u + (kk * 16 + (lane & 15)) * PITCH;
+      const unsigned v_row = v_u + (kk * 16 + (lane & 15)) * PITCH_V;
 #pragma unroll
-      for (int n = 0; n + 1 < ND; n += 2) {
+      for (int n = 0; n + 1 < NDV; n += 2) {
         uint32_t b0, b1, b2, b3;
         ldsm_x4_t(v_row + (n + (lane >> 4)) * 16, b0, b1, b2, b3);
         mma_k16(oacc[n], pa, b0, b1);
@@ -459,11 +505,11 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_k16(oacc[n], pl, b0, b1);
         mma_k16(oacc[n + 1], pl, b2, b3);
       }
-      if (ND & 1) {
+      if (NDV & 1) {
         uint32_t b0, b1;
-        ldsm_x2_t(v_row + (ND - 1) * 16, b0, b1);
-        mma_k16(oacc[ND - 1], pa, b0, b1);
-        mma_k16(oacc[ND - 1], pl, b0, b1);
+        ldsm_x2_t(v_row + (NDV - 1) * 16, b0, b1);
+        mma_k16(oacc[NDV - 1], pa, b0, b1);
+        mma_k16(oacc[NDV - 1], pl, b0, b1);
       }
     }
   }
@@ -486,18 +532,18 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   if (o32 != nullptr) {  // O / l before its rounding: the backward's Delta
-    float* ob32 = o32 + (long long)bh * Sq * D;
+    float* ob32 = o32 + (long long)bh * Sq * Dv;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
+    for (int n = 0; n < NDV; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qr = row0 + (e >> 1) * 8, c = n * 8 + 2 * t4 + (e & 1);
-        if (qr < Sq && c < D) ob32[(long long)qr * D + c] = oacc[n][e] / denom[e >> 1];
+        if (qr < Sq && c < Dv) ob32[(long long)qr * Dv + c] = oacc[n][e] / denom[e >> 1];
       }
   }
   unsigned char* stage = q_s + warp * 16 * PITCH;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+  for (int n = 0; n < NDV; ++n) {
     *reinterpret_cast<uint32_t*>(stage + g * PITCH + n * 16 + t4 * 4) =
         pack_bf16(oacc[n][0] / denom[0], oacc[n][1] / denom[0]);
     *reinterpret_cast<uint32_t*>(stage + (g + 8) * PITCH + n * 16 + t4 * 4) =
@@ -505,19 +551,48 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncwarp();
   bf16* ob = o + b * os.b + h * os.h;
-  for (int e = lane; e < 16 * ND; e += 32) {
-    const int r = e / ND, c = e - r * ND;
+  for (int e = lane; e < 16 * NDV; e += 32) {
+    const int r = e / NDV, c = e - r * NDV;
     const int qr = q0 + warp * 16 + r;
-    if (qr >= Sq || c * 8 >= D) continue;
+    if (qr >= Sq || c * 8 >= Dv) continue;
     bf16* dst = ob + (long long)qr * os.s + c * 8;
     const unsigned char* src = stage + r * PITCH + c * 16;
     if (vec_out) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
     } else {
-      for (int d = 0; d < 8 && c * 8 + d < D; ++d)
+      for (int d = 0; d < 8 && c * 8 + d < Dv; ++d)
         dst[d] = reinterpret_cast<const bf16*>(src)[d];
     }
   }
+}
+
+template <int ND>
+__global__ void __launch_bounds__(MMA_THREADS, FaTile<ND>::MIN_BLOCKS)
+attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, float* __restrict__ o32, int Hq, int Hkv,
+                int Sq, int Skv, int D,
+                Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
+                float scale_log2, int vec_in, int vec_out) {
+  attn_mma_body<ND, ND>(q, k, v, o, lse, o32, Hq, Hkv, Sq, Skv, D, D, qs, ks, vs, os,
+                        causal, window, scale_log2, vec_in, vec_out);
+}
+
+// Multi-head latent attention's form (DeepSeek-V2): scores Dk = 192 deep
+// (128 of the latent's keys + 64 of rope), values Dv = 128 wide, each in
+// its own chunk count and shared-memory pitch, so neither is padded to
+// the other. Q's 24 chunks are read from shared memory each key tile: in
+// registers with O's 16 they would not fit.
+template <int NDK, int NDV>
+__global__ void __launch_bounds__(MMA_THREADS, FaTile<NDK>::MIN_BLOCKS)
+attn_mla_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, float* __restrict__ o32, int Hq, int Hkv,
+                int Sq, int Skv, int Dk, int Dv,
+                Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
+                float scale_log2, int vec_in, int vec_out) {
+  attn_mma_body<NDK, NDV>(q, k, v, o, lse, o32, Hq, Hkv, Sq, Skv, Dk, Dv, qs, ks, vs, os,
+                          causal, window, scale_log2, vec_in, vec_out);
 }
 
 template <int ND>
@@ -540,6 +615,29 @@ static int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, floa
       q, k, v, o, lse, o32, Hq, Hkv, Sq, Skv, D, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]}, causal, window, scale * LOG2E, vec_in, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NDK, int NDV>
+static int launch_mla(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                      float* o32, int B, int Hq, int Hkv, int Sq, int Skv, int Dk, int Dv,
+                      const long long* st, int causal, int window, float scale,
+                      int vec_in, int vec_out, cudaStream_t s) {
+  static bool sized = false;  // once per instantiation
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_mla_kernel<NDK, NDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        FaTile<NDK, NDV>::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const long long blocks = (long long)B * Hq * ((Sq + MMA_BQ - 1) / MMA_BQ);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_mla_kernel<NDK, NDV>
+      <<<static_cast<unsigned>(blocks), MMA_THREADS, FaTile<NDK, NDV>::SMEM, s>>>(
+          q, k, v, o, lse, o32, Hq, Hkv, Sq, Skv, Dk, Dv, Strides{st[0], st[1], st[2]},
+          Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+          Strides{st[9], st[10], st[11]}, causal, window, scale * LOG2E, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -620,6 +718,35 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FA_MMA
+}
+
+// Multi-head latent attention's forward (bf16 only): q, k (B, H, S, Dk) and
+// v, o (B, H, S, Dv) with Dk = 8 nd_k and Dv = 8 nd_v as compiled (the one
+// instantiation: Dk 192, Dv 128); the rest as `flash_attention`, whose
+// strides, flags and outputs it takes (o32 is (B, Hq, Sq, Dv)).
+extern "C" int flash_attention_mla(const void* q, const void* k, const void* v, void* o,
+                                   void* lse_out, void* o32_out, int B, int Hq, int Hkv,
+                                   int Sq, int Skv, int Dk, int Dv,
+                                   const long long* strides, int causal, int window,
+                                   float scale, int nd_k, int nd_v, int vec_in,
+                                   int vec_out, void* stream) {
+  if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Skv < 1 || nd_k != 24 ||
+      nd_v != 16 || Dk != 8 * nd_k || Dv != 8 * nd_v)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long* st = strides;
+  auto rows16 = [&](const void* p, int first) {
+    bool ok = reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    for (int i = first; i < first + 3; ++i) ok = ok && st[i] % 8 == 0;
+    return ok;
+  };
+  if (vec_in && !(rows16(q, 0) && rows16(k, 3) && rows16(v, 6)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_out && !rows16(o, 9)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mla<24, 16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                            static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                            static_cast<float*>(lse_out), static_cast<float*>(o32_out), B,
+                            Hq, Hkv, Sq, Skv, Dk, Dv, st, causal, window, scale, vec_in,
+                            vec_out, static_cast<cudaStream_t>(stream));
 }
 
 // ---- backward: causal, sliding window, GQA (the training path) --------------

@@ -17,6 +17,9 @@ from .. import build
 from ..dispatch import LAUNCHES, require_cuda
 
 MAX_D = 128
+# the (score depth, value width) pairs of the MLA body, compiled in 8-column
+# chunks each: DeepSeek-V2's 128 + 64 deep scores over 128-wide values
+MLA_DIMS = {(192, 128): (24, 16)}
 BLOCK_Q = 64            # 65535 query tiles of the fp32 body bound Sq
 # the bf16 body is compiled for these head-dim widths in 8-column chunks;
 # a D between them runs in the next one up, zero-padded in shared memory
@@ -49,6 +52,16 @@ def _launcher():
 
 
 @functools.cache
+def _mla_launcher():
+    fn = build.library("flash_attention").flash_attention_mla
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _bwd_launcher():
     fn = build.library("flash_attention").flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
@@ -66,13 +79,20 @@ def _rows16(t: torch.Tensor) -> bool:
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          out: torch.Tensor) -> dict:
-    """Which body serves these operands, chosen by dtype and shape: fp32 ->
+    """Which body serves these operands, chosen by dtype and shape: a v
+    narrower than q and k -> "mla" (`MLA_DIMS`: `chunks` of the scores'
+    depth, `chunks_v` of the values' width); fp32 ->
     "cuda_cores"; bf16 -> "mma" with the head dim compiled as `chunks`
     8-column chunks, rows loaded (`vec_in`) and stored (`vec_out`) as
     16-byte chunks where D % 8 == 0 and the rows are 16-byte aligned, else
     as 2-byte elements. `blocks` is the grid: one block per (b, h) and
     128-query tile (bf16), per (b, h) and 64-query tile (fp32)."""
     B, Hq, Sq, D = q.shape
+    if v.shape[3] != D:
+        chunks, chunks_v = MLA_DIMS[(D, v.shape[3])]
+        return dict(body="mla", chunks=chunks, chunks_v=chunks_v,
+                    vec_in=all(_rows16(t) for t in (q, k, v)),
+                    vec_out=_rows16(out), blocks=B * Hq * -(-Sq // MMA_BLOCK_Q))
     if q.dtype == torch.float32:
         return dict(body="cuda_cores", chunks=0, vec_in=False, vec_out=False,
                     blocks=B * Hq * -(-Sq // BLOCK_Q))
@@ -84,9 +104,54 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 blocks=B * Hq * -(-Sq // MMA_BLOCK_Q))
 
 
+def check_operands(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> tuple:
+    """The forward's shape, dtype and stride checks, on any device: q (B,
+    Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv), one dtype, unit
+    column strides, Hq % Hkv == 0, and either Dv == D <= MAX_D or (D, Dv) a
+    pair of `MLA_DIMS` in bf16. Returns (B, Hq, Hkv, Sq, Skv, D, Dv)."""
+    if (q.ndim != 4 or k.ndim != 4 or v.ndim != 4
+            or v.shape[:3] != k.shape[:3]
+            or (v.shape[3] != k.shape[3]
+                and (k.shape[3], v.shape[3]) not in MLA_DIMS)):
+        raise ValueError(f"flash_attention: q (B, Hq, Sq, D), k/v (B, Hkv, "
+                         f"Skv, D); got {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, Dk = k.shape
+    Dv = v.shape[3]
+    if (k.shape[0] != B or Dk != D or Hq % Hkv
+            or (Dv == D and D > MAX_D)):
+        raise ValueError(f"flash_attention: need matching B and D, Hq % Hkv "
+                         f"== 0 and D <= {MAX_D}; got q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q/k/v dtypes differ: {q.dtype} "
+                         f"{k.dtype} {v.dtype}")
+    if Dv != D and q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: the MLA body ({D} deep scores, "
+                         f"{Dv} wide values) takes bf16, got {q.dtype}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the head dim must have stride 1")
+    if -(-Sq // BLOCK_Q) > 65535:
+        raise ValueError(f"flash_attention: Sq <= {65535 * BLOCK_Q}, got {Sq}")
+    return B, Hq, Hkv, Sq, Skv, D, Dv
+
+
+def _empty_out(q: torch.Tensor, Dv: int) -> torch.Tensor:
+    """An output (B, Hq, Sq, Dv) laid out like q: its dims in q's order of
+    strides, dense, so stride(3) == 1."""
+    if Dv == q.shape[3]:
+        return torch.empty_like(q)
+    order = sorted(range(4), key=lambda i: -q.stride(i))
+    shape = [q.shape[i] if i != 3 else Dv for i in order]
+    t = torch.empty(shape, dtype=q.dtype, device=q.device)
+    return t.permute([order.index(i) for i in range(4)])
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    lse: bool = False):
+                    lse: bool = False, scale: Optional[float] = None):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); Hq % Hkv == 0, D <= 128,
     fp32 or bf16, any (b, h, s) strides with unit column stride. Returns
     (B, Hq, Sq, D) laid out like q (so a head-major view of a (B, S, H, D)
@@ -94,43 +159,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     what the backward reads: the (B, Hq, Sq) fp32 log-sum-exp of each
     query's scaled scores and the output in fp32 before its rounding to q's
     dtype, (B, Hq, Sq, D) contiguous (fp32 q: `out` itself), for Delta:
-    (out, lse, o32). The output is the same either way."""
+    (out, lse, o32). The output is the same either way. The scores are
+    scaled by `scale`, 1/sqrt(D) where None.
+
+    MLA's form: v (B, Hkv, Skv, Dv) narrower than q and k, (D, Dv) a pair
+    of `MLA_DIMS` (192, 128), bf16; the output (B, Hq, Sq, Dv)."""
     require_cuda("flash_attention", q, k, v)
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q (B, Hq, Sq, D), k/v (B, Hkv, "
-                         f"Skv, D); got {tuple(q.shape)} {tuple(k.shape)} "
-                         f"{tuple(v.shape)}")
-    B, Hq, Sq, D = q.shape
-    _, Hkv, Skv, Dk = k.shape
-    if k.shape[0] != B or Dk != D or Hq % Hkv or D > MAX_D:
-        raise ValueError(f"flash_attention: need matching B and D, Hq % Hkv "
-                         f"== 0 and D <= {MAX_D}; got q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: q/k/v dtypes differ: {q.dtype} "
-                         f"{k.dtype} {v.dtype}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: the head dim must have stride 1")
-    if -(-Sq // BLOCK_Q) > 65535:
-        raise ValueError(f"flash_attention: Sq <= {65535 * BLOCK_Q}, got {Sq}")
-    out = torch.empty_like(q)   # keeps q's layout; dense, so stride(3) == 1
+    B, Hq, Hkv, Sq, Skv, D, Dv = check_operands(q, k, v)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    out = _empty_out(q, Dv)   # keeps q's layout; dense, so stride(3) == 1
     lse_out = o32_out = None
     if lse:
         lse_out = torch.empty((B, Hq, Sq), dtype=torch.float32,
                               device=q.device)
         o32_out = (out if q.dtype == torch.float32 else torch.empty(
-            (B, Hq, Sq, D), dtype=torch.float32, device=q.device))
+            (B, Hq, Sq, Dv), dtype=torch.float32, device=q.device))
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)])
     p = plan(q, k, v, out)
-    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     0 if lse_out is None else lse_out.data_ptr(),
-                     0 if o32_out is None or o32_out is out
-                     else o32_out.data_ptr(),
-                     B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides),
-                     int(causal), int(window or 0), 1.0 / math.sqrt(D),
-                     build.dtype_code(q.dtype), p["chunks"], int(p["vec_in"]),
-                     int(p["vec_out"]), build.stream_of(q))
+    lse_ptr = 0 if lse_out is None else lse_out.data_ptr()
+    o32_ptr = (0 if o32_out is None or o32_out is out
+               else o32_out.data_ptr())
+    if p["body"] == "mla":
+        rc = _mla_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_ptr, o32_ptr, B, Hq, Hkv, Sq, Skv, D, Dv,
+            ctypes.addressof(strides), int(causal), int(window or 0), scale,
+            p["chunks"], p["chunks_v"], int(p["vec_in"]), int(p["vec_out"]),
+            build.stream_of(q))
+    else:
+        rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), lse_ptr, o32_ptr,
+                         B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides),
+                         int(causal), int(window or 0), scale,
+                         build.dtype_code(q.dtype), p["chunks"],
+                         int(p["vec_in"]), int(p["vec_out"]),
+                         build.stream_of(q))
     build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return (out, lse_out, o32_out) if lse else out

@@ -26,16 +26,18 @@ def attention_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
 
 
 def cost(q, k, v, *, causal, window, lse: bool = False) -> Cost:
-    """q, k and v read, the output (q's dtype) written, and with `lse` the
-    fp32 log-sum-exp and, for a bf16 q, the fp32 output copy; QK^T and PV
-    over the kept pairs only, at the peak of q's dtype."""
+    """q, k and v read, the output (q's dtype, v's width) written, and with
+    `lse` the fp32 log-sum-exp and, for a bf16 q, the fp32 output copy;
+    QK^T (q's depth D) and PV (v's width Dv) over the kept pairs only, at
+    the peak of q's dtype."""
     B, Hq, Sq, D = q.shape
-    moved = nbytes(q, k, v, q)
+    Dv = v.shape[3]
+    moved = nbytes(q, k, v) + B * Hq * Sq * Dv * q.element_size()
     if lse:
-        moved += B * Hq * Sq * 4 * (1 + (D if q.dtype != torch.float32
-                                         else 0))
+        moved += B * Hq * Sq * 4 * (1 + (Dv if q.dtype != torch.float32
+                                          else 0))
     pairs = attention_pairs(Sq, k.shape[2], causal, window)
-    return Cost(4 * B * Hq * pairs * D, moved, q.dtype, matmul=True)
+    return Cost(2 * B * Hq * pairs * (D + Dv), moved, q.dtype, matmul=True)
 
 
 def cost_bwd(q, k, v, o, lse, do, *, causal, window) -> Cost:
@@ -49,13 +51,14 @@ def cost_bwd(q, k, v, o, lse, do, *, causal, window) -> Cost:
                 nbytes(q, k, v, o, lse, do, q, k, v), q.dtype, matmul=True)
 
 
-def _route(q, k, v, causal, window, on_card, lse):
+def _route(q, k, v, causal, window, on_card, lse, scale=None):
     if on_card:
         return kernel.flash_attention(q, k, v, causal=causal, window=window,
-                                      lse=lse)
+                                      lse=lse, scale=scale)
     if not lse:
-        return laid_out_like(ref.attention(q, k, v, causal=causal,
-                                           window=window), q)
+        out = ref.attention(q, k, v, causal=causal, window=window,
+                            scale=scale)
+        return out if v.shape[3] != q.shape[3] else laid_out_like(out, q)
     o32 = ref.attention32(q, k, v, causal=causal, window=window)
     out = laid_out_like(o32.to(q.dtype), q)
     lse_ = ref.attention_lse(q, k, causal=causal, window=window)
@@ -63,12 +66,12 @@ def _route(q, k, v, causal, window, on_card, lse):
     return out, lse_, out if q.dtype == torch.float32 else o32
 
 
-def _attention(q, k, v, causal, window, on_card, lse=False):
+def _attention(q, k, v, causal, window, on_card, lse=False, scale=None):
     if dispatch.COUNT is None:
-        return _route(q, k, v, causal, window, on_card, lse)
+        return _route(q, k, v, causal, window, on_card, lse, scale)
     with dispatch.COUNT.kernel("flash_attention", cost(
             q, k, v, causal=causal, window=window, lse=lse), (q, k, v)):
-        return _route(q, k, v, causal, window, on_card, lse)
+        return _route(q, k, v, causal, window, on_card, lse, scale)
 
 
 def _route_bwd(q, k, v, o, lse, do, causal, window, on_card):
@@ -107,7 +110,7 @@ class _Attention(torch.autograd.Function):
             return (*_route_bwd(*args), None, None, None)
 
 
-def attention(q, k, v, *, causal=True, window=None,
+def attention(q, k, v, *, causal=True, window=None, scale=None,
               backend: Optional[str] = None):
     """(B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D). `backend="plain"`
     pins the plain version (kernels/dispatch.py), differentiated by
@@ -115,8 +118,18 @@ def attention(q, k, v, *, causal=True, window=None,
     with grad mode on and an input that requires grad, the call is
     differentiable through the op's own backward: the backward kernel on
     the card, for every mask and group size the forward takes, and its
-    plain version off it."""
+    plain version off it.
+
+    MLA's form (`models/mla.py`): v (B, Hkv, Skv, Dv) narrower than q and
+    k, and the scores times `scale` (1/sqrt(D) where None); forward only,
+    with the kernel's qk-192 / v-128 body on the card."""
     on_card = use_kernel(backend, q)
+    latent = scale is not None or v.shape[3] != q.shape[3]
     if backend is None and needs_grad(q, k, v):
+        if latent:
+            raise ValueError("attention: the backward takes equal q/k and "
+                             "v head dims and the 1/sqrt(D) scale; MLA's "
+                             "form is forward only (backend=\"plain\" "
+                             "differentiates the plain version)")
         return _Attention.apply(q, k, v, causal, window, on_card)
-    return _attention(q, k, v, causal, window, on_card)
+    return _attention(q, k, v, causal, window, on_card, scale=scale)

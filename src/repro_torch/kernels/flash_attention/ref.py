@@ -17,14 +17,17 @@ def _visible(Sq: int, Skv: int, causal: bool, window, device) -> torch.Tensor:
     return ok
 
 
-def attention(q, k, v, *, causal=True, window=None, round_p=False):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). fp32 softmax, scale 1/sqrt(D);
-    `attention32`'s output rounded to q's dtype."""
+def attention(q, k, v, *, causal=True, window=None, round_p=False,
+              scale=None):
+    """q, k: (B, Hq|Hkv, S, D); v: (B, Hkv, Skv, Dv), Dv == D or not (MLA's
+    192-deep scores over 128-wide values). fp32 softmax, scale 1/sqrt(D)
+    unless given; `attention32`'s output rounded to q's dtype."""
     return attention32(q, k, v, causal=causal, window=window,
-                       round_p=round_p).to(q.dtype)
+                       round_p=round_p, scale=scale).to(q.dtype)
 
 
-def attention32(q, k, v, *, causal=True, window=None, round_p=False):
+def attention32(q, k, v, *, causal=True, window=None, round_p=False,
+                scale=None):
     """The fp32 output of `attention`, before its rounding to q's dtype (what
     the kernel's `lse=True` form saves for the backward's Delta).
 
@@ -40,7 +43,8 @@ def attention32(q, k, v, *, causal=True, window=None, round_p=False):
     group = Hq // Hkv
     qg = q.reshape(B, Hkv, group, Sq, D)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
-                     k.to(torch.float32)) / math.sqrt(D)
+                     k.to(torch.float32))
+    s = s / math.sqrt(D) if scale is None else s * scale
     ok = _visible(Sq, Skv, causal, window, q.device)
     s = torch.where(ok, s, torch.full_like(s, -1e30))
     vf = v.to(torch.float32)
@@ -51,7 +55,7 @@ def attention32(q, k, v, *, causal=True, window=None, round_p=False):
         o = o / p.sum(dim=-1, keepdim=True)
     else:
         o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1), vf)
-    return o.reshape(B, Hq, Sq, D)
+    return o.reshape(B, Hq, Sq, v.shape[3])
 
 
 def attention_lse(q, k, *, causal=True, window=None):

@@ -37,6 +37,7 @@ from ..engine.specs import EVAL_DTYPES
 from ..models import api
 from ..models.dit import dit_cache_shape
 from ..models.quant import quant_spec
+from ..obs.counters import DeviceCounters
 
 NULL_CLASS_ID = api.NUM_CLASSES
 
@@ -71,7 +72,10 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
     runs, and the uncond branch (null class ids) for the sequential loop
     reference. For a token arch: the unguided diffusion-LM eps-net only
     (the reference's, `launch/sample.py:125-130`); guidance, quantization
-    and feature reuse need the dit family.
+    and feature reuse need the dit family. A token arch's engine carries
+    the eps-net's device counters (`obs.counters.DeviceCounters`: a
+    dropless MoE's rows routed to each expert), which `build`'s runs
+    hold as `counters`.
 
     per_request_cond: instead of baking per-row class ids drawn from `seed`,
     the eps branches take `class_ids` as a per-call (B,) keyword argument
@@ -130,11 +134,13 @@ def build_engine(cfg, params, schedule, batch: int, seed: int = 0,
             raise ValueError(f"cfg.quant={cfg.quant} is not the {quant!r} "
                              f"tier's spec {quant_spec(quant)}")
     params = api.cast_weights_once(cfg, params)
-    net = api.eps_network(cfg)
     if cfg.family != "dit":
+        counters = DeviceCounters()
+        net = api.eps_network(cfg, counters)
         return SamplerEngine(schedule, eps=lambda x, t: net(params, x, t, {}),
                              device=device, quant=quant,
-                             eval_dtype=eval_dtype)
+                             eval_dtype=eval_dtype, counters=counters)
+    net = api.eps_network(cfg)
 
     def cache_kw(baked=None):
         """The cached eps-net and its CacheSpec ({} uncached). `baked` fixes

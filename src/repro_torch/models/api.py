@@ -258,6 +258,15 @@ _CAST_AT_USE = {
                    "attn": {"wq": None, "wk": None, "wv": None,
                             "wo": None}}}},
     "token": {"backbone": None, "diffusion_head": _HEAD},
+    # a router read in fp32 (`cfg.router_fp32`, DeepSeek-V2's) keeps its
+    # weights as they are; every other backbone leaf is cast
+    "router_fp32": {"backbone": {
+        "embed": None, "final_ln": None, "lm_head": None,
+        "dense_layers": None,
+        "layers": {"ln1": None, "attn": None, "ln2": None,
+                   "moe": {"w_gate": None, "w_up": None, "w_down": None,
+                           "shared": None}}},
+        "diffusion_head": _HEAD},
     "ssm": {"backbone": {"embed": None, "final_ln": None,
                          "layers": _MAMBA_LAYER},
             "diffusion_head": _HEAD},
@@ -291,7 +300,8 @@ def cast_weights_once(cfg: ModelConfig, params) -> dict:
         return {k: conv(v, sel[k]) if k in sel else v
                 for k, v in node.items()}
 
-    sel = _CAST_AT_USE.get(cfg.family, _CAST_AT_USE["token"])
+    sel = (_CAST_AT_USE["router_fp32"] if cfg.router_fp32
+           else _CAST_AT_USE.get(cfg.family, _CAST_AT_USE["token"]))
     return conv(params, sel)
 
 
@@ -317,13 +327,15 @@ def calibrate_and_quantize(cfg: ModelConfig, params, quant, *, schedule=None,
     return cfg, qparams, {"spec": spec, "act_stats": stats}
 
 
-def _backbone_forward(cfg: ModelConfig) -> Callable:
+def _backbone_forward(cfg: ModelConfig, counters=None) -> Callable:
     """(backbone params, inputs_embeds, batch) -> (hidden, aux), the
     diffusion LM's backbone eval: the transformers bidirectional, the SSM
     stack and the hybrid causal by construction (the reference's), the vlm
     and the audio decoder bidirectional over batch["image_embeds"] /
     batch["audio_embeds"] (the audio model encodes them at every eval, as
-    the reference's does)."""
+    the reference's does). A dropless MoE transformer adds its routed rows
+    per expert to `counters` (an `obs.counters.DeviceCounters`), where
+    given."""
     if cfg.family == "ssm":
         return lambda bk, e, b: hybrid.mamba_forward(bk, cfg, None,
                                                      inputs_embeds=e)
@@ -336,20 +348,25 @@ def _backbone_forward(cfg: ModelConfig) -> Callable:
     if cfg.family == "audio":
         return lambda bk, e, b: encdec._forward_embeds(bk, cfg, e,
                                                        b["audio_embeds"])
+    if counters is not None and cfg.moe_dropless:
+        shape = (cfg.num_layers - cfg.first_k_dense, cfg.num_experts)
+        return lambda bk, e, b: transformer.forward(
+            bk, cfg, None, causal=False, inputs_embeds=e,
+            counter=counters.get("moe.routed_rows", shape, e.device))
     return lambda bk, e, b: transformer.forward(bk, cfg, None, causal=False,
                                                 inputs_embeds=e)
 
 
-def eps_network(cfg: ModelConfig) -> Callable:
+def eps_network(cfg: ModelConfig, counters=None) -> Callable:
     """(params, x_t (B, S, L), t, batch) -> eps-hat — what UniPC samples from.
     The dit family's DiT; the token families' diffusion-LM head over the
     backbone from `inputs_embeds` (`_backbone_forward`, which reads a vlm's
-    or an audio model's embeddings from `batch`)."""
+    or an audio model's embeddings from `batch`, and keeps `counters`)."""
     _require(cfg)
     if cfg.family == "dit":
         return lambda p, x_t, t, batch: dit_apply(
             p["backbone"], cfg, x_t, t, batch.get("class_ids"))
-    fwd = _backbone_forward(cfg)
+    fwd = _backbone_forward(cfg, counters)
 
     def f(params, x_t, t, batch):
         return diffusion_lm_apply(params["diffusion_head"],

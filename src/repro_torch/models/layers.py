@@ -119,11 +119,54 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) integers."""
+# DeepSeek-V2's published YaRN settings besides the factor (its config's
+# `rope_scaling`): the context the rope was trained at, the rotation
+# counts that bound the interpolation ramp, and the attention
+# temperature's `mscale_all_dim` (its `mscale` is the same, so the cos/sin
+# factor mscale(mscale) / mscale(mscale_all_dim) is 1)
+YARN_ORIGINAL_MAX = 4096
+YARN_BETA_FAST = 32.0
+YARN_BETA_SLOW = 1.0
+YARN_MSCALE_ALL_DIM = 0.707
+
+
+def yarn_mscale(factor: float, mscale: float = YARN_MSCALE_ALL_DIM) -> float:
+    """YaRN's attention temperature factor (DeepSeek-V2's
+    `yarn_get_mscale`): 0.1 mscale ln(factor) + 1, or 1 without scaling."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_rope(cfg, dim: int, device="cpu") -> torch.Tensor:
+    """The inverse frequencies (dim/2,) fp32 of YaRN-scaled rope, as
+    DeepSeek-V2 computes them: each frequency interpolated between theta's
+    own (extrapolated) and a `rope_yarn_factor`-th of it by a linear ramp
+    over the dims whose wavelengths lie between YARN_BETA_FAST and
+    YARN_BETA_SLOW rotations of YARN_ORIGINAL_MAX positions."""
+    f, base = cfg.rope_yarn_factor, cfg.rope_theta
+    pos = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (base ** pos)
+    inter = 1.0 / (f * base ** pos)
+
+    def corr_dim(rotations):
+        return (dim * math.log(YARN_ORIGINAL_MAX / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(corr_dim(YARN_BETA_FAST)), 0)
+    high = min(math.ceil(corr_dim(YARN_BETA_SLOW)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    return inter * ramp + extra * (1 - ramp)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) integers. `freqs` (D/2,) in place
+    of theta's (YaRN's, `yarn_rope`)."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                        # (D/2,)
+    if freqs is None:
+        freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
     ang = positions[..., None].to(torch.float32) * freqs          # (B, S, D/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

@@ -1,5 +1,6 @@
 """Mixture-of-Experts block: top-k routing with capacity-bucketed dispatch
-(the port of `repro.models.moe`).
+(the port of `repro.models.moe`), or dropless dispatch sorted by expert
+(`moe_apply_dropless`, DeepSeek-V2's), with shared experts.
 
 Dispatch is scatter-based (position-in-expert via cumsum) into per-expert
 buffers (E, C, d_model) with C = ceil(k * N / E * capacity_factor); dropped
@@ -32,8 +33,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.grouped_mm import ops as gmm_ops
+from ..obs import trace
 from ..parallel.sharding import shard
-from .layers import dense_init
+from .layers import dense_init, mlp_apply, mlp_init
 
 
 def moe_init(gen: torch.Generator, cfg, device) -> dict:
@@ -47,12 +50,17 @@ def moe_init(gen: torch.Generator, cfg, device) -> dict:
         return (s * torch.randn(shape, generator=gen, device=device,
                                 dtype=torch.float32)).to(dt)
 
-    return {
+    p = {
         "router": dense_init(gen, d, E, dt, device, scale=0.02),
         "w_gate": normal((E, d, f), scale),
         "w_up": normal((E, d, f), scale),
         "w_down": normal((E, f, d), 1.0 / math.sqrt(f)),
     }
+    if cfg.num_shared_experts:
+        # the shared experts as one SwiGLU of their summed width
+        p["shared"] = mlp_init(gen, cfg, device,
+                               d_ff=cfg.num_shared_experts * f)
+    return p
 
 
 def one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -71,12 +79,20 @@ def top_k(probs: torch.Tensor, k: int) -> tuple:
 
 
 def _route(params: dict, xf: torch.Tensor, cfg) -> tuple:
-    """xf: (N, d) -> (probs (N, k), idx (N, k), aux_loss)."""
-    logits = torch.matmul(xf, params["router"].to(xf.dtype))
+    """xf: (N, d) -> (probs (N, k), idx (N, k), aux_loss). The top-k
+    probabilities renormalised to sum to 1 where `cfg.norm_topk_prob`;
+    with `cfg.router_fp32` the logits are the product of fp32 x and fp32
+    weights."""
+    if cfg.router_fp32:
+        logits = torch.matmul(xf.to(torch.float32),
+                              params["router"].to(torch.float32))
+    else:
+        logits = torch.matmul(xf, params["router"].to(xf.dtype))
     logits = logits.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_k(probs, cfg.experts_per_token)
-    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    if cfg.norm_topk_prob:
+        top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
     # Switch load-balance loss + z-loss
     E = cfg.num_experts
     me = torch.mean(probs, dim=0)                                 # mean prob
@@ -132,6 +148,53 @@ def moe_apply(params: dict, x: torch.Tensor, cfg) -> tuple:
     y_rep = out_buf[gi, flat_e, slot] * keep[..., None]
     y = (y_rep.reshape(N, k, d)
          * top_p.to(x.dtype).reshape(N, k, 1)).sum(dim=1)
+    return y.reshape(B, S, d), aux
+
+
+def moe_apply_dropless(params: dict, x: torch.Tensor, cfg,
+                       counter: torch.Tensor = None) -> tuple:
+    """x: (B, S, d). Returns (y, aux_loss): every token through each of its
+    k experts, none dropped.
+
+    The N k (token, choice) rows are sorted by expert (a stable sort, so
+    each expert's rows keep token order), the expert sizes counted and
+    summed into offsets on the device, and each SwiGLU product is one
+    grouped matmul over the sorted rows (`kernels/grouped_mm`): no host
+    sync, so a CUDA graph captures the layer. Each row's SwiGLU activation
+    is scaled by its routing weight before the down product (which is
+    linear, so this is the weighted sum of the experts' outputs); the rows
+    go back to (token, choice) order by a gather and each token's k sum
+    in fp32, rounded once to x's dtype. The shared experts
+    (`params["shared"]`) add their SwiGLU of every token. `counter` (E,)
+    int64, where given, gains the rows routed to each expert."""
+    B, S, d = x.shape
+    N, k, E = B * S, cfg.experts_per_token, cfg.num_experts
+    xf = x.reshape(N, d)
+    with trace.live("moe.route"):
+        top_p, top_i, aux = _route(params, xf, cfg)
+        flat = top_i.reshape(N * k)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.zeros(E, dtype=torch.int64, device=x.device)
+        counts.scatter_add_(0, flat, torch.ones_like(flat))
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+        if counter is not None:
+            counter.add_(counts)
+        rows = xf[order // k]
+        weight = top_p.reshape(N * k)[order]
+    with trace.live("moe.experts"):
+        h = F.silu(gmm_ops.grouped_mm(rows, params["w_gate"], offs))
+        h = h.mul_(gmm_ops.grouped_mm(rows, params["w_up"], offs)).mul_(
+            weight[:, None])
+        out = gmm_ops.grouped_mm(h, params["w_down"], offs)
+        shared = (mlp_apply(params["shared"], xf, cfg) if "shared" in params
+                  else None)
+    with trace.live("moe.combine"):
+        back = torch.empty_like(order)
+        back[order] = torch.arange(N * k, device=x.device)
+        y = out[back].reshape(N, k, d).sum(dim=1, dtype=torch.float32)
+        y = y.to(x.dtype)
+        if shared is not None:
+            y = y + shared
     return y.reshape(B, S, d), aux
 
 

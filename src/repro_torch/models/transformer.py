@@ -2,7 +2,12 @@
 `repro.models.transformer`).
 
 Serves qwen2-0.5b / qwen2.5-3b / olmo-1b / deepseek-67b (dense) and, with
-`cfg.num_experts > 0`, mixtral-8x7b / granite-moe (MoE). Three entry points:
+`cfg.num_experts > 0`, mixtral-8x7b / granite-moe (MoE), and
+deepseek-v2-lite: latent attention (`models/mla.py`, `cfg.kv_lora_rank`),
+`cfg.first_k_dense` leading dense layers (stacked apart, as
+`dense_layers`), then MoE layers with shared experts, dispatched dropless
+(`cfg.moe_dropless`); its forward only (no decode cache). Three entry
+points:
 
   forward(params, cfg, tokens)                -> (hidden (B, S, d), aux)
   lm_loss(params, cfg, tokens, targets)       -> the AR training loss
@@ -32,18 +37,20 @@ from ..parallel.sharding import current_mesh, shard
 from .layers import (NORMS, apply_rope, attention_apply, attention_init,
                      dense_init, layer_views, mlp_apply, mlp_init,
                      stack_trees)
-from .moe import (moe_apply, moe_apply_shard_map, moe_decode_apply,
-                  moe_init)
+from .mla import mla_apply, mla_init
+from .moe import (moe_apply, moe_apply_dropless, moe_apply_shard_map,
+                  moe_decode_apply, moe_init)
 
 
-def layer_init(gen: torch.Generator, cfg, device) -> dict:
+def layer_init(gen: torch.Generator, cfg, device, dense: bool = False) -> dict:
     ninit, _ = NORMS[cfg.norm]
     p = {
         "ln1": ninit(cfg.d_model, cfg.weight_dtype, device),
-        "attn": attention_init(gen, cfg, device),
+        "attn": (mla_init(gen, cfg, device) if cfg.kv_lora_rank
+                 else attention_init(gen, cfg, device)),
         "ln2": ninit(cfg.d_model, cfg.weight_dtype, device),
     }
-    if cfg.num_experts:
+    if cfg.num_experts and not dense:
         p["moe"] = moe_init(gen, cfg, device)
     else:
         p["mlp"] = mlp_init(gen, cfg, device)
@@ -52,15 +59,20 @@ def layer_init(gen: torch.Generator, cfg, device) -> dict:
 
 def init_lm(cfg, gen: torch.Generator, device) -> dict:
     """Random LM params from the seeded generator `gen` (its own numbers,
-    not the reference's jax.random ones)."""
+    not the reference's jax.random ones). The `cfg.first_k_dense` leading
+    layers are stacked apart, as `dense_layers`."""
     ninit, _ = NORMS[cfg.norm]
-    layers = [layer_init(gen, cfg, device) for _ in range(cfg.num_layers)]
+    k = cfg.first_k_dense
+    dense = [layer_init(gen, cfg, device, dense=True) for _ in range(k)]
+    layers = [layer_init(gen, cfg, device) for _ in range(cfg.num_layers - k)]
     p = {
         "embed": dense_init(gen, cfg.vocab_size, cfg.d_model,
                             cfg.weight_dtype, device, scale=0.02),
         "layers": stack_trees(layers),
         "final_ln": ninit(cfg.d_model, cfg.weight_dtype, device),
     }
+    if dense:
+        p["dense_layers"] = stack_trees(dense)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                   cfg.weight_dtype, device)
@@ -71,15 +83,21 @@ def _embed(params, cfg, tokens):
     return params["embed"].to(cfg.activation_dtype)[tokens]
 
 
-def _block(lp, x, cfg, *, sliding_window, causal=True):
+def _block(lp, x, cfg, *, sliding_window, causal=True, counter=None):
     _, napply = NORMS[cfg.norm]
-    h = attention_apply(lp["attn"], napply(lp["ln1"], x), cfg,
-                        causal=causal, sliding_window=sliding_window)
+    xn = napply(lp["ln1"], x, eps=cfg.norm_eps)
+    if cfg.kv_lora_rank:
+        h = mla_apply(lp["attn"], xn, cfg, causal=causal)
+    else:
+        h = attention_apply(lp["attn"], xn, cfg, causal=causal,
+                            sliding_window=sliding_window)
     x = x + h
-    y = napply(lp["ln2"], x)
-    if cfg.num_experts:
+    y = napply(lp["ln2"], x, eps=cfg.norm_eps)
+    if "moe" in lp:
         mesh = current_mesh()
-        if cfg.moe_shard_map and mesh is not None:
+        if cfg.moe_dropless:
+            y, aux = moe_apply_dropless(lp["moe"], y, cfg, counter)
+        elif cfg.moe_shard_map and mesh is not None:
             y, aux = moe_apply_shard_map(lp["moe"], y, cfg, mesh)
         else:
             y, aux = moe_apply(lp["moe"], y, cfg)
@@ -90,11 +108,14 @@ def _block(lp, x, cfg, *, sliding_window, causal=True):
 
 
 def forward(params, cfg, tokens, *, causal: bool = True,
-            inputs_embeds: Optional[torch.Tensor] = None) -> tuple:
+            inputs_embeds: Optional[torch.Tensor] = None,
+            counter: Optional[torch.Tensor] = None) -> tuple:
     """Full-sequence forward; returns (hidden, aux_loss). With `cfg.remat`
     and grad mode on, each block runs under activation checkpointing
     (`torch.utils.checkpoint`, the reference's per-block `jax.checkpoint`):
-    the same values, the block's activations recomputed in the backward."""
+    the same values, the block's activations recomputed in the backward.
+    The `dense_layers` run first. `counter` (MoE layers, experts) int64 on
+    the device, where given, gains each dropless layer's rows per expert."""
     x = inputs_embeds if inputs_embeds is not None else _embed(params, cfg,
                                                                tokens)
     x = shard(x, "batch", "seq", "d_model")
@@ -102,13 +123,18 @@ def forward(params, cfg, tokens, *, causal: bool = True,
                               sliding_window=cfg.sliding_window,
                               causal=causal)
     remat = cfg.remat and torch.is_grad_enabled()
+    k = cfg.first_k_dense
+    layers = (layer_views(params["dense_layers"], k) if k else []) + \
+        layer_views(params["layers"], cfg.num_layers - k)
     auxs = []
-    for lp in layer_views(params["layers"], cfg.num_layers):
-        x, aux = (checkpoint(block, lp, x, use_reentrant=False) if remat
-                  else block(lp, x))
+    for i, lp in enumerate(layers):
+        row = counter[i - k] if counter is not None and i >= k else None
+        x, aux = (checkpoint(block, lp, x, use_reentrant=False, counter=row)
+                  if remat else block(lp, x, counter=row))
         auxs.append(aux)
     _, napply = NORMS[cfg.norm]
-    return napply(params["final_ln"], x), torch.sum(torch.stack(auxs))
+    return (napply(params["final_ln"], x, eps=cfg.norm_eps),
+            torch.sum(torch.stack(auxs)))
 
 
 def logits_from_hidden(params, cfg, hidden) -> torch.Tensor:
@@ -137,7 +163,16 @@ def cache_window(cfg, max_len: int) -> int:
     return min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
 
 
+def _refuse_latent(cfg, what: str) -> None:
+    if cfg.kv_lora_rank or cfg.first_k_dense:
+        raise ValueError(f"{what}: {cfg.arch_id!r} runs latent attention "
+                         f"and leading dense layers, whose decode cache "
+                         f"the port does not have (its forward, the "
+                         f"diffusion LM's eps-net and the AR loss run)")
+
+
 def init_cache(cfg, batch: int, max_len: int, device="cpu") -> dict:
+    _refuse_latent(cfg, "init_cache")
     W = cache_window(cfg, max_len)
     shape = (cfg.num_layers, batch, W, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
@@ -197,6 +232,7 @@ def _attn_with_cache(lp, x_tok, k_cache, v_cache, pos, cfg, W):
 def decode_step(params, cfg, cache, token, pos) -> tuple:
     """token: (B, 1) integers; pos: an int or a 0-d integer tensor. Returns
     (logits (B, 1, V), cache), the cache updated in place."""
+    _refuse_latent(cfg, "decode_step")
     _, napply = NORMS[cfg.norm]
     x = shard(_embed(params, cfg, token), "batch", "seq", "d_model")
     pos = device_pos(pos, x.device)
@@ -246,6 +282,7 @@ def prefill(params, cfg, tokens, max_len: int) -> tuple:
     (equivalent to the decode path's incremental writes), as the reference
     writes it; attention itself goes through the flash_attention kernel op
     (causal, GQA, the config's window)."""
+    _refuse_latent(cfg, "prefill")
     _, napply = NORMS[cfg.norm]
     B, S = tokens.shape
     W = cache_window(cfg, max_len)
